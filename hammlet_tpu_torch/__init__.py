@@ -1,0 +1,21 @@
+"""hammlet_tpu_torch — PyTorch/CUDA port of hammlet_tpu for NVIDIA Hopper.
+
+Wavelet-compressed Forward-Backward Gibbs sampling of Bayesian Hidden Markov
+Models, with the same algorithms, layouts and public names as the JAX
+package ``hammlet_tpu`` (the reference it is tested against):
+
+- ops/: Haar maxlet transform, breakpoint weights (plain torch) and the
+  hand-written Hopper maxlet kernel (csrc/maxlet.cu); block extraction and
+  O(1) block statistics from cell-structured prefix sums.
+- models/: conjugate NIG / Dirichlet updates and the model state.
+- samplers/: FB-Gibbs (prefix matrix products + random-map composition),
+  mixture draws, and the Gibbs sweep with on-device marginal recording.
+- runner.py: ingest -> auto-priors -> ``-i`` scheme interpreter with the block
+  capacity ladder and overflow replay.
+
+This package imports torch and never jax or hammlet_tpu.
+"""
+
+__version__ = "0.1.0"
+
+from hammlet_tpu_torch.models.hmm import HMMPriors, HMMState, ModelSpec  # noqa: F401

@@ -1,0 +1,554 @@
+"""End-to-end engine: ingest -> auto-priors -> sampling-scheme execution.
+
+Port of hammlet_tpu/runner.py (the reference's main() pipeline,
+src/main.cpp:23-477): streaming-equivalent ingest + transform, the noise
+estimate, auto-priors, and the ``-i`` sampling-scheme interpreter (tokens
+``P``, ``S``, ``D``, ``{F,M} iter thin``, main.cpp:391-454) driving the Gibbs
+sweep on one device.
+
+Dynamic block counts are handled with a static capacity: every sweep reports
+its true block count; if a chunk overflows the capacity it is *replayed*
+from the same counter-based random streams at a larger capacity, so results
+are never silently truncated (burn-in chunks at the capacity ceiling
+excepted, see _MAX_CAPACITY).
+
+Ingest at T >= 2M positions runs on the device: the maxlet transform goes
+through the hand-written Hopper kernel for CUDA data (ops/wavelet_cuda.py).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from hammlet_tpu_torch.device import resolve_device, synchronize
+from hammlet_tpu_torch.io.records import Records
+from hammlet_tpu_torch.models.autopriors import autoprior, autoprior_host, noise_std_estimate
+from hammlet_tpu_torch.models.hmm import (
+    HMMPriors,
+    HMMState,
+    ModelSpec,
+    sample_from_priors,
+    threshold_host,
+)
+from hammlet_tpu_torch.ops.blocks import (
+    DEVICE_CELL_BITS,
+    PrefixStats,
+    RankedWeights,
+    bucket_candidates,
+    build_prefix_stats,
+    build_prefix_stats_device,
+    build_ranked_weights,
+    build_ranked_weights_device,
+)
+from hammlet_tpu_torch.ops.wavelet import breakpoint_weights, maxlet_transform
+from hammlet_tpu_torch.ops.wavelet_cuda import maxlet_transform_cuda
+from hammlet_tpu_torch.samplers.sweep import RecordBuffers, gibbs_phase, make_generator
+
+
+def parse_scheme(tokens: list[str]) -> list[tuple]:
+    """Parse the ``-i`` scheme into ops:
+    ("prior",), ("static",), ("dynamic",), ("run", method, iters, thinning).
+    Grammar per main.cpp:367-454."""
+    n_num = sum(1 for t in tokens if t not in ("P", "S", "D", "F", "M"))
+    n_meth = sum(1 for t in tokens if t in ("F", "M"))
+    if n_num != 2 * n_meth:
+        raise ValueError(
+            'Parameters for -i, excluding "P", "S" and "D", must be multiples of 3!'
+        )
+    ops: list[tuple] = [("prior",)]  # samplePrior starts true (main.cpp:384)
+    i = 0
+    while i < len(tokens):
+        t = tokens[i]
+        if t == "P":
+            ops.append(("prior",))
+            i += 1
+        elif t == "S":
+            ops.append(("static",))
+            i += 1
+        elif t == "D":
+            ops.append(("dynamic",))
+            i += 1
+        elif t in ("F", "M"):
+            if i + 2 >= len(tokens):
+                raise ValueError("Incomplete command line for -i!")
+            ops.append(("run", t, int(tokens[i + 1]), int(tokens[i + 2])))
+            i += 3
+        else:
+            raise ValueError(f"Unknown sampling type {t}!")
+    return ops
+
+
+#: sweeps per phase chunk: the engine syncs once per chunk (overflow check,
+#: record drain) and the capacity ladder moves between chunks
+PHASE_CHUNK = 128
+
+#: ceiling on the block capacity. The first post-prior burn-in sweeps have
+#: ~T blocks, and a sweep at capacity ~T allocates O(K*K*cap) transients; a
+#: burn-in chunk that overflows the ceiling is ACCEPTED TRUNCATED (the sweep
+#: reduces to the top-capacity ranked weights, an effectively higher
+#: threshold for those sweeps). Recording chunks are never truncated.
+_MAX_CAPACITY = 1 << 25
+
+
+def compact_marginals(buffers: RecordBuffers) -> tuple[np.ndarray, np.ndarray]:
+    """RLE-compact the marginal buffers on the device and download only the
+    per-segment rows. Returns (starts, seg_counts) as host arrays; segment i
+    covers [starts[i], starts[i+1]) (last ends at T); seg_counts is
+    (n_seg, K)."""
+    T = buffers.ever_boundary.shape[0]
+    K = buffers.counts.shape[0] // T
+    # decode the flat boundary-difference accumulator
+    counts = torch.cumsum(buffers.counts.reshape(K, T), dim=1, dtype=torch.int32)
+    first = buffers.ever_boundary.clone()
+    first[0] = True
+    starts = torch.nonzero(first)[:, 0]
+    return (
+        starts.to(torch.int32).cpu().numpy(),
+        counts[:, starts].T.contiguous().cpu().numpy(),
+    )
+
+
+def run_scheme_resumable(engine, tokens: list[str]) -> None:
+    """Execute a ``-i`` scheme on an engine, honoring the engine's scheme
+    cursor: ops before ``scheme_op_index`` are skipped and a partially
+    completed F/M phase continues at ``scheme_op_done`` with the original
+    thinning alignment. A cursor taken under another token list is
+    rejected."""
+    ckpt_tokens = getattr(engine, "ckpt_scheme_tokens", None)
+    if (
+        engine.scheme_op_index or engine.scheme_op_done
+    ) and ckpt_tokens is not None and list(ckpt_tokens) != list(tokens):
+        raise ValueError(
+            "checkpoint was taken under -i scheme "
+            f"{' '.join(ckpt_tokens)!r} but this run uses "
+            f"{' '.join(tokens)!r}; resume with the original scheme"
+        )
+    if engine.scheme_op_index == 0:
+        engine.scheme_op_done = 0
+    engine.ckpt_scheme_tokens = list(tokens)
+    for idx, op in enumerate(parse_scheme(tokens)):
+        if idx < engine.scheme_op_index:
+            continue
+        if op[0] == "prior":
+            engine.sample_prior()
+        elif op[0] == "static":
+            engine.set_static()
+        elif op[0] == "dynamic":
+            engine.set_dynamic()
+        else:
+            _, method, iters, thin = op
+            start = engine.scheme_op_done
+            if start < iters:
+                engine.run(method, iters - start, thin, start=start)
+        engine.scheme_op_index = idx + 1
+        engine.scheme_op_done = 0
+    engine.scheme_op_index = 0
+    engine.scheme_op_done = 0
+
+
+def _next_chunk(done: int, end: int, thinning: int, max_chunk: int):
+    """(n, thinning, records) for the next phase chunk.
+
+    Recording chunks start on thinning multiples and span a multiple of the
+    thinning, so the record hits land at the last sweep of each thinning
+    window. Non-multiples arise only at phase edges: a resume mid-window
+    runs one alignment chunk of length (thinning - done % thinning), and a
+    phase tail shorter than the thinning contains no hits and runs as a
+    quiet chunk."""
+    remaining = end - done
+    if thinning <= 0:
+        return min(max_chunk, remaining), 0, False
+    mis = done % thinning
+    if mis:
+        n_align = thinning - mis
+        if n_align <= remaining:
+            return n_align, n_align, True
+        return remaining, 0, False  # tail: no hits left in this phase
+    n_hit = (min(max_chunk, remaining) // thinning) * thinning
+    if n_hit:
+        return n_hit, thinning, True
+    if thinning <= remaining:
+        return thinning, thinning, True  # thinning wider than max_chunk
+    return remaining, 0, False  # tail: no hits left
+
+
+def _round_capacity(n: int) -> int:
+    """Round a block count up to the next capacity bucket: a ~1.25x
+    geometric ladder on multiples of 128 (per-sweep cost is roughly linear
+    in capacity, so the ladder wastes <= 25%)."""
+    cap = 128
+    while cap < n:
+        cap = -(-int(cap * 1.25) // 128) * 128
+    return cap
+
+
+@dataclass
+class Ingest:
+    """Device-resident preprocessed data."""
+
+    weights: torch.Tensor  # (T,) float32 breakpoint weights (post multiplier)
+    weights_host: np.ndarray | None  # host copy (None for device ingest)
+    ranked: RankedWeights  # positions pre-sorted by weight
+    prefix: PrefixStats
+    coeffs_host: np.ndarray | None  # maxlet coefficients (host path only)
+    noise_std: float
+    T: int
+    dim: int
+    cell_bits: int = 16
+
+    def count_boundaries(self, threshold: float) -> int:
+        """Number of positions with weight >= ``threshold`` (float32)."""
+        thr = np.float32(threshold)
+        if self.weights_host is not None:
+            return int((self.weights_host >= thr).sum())
+        neg = self.ranked.neg_w_sorted
+        value = torch.full((1,), -thr, dtype=neg.dtype, device=neg.device)
+        return int(torch.searchsorted(neg, value, right=True)[0])
+
+
+def host_transform(data: np.ndarray) -> tuple[np.ndarray, float, np.ndarray]:
+    """(coeffs, noise_std, weights) on the host — native C++ when built,
+    else the plain torch functions on the CPU (bit-identical either way)."""
+    from hammlet_tpu_torch import native
+
+    if native.available():
+        coeffs = native.maxlet(data)
+        noise = native.noise_std(coeffs)
+        weights = native.breakpoint_weights(coeffs)
+    else:
+        coeffs_t = maxlet_transform(torch.from_numpy(data))
+        coeffs = coeffs_t.numpy()
+        noise = noise_std_estimate(coeffs)
+        weights = breakpoint_weights(coeffs_t).numpy()
+    return coeffs, noise, weights
+
+
+def _as_2d(data: np.ndarray) -> np.ndarray:
+    data = np.ascontiguousarray(data, dtype=np.float32)
+    return data[:, None] if data.ndim == 1 else data
+
+
+def ingest(data: np.ndarray, weight_multiplier: float = 1.0, device="cpu") -> Ingest:
+    """maxlet transform -> noise estimate -> breakpoint weights -> prefix
+    sums (main.cpp:277-344) on the host; the results are uploaded."""
+    data = _as_2d(data)
+    T, dim = data.shape
+    coeffs_host, noise, weights_host = host_transform(data)
+    if weight_multiplier != 1.0:
+        weights_host = weights_host * np.float32(weight_multiplier)
+    return Ingest(
+        weights=torch.from_numpy(weights_host).to(device),
+        weights_host=weights_host,
+        ranked=build_ranked_weights(weights_host, device),
+        prefix=build_prefix_stats(data, device=device),
+        coeffs_host=coeffs_host,
+        noise_std=noise,
+        T=T,
+        dim=dim,
+    )
+
+
+def ingest_device(data: np.ndarray, weight_multiplier: float = 1.0, device="cpu") -> Ingest:
+    """Device-side ingest: upload only the raw data and run the maxlet
+    transform (the Hopper kernel for CUDA data), the noise reduction, the
+    breakpoint weights, the ranking sort and the in-cell prefix sums on the
+    device. Bit-identical maxlet coefficients and weights."""
+    data = _as_2d(data)
+    T, dim = data.shape
+    data_dev = torch.from_numpy(data).to(device)
+    coeffs = maxlet_transform_cuda(data_dev)
+    # noise estimate: float32 mean of the odd-position (finest-level)
+    # coefficients on the device (the reference accumulates in double — the
+    # difference is far below MC noise)
+    odd_mean = torch.sum(coeffs[1::2]) / (T // 2)
+    weights = breakpoint_weights(coeffs)
+    if weight_multiplier != 1.0:
+        weights = weights * np.float32(weight_multiplier)
+    return Ingest(
+        weights=weights,
+        weights_host=None,
+        ranked=build_ranked_weights_device(weights),
+        prefix=build_prefix_stats_device(data_dev, DEVICE_CELL_BITS),
+        coeffs_host=None,
+        noise_std=float(odd_mean) / 0.7978845608028654,
+        T=T,
+        dim=dim,
+        cell_bits=DEVICE_CELL_BITS,
+    )
+
+
+@dataclass
+class Engine:
+    """Single-device sampling engine."""
+
+    ing: Ingest
+    spec: ModelSpec
+    priors: HMMPriors
+    seed: int
+    records: Records | None = None
+    capacity: int | None = None
+    max_capacity: int | None = None  # ceiling (None = _MAX_CAPACITY)
+
+    model: HMMState = field(init=False)
+    buffers: RecordBuffers = field(init=False)
+    sweep_counter: int = field(init=False, default=0)
+    # scheme cursor: (index of the next -i op, sweeps already done within it)
+    scheme_op_index: int = field(init=False, default=0)
+    scheme_op_done: int = field(init=False, default=0)
+    last_n_blocks: int = field(init=False, default=0)
+    #: one (method, sweeps, seconds) entry per run() call
+    phase_log: list = field(init=False, default_factory=list)
+
+    def __post_init__(self):
+        if self.records is not None:
+            missing = {"sequences", "blocks", "segments"} & self.records.enabled
+            if missing:
+                raise NotImplementedError(
+                    f"record streams {sorted(missing)} are not ported to "
+                    "hammlet_tpu_torch yet (see ROADMAP.md); use marginals, "
+                    "parameters and compression"
+                )
+        self.device = self.ing.ranked.pos_by_rank.device
+        self._mapping = torch.as_tensor(
+            self.spec.mapping().astype(np.int64), device=self.device
+        )
+        self._cands: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        self.buffers = RecordBuffers.create(
+            self.ing.T, self.spec.nr_states, self.device
+        )
+        self.model = sample_from_priors(self._next_generator(), self.priors)
+        self._dynamic = True
+        self._static_threshold = 0.0
+        # explicit capacities above the default ceiling are honored
+        self.max_capacity = max(
+            min(self.ing.T, self.max_capacity or _MAX_CAPACITY),
+            self.capacity or 0,
+        )
+        if self.capacity is None:
+            # size for the prior-threshold block structure with headroom
+            nb = self.ing.count_boundaries(self._threshold_host())
+            self.capacity = min(
+                self.ing.T, self.max_capacity, _round_capacity(2 * nb + 64)
+            )
+
+    def _next_generator(self) -> torch.Generator:
+        self.sweep_counter += 1
+        return make_generator(self.device, self.seed, self.sweep_counter)
+
+    def _threshold_host(self) -> float:
+        if not self._dynamic:
+            return self._static_threshold
+        return threshold_host(self.model.theta_var.cpu().numpy(), self.ing.T)
+
+    def _candidates(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Position-sorted boundary candidates for the current capacity
+        (sorted once per capacity change, not per sweep)."""
+        if self.capacity not in self._cands:
+            self._cands[self.capacity] = bucket_candidates(
+                self.ing.ranked, self.capacity
+            )
+        return self._cands[self.capacity]
+
+    # -- scheme ops -------------------------------------------------------
+
+    def sample_prior(self) -> None:
+        self.model = sample_from_priors(self._next_generator(), self.priors)
+
+    def set_static(self) -> None:
+        self._dynamic = False
+        self._static_threshold = float(self.model.threshold(self.ing.T))
+
+    def set_dynamic(self) -> None:
+        self._dynamic = True
+
+    def _resize_capacity_for_phase(self) -> None:
+        """Re-size the block capacity to the CURRENT threshold's boundary
+        count at a phase boundary (both directions): a phase entered right
+        after burn-in would otherwise start at the stale near-T capacity of
+        the first post-prior sweeps."""
+        nb = self.ing.count_boundaries(self._threshold_host())
+        self.capacity = min(
+            self.ing.T, self.max_capacity, _round_capacity(nb + nb // 8 + 64)
+        )
+
+    def run(
+        self, method: str, iterations: int, thinning: int, start: int = 0
+    ) -> None:
+        """One F/M phase of ``iterations`` sweeps with record thinning.
+        ``start`` offsets the thinning counter when resuming a phase whose
+        first ``start`` sweeps already ran."""
+        if iterations <= 0:
+            return
+        self._resize_capacity_for_phase()
+        t0 = time.perf_counter()
+        self._run_phase(method, iterations, thinning, start)
+        synchronize(self.device)
+        self.phase_log.append((method, iterations, time.perf_counter() - t0))
+
+    def _run_phase(
+        self, method: str, iterations: int, thinning: int, start: int = 0
+    ) -> None:
+        recording = thinning > 0
+        done = start
+        end = start + iterations
+        while done < end:
+            n, thin_s, rec_s = _next_chunk(
+                done, end, thinning if recording else 0, PHASE_CHUNK
+            )
+            self.sweep_counter += 1
+            counter = self.sweep_counter  # fixed across overflow replays
+            while True:
+                cand_pos, cand_rank = self._candidates()
+                model, buffers, prev, diag, nbs, means, varis = gibbs_phase(
+                    self.seed,
+                    counter,
+                    self.model,
+                    self.priors,
+                    self.ing.ranked,
+                    cand_pos,
+                    cand_rank,
+                    self.ing.prefix,
+                    self.buffers,
+                    None if self._dynamic else self._static_threshold,
+                    method=method,
+                    nr_params=self.spec.nr_params,
+                    mapping=self._mapping,
+                    use_self_transitions=self.spec.use_self_transitions,
+                    n_iters=n,
+                    thinning=thin_s,
+                    cell_bits=self.ing.cell_bits,
+                    record=rec_s,
+                )
+                # the chunk's single host sync: [max_nb, last_nb, err]
+                diag_h = diag.cpu().numpy()
+                max_nb = int(diag_h[0])
+                if max_nb <= self.capacity:
+                    self.model, self.buffers = model, buffers
+                    self.last_n_blocks = int(diag_h[1])
+                    break
+                # the device count SATURATES at capacity+1; re-price the true
+                # count from the pre-chunk model's threshold so the capacity
+                # grows in one jump
+                max_nb = max(max_nb, self.ing.count_boundaries(self._threshold_host()))
+                grown = min(
+                    self.ing.T, self.max_capacity, _round_capacity(2 * max_nb)
+                )
+                if grown <= self.capacity:
+                    # at the ceiling: burn-in chunks are accepted truncated;
+                    # a recording chunk must be exact
+                    if rec_s:
+                        raise RuntimeError(
+                            f"recording sweep needs {max_nb} blocks but the "
+                            f"capacity ceiling is {self.capacity}; raise "
+                            "max_capacity or extend burn-in so the threshold "
+                            "settles first"
+                        )
+                    self.model, self.buffers = model, buffers
+                    self.last_n_blocks = min(int(diag_h[1]), self.capacity)
+                    break
+                self.capacity = grown
+                # replay the chunk (same counter) from the pre-chunk snapshot
+                # so recorded sweeps cannot double-record
+                if prev is not None:
+                    self.buffers = prev
+            if self.records is not None and rec_s:
+                self._drain_records(nbs, means, varis)
+            done += n
+            self.scheme_op_done = done
+            # shrink the capacity to track the block count (grows back via
+            # replay); 12.5% headroom
+            target = min(
+                self.ing.T,
+                self.max_capacity,
+                _round_capacity(max_nb + max_nb // 8 + 64),
+            )
+            if target < self.capacity:
+                self.capacity = target
+
+    def _drain_records(self, nbs, means, varis) -> None:
+        """Write one chunk's per-recorded-sweep rows to the enabled
+        streams."""
+        if "compression" in self.records.enabled:
+            for nb in nbs.cpu().tolist():
+                self.records.record_compression(int(nb))
+        if "parameters" in self.records.enabled:
+            for m, v in zip(means.cpu().numpy(), varis.cpu().numpy()):
+                self.records.record_theta(m, v)
+
+    def run_scheme(self, tokens: list[str]) -> None:
+        run_scheme_resumable(self, tokens)
+
+    def finalize(self) -> None:
+        if self.records is not None:
+            if "marginals" in self.records.enabled:
+                from hammlet_tpu_torch.debug import check_marginal_sums
+
+                starts, seg_counts = compact_marginals(self.buffers)
+                # save-time invariant (StateMarginals.hpp:306-308)
+                check_marginal_sums(seg_counts, int(self.buffers.n_records))
+                self.records.save_marginals_from_segments(starts, seg_counts)
+            self.records.close()
+
+    @property
+    def marginal_counts(self) -> np.ndarray:
+        """(K, T) decoded marginal state counts."""
+        T = self.ing.T
+        K = self.spec.nr_states
+        flat = self.buffers.counts.cpu().numpy().astype(np.int64)
+        return np.cumsum(flat.reshape(K, T), axis=1).astype(np.int32)
+
+
+def make_engine(
+    data: np.ndarray,
+    nr_params: int = 3,
+    nr_data_dim: int = 1,
+    seed: int = 0,
+    s2: float = 0.2,
+    p: float = 0.9,
+    trans: float = 0.5,
+    self_trans: float = 0.5,
+    initial_alpha: float = 0.5,
+    weight_multiplier: float = 1.0,
+    use_self_transitions: bool = True,
+    records: Records | None = None,
+    capacity: int | None = None,
+    device_ingest: bool | None = None,
+    device: str | torch.device | None = None,
+) -> Engine:
+    """Build a ready-to-run engine with auto-priors (the only prior mode the
+    reference implements, main.cpp:204-215). ``device`` None picks cuda
+    when a card is present."""
+    dev = resolve_device(device)
+    if device_ingest is None:
+        device_ingest = np.asarray(data).size >= 2_000_000
+    ing = (
+        ingest_device(data, weight_multiplier, dev)
+        if device_ingest
+        else ingest(data, weight_multiplier, dev)
+    )
+    spec = ModelSpec(nr_params, nr_data_dim, use_self_transitions)
+    if ing.weights_host is not None:
+        nig_row = autoprior_host(s2, p, data, ing.weights_host, ing.noise_std)
+    else:
+        thr0 = float(np.sqrt(2 * np.log(float(ing.T))) * ing.noise_std)
+        ap_cap = max(8, ing.count_boundaries(thr0) + 8)
+        nig_row = autoprior(
+            s2, p, ing.ranked, ing.prefix, ing.noise_std, ap_cap,
+            cell_bits=ing.cell_bits,
+        )
+    nig = np.tile(nig_row, (nr_params, 1))
+    priors = HMMPriors.create(
+        nig, spec.nr_states, trans, self_trans, initial_alpha, device=dev
+    )
+    return Engine(
+        ing=ing,
+        spec=spec,
+        priors=priors,
+        seed=seed,
+        records=records,
+        capacity=capacity,
+    )

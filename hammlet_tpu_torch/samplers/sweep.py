@@ -1,0 +1,297 @@
+"""The Gibbs sweep and its phase loop.
+
+Port of hammlet_tpu/samplers/sweep.py (the reference's sampleHMM loop body,
+src/HMM.hpp:99-121):
+
+    threshold -> blocks -> block stats -> state draw (FB | mixture)
+    -> sweep statistics -> conjugate model resample
+    -> (recording sweeps) on-device marginal recording
+
+Block counts are dynamic and handled with a static block capacity and
+masking. Every per-sweep quantity stays on the device through a phase
+chunk: the engine (runner.Engine) syncs once per chunk, on ``diag``.
+
+Per-sweep randomness comes from a ``torch.Generator`` seeded from
+(seed, chunk counter, sweep index) — counter-based like the JAX package's
+fold_in keys, so the engine replays an identical chunk after a capacity
+overflow by passing the same counter.
+
+The record buffers are updated IN PLACE (the JAX package rebuilds them
+functionally): a recording chunk snapshots them once, at its start, for the
+overflow replay.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from hammlet_tpu_torch.models.hmm import (
+    HMMPriors,
+    HMMState,
+    SweepStats,
+    resample_model,
+)
+from hammlet_tpu_torch.ops.blocks import (
+    PrefixStats,
+    RankedWeights,
+    block_sufficient_stats_t,
+    make_blocks_bucketed,
+)
+from hammlet_tpu_torch.samplers.forward_backward import fb_sample_states
+from hammlet_tpu_torch.samplers.mixture import mixture_sample_states
+
+_MASK64 = (1 << 64) - 1
+
+
+def stream_seed(seed: int, counter: int, index: int = -1) -> int:
+    """63-bit generator seed for one random stream, a splitmix64 mix of
+    (seed, counter, index); index -1 is the counter's own stream (prior
+    draws), index i >= 0 the i-th sweep of a chunk."""
+    x = 0x9E3779B97F4A7C15
+    for v in (seed, counter, index):
+        x = (x ^ (v & _MASK64)) * 0xBF58476D1CE4E5B9 & _MASK64
+        x ^= x >> 31
+        x = x * 0x94D049BB133111EB & _MASK64
+        x ^= x >> 29
+    return x >> 1
+
+
+def make_generator(device: torch.device, seed: int, counter: int, index: int = -1) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(stream_seed(seed, counter, index))
+    return gen
+
+
+@dataclass
+class RecordBuffers:
+    """On-device posterior recording state.
+
+    counts:        FLAT (K*T,) int32 — boundary-difference accumulator of the
+                   per-position state counts: for every recorded block
+                   [s, e) in state z, +1 at z*T+s and -1 at z*T+e; the
+                   marginal counts are cumsum(counts.reshape(K, T), 1)
+    ever_boundary: (T,) bool — positions that started a segment in any
+                   recorded sweep (the reference's marginal segment
+                   refinement, StateMarginals.hpp:51-137)
+    n_records:     () int32 — number of recorded sweeps
+    n_boundaries:  () int32 — running popcount of ever_boundary
+    """
+
+    counts: torch.Tensor
+    ever_boundary: torch.Tensor
+    n_records: torch.Tensor
+    n_boundaries: torch.Tensor
+
+    @staticmethod
+    def create(T: int, K: int, device: torch.device | str = "cpu") -> "RecordBuffers":
+        # torch indexes with int64, so K*T may exceed 2^31; counts are int32
+        return RecordBuffers(
+            counts=torch.zeros((K * T,), dtype=torch.int32, device=device),
+            ever_boundary=torch.zeros((T,), dtype=torch.bool, device=device),
+            n_records=torch.zeros((), dtype=torch.int32, device=device),
+            n_boundaries=torch.zeros((), dtype=torch.int32, device=device),
+        )
+
+    def clone(self) -> "RecordBuffers":
+        return RecordBuffers(
+            self.counts.clone(), self.ever_boundary.clone(),
+            self.n_records.clone(), self.n_boundaries.clone(),
+        )
+
+
+def accumulate_sweep_stats(
+    states: torch.Tensor,
+    sizes: torch.Tensor,
+    n_blocks: torch.Tensor,
+    block_stats_t: torch.Tensor,
+    mapping: torch.Tensor,
+    nr_params: int,
+) -> SweepStats:
+    """Segment-reduce the sampled path into conjugate-update statistics
+    (reference pass 3, ForwardBackward.hpp:170-212) as one-hot matrix
+    products over the block axis (deterministic, no float atomics).
+    ``block_stats_t`` is (dim, 2, B)."""
+    B = states.shape[0]
+    K = mapping.shape[0]
+    dev = states.device
+    validf = (torch.arange(B, device=dev) < n_blocks).to(torch.float32)
+    sizes_f = sizes.to(torch.float32) * validf
+    kk = torch.arange(K, device=dev)[:, None]
+    oh = (states[None, :] == kk).to(torch.float32)  # (K, B)
+
+    state_counts = oh @ sizes_f
+    # transitions: N-1 self-transitions per block plus one prev->cur count
+    # per block, prev of the first block being state 0
+    diag = oh @ ((sizes.to(torch.float32) - 1.0) * validf)
+    prev = torch.cat([states.new_zeros(1), states[:-1]])
+    oh_prev = (prev[None, :] == kk).to(torch.float32)
+    trans_counts = (oh_prev * validf[None, :]) @ oh.T + torch.diag(diag)
+
+    # theta statistics: route each (block, dim) stat to its emission param
+    pm = mapping[states]  # (B, dim)
+    pp = torch.arange(nr_params, device=dev)[:, None]
+    theta_sums = torch.zeros((nr_params,), dtype=torch.float32, device=dev)
+    theta_sumsqs = torch.zeros_like(theta_sums)
+    theta_counts = torch.zeros_like(theta_sums)
+    for d in range(mapping.shape[1]):
+        ohp = (pm[:, d][None, :] == pp).to(torch.float32) * validf[None, :]  # (P, B)
+        theta_sums = theta_sums + ohp @ block_stats_t[d, 0]
+        theta_sumsqs = theta_sumsqs + ohp @ block_stats_t[d, 1]
+        theta_counts = theta_counts + ohp @ sizes_f
+    return SweepStats(theta_sums, theta_sumsqs, theta_counts, trans_counts, state_counts)
+
+
+def record_sweep(
+    buffers: RecordBuffers,
+    states: torch.Tensor,
+    starts: torch.Tensor,
+    n_blocks: torch.Tensor,
+    enabled: torch.Tensor | bool = True,
+) -> RecordBuffers:
+    """Fold one recorded sweep into the marginal buffers, IN PLACE.
+
+    O(#blocks): block b in state z adds +1 at (z, starts[b]) and -1 at
+    (z, starts[b+1]), the latter written as a decrement with the previous
+    block's state at every block start. Masked entries (padding, or the
+    whole sweep when ``enabled`` is false) add 0 at index 0. State-change
+    boundaries are the block starts whose state differs from the previous
+    block's; starts[b] > 0 there, so masked writes to index 0 write False
+    and never race a real one."""
+    T = buffers.ever_boundary.shape[0]
+    B = states.shape[0]
+    valid = (torch.arange(B, device=states.device) < n_blocks) & enabled
+    prev = torch.cat([states.new_zeros(1), states[:-1]])
+    dec_ok = valid & (starts > 0)
+    idx = torch.cat([
+        torch.where(valid, states * T + starts, 0),
+        torch.where(dec_ok, prev * T + starts, 0),
+    ])
+    val = torch.cat([valid, dec_ok]).to(torch.int32)
+    val[B:] *= -1
+    buffers.counts.index_add_(0, idx, val)
+    chg = dec_ok & (states != prev)
+    # count newly-created boundaries before setting them (O(#blocks) gather)
+    was_set = buffers.ever_boundary[torch.clamp(starts, max=T - 1)]
+    buffers.n_boundaries += torch.sum(chg & ~was_set).to(torch.int32)
+    buffers.ever_boundary.index_put_((torch.where(chg, starts, 0),), chg)
+    buffers.n_records += torch.as_tensor(enabled, device=states.device).to(torch.int32)
+    return buffers
+
+
+def _sweep_core(
+    generator: torch.Generator,
+    model: HMMState,
+    priors: HMMPriors,
+    ranked: RankedWeights,
+    cand_pos: torch.Tensor,  # (capacity+1,) pre-sorted bucket candidates (+ T)
+    cand_rank: torch.Tensor,  # (capacity,)
+    prefix: PrefixStats,
+    buffers: RecordBuffers,
+    threshold: torch.Tensor | None,
+    *,
+    method: str,
+    nr_params: int,
+    mapping: torch.Tensor,
+    use_self_transitions: bool,
+    cell_bits: int,
+    record: bool,
+) -> tuple[HMMState, torch.Tensor]:
+    """One Gibbs iteration. ``threshold`` None means dynamic (from the
+    model). Returns (new model, n_blocks); records in place when
+    ``record``."""
+    T = ranked.pos_by_rank.shape[0]
+    capacity = cand_rank.shape[0]
+    thr = model.threshold(T) if threshold is None else threshold
+    blocks = make_blocks_bucketed(cand_pos, cand_rank, ranked, thr)
+    bstats = block_sufficient_stats_t(prefix, blocks, cell_bits)
+    # an overflowing sweep (n_blocks = capacity + 1, saturated) samples the
+    # truncated structure: all capacity blocks, the last one included
+    n_used = torch.clamp(blocks.n_blocks, max=capacity)
+    if method == "F":
+        states = fb_sample_states(
+            generator, bstats, blocks.sizes, n_used,
+            model.theta_mean, model.theta_var, model.A, model.pi,
+            mapping, use_self_transitions,
+        )
+    elif method == "M":
+        states = mixture_sample_states(
+            generator, bstats, blocks.sizes, n_used,
+            model.theta_mean, model.theta_var, mapping,
+        )
+    else:
+        raise ValueError(f"unknown sampling method {method!r}")
+    stats = accumulate_sweep_stats(
+        states, blocks.sizes, n_used, bstats, mapping, nr_params
+    )
+    new_model = resample_model(generator, priors, stats)
+    if record:
+        # an overflowing sweep (truncated blocks) never records
+        record_sweep(
+            buffers, states, blocks.starts, blocks.n_blocks,
+            enabled=blocks.n_blocks <= capacity,
+        )
+    return new_model, blocks.n_blocks
+
+
+def gibbs_phase(
+    seed: int,
+    counter: int,
+    model: HMMState,
+    priors: HMMPriors,
+    ranked: RankedWeights,
+    cand_pos: torch.Tensor,
+    cand_rank: torch.Tensor,
+    prefix: PrefixStats,
+    buffers: RecordBuffers,
+    static_threshold: float | None,
+    *,
+    method: str,
+    nr_params: int,
+    mapping: torch.Tensor,
+    use_self_transitions: bool,
+    n_iters: int,
+    thinning: int = 0,
+    cell_bits: int = 16,
+    record: bool = True,
+):
+    """n_iters Gibbs sweeps with no host sync.
+
+    ``static_threshold`` None means the dynamic threshold. With ``record``
+    and ``thinning`` > 0, sweep i records when i % thinning == thinning-1
+    (the chunk starts on a thinning multiple; the engine aligns it).
+
+    Returns (model, buffers, prev, diag, rec_nbs, rec_means, rec_vars):
+    ``prev`` is the pre-chunk snapshot of the buffers for an overflow
+    replay (None when not recording); ``diag`` = [max n_blocks,
+    last n_blocks, 0] (the error-bit slot of the JAX package's diag);
+    the rec_* stacks hold one row per recorded sweep (per sweep when not
+    recording)."""
+    dev = cand_pos.device
+    record = record and thinning > 0
+    prev = buffers.clone() if record else None
+    thr = (
+        None if static_threshold is None
+        else torch.tensor(static_threshold, dtype=torch.float32, device=dev)
+    )
+    nbs, means, varis = [], [], []
+    for i in range(n_iters):
+        rec = record and i % thinning == thinning - 1
+        model, nb = _sweep_core(
+            make_generator(dev, seed, counter, i), model, priors, ranked,
+            cand_pos, cand_rank, prefix, buffers, thr,
+            method=method, nr_params=nr_params, mapping=mapping,
+            use_self_transitions=use_self_transitions, cell_bits=cell_bits,
+            record=rec,
+        )
+        nbs.append(nb)
+        means.append(model.theta_mean)
+        varis.append(model.theta_var)
+    nbs_t = torch.stack(nbs)
+    diag = torch.stack([nbs_t.max(), nbs_t[-1], torch.zeros_like(nbs_t[-1])])
+    rows = slice(thinning - 1, None, thinning) if record else slice(None)
+    return (
+        model, buffers, prev, diag, nbs_t[rows],
+        torch.stack(means)[rows], torch.stack(varis)[rows],
+    )

@@ -1,0 +1,95 @@
+"""Shared helpers for the tests that hold hammlet_tpu_torch (the PyTorch
+port) against hammlet_tpu (the JAX reference). Inputs are made with numpy
+from a seed and handed to both packages as numpy arrays."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+
+def to_np(x) -> np.ndarray:
+    """numpy copy of a torch tensor or a JAX/numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def to_torch(x, dtype=None) -> torch.Tensor:
+    """CPU tensor holding a writable copy of a JAX/numpy array."""
+    t = torch.from_numpy(np.array(x))
+    return t if dtype is None else t.to(dtype)
+
+
+def assert_bitwise(got, want) -> None:
+    """Every float32 value has the same bits (inf included; no NaN)."""
+    g = np.ascontiguousarray(to_np(got), dtype=np.float32)
+    w = np.ascontiguousarray(to_np(want), dtype=np.float32)
+    assert g.shape == w.shape, (g.shape, w.shape)
+    np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32))
+
+
+def assert_ulp(got, want, max_ulp: int) -> None:
+    """float32 values at most ``max_ulp`` units in the last place apart
+    (same sign assumed: the distance of the bit patterns)."""
+    g = np.ascontiguousarray(to_np(got), dtype=np.float32).view(np.int32)
+    w = np.ascontiguousarray(to_np(want), dtype=np.float32).view(np.int32)
+    dist = np.abs(g.astype(np.int64) - w.astype(np.int64))
+    assert dist.max() <= max_ulp, (dist.max(), to_np(got), to_np(want))
+
+
+@pytest.fixture
+def cuda_device() -> torch.device:
+    """The card, decided when the test runs (never at import): tests that
+    take this fixture skip without CUDA."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    return torch.device("cuda")
+
+
+def toy_problem(B=12, K=3, dim=1, seed=0, pad=5):
+    """Random block stats + model for a small HMM (tests/test_samplers.py's
+    _toy_problem); returns padded numpy arrays."""
+    from hammlet_tpu_torch.models.mapping import combinations_mapping
+
+    rng = np.random.default_rng(seed)
+    N = rng.integers(1, 20, size=B)
+    means_true = rng.choice([0.0, 3.0, -2.0], size=B)
+    sums = np.zeros((B, dim))
+    sumsqs = np.zeros((B, dim))
+    for b in range(B):
+        x = rng.normal(means_true[b], 1.0, size=(N[b], dim))
+        sums[b] = x.sum(axis=0)
+        sumsqs[b] = (x * x).sum(axis=0)
+    theta_mean = np.array([-2.0, 0.0, 3.0], dtype=np.float32)[:K]
+    theta_var = np.array([1.1, 0.9, 1.3], dtype=np.float32)[:K]
+    A = rng.dirichlet(np.ones(K) * 2, size=K).astype(np.float32)
+    pi = rng.dirichlet(np.ones(K)).astype(np.float32)
+    mapping = combinations_mapping(dim, K)[:, :dim]
+    Bcap = B + pad
+    stats = np.zeros((Bcap, dim, 2), dtype=np.float32)
+    stats[:B, :, 0] = sums
+    stats[:B, :, 1] = sumsqs
+    sizes = np.zeros(Bcap, dtype=np.int32)
+    sizes[:B] = N
+    return dict(
+        B=B, Bcap=Bcap, K=K, dim=dim, N=N, sums=sums, sumsqs=sumsqs,
+        stats=stats, stats_t=np.ascontiguousarray(stats.transpose(1, 2, 0)),
+        sizes=sizes, theta_mean=theta_mean, theta_var=theta_var,
+        A=A, pi=pi, mapping=mapping,
+    )
+
+
+def synth_segments(T: int, seed: int, seglen: int = 500, scale: float = 1.0):
+    """bench.py's data recipe: segments of ``seglen`` positions in one of
+    three states with means {0, 2, -2} * scale, unit noise.
+    Returns (data, true states)."""
+    rng = np.random.default_rng(seed)
+    means = np.array([0.0, 2.0, -2.0]) * scale
+    n_seg = max(1, T // seglen)
+    state = rng.integers(0, 3, size=n_seg)
+    reps = np.full(n_seg, seglen)
+    reps[-1] = T - seglen * (n_seg - 1)
+    data = np.repeat(means[state], reps) + rng.normal(0, 1, size=T)
+    return data.astype(np.float32), np.repeat(state, reps)

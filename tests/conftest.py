@@ -22,6 +22,12 @@ import pytest  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one"
+    )
+
 # ---- mmap budget ----------------------------------------------------------
 # Every XLA:CPU executable holds several JIT code mappings, and one pytest
 # process compiles thousands of programs across the suite; measured growth

@@ -1,0 +1,100 @@
+"""Tests of the port that need an NVIDIA card; they skip without one.
+
+This file imports neither jax nor hammlet_tpu, so it also runs on a
+machine that has the card but no JAX (there, without the repo's
+conftest.py, which imports jax):
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
+
+The plain torch versions these tests hold the kernel against are checked
+bitwise against the JAX package and the golden model by the CPU tests
+(tests/test_torch_wavelet.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_helpers import assert_bitwise, cuda_device, synth_segments  # noqa: F401
+from hammlet_tpu_torch import runner
+from hammlet_tpu_torch.io.records import Records
+from hammlet_tpu_torch.ops import wavelet, wavelet_cuda
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [100, 8192, 8193, 20000, 65536, 100000])
+@pytest.mark.parametrize("dim", [1, 3])
+def test_kernel_bitwise_on_card(cuda_device, T, dim):
+    """Tolerance: bitwise. The Hopper kernel against the plain torch version
+    on the card and on the CPU; each call launches the kernel once."""
+    data = np.random.default_rng(T + dim).normal(1, 2, size=(T, dim)).astype(np.float32)
+    x = torch.from_numpy(data).to(cuda_device)
+    before = wavelet_cuda.maxlet_transform_cuda.launches
+    got = wavelet_cuda.maxlet_transform_cuda(x)
+    torch.cuda.synchronize()
+    assert wavelet_cuda.maxlet_transform_cuda.launches == before + 1
+    assert_bitwise(got, wavelet.maxlet_transform(x))
+    assert_bitwise(got, wavelet.maxlet_transform(torch.from_numpy(data)))
+
+
+@pytest.mark.cuda
+def test_kernel_propagates_nan_on_card(cuda_device):
+    """Same NaN positions as the plain version, bitwise elsewhere."""
+    data = np.random.default_rng(1).normal(0, 1, size=(30000, 3)).astype(np.float32)
+    data[[5, 8191, 8192, 20000], [2, 0, 1, 2]] = np.nan
+    x = torch.from_numpy(data).to(cuda_device)
+    got = wavelet_cuda.maxlet_transform_cuda(x).cpu().numpy()
+    want = wavelet.maxlet_transform(x).cpu().numpy()
+    nan = np.isnan(want)
+    assert nan.sum() > 20
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    assert_bitwise(got[~nan], want[~nan])
+
+
+@pytest.mark.cuda
+def test_main_path_on_card(cuda_device, tmp_path):
+    """On the card, device ingest launches the Hopper kernel once and the
+    slice records every sweep it should."""
+    data = synth_segments(50000, 5)[0]
+    rec = Records(
+        len(data), str(tmp_path / "cuda-"), ".csv", 3,
+        outputs={"marginals", "parameters", "compression"}, overwrite=True,
+    )
+    wavelet_cuda.maxlet_transform_cuda.launches = 0
+    eng = runner.make_engine(data, seed=1, records=rec, device_ingest=True, device=cuda_device)
+    eng.run_scheme("M 20 0 F 60 2".split())
+    eng.finalize()
+    assert wavelet_cuda.maxlet_transform_cuda.launches == 1
+    assert eng.device.type == "cuda"
+    assert set(eng.marginal_counts.sum(axis=0).tolist()) == {30}
+    assert len((tmp_path / "cuda-parameters.csv").read_text().splitlines()) == 30
+
+
+@pytest.mark.cuda
+def test_phase_chunk_never_syncs(cuda_device):
+    """A whole recording chunk of sweeps queues its work with no host sync
+    (torch's sync debug mode raises on any): the engine's single sync per
+    chunk is on ``diag``."""
+    from hammlet_tpu_torch.samplers import sweep
+
+    data = synth_segments(50000, 6)[0]
+    eng = runner.make_engine(data, seed=2, device_ingest=True, device=cuda_device)
+    eng.run("M", 10, 0)
+    eng.capacity = eng.ing.T  # no overflow: every recording sweep records
+    cand_pos, cand_rank = eng._candidates()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for method in ("M", "F"):
+            out = sweep.gibbs_phase(
+                eng.seed, 99, eng.model, eng.priors, eng.ing.ranked, cand_pos,
+                cand_rank, eng.ing.prefix, eng.buffers, None, method=method,
+                nr_params=3, mapping=eng._mapping, use_self_transitions=True,
+                n_iters=8, thinning=2, cell_bits=eng.ing.cell_bits, record=True,
+            )
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(out[3][0]) <= eng.capacity
+    assert int(eng.buffers.n_records) == 8
