@@ -1,0 +1,102 @@
+"""Checkpoint / resume for sampling runs.
+
+Port of hammlet_tpu/checkpoint.py (the single-device half; the sharded
+save/restore comes with the port's parallel/ engine). The complete sampler
+state — RNG counter, model iterate, marginal count buffers, boundary union,
+capacity, scheme position — is a small set of arrays saved as one .npz with
+the JAX package's keys and dtypes, so either package reads the other's
+files. Restoring reproduces the exact continuation: every sweep's generator
+is seeded from (seed, chunk counter, sweep index), so a resumed chain is
+bit-identical to an uninterrupted run of the same package.
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+from types import SimpleNamespace
+
+import numpy as np
+
+from hammlet_tpu_torch import convert
+
+
+def save_checkpoint(engine, path: str) -> None:
+    """Serialize an Engine's resumable state atomically."""
+    model, buffers = engine.model, engine.buffers
+    state = {
+        "seed": np.int64(engine.seed),
+        "sweep_counter": np.int64(engine.sweep_counter),
+        "sweeps_completed": np.int64(engine.sweeps_completed),
+        "capacity": np.int64(engine.capacity),
+        "dynamic": np.bool_(engine._dynamic),
+        "static_threshold": np.asarray(engine._static_threshold),
+        "theta_mean": model.theta_mean.cpu().numpy(),
+        "theta_var": model.theta_var.cpu().numpy(),
+        "A": model.A.cpu().numpy(),
+        "pi": model.pi.cpu().numpy(),
+        "counts": buffers.counts.cpu().numpy(),
+        "ever_boundary": buffers.ever_boundary.cpu().numpy(),
+        "n_records": buffers.n_records.cpu().numpy(),
+        "n_boundaries": buffers.n_boundaries.cpu().numpy(),
+        "total_sweeps": np.float64(engine.total_sweeps),
+        "scheme_op_index": np.int64(engine.scheme_op_index),
+        "scheme_op_done": np.int64(engine.scheme_op_done),
+        # the -i token list the scheme cursor indexes (resume rejects a
+        # mismatch: the cursor would skip or truncate the wrong ops)
+        "scheme_tokens": np.str_(
+            " ".join(getattr(engine, "ckpt_scheme_tokens", None) or [])
+        ),
+    }
+    d = os.path.dirname(os.path.abspath(path)) or "."
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".ckpt.tmp")
+    os.close(fd)
+    try:
+        with open(tmp, "wb") as fh:
+            np.savez(fh, **state)
+            fh.flush()
+            os.fsync(fh.fileno())
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def restore_checkpoint(engine, path: str) -> None:
+    """Load state saved by save_checkpoint (of either package) into a
+    freshly built Engine (same data/priors/spec/seed)."""
+    with np.load(path) as z:
+        if int(z["seed"]) != engine.seed:
+            raise ValueError(
+                f"checkpoint seed {int(z['seed'])} != engine seed {engine.seed}"
+            )
+        if z["counts"].shape != tuple(engine.buffers.counts.shape):
+            raise ValueError("checkpoint shape mismatch (different data or model?)")
+        files = set(z.files)
+        engine.sweep_counter = int(z["sweep_counter"])
+        engine.sweeps_completed = int(z["sweeps_completed"]) if "sweeps_completed" in files else 0
+        engine.capacity = int(z["capacity"])
+        engine._dynamic = bool(z["dynamic"])
+        engine._static_threshold = float(z["static_threshold"])
+        engine.model = convert.hmm_state(z.f, engine.device)
+        engine.buffers = convert.record_buffers(
+            SimpleNamespace(
+                counts=z["counts"],
+                ever_boundary=z["ever_boundary"],
+                n_records=z["n_records"],
+                n_boundaries=(
+                    z["n_boundaries"] if "n_boundaries" in files
+                    else np.int32(z["ever_boundary"].sum())
+                ),
+            ),
+            engine.device,
+        )
+        # total_sweeps/sample_time are process-local throughput counters and
+        # are not restored (a resumed process reports its own rate)
+        engine.scheme_op_index = int(z["scheme_op_index"]) if "scheme_op_index" in files else 0
+        engine.scheme_op_done = int(z["scheme_op_done"]) if "scheme_op_done" in files else 0
+        if "scheme_tokens" in files:
+            s = str(z["scheme_tokens"])
+            engine.ckpt_scheme_tokens = s.split(" ") if s else None
+    engine._last_ckpt = engine.sweeps_completed

@@ -1,0 +1,383 @@
+"""Command-line front end of the PyTorch/CUDA port, flag-compatible with the
+reference binary and with hammlet_tpu/cli.py (its own copy: the JAX
+package's module imports jax).
+
+Flag grammar per src/main.cpp:33-65 and doc/hammlet-manpage.md:33-176:
+
+  -v/-verbose          progress output
+  -g/-arguments        dump parsed arguments
+  -h/-help             help text
+  -f/-input-file F...  input file(s) (default: stdin)
+  -o/-output-pattern PREFIX SUFFIX   (default derived from -f)
+  -O/-output-data  [marginals sequences parameters blocks compression
+                    mapping segments] (long or one-letter forms)
+  -w/-overwrite        allow overwriting outputs
+  -s/-states [C] P [D] number of emission distributions / mapping spec
+  -e/-emissions normal s2 p   emission type + autoprior parameters
+  -a/-auto-priors      automatic hyperparameters (required, as in reference)
+  -t/-transitions a [d]  transition Dirichlet alphas (off-diag, diag)
+  -S/-no-self-transitions
+  -I/-initial-dist a   initial-distribution Dirichlet alpha
+  -R/-random-seed N    RNG seed (default: time)
+  -i/-iterations SCHEME  sampling scheme DSL (P, S, D, {F,M} iter thin)
+  -m/-weight-multiplier X
+  -C/-checkpoint PATH [EVERY]  periodic checkpointing (resumes from PATH
+                               when it exists)
+  -D/-devices N        devices to shard over: only 1 in the port so far
+  -M/-multi            every -f file is an INDEPENDENT chain with its own
+                       priors/RNG/outputs, run one after another on the
+                       one device
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+import numpy as np
+
+from hammlet_tpu_torch.io.input import read_values
+from hammlet_tpu_torch.io.records import Records
+from hammlet_tpu_torch.runner import make_engine
+
+_FLAG_ALIASES = {
+    "-verbose": "-v",
+    "-arguments": "-g",
+    "-help": "-h",
+    "--help": "-h",
+    "-input-file": "-f",
+    "-output-pattern": "-o",
+    "-output-data": "-O",
+    "-overwrite": "-w",
+    "-states": "-s",
+    "-emissions": "-e",
+    "-auto-priors": "-a",
+    "-transitions": "-t",
+    "-no-self-transitions": "-S",
+    "-initial-dist": "-I",
+    "-random-seed": "-R",
+    "-iterations": "-i",
+    "-weight-multiplier": "-m",
+    "-checkpoint": "-C",
+    "-devices": "-D",
+    "-multi": "-M",
+}
+
+_DEFAULTS = {
+    "-o": ["hammlet-", ".csv"],
+    "-O": ["marginals"],
+    "-s": ["3"],
+    "-e": ["normal", "0.2", "0.9"],
+    "-t": ["0.5", "0.5"],
+    "-I": ["0.5"],
+    "-i": ["M", "500", "0", "S", "P", "F", "200", "0", "F", "300", "3"],
+    "-m": ["1"],
+}
+
+_OUTPUT_ALIASES = {
+    "M": "marginals",
+    "S": "sequences",
+    "P": "parameters",
+    "B": "blocks",
+    "C": "compression",
+    "D": "mapping",
+    "G": "segments",
+}
+
+
+_REGISTERED = set(_DEFAULTS) | {
+    "-v", "-g", "-h", "-w", "-a", "-S", "-f", "-R", "-C", "-D", "-M",
+}
+
+
+def _looks_numeric(tok: str) -> bool:
+    """A '-'-prefixed token that is a negative number, not a flag typo."""
+    return len(tok) > 1 and (tok[1].isdigit() or tok[1] == ".")
+
+
+def parse_args(argv: list[str]) -> dict[str, list[str]]:
+    """Registered-flag tokenizer (src/Parser.hpp:142-193): every token after
+    a registered flag and before the next one belongs to that flag.
+    Duplicate and positional-first errors mirror the reference; unregistered
+    '-x' tokens are rejected up front (the reference's parser swallows them
+    as parameters and fails later with a conversion error; PARITY.md)."""
+    out: dict[str, list[str]] = {}
+    cur: str | None = None
+    for tok in argv:
+        canon = _FLAG_ALIASES.get(tok, tok)
+        if canon in _REGISTERED:
+            if canon in out:
+                raise SystemExit(f"Duplicate flag {tok}!")
+            cur = canon
+            out[cur] = []
+        elif tok.startswith("-") and not _looks_numeric(tok):
+            raise SystemExit(f"Unknown flag {tok}!")
+        else:
+            if cur is None:
+                raise SystemExit(
+                    f"First input token ({tok}) is not a registered flag; "
+                    "parser does not support positional arguments!"
+                )
+            out[cur].append(tok)
+    return out
+
+
+def _conv(conv, s: str):
+    """Typed token conversion with the reference's error text
+    (Parser.hpp:46-54)."""
+    try:
+        return conv(s)
+    except (TypeError, ValueError):
+        raise ValueError(f'Conversion failed for string "{s}"!')
+
+
+def _parse_at(tokens: list[str], index: int, conv, flag: str):
+    """parse<T>(flag, index) with the reference's bounds error
+    (Parser.hpp:196-208)."""
+    if index >= len(tokens):
+        raise ValueError(f"Not enough arguments for flag {flag}!")
+    return _conv(conv, tokens[index])
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    try:
+        args = parse_args(argv)
+    except SystemExit as e:
+        print(f"[ERROR] {e}", file=sys.stderr)
+        return 1
+
+    try:
+        return _run(args)
+    except Exception as e:  # mirror the reference's fatal handler
+        print(f"\n[ERROR] {e}", file=sys.stderr)
+        print("Terminating HaMMLET. The rest is silence.", file=sys.stderr)
+        return 1
+
+
+def _check_single_process() -> None:
+    """The multi-host runtime (hammlet_tpu/parallel/distributed.py) is not
+    ported: refuse an environment that asks for it instead of running N
+    unaware copies that would each write every output."""
+    num = os.environ.get("HAMMLET_NUM_PROCESSES")
+    if num is not None and (num == "auto" or _conv(int, num) > 1):
+        raise ValueError(
+            f"HAMMLET_NUM_PROCESSES={num}: the multi-host runtime is not "
+            "ported to hammlet_tpu_torch yet (see ROADMAP.md); unset it"
+        )
+
+
+def _run(args: dict[str, list[str]]) -> int:
+    _check_single_process()
+
+    def get(flag: str) -> list[str]:
+        v = args.get(flag)
+        return v if v else _DEFAULTS.get(flag, [])
+
+    if "-h" in args:
+        from hammlet_tpu_torch.manpage import print_manpage
+
+        print_manpage()
+        return 0
+
+    verbose = "-v" in args
+    overwrite = "-w" in args
+
+    if "-g" in args:
+        # reference dump format (Parser.hpp:242-269): one line per flag
+        # group listing every alias, set-marker, then effective tokens
+        groups: dict[str, list[str]] = {c: [c] for c in sorted(_REGISTERED)}
+        for alias, canon in _FLAG_ALIASES.items():
+            groups[canon].append(alias)
+        for canon, aliases in groups.items():
+            mark = "*" if canon in args else " "
+            print(f"[{mark}] {' '.join(aliases)} : {' '.join(get(canon))}")
+
+    # output prefix/suffix (main.cpp:92-100)
+    if "-o" not in args and "-f" in args and args["-f"]:
+        fname = args["-f"][0]
+        dot = fname.rfind(".")
+        if dot < 0:
+            opref, osuff = fname + "-", ""
+        else:
+            opref, osuff = fname[:dot] + "-", fname[dot:]
+    else:
+        o = get("-o")
+        opref = o[0] if len(o) > 0 else "hammlet-"
+        osuff = o[1] if len(o) > 1 else ".csv"
+
+    seed = (
+        _parse_at(args["-R"], 0, int, "-R")
+        if args.get("-R")
+        else int(time.time())
+    )
+
+    # state / mapping spec (main.cpp:117-137)
+    s_tokens = get("-s")
+    if len(s_tokens) == 1:
+        nr_params, nr_dim = _parse_at(s_tokens, 0, int, "-s"), 1
+    else:
+        if s_tokens[0] in ("I", "independent"):
+            # accepted by the reference's parser but unimplemented there too
+            # (Mapping.hpp:110-111)
+            raise ValueError('Mapping type "independent" not implemented yet!')
+        if s_tokens[0] not in ("C", "combinations"):
+            raise ValueError(f"Unknown mapping type {s_tokens[0]}!")
+        nr_params = _parse_at(s_tokens, 1, int, "-s")
+        nr_dim = _parse_at(s_tokens, 2, int, "-s") if len(s_tokens) >= 3 else 1
+
+    t_tokens = get("-t")
+    trans = _parse_at(t_tokens, 0, float, "-t")
+    self_trans = (
+        _parse_at(t_tokens, 1, float, "-t") if len(t_tokens) > 1 else trans
+    )
+    initial_alpha = _parse_at(get("-I"), 0, float, "-I")
+    weight_multiplier = _parse_at(get("-m"), 0, float, "-m")
+    use_self = "-S" not in args
+
+    e_tokens = get("-e")
+    if e_tokens[0] != "normal":
+        raise ValueError(f"Emission type {e_tokens[0]} unknown or not implemented yet!")
+    if "-a" not in args:
+        raise ValueError("Manual theta priors not implemented, use -a!")
+    s2 = _parse_at(e_tokens, 1, float, "-e")
+    p = _parse_at(e_tokens, 2, float, "-e")
+
+    outputs = {_OUTPUT_ALIASES.get(t, t) for t in get("-O")}
+
+    n_devices = _parse_at(args["-D"], 0, int, "-D") if args.get("-D") else 1
+    if n_devices > 1:
+        raise ValueError(
+            f"-D {n_devices}: the position-sharded engine is not ported to "
+            "hammlet_tpu_torch yet (see ROADMAP.md); the port runs on one "
+            "device (-D 1)"
+        )
+
+    # the device the engine will take (make_engine's own choice)
+    from hammlet_tpu_torch.device import resolve_device
+
+    device = resolve_device(None)
+
+    if verbose:
+        K = nr_params**nr_dim
+        print(f"Data dimensions: {nr_dim}")
+        print(f"Emission distributions: {nr_params}")
+        print(f"States: {K}")
+        print(f"Sampling scheme: {' '.join(get('-i'))}")
+        print(f"Random seed: {seed}")
+        print(f"Device: {device}")
+        if "-f" in args:
+            for f in args["-f"]:
+                print(f"Reading {f}")
+        else:
+            print("Reading from standard input")
+
+    # validate the sampling scheme before any file is created or data read
+    # (the reference checks -i tokens up front, main.cpp:367-377)
+    from hammlet_tpu_torch.runner import parse_scheme
+
+    parse_scheme(get("-i"))
+
+    # -M: every -f file is an INDEPENDENT chain (the reference's WGS
+    # workflow runs one process per chromosome, bin/samToCounts:5-7), each
+    # with its own auto-priors, RNG stream, and output files
+    # {prefix}{filestem}-*{suffix}. The chains run one after another on the
+    # one device, as the JAX package runs them on one device. Each chain
+    # checkpoints to its own file, PATH with "-{filestem}" before the
+    # extension (one shared file would hand one chain's state to the next).
+    if "-M" in args:
+        files = args.get("-f") or []
+        if len(files) < 1:
+            raise ValueError("-M requires at least one -f input file")
+        rc = 0
+        for fpath in files:
+            stem = os.path.basename(fpath)
+            if stem.endswith(".gz"):
+                stem = stem[:-3]
+            stem = stem.rsplit(".", 1)[0]
+            sub = {k: list(v) for k, v in args.items()}
+            del sub["-M"]
+            sub["-f"] = [fpath]
+            sub["-o"] = [f"{opref}{stem}-", osuff]
+            if sub.get("-C"):
+                base, ext = os.path.splitext(sub["-C"][0])
+                sub["-C"][0] = f"{base}-{stem}{ext}"
+            rc |= _run(sub)
+        return rc
+
+    data = read_values(args.get("-f"), nr_dim)
+    T = data.shape[0]
+    if verbose:
+        print(f"Output will be written to {opref}*{osuff}")
+        print(f"Number of data points: {T}")
+        print("Calculating Haar breakpoint weights")
+
+    ckpt_path = args["-C"][0] if args.get("-C") else None
+    ckpt_every = (
+        _parse_at(args["-C"], 1, int, "-C") if ckpt_path and len(args["-C"]) > 1 else 100
+    )
+    resume = ckpt_path is not None and os.path.exists(ckpt_path)
+    resume_records = None
+    if resume:
+        # the per-sweep streams keep the lines of the sweeps the checkpoint
+        # holds and continue after them
+        with np.load(ckpt_path) as z:
+            resume_records = int(z["n_records"])
+    records = Records(
+        T,
+        opref,
+        osuff,
+        nr_params**nr_dim,
+        outputs=outputs,
+        overwrite=overwrite,
+        resume_records=resume_records,
+    )
+    if "mapping" in outputs:
+        # -O D/mapping: the state -> emission-parameter assignment is static
+        # (combinations scheme), so it is written once up front. Upstream
+        # registers the flag but leaves the handler an empty TODO
+        # (main.cpp:249-252); this writes the documented content.
+        from hammlet_tpu_torch.models.mapping import combinations_mapping
+
+        records.save_mapping(combinations_mapping(nr_dim, nr_params))
+    engine = make_engine(
+        data,
+        nr_params=nr_params,
+        nr_data_dim=nr_dim,
+        seed=seed,
+        s2=s2,
+        p=p,
+        trans=trans,
+        self_trans=self_trans,
+        initial_alpha=initial_alpha,
+        weight_multiplier=weight_multiplier,
+        use_self_transitions=use_self,
+        records=records,
+        device=device,
+    )
+    if ckpt_path is not None:
+        from hammlet_tpu_torch.checkpoint import restore_checkpoint
+
+        engine.checkpoint_path = ckpt_path
+        engine.checkpoint_every = ckpt_every
+        if resume:
+            restore_checkpoint(engine, engine.checkpoint_path)
+            if verbose:
+                print(
+                    f"Resumed from {engine.checkpoint_path} at sweep "
+                    f"{engine.sweeps_completed}"
+                )
+    engine.run_scheme(get("-i"))
+    engine.finalize()
+    if verbose:
+        print(
+            f"Sampled {engine.total_sweeps:.0f} sweeps at "
+            f"{engine.sweeps_per_second:.2f} sweeps/s"
+        )
+        print("Exit HaMMLET")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

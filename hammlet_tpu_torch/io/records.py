@@ -44,6 +44,8 @@ class Records:
     only turns fetched arrays into the reference CSV streams."""
 
     STREAMS = ("marginals", "sequences", "blocks", "compression", "parameters", "segments")
+    #: the streams that get one line per recorded sweep
+    PER_SWEEP = ("sequences", "blocks", "compression", "parameters", "segments")
 
     def __init__(
         self,
@@ -54,14 +56,19 @@ class Records:
         outputs: set[str] | None = None,
         overwrite: bool = False,
         write: bool = True,
+        resume_records: int | None = None,
     ):
         """``write=False`` makes this a non-writing participant: it keeps
         the ``enabled`` set (so every rank of a multi-host run takes the
         same record-fetching code paths) but opens no files and every
         record call is a no-op. The reference has a single writer by
-        construction (Records.hpp:52-70); in a multi-host run only the
-        primary process passes write=True (cli.py routes this through
-        parallel.distributed.is_primary())."""
+        construction (Records.hpp:52-70).
+
+        ``resume_records`` continues a run resumed from a checkpoint that
+        had recorded that many sweeps: each per-sweep stream keeps its
+        first ``resume_records`` lines (the sweeps the checkpoint holds;
+        later lines belong to sweeps the resumed run redoes) and appends
+        after them, instead of starting empty."""
         self.T = T
         self.nr_states = nr_states
         self.prefix = prefix
@@ -81,47 +88,12 @@ class Records:
                     raise FileExistsError(
                         f"File {path} already exists! Use -w to allow overwrite!"
                     )
-                self._files[name] = open(path, "w")
+                if resume_records is not None and name in self.PER_SWEEP:
+                    self._files[name] = _open_resumed(path, resume_records)
+                else:
+                    self._files[name] = open(path, "w")
 
     # -- per-sweep records ------------------------------------------------
-
-    def wants_block_level(self) -> bool:
-        """True if any stream needs per-sweep block/state arrays on host."""
-        return bool(
-            {"sequences", "blocks", "compression", "segments"} & self.enabled
-        )
-
-    def record_sweep(
-        self,
-        states: np.ndarray,
-        sizes: np.ndarray,
-        n_blocks: int,
-        n_boundaries: int | None = None,
-    ) -> None:
-        """Record one sweep's block-level results (reference
-        Records::record(state, N), Records.hpp:155-235)."""
-        states = states[:n_blocks]
-        sizes = sizes[:n_blocks]
-        if "blocks" in self._files:
-            self._files["blocks"].write("\t".join(str(int(n)) for n in sizes) + "\n")
-        if "compression" in self._files:
-            self._files["compression"].write(
-                _fmt_g(self.T / max(1, n_blocks)) + "\n"
-            )
-        if "sequences" in self._files or "segments" in self._files:
-            seg_sizes, seg_states = _merge_runs(states, sizes)
-            if "sequences" in self._files:
-                self._files["sequences"].write(
-                    "\t".join(
-                        f"{int(n)}:{int(s)}" for n, s in zip(seg_sizes, seg_states)
-                    )
-                    + "\n"
-                )
-            if "segments" in self._files:
-                nseg = n_boundaries + 1 if n_boundaries is not None else len(seg_sizes)
-                # internal size of our store: one count row per segment
-                internal = nseg * (self.nr_states + 1)
-                self._files["segments"].write(f"{nseg}\t{internal}\n")
 
     def record_sweeps_batch(
         self,
@@ -130,13 +102,12 @@ class Records:
         n_blocks: np.ndarray,
         n_bounds: np.ndarray | None = None,
     ) -> None:
-        """Record a whole scan chunk of recorded sweeps at once: (R, cap)
-        block states/sizes + per-sweep block counts. Formatting ~capacity
-        integers per sweep in Python costs more than the TPU sweep itself
-        (measured 150 vs 698 sweeps/s all-streams), so the CSV bytes are
-        produced by the native batch formatters when the C++ library is
-        built (byte-identical to the per-sweep path, which remains the
-        fallback)."""
+        """Record a whole chunk of recorded sweeps at once (reference
+        Records::record(state, N), Records.hpp:155-235): (R, cap) block
+        states/sizes + per-sweep block counts. Formatting ~capacity integers
+        per sweep in Python is slow, so the CSV bytes come from the native
+        batch formatters when the C++ library is built, and from the
+        byte-identical Python loops below otherwise."""
         if not (
             {"sequences", "blocks", "segments", "compression"} & set(self._files)
         ):
@@ -154,10 +125,7 @@ class Records:
                     )
             else:
                 self._files["blocks"].write(out.decode("ascii"))
-        if "compression" in self._files:
-            self._files["compression"].write(
-                "".join(_fmt_g(self.T / max(1, int(n))) + "\n" for n in ns)
-            )
+        self.record_compressions(ns)
         if "sequences" in self._files or "segments" in self._files:
             res = (
                 native.format_rle_lines(states, sizes, ns)
@@ -200,12 +168,11 @@ class Records:
                             f"{nseg}\t{nseg * (self.nr_states + 1)}\n"
                         )
 
-    def record_compression(self, n_blocks: int) -> None:
-        """Compression-ratio line only (used by the scanned fast path that
-        doesn't materialize per-sweep block arrays)."""
+    def record_compressions(self, n_blocks: np.ndarray) -> None:
+        """One compression line, T / #blocks, per recorded sweep."""
         if "compression" in self._files:
             self._files["compression"].write(
-                _fmt_g(self.T / max(1, n_blocks)) + "\n"
+                "".join(_fmt_g(self.T / max(1, int(n))) + "\n" for n in n_blocks)
             )
 
     def record_theta(self, theta_mean: np.ndarray, theta_var: np.ndarray) -> None:
@@ -276,6 +243,14 @@ class Records:
             )
         f.write("\n".join(lines) + "\n")
 
+    def flush(self) -> None:
+        """Push every open stream to the disk (the file's buffer, then the
+        OS cache), so that a checkpoint saved next counts no line that a
+        killed process could still lose."""
+        for fh in self._files.values():
+            fh.flush()
+            os.fsync(fh.fileno())
+
     def close(self) -> None:
         for fh in self._files.values():
             fh.close()
@@ -286,6 +261,28 @@ class Records:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def _open_resumed(path: str, n_lines: int) -> IO[str]:
+    """Open a per-sweep stream for appending after its first ``n_lines``
+    complete lines, dropping the rest (a cut-off last line included)."""
+    kept = end = 0
+    if os.path.exists(path):
+        with open(path, "rb") as fh:
+            while kept < n_lines:
+                line = fh.readline()
+                if not line.endswith(b"\n"):
+                    break
+                kept += 1
+                end += len(line)
+    if kept < n_lines:
+        raise ValueError(
+            f"{path} holds {kept} lines but the checkpoint recorded "
+            f"{n_lines} sweeps; cannot resume this stream"
+        )
+    fh = open(path, "a")
+    fh.truncate(end)
+    return fh
 
 
 def _merge_runs(states: np.ndarray, sizes: np.ndarray):

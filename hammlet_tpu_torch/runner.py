@@ -24,6 +24,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from hammlet_tpu_torch.checkpoint import save_checkpoint
+from hammlet_tpu_torch.debug import check_marginal_sums, debug_enabled, raise_on_error
 from hammlet_tpu_torch.device import resolve_device, synchronize
 from hammlet_tpu_torch.io.records import Records
 from hammlet_tpu_torch.models.autopriors import autoprior, autoprior_host, noise_std_estimate
@@ -46,6 +48,7 @@ from hammlet_tpu_torch.ops.blocks import (
 )
 from hammlet_tpu_torch.ops.wavelet import breakpoint_weights, maxlet_transform
 from hammlet_tpu_torch.ops.wavelet_cuda import maxlet_transform_cuda
+from hammlet_tpu_torch.parallel.sharded import _reassemble_block_rows
 from hammlet_tpu_torch.samplers.sweep import RecordBuffers, gibbs_phase, make_generator
 
 
@@ -291,32 +294,32 @@ class Engine:
     seed: int
     records: Records | None = None
     capacity: int | None = None
+    checkpoint_path: str | None = None
+    checkpoint_every: int = 0  # sweeps between checkpoints (0 = off)
     max_capacity: int | None = None  # ceiling (None = _MAX_CAPACITY)
 
     model: HMMState = field(init=False)
     buffers: RecordBuffers = field(init=False)
     sweep_counter: int = field(init=False, default=0)
-    # scheme cursor: (index of the next -i op, sweeps already done within it)
+    sweeps_completed: int = field(init=False, default=0)
+    # scheme cursor: (index of the next -i op, sweeps already done within it);
+    # checkpointed so a resumed run_scheme() continues where the interrupted
+    # one stopped
     scheme_op_index: int = field(init=False, default=0)
     scheme_op_done: int = field(init=False, default=0)
     last_n_blocks: int = field(init=False, default=0)
-    #: one (method, sweeps, seconds) entry per run() call
+    #: one (method, sweeps, seconds) entry per run() call of this process
+    #: (not checkpointed: a resumed process reports its own rate)
     phase_log: list = field(init=False, default_factory=list)
 
     def __post_init__(self):
-        if self.records is not None:
-            missing = {"sequences", "blocks", "segments"} & self.records.enabled
-            if missing:
-                raise NotImplementedError(
-                    f"record streams {sorted(missing)} are not ported to "
-                    "hammlet_tpu_torch yet (see ROADMAP.md); use marginals, "
-                    "parameters and compression"
-                )
         self.device = self.ing.ranked.pos_by_rank.device
         self._mapping = torch.as_tensor(
             self.spec.mapping().astype(np.int64), device=self.device
         )
         self._cands: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        self._cands_h: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+        self._last_ckpt = 0
         self.buffers = RecordBuffers.create(
             self.ing.T, self.spec.nr_states, self.device
         )
@@ -352,6 +355,15 @@ class Engine:
                 self.ing.ranked, self.capacity
             )
         return self._cands[self.capacity]
+
+    def _candidates_host(self, capacity: int) -> tuple[np.ndarray, np.ndarray]:
+        """Host copies of the candidate arrays for one capacity (downloaded
+        once per capacity; lets the record drain rebuild every sweep's block
+        sizes without shipping them from the device)."""
+        if capacity not in self._cands_h:
+            cand_pos, cand_rank = self._cands[capacity]
+            self._cands_h[capacity] = (cand_pos.cpu().numpy(), cand_rank.cpu().numpy())
+        return self._cands_h[capacity]
 
     # -- scheme ops -------------------------------------------------------
 
@@ -393,6 +405,12 @@ class Engine:
         self, method: str, iterations: int, thinning: int, start: int = 0
     ) -> None:
         recording = thinning > 0
+        want_blocks = (
+            recording
+            and self.records is not None
+            and bool({"sequences", "blocks", "segments"} & self.records.enabled)
+        )
+        debug = debug_enabled()
         done = start
         end = start + iterations
         while done < end:
@@ -403,7 +421,7 @@ class Engine:
             counter = self.sweep_counter  # fixed across overflow replays
             while True:
                 cand_pos, cand_rank = self._candidates()
-                model, buffers, prev, diag, nbs, means, varis = gibbs_phase(
+                model, buffers, prev, diag, nbs, means, varis, blk = gibbs_phase(
                     self.seed,
                     counter,
                     self.model,
@@ -422,9 +440,12 @@ class Engine:
                     thinning=thin_s,
                     cell_bits=self.ing.cell_bits,
                     record=rec_s,
+                    want_blocks=want_blocks,
+                    debug=debug,
                 )
                 # the chunk's single host sync: [max_nb, last_nb, err]
                 diag_h = diag.cpu().numpy()
+                raise_on_error(int(diag_h[2]))
                 max_nb = int(diag_h[0])
                 if max_nb <= self.capacity:
                     self.model, self.buffers = model, buffers
@@ -456,8 +477,9 @@ class Engine:
                 if prev is not None:
                     self.buffers = prev
             if self.records is not None and rec_s:
-                self._drain_records(nbs, means, varis)
+                self._drain_records(nbs, means, varis, blk, self.capacity)
             done += n
+            self.sweeps_completed += n
             self.scheme_op_done = done
             # shrink the capacity to track the block count (grows back via
             # replay); 12.5% headroom
@@ -468,16 +490,54 @@ class Engine:
             )
             if target < self.capacity:
                 self.capacity = target
+            self._maybe_checkpoint()
 
-    def _drain_records(self, nbs, means, varis) -> None:
-        """Write one chunk's per-recorded-sweep rows to the enabled
-        streams."""
-        if "compression" in self.records.enabled:
-            for nb in nbs.cpu().tolist():
-                self.records.record_compression(int(nb))
-        if "parameters" in self.records.enabled:
+    def _drain_records(self, nbs, means, varis, blk, capacity: int) -> None:
+        """Drain one chunk's per-recorded-sweep stacks into the enabled
+        record streams (one host copy per stack).
+
+        Block sizes never travel from the device: a sweep's boundary set is
+        exactly ``cand_pos[cand_rank < n_blocks]`` (make_blocks_bucketed)
+        and the candidate arrays are fixed per capacity, so the sizes are
+        rebuilt here from the per-sweep block count; the device ships only
+        the (R, capacity) states in the smallest dtype that fits K."""
+        wants_comp = "compression" in self.records.enabled
+        wants_params = "parameters" in self.records.enabled
+        if not (wants_comp or wants_params or blk is not None):
+            return
+        nbs_h = nbs.cpu().numpy()
+        if blk is not None:
+            pos_h, rank_h = self._candidates_host(capacity)
+            # the P = 1, T_local = T case of the sharded drain
+            states_d, sizes_d, ns_tot = _reassemble_block_rows(
+                blk[0].cpu().numpy().astype(np.int32),
+                nbs_h[:, None].astype(np.int64),
+                pos_h[None, :],
+                rank_h[None, :],
+                self.ing.T,
+                self.ing.T,
+            )
+            self.records.record_sweeps_batch(
+                states_d, sizes_d, ns_tot, blk[1].cpu().numpy()
+            )
+        else:
+            self.records.record_compressions(nbs_h)
+        if wants_params:
             for m, v in zip(means.cpu().numpy(), varis.cpu().numpy()):
                 self.records.record_theta(m, v)
+
+    def _maybe_checkpoint(self) -> None:
+        """Save a checkpoint when ``checkpoint_every`` sweeps have completed
+        since the last one. The record streams drain synchronously after
+        each chunk and are flushed to the disk first, so every line the
+        checkpoint counts survives a kill after the save."""
+        if not self.checkpoint_path or self.checkpoint_every <= 0:
+            return
+        if self.sweeps_completed - self._last_ckpt >= self.checkpoint_every:
+            if self.records is not None:
+                self.records.flush()
+            save_checkpoint(self, self.checkpoint_path)
+            self._last_ckpt = self.sweeps_completed
 
     def run_scheme(self, tokens: list[str]) -> None:
         run_scheme_resumable(self, tokens)
@@ -485,8 +545,6 @@ class Engine:
     def finalize(self) -> None:
         if self.records is not None:
             if "marginals" in self.records.enabled:
-                from hammlet_tpu_torch.debug import check_marginal_sums
-
                 starts, seg_counts = compact_marginals(self.buffers)
                 # save-time invariant (StateMarginals.hpp:306-308)
                 check_marginal_sums(seg_counts, int(self.buffers.n_records))
@@ -500,6 +558,18 @@ class Engine:
         K = self.spec.nr_states
         flat = self.buffers.counts.cpu().numpy().astype(np.int64)
         return np.cumsum(flat.reshape(K, T), axis=1).astype(np.int32)
+
+    @property
+    def total_sweeps(self) -> float:
+        return float(sum(n for _, n, _ in self.phase_log))
+
+    @property
+    def sample_time(self) -> float:
+        return sum(secs for _, _, secs in self.phase_log)
+
+    @property
+    def sweeps_per_second(self) -> float:
+        return self.total_sweeps / max(self.sample_time, 1e-9)
 
 
 def make_engine(

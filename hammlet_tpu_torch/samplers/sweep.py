@@ -27,6 +27,7 @@ from dataclasses import dataclass
 
 import torch
 
+from hammlet_tpu_torch import debug as _debug
 from hammlet_tpu_torch.models.hmm import (
     HMMPriors,
     HMMState,
@@ -197,10 +198,13 @@ def _sweep_core(
     use_self_transitions: bool,
     cell_bits: int,
     record: bool,
-) -> tuple[HMMState, torch.Tensor]:
+    debug: bool = False,
+) -> tuple[HMMState, torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """One Gibbs iteration. ``threshold`` None means dynamic (from the
-    model). Returns (new model, n_blocks); records in place when
-    ``record``."""
+    model). Returns (new model, n_blocks, per-block states, error bits);
+    records in place when ``record``. The error bits (hammlet_tpu_torch.debug)
+    are None unless ``debug``: without it the sweep issues none of their
+    ops."""
     T = ranked.pos_by_rank.shape[0]
     capacity = cand_rank.shape[0]
     thr = model.threshold(T) if threshold is None else threshold
@@ -232,7 +236,14 @@ def _sweep_core(
             buffers, states, blocks.starts, blocks.n_blocks,
             enabled=blocks.n_blocks <= capacity,
         )
-    return new_model, blocks.n_blocks
+    err = None
+    if debug:
+        # the INPUT model is what the sweep sampled from: a poisoned
+        # parameter must fail this sweep even though the conjugate resample
+        # would produce a finite model again (the reference guards every
+        # parameter setter, Observation.hpp:374-392)
+        err = _debug.model_error_bits(model, bstats) | _debug.model_error_bits(new_model)
+    return new_model, blocks.n_blocks, states, err
 
 
 def gibbs_phase(
@@ -255,6 +266,8 @@ def gibbs_phase(
     thinning: int = 0,
     cell_bits: int = 16,
     record: bool = True,
+    want_blocks: bool = False,
+    debug: bool = False,
 ):
     """n_iters Gibbs sweeps with no host sync.
 
@@ -262,36 +275,57 @@ def gibbs_phase(
     and ``thinning`` > 0, sweep i records when i % thinning == thinning-1
     (the chunk starts on a thinning multiple; the engine aligns it).
 
-    Returns (model, buffers, prev, diag, rec_nbs, rec_means, rec_vars):
-    ``prev`` is the pre-chunk snapshot of the buffers for an overflow
+    Returns (model, buffers, prev, diag, rec_nbs, rec_means, rec_vars,
+    blk): ``prev`` is the pre-chunk snapshot of the buffers for an overflow
     replay (None when not recording); ``diag`` = [max n_blocks,
-    last n_blocks, 0] (the error-bit slot of the JAX package's diag);
-    the rec_* stacks hold one row per recorded sweep (per sweep when not
-    recording)."""
+    last n_blocks, error bits] with the error bits OR-reduced over the
+    chunk when ``debug`` (else 0); the rec_* stacks hold one row per
+    recorded sweep (per sweep when not recording). ``blk`` is None unless
+    ``want_blocks`` on a recording chunk; then it stacks, per recorded
+    sweep, the (capacity,) block states in the smallest dtype that fits K
+    and the post-record ``n_boundaries``. Block sizes are not stacked: the
+    drain rebuilds them from the candidate arrays and the block count (a
+    sweep's boundary set is ``cand_pos[cand_rank < n_blocks]``,
+    make_blocks_bucketed)."""
     dev = cand_pos.device
     record = record and thinning > 0
+    want_blocks = want_blocks and record
     prev = buffers.clone() if record else None
     thr = (
         None if static_threshold is None
         else torch.tensor(static_threshold, dtype=torch.float32, device=dev)
     )
-    nbs, means, varis = [], [], []
+    K = mapping.shape[0]
+    state_dtype = torch.int8 if K <= 127 else torch.int16 if K <= 32767 else torch.int32
+    nbs, means, varis, blk_states, blk_bounds = [], [], [], [], []
+    err = None
     for i in range(n_iters):
         rec = record and i % thinning == thinning - 1
-        model, nb = _sweep_core(
+        model, nb, states, e = _sweep_core(
             make_generator(dev, seed, counter, i), model, priors, ranked,
             cand_pos, cand_rank, prefix, buffers, thr,
             method=method, nr_params=nr_params, mapping=mapping,
             use_self_transitions=use_self_transitions, cell_bits=cell_bits,
-            record=rec,
+            record=rec, debug=debug,
         )
         nbs.append(nb)
         means.append(model.theta_mean)
         varis.append(model.theta_var)
+        if debug:
+            err = e if err is None else err | e
+        if rec and want_blocks:
+            blk_states.append(states.to(state_dtype))
+            # the buffers update in place: keep this sweep's count
+            blk_bounds.append(buffers.n_boundaries.clone())
+        # drop the (capacity,) int64 states before the next sweep allocates
+        # its own: at burn-in capacities ~T they would raise the peak memory
+        del states
     nbs_t = torch.stack(nbs)
-    diag = torch.stack([nbs_t.max(), nbs_t[-1], torch.zeros_like(nbs_t[-1])])
+    err = torch.zeros_like(nbs_t[-1]) if err is None else err.to(nbs_t.dtype)
+    diag = torch.stack([nbs_t.max(), nbs_t[-1], err])
     rows = slice(thinning - 1, None, thinning) if record else slice(None)
+    blk = (torch.stack(blk_states), torch.stack(blk_bounds)) if want_blocks else None
     return (
         model, buffers, prev, diag, nbs_t[rows],
-        torch.stack(means)[rows], torch.stack(varis)[rows],
+        torch.stack(means)[rows], torch.stack(varis)[rows], blk,
     )

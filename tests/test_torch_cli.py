@@ -1,0 +1,261 @@
+"""The port's command line (hammlet_tpu_torch/cli.py) against the JAX
+package's (hammlet_tpu/cli.py): the same parse, the same error texts, the
+same -g dump, the same streams end to end, and -M chains."""
+
+import itertools
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_helpers import synth_segments
+from hammlet_tpu import cli as jcli
+from hammlet_tpu.golden.parity import read_marginals, tv_aligned
+from hammlet_tpu_torch import cli as tcli
+
+torch.set_num_threads(1)
+
+ARGVS = [
+    ["-f", "a.csv", "b.csv", "-s", "3", "-a", "-R", "4", "-w"],
+    ["-input-file", "x", "-random-seed", "11", "-auto-priors", "-overwrite"],
+    ["-t", "-0.5", "-m", "-2", "-I", "-.25", "-e", "normal", "0.3", "0.8"],
+    ["-states", "C", "2", "2", "-transitions", "1", "2", "-no-self-transitions"],
+    ["-O", "M", "S", "P", "B", "C", "D", "G", "-o", "out-", ".tsv", "-v", "-g"],
+    ["-output-data", "marginals", "-output-pattern", "p", "s", "-verbose"],
+    ["-i", "M", "5", "0", "S", "P", "F", "10", "2", "-iterations-x"],
+    ["-C", "ck.npz", "50", "-D", "1", "-M", "-f", "c1.csv", "c2.csv"],
+    ["-checkpoint", "ck", "-devices", "2", "-multi", "-help", "--help"],
+    ["-weight-multiplier", "1.5", "-initial-dist", "0.1", "-arguments"],
+    ["-h"],
+    [],
+    ["data.csv"],
+    ["-s", "3", "-s", "4"],
+    ["-s", "3", "-states", "4"],
+    ["-f", "x", "-q"],
+]
+
+
+def _parse(parse, argv):
+    try:
+        return parse(argv)
+    except SystemExit as e:
+        return ("SystemExit", str(e))
+
+
+@pytest.mark.parametrize("argv", ARGVS, ids=lambda a: " ".join(a)[:40] or "empty")
+def test_parse_args_matches_jax(argv):
+    """Exact: the same dict (or the same error) for long and short aliases
+    and negative numbers."""
+    assert _parse(tcli.parse_args, argv) == _parse(jcli.parse_args, argv)
+
+
+ERROR_ARGVS = [
+    ["-f", "x", "-q"],  # unknown flag
+    ["-s", "3", "-s", "4"],  # duplicate
+    ["data.csv"],  # positional first
+    ["-R", "eleven", "-a"],  # conversion
+    ["-a", "-e", "normal", "0.2"],  # missing argument
+    ["-a", "-t", "x"],
+    ["-a", "-s", "X", "2"],
+    ["-a", "-s", "I", "2"],
+    ["-a", "-e", "gamma", "1", "1"],
+    ["-s", "3", "-R", "1"],  # no -a
+    ["-a", "-R", "1", "-i", "F", "10"],  # malformed scheme
+    ["-a", "-R", "1", "-i", "F", "10", "2", "X"],
+    ["-a", "-R", "1", "-M"],  # -M without -f
+]
+
+
+@pytest.mark.parametrize("argv", ERROR_ARGVS, ids=lambda a: " ".join(a))
+def test_error_texts_match_jax(argv, capsys, tmp_path, monkeypatch):
+    """Exact: the same exit code and standard error, and no file made."""
+    monkeypatch.chdir(tmp_path)
+    rc_j = jcli.main(list(argv))
+    err_j = capsys.readouterr()
+    rc_t = tcli.main(list(argv))
+    err_t = capsys.readouterr()
+    assert (rc_t, err_t.err, err_t.out) == (rc_j, err_j.err, err_j.out) and rc_t == 1
+    assert not list(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("argv", [
+    ["-g", "-a", "-R", "4", "-i", "F", "10"],
+    ["-arguments", "-f", "d.csv", "-O", "C", "G", "-s", "C", "2", "2", "-t", "-1", "-i", "F", "2", "0", "X"],
+])
+def test_argument_dump_byte_identical(argv, capsys, tmp_path, monkeypatch):
+    """Exact: the -g dump (printed before the scheme check fails) is the
+    JAX package's, byte for byte."""
+    monkeypatch.chdir(tmp_path)
+    assert jcli.main(list(argv)) == 1
+    want = capsys.readouterr()
+    assert tcli.main(list(argv)) == 1
+    got = capsys.readouterr()
+    assert got.out == want.out and got.out.count("\n") == len(tcli._REGISTERED)
+    assert got.err == want.err
+
+
+def _data_file(tmp_path, T=1200, seed=3):
+    f = tmp_path / "d.csv"
+    np.savetxt(f, synth_segments(T, seed)[0])
+    return str(f)
+
+
+def test_fails_before_any_output(tmp_path, capsys):
+    """Omitting -a, a malformed -i, -D 2 and HAMMLET_NUM_PROCESSES > 1 fail
+    before any output file exists; without -w an existing output stops the
+    run before the next stream's file is made."""
+    f = _data_file(tmp_path)
+    base = ["-f", f, "-o", str(tmp_path / "o-"), ".csv", "-R", "1", "-O", "M", "S"]
+    for extra, text in [
+        ([], "use -a"),
+        (["-a", "-i", "F", "10"], "multiples of 3"),
+        (["-a", "-D", "2"], "ROADMAP"),
+        (["-a", "-devices", "3", "-M"], "ROADMAP"),
+    ]:
+        assert tcli.main(base + extra) == 1
+        err = capsys.readouterr().err
+        assert "[ERROR]" in err and text in err, (extra, err)
+        assert sorted(p.name for p in tmp_path.iterdir()) == ["d.csv"], extra
+
+    (tmp_path / "o-marginals.csv").write_text("keep\n")
+    assert tcli.main(base + ["-a"]) == 1
+    assert "already exists" in capsys.readouterr().err
+    assert (tmp_path / "o-marginals.csv").read_text() == "keep\n"
+    assert not (tmp_path / "o-sequences.csv").exists()
+
+
+@pytest.mark.parametrize("value", ["2", "auto"])
+def test_multi_host_env_refused(tmp_path, capsys, monkeypatch, value):
+    monkeypatch.setenv("HAMMLET_NUM_PROCESSES", value)
+    f = _data_file(tmp_path)
+    assert tcli.main(["-f", f, "-a", "-R", "1", "-w"]) == 1
+    assert "multi-host runtime is not ported" in capsys.readouterr().err
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["d.csv"]
+
+
+# ---- end to end -------------------------------------------------------------
+
+T_E2E = 3000
+N_REC = 30  # F 60 2
+STREAMS = ("marginals", "sequences", "parameters", "blocks", "compression", "mapping", "segments")
+
+
+@pytest.fixture(scope="module")
+def e2e(tmp_path_factory):
+    """Both CLIs, two seeds each, all seven outputs, on low-SNR data
+    (segments of 100, means {0, 1, -1}: the posterior is uncertain, so the
+    seeds disagree and the envelope is wide enough to mean something)."""
+    tmp = tmp_path_factory.mktemp("e2e")
+    data, truth = synth_segments(T_E2E, 7, seglen=100, scale=0.5)
+    np.savetxt(tmp / "d.csv", data)
+    for (who, main), seed in itertools.product((("jax", jcli.main), ("torch", tcli.main)), (1, 2)):
+        argv = [
+            "-f", str(tmp / "d.csv"), "-o", str(tmp / f"{who}{seed}-"), ".csv",
+            "-s", "3", "-a", "-R", str(seed), "-i", "M", "20", "0", "F", "60", "2",
+            "-O", *STREAMS, "-w",
+        ]
+        assert main(argv) == 0, who
+    return tmp, truth
+
+
+@pytest.mark.parametrize("who", ["jax", "torch"])
+def test_cli_streams_structure(e2e, who):
+    """Every stream of both CLIs passes tests/test_e2e.py's structural
+    checks; the last segments line counts the marginals rows, and the
+    mapping is the combinations mapping."""
+    tmp, _ = e2e
+    T = T_E2E
+
+    def read(s, seed=1):
+        return (tmp / f"{who}{seed}-{s}.csv").read_text().splitlines()
+
+    seq_re = re.compile(r"^\d+:\d+(\t\d+:\d+)*$")
+    seq_bounds = []
+    seq_lines = read("sequences")
+    assert len(seq_lines) == N_REC
+    for line in seq_lines:
+        assert seq_re.match(line), line[:80]
+        toks = [tuple(map(int, t.split(":"))) for t in line.split("\t")]
+        assert sum(n for n, _ in toks) == T
+        assert all(a[1] != b[1] for a, b in zip(toks, toks[1:]))
+        seq_bounds.append(np.cumsum([n for n, _ in toks])[:-1])
+
+    blk_lines, comp_lines = read("blocks"), read("compression")
+    assert len(blk_lines) == len(comp_lines) == N_REC
+    for bl, cl in zip(blk_lines, comp_lines):
+        sizes = list(map(int, bl.split("\t")))
+        assert sum(sizes) == T and all(s > 0 for s in sizes)
+        assert cl == f"{T / len(sizes):.6g}"
+
+    par_lines = read("parameters")
+    assert len(par_lines) == N_REC
+    for line in par_lines:
+        fields = line.split("\t")
+        assert len(fields) == 6 and all(re.match(r"^-?\d+\.\d{6}$", f) for f in fields)
+
+    segs = [tuple(map(int, x.split("\t"))) for x in read("segments")]
+    assert len(segs) == N_REC
+    assert all(0 < n <= T and internal == n * 4 for n, internal in segs)
+    assert [n for n, _ in segs] == sorted(n for n, _ in segs)  # the union only grows
+
+    rows = [list(map(int, x.split("\t"))) for x in read("marginals")]
+    assert sum(r[0] for r in rows) == T
+    assert all(sum(r[1:]) == N_REC for r in rows)
+    assert segs[-1][0] == len(rows)
+    marg_bounds = set(np.cumsum([r[0] for r in rows])[:-1].tolist())
+    for bounds in seq_bounds:
+        assert not set(bounds.tolist()) - marg_bounds
+
+    assert read("mapping") == ["0", "1", "2"]
+
+
+def test_cli_marginals_within_seed_envelope(e2e):
+    """Statistical (the random streams differ): the mean JAX-vs-port
+    marginal distance stays within the seed-to-seed envelope, as in
+    test_torch_runner.py::test_slice_end_to_end_vs_jax, and the port's MAP
+    accuracy within 0.02 of the JAX runs'."""
+    tmp, truth = e2e
+    mj = [read_marginals(tmp / f"jax{s}-marginals.csv") for s in (1, 2)]
+    mt = [read_marginals(tmp / f"torch{s}-marginals.csv") for s in (1, 2)]
+    envelope = (tv_aligned(mj[0], mj[1]) + tv_aligned(mt[0], mt[1])) / 2
+    ours = np.mean([tv_aligned(a, b) for a in mj for b in mt])
+    assert ours <= envelope + max(0.5 * envelope, 0.005) + 0.002, (ours, envelope)
+
+    def accuracy(m):
+        return max(
+            float((np.asarray(p)[m.argmax(axis=1)] == truth).mean())
+            for p in itertools.permutations(range(3))
+        )
+
+    assert min(map(accuracy, mt)) >= min(map(accuracy, mj)) - 0.02
+
+
+# ---- -M ---------------------------------------------------------------------
+
+
+def test_multi_chain_matches_solo_runs(tmp_path):
+    """Exact: every -M chain's outputs are byte-identical to a solo run of
+    its file with the same seed; with -C each chain checkpoints to its own
+    file, and a rerun resumes each chain from its own state."""
+    files = []
+    for i, T in enumerate((800, 800, 1100)):
+        f = tmp_path / f"chr{i + 1}.csv"
+        np.savetxt(f, synth_segments(T, 10 + i)[0])
+        files.append(str(f))
+    common = ["-s", "2", "-a", "-R", "3", "-i", "M", "8", "0", "F", "12", "2",
+              "-O", "marginals", "sequences", "parameters", "-w"]
+    ck = tmp_path / "run.npz"
+    argv = ["-M", "-f", *files, "-o", str(tmp_path / "wgs-"), ".csv", "-C", str(ck), "8", *common]
+    assert tcli.main(argv) == 0
+    assert not ck.exists()
+    for i in range(3):
+        assert (tmp_path / f"run-chr{i + 1}.npz").exists()
+        assert tcli.main(["-f", files[i], "-o", str(tmp_path / f"solo{i}-"), ".csv", *common]) == 0
+    outputs = {}
+    for i, s in itertools.product(range(3), ("marginals", "sequences", "parameters")):
+        outputs[i, s] = (tmp_path / f"wgs-chr{i + 1}-{s}.csv").read_bytes()
+        assert outputs[i, s] == (tmp_path / f"solo{i}-{s}.csv").read_bytes(), (i, s)
+    assert tcli.main(argv) == 0  # every chain's checkpoint is finished
+    for (i, s), b in outputs.items():
+        assert (tmp_path / f"wgs-chr{i + 1}-{s}.csv").read_bytes() == b, (i, s)

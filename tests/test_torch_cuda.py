@@ -98,3 +98,57 @@ def test_phase_chunk_never_syncs(cuda_device):
         torch.cuda.set_sync_debug_mode("default")
     assert int(out[3][0]) <= eng.capacity
     assert int(eng.buffers.n_records) == 8
+
+
+@pytest.mark.cuda
+def test_cli_all_streams_on_card(cuda_device, tmp_path):
+    """The port's CLI on the card with all seven outputs: every per-sweep
+    stream has one line per recorded sweep, blocks and sequences cover T,
+    the last segments line counts the marginals rows."""
+    from hammlet_tpu_torch import cli
+
+    T = 20000
+    np.savetxt(tmp_path / "d.csv", synth_segments(T, 7)[0])
+    streams = ["marginals", "sequences", "parameters", "blocks", "compression", "mapping", "segments"]
+    argv = ["-f", str(tmp_path / "d.csv"), "-s", "3", "-a", "-R", "2",
+            "-i", "M", "20", "0", "F", "40", "2", "-O", *streams, "-w",
+            "-C", str(tmp_path / "ck.npz"), "16"]
+    assert cli.main(argv) == 0
+    read = lambda s: (tmp_path / f"d-{s}.csv").read_text().splitlines()  # noqa: E731
+    for s in ("sequences", "parameters", "blocks", "compression", "segments"):
+        assert len(read(s)) == 20, s
+    for line in read("blocks"):
+        assert sum(map(int, line.split("\t"))) == T
+    for line in read("sequences"):
+        assert sum(int(t.split(":")[0]) for t in line.split("\t")) == T
+    rows = [list(map(int, x.split("\t"))) for x in read("marginals")]
+    assert all(sum(r[1:]) == 20 for r in rows) and sum(r[0] for r in rows) == T
+    assert int(read("segments")[-1].split("\t")[0]) == len(rows)
+    before = {s: read(s) for s in streams}
+    assert cli.main(argv) == 0  # finished checkpoint: a no-op
+    assert {s: read(s) for s in streams} == before
+
+
+@pytest.mark.cuda
+def test_resume_bitwise_on_card(cuda_device, tmp_path):
+    """Exact on the card: save -> restore -> continue equals the
+    uninterrupted run in the marginal counts and the model."""
+    from hammlet_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint
+
+    data = synth_segments(50000, 9)[0]
+
+    def build():
+        return runner.make_engine(data, seed=3, device=cuda_device)
+
+    e1 = build()
+    e1.run("M", 16, 0)
+    e1.run("F", 32, 4)
+    e2 = build()
+    e2.run("M", 16, 0)
+    save_checkpoint(e2, str(tmp_path / "c.npz"))
+    e3 = build()
+    restore_checkpoint(e3, str(tmp_path / "c.npz"))
+    e3.run("F", 32, 4)
+    assert torch.equal(e1.buffers.counts, e3.buffers.counts)
+    assert torch.equal(e1.model.theta_mean, e3.model.theta_mean)
+    assert int(e3.buffers.n_records) == 8

@@ -28,13 +28,20 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 def test_port_imports_no_jax():
-    """The port (and chip_smoke.py) import with jax and hammlet_tpu made
-    unimportable."""
+    """The port, chip_smoke.py and ``bin/hammlet-torch -h`` run with jax and
+    hammlet_tpu made unimportable."""
     code = (
-        "import sys; sys.modules['jax'] = None; sys.modules['hammlet_tpu'] = None\n"
+        "import runpy, sys; sys.modules['jax'] = None; sys.modules['hammlet_tpu'] = None\n"
         "import hammlet_tpu_torch.runner, hammlet_tpu_torch.convert\n"
         "import hammlet_tpu_torch.io.input, hammlet_tpu_torch.debug\n"
+        "import hammlet_tpu_torch.cli, hammlet_tpu_torch.checkpoint\n"
+        "import hammlet_tpu_torch.manpage, hammlet_tpu_torch.parallel.sharded\n"
         "import chip_smoke\n"
+        "sys.argv = ['hammlet-torch', '-h']\n"
+        "try:\n"
+        "    runpy.run_path('bin/hammlet-torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'hammlet_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
     )
@@ -42,6 +49,7 @@ def test_port_imports_no_jax():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
+    assert "hammlet-torch - Fast Bayesian HMM segmentation" in proc.stdout
 
 
 def test_scheme_helpers_match_jax():
@@ -111,13 +119,97 @@ def test_compact_marginals_matches_jax():
     np.testing.assert_array_equal(got_counts, want_counts)
 
 
-def test_unported_streams_raise(tmp_path):
-    data = synth_segments(3000, 1)[0]
-    for stream in ("sequences", "blocks", "segments"):
-        rec = TRecords(len(data), str(tmp_path / f"{stream}-"), ".csv", 3, outputs={stream})
-        with pytest.raises(NotImplementedError, match=stream):
-            trun.make_engine(data, records=rec, device="cpu")
+def _reassembly_inputs(P, seed, R=5, cap=40, T_local=300):
+    """Random per-shard candidates (ascending positions + a permutation of
+    ranks, shard 0's first candidate at position 0 with rank 0) and block
+    counts / states per recorded sweep."""
+    rng = np.random.default_rng(seed)
+    pos = np.zeros((P, cap + 1), np.int32)
+    rank = np.zeros((P, cap), np.int32)
+    for j in range(P):
+        pos[j, :cap] = np.sort(rng.choice(np.arange(1, T_local), cap, replace=False))
+        rank[j] = rng.permutation(cap)
+        pos[j, cap] = T_local
+    pos[0, 0] = 0
+    rank[0][rank[0] == 0] = rank[0, 0]
+    rank[0, 0] = 0
+    nbs = rng.integers(0, cap + 1, size=(R, P)).astype(np.int64)
+    nbs[:, 0] = np.maximum(nbs[:, 0], 1)  # every sweep has shard 0's first block
+    nbs[1] = cap  # a full row
+    z = rng.integers(0, 4, size=(R, P * cap)).astype(np.int32)
+    return z, nbs, pos, rank, P * T_local, T_local
+
+
+@pytest.mark.parametrize("native_lib", [True, False], ids=["native", "numpy"])
+@pytest.mark.parametrize("P", [1, 3])
+def test_reassemble_block_rows_matches_jax(P, native_lib, monkeypatch):
+    """Exact: the port's record-drain reassembly (native library or its
+    numpy fallback) equals the JAX package's on random inputs."""
+    from hammlet_tpu.parallel.sharded import _reassemble_block_rows as jreasm
+    from hammlet_tpu_torch import native
+    from hammlet_tpu_torch.parallel.sharded import _reassemble_block_rows as treasm
+
+    if not native_lib:
+        monkeypatch.setattr(native, "reassemble_blocks", lambda *a: None)
+    for seed in range(3):
+        args = _reassembly_inputs(P, seed)
+        want = jreasm(*args)
+        got = treasm(*args)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("native_lib", [True, False], ids=["native", "python"])
+def test_record_sweeps_batch_bytes_match_jax(tmp_path, native_lib, monkeypatch):
+    """Exact: the port's batch stream writer gives the JAX package's bytes
+    on tests/test_e2e.py's golden arrays, with its native formatters and
+    with its Python fallback."""
+    from hammlet_tpu_torch import native
+
+    if not native_lib:
+        monkeypatch.setattr(native, "available", lambda: False)
+    states = np.array([[0, 0, 1, 2, 2, 0], [1, 1, 1, 1, 1, 0]], np.int32)
+    sizes = np.array([[5, 3, 2, 4, 6, 0], [2, 2, 2, 2, 12, 0]], np.int32)
+    ns = np.array([5, 5], np.int64)
+    n_bounds = np.array([2, 2], np.int64)
+    streams = ("sequences", "blocks", "compression", "segments")
+    for cls, tag in ((JRecords, "j-"), (TRecords, "t-")):
+        rec = cls(20, str(tmp_path / tag), ".csv", 3, outputs=set(streams), overwrite=True)
+        rec.record_sweeps_batch(states, sizes, ns, n_bounds)
         rec.close()
+    assert (tmp_path / "t-sequences.csv").read_text() == "8:0\t2:1\t10:2\n20:1\n"
+    for s in streams:
+        assert (tmp_path / f"t-{s}.csv").read_bytes() == (tmp_path / f"j-{s}.csv").read_bytes(), s
+
+
+def test_sequences_stream_is_the_recorded_states(tmp_path):
+    """Exact: the sequences lines of a run, expanded per position and
+    counted per state, equal Engine.marginal_counts — the drained states
+    are the states the device recorded. The blocks, segments and
+    compression lines agree with them line by line."""
+    data = synth_segments(4000, 8, seglen=200, scale=0.7)[0]
+    streams = {"sequences", "blocks", "segments", "compression"}
+    rec = TRecords(len(data), str(tmp_path / "s-"), ".csv", 3, outputs=streams, overwrite=True)
+    eng = trun.make_engine(data, seed=3, records=rec, device="cpu")
+    eng.run_scheme("M 10 0 F 24 3".split())
+    eng.finalize()
+    counts = np.zeros((3, len(data)), np.int64)
+    read = lambda s: (tmp_path / f"s-{s}.csv").read_text().splitlines()  # noqa: E731
+    lines = read("sequences")
+    assert len(lines) == int(eng.buffers.n_records) == 8
+    for line, blk, comp in zip(lines, read("blocks"), read("compression")):
+        toks = [tuple(map(int, t.split(":"))) for t in line.split("\t")]
+        sizes = np.array([n for n, _ in toks])
+        pos_state = np.repeat([z for _, z in toks], sizes)
+        counts[pos_state, np.arange(len(data))] += 1
+        blocks = list(map(int, blk.split("\t")))
+        assert sum(blocks) == len(data)
+        assert comp == f"{len(data) / len(blocks):.6g}"
+        # every sequence boundary is a block boundary
+        assert set(np.cumsum(sizes)[:-1]) <= set(np.cumsum(blocks)[:-1].tolist())
+    np.testing.assert_array_equal(counts, eng.marginal_counts)
+    segs = [int(x.split("\t")[0]) for x in read("segments")]
+    assert segs[-1] == int(eng.buffers.n_boundaries) + 1 == int(eng.buffers.ever_boundary.sum()) + 1
 
 
 def test_overflow_replay_and_ceiling():
