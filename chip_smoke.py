@@ -18,9 +18,7 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
 5. settled: on phase 4's engine after its run, F 512 4 with marginals +
    parameters + compression and with every stream, in the order m a a m
    after a warm-up, giving settled sweeps/s and the host record drain's ms
-   per 128-sweep chunk; then torch.profiler over F 64 4 with HAMMLET_DEBUG
-   off and on, giving CUDA kernels and device ms per sweep (the invariant
-   bitmask must add kernels when on);
+   per 128-sweep chunk;
 6. cli: the same data as a text file through hammlet_tpu_torch.cli.main with
    all seven outputs (-i M 64 0 F 512 4), checking the engine ran on the
    card through the kernel and every stream's structure (one line per
@@ -34,6 +32,23 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    (marginal counts and emission means);
 8. debug: with HAMMLET_DEBUG=1 a healthy F chunk reports error bits 0 and a
    NaN emission mean raises FloatingPointError;
+9. sharded: phase 4's data through the position-sharded engine with P = 4
+   shards on the one card (make_sharded_engine -> M 64 0 F 512 4 ->
+   finalize), checking (a) that the sharded host ingest's per-position
+   breakpoint weights equal ingest_device's (which launches the maxlet
+   kernel) bit for bit, (b) that under one fixed model one sweep's block
+   partition equals the single-device engine's, (c) marginal rows sum to
+   128 and MAP agreement >= 0.95, (d) that a sharded F chunk runs under
+   torch.cuda.set_sync_debug_mode("error"), (e) that the same run inside a
+   world-size-1 NCCL process group writes the same bytes as without one,
+   and (f) that a P = 4 checkpoint resume at T = 200,000 is bitwise equal to
+   the uninterrupted run; prints setup and host ingest seconds, the first
+   F-phase rate next to phase 4's, the settled rates of P = 1 (phase 4's
+   engine) and P = 4 taken in turns, and peak memory;
+10. profile: torch.profiler over F 64 4 on phase 4's engine with
+   HAMMLET_DEBUG off and on (the invariant bitmask must add kernels when on)
+   and on phase 9's, giving CUDA kernels and device ms per sweep; last,
+   because a process that has run the profiler launches more slowly;
 then the kernels JSON line, the nvidia-smi line, and the result line.
 
 Needs no network and imports nothing of JAX.
@@ -43,6 +58,7 @@ from __future__ import annotations
 
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -55,6 +71,9 @@ import torch
 from hammlet_tpu_torch import checkpoint, cli, native, runner
 from hammlet_tpu_torch.io.records import Records
 from hammlet_tpu_torch.ops import wavelet, wavelet_cuda
+from hammlet_tpu_torch.parallel import distributed, sharded
+from hammlet_tpu_torch.parallel.ingest import sharded_ingest
+from hammlet_tpu_torch.parallel.mesh import position_mesh
 
 T_MAIN = 4_000_000
 T_RESUME = 200_000
@@ -63,6 +82,7 @@ N_RECORDED = 128  # F 512 sweeps at thinning 4
 SEGLEN = 500
 SEED = 0
 MAP_AGREEMENT_MIN = 0.95
+P_SHARDED = 4  # shards of the [sharded] phase, all on the one card
 KERNEL_SIZES = [100, 8192, 8193, 100_000, 4_000_000]
 KERNEL_DIMS = [1, 3]
 TIMING_REPS = 20
@@ -248,10 +268,23 @@ def map_agreement(sizes: np.ndarray, counts: np.ndarray, truth: np.ndarray) -> f
     )
 
 
+def profile_f(eng, iters: int = 64) -> tuple[float, float]:
+    """CUDA kernels and device ms per sweep over ``F iters 4`` on a warm
+    engine (torch.profiler)."""
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+    ])
+    with prof:
+        eng.run("F", iters, 4)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    return len(kernels) / iters, sum(e.time_range.elapsed_us() for e in kernels) / iters / 1e3
+
+
 def phase_settled(eng) -> dict:
     """Settled F-phase rates and the record drain with and without the
-    per-sweep streams, then kernels per sweep with the debug bitmask off and
-    on, on the [main] engine (its run is over and checked)."""
+    per-sweep streams, on the [main] engine (its run is over and checked)."""
     mpc = {"marginals", "parameters", "compression"}
     drains: list[float] = []
     drain = runner.Engine._drain_records
@@ -266,17 +299,13 @@ def phase_settled(eng) -> dict:
     old = os.environ.get("HAMMLET_DEBUG")
     with tempfile.TemporaryDirectory() as tmp:
 
-        def run(tag: str, iters: int, profiler=None) -> None:
+        def run(tag: str, iters: int) -> None:
             eng.records = Records(
                 T_MAIN, os.path.join(tmp, tag + "-"), ".csv", 3,
                 outputs=mpc if tag == "mpc" else set(Records.STREAMS), overwrite=True,
             )
             drains.clear()
-            if profiler is None:
-                eng.run("F", iters, 4)
-            else:
-                with profiler:
-                    eng.run("F", iters, 4)
+            eng.run("F", iters, 4)
             eng.records.close()
             rates[tag].append(iters / eng.phase_log[-1][2])
             drain_ms[tag].extend(1e3 * d for d in drains)
@@ -289,41 +318,43 @@ def phase_settled(eng) -> dict:
             drain_ms["all"].clear()
             for tag in ("mpc", "all", "all", "mpc"):
                 run(tag, 512)
-            per_sweep = {}
-            for flag in ("0", "1"):
-                os.environ["HAMMLET_DEBUG"] = flag
-                prof = torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
-                ])
-                run("mpc", 64, prof)
-                rates["mpc"].pop()
-                kernels = [e for e in prof.events()
-                           if e.device_type == torch.autograd.DeviceType.CUDA
-                           and not e.name.startswith(("Memcpy", "Memset"))]
-                per_sweep[flag] = (
-                    len(kernels) / 64,
-                    sum(e.time_range.elapsed_us() for e in kernels) / 64e3,
-                )
         finally:
             runner.Engine._drain_records = drain
             if old is None:
                 del os.environ["HAMMLET_DEBUG"]
             else:
                 os.environ["HAMMLET_DEBUG"] = old
-    check(per_sweep["0"][0] > 0, "the profiler saw no CUDA kernel")
-    check(per_sweep["1"][0] > per_sweep["0"][0],
-          "HAMMLET_DEBUG=1 launched no kernel more than debug off")
     return {
         "mpc_sweeps_per_s": rates["mpc"],
         "all_sweeps_per_s": rates["all"],
         "ratio": float(np.median(rates["all"]) / np.median(rates["mpc"])),
         "mpc_drain_ms": float(np.median(drain_ms["mpc"])),
         "all_drain_ms": float(np.median(drain_ms["all"])),
-        "kernels_per_sweep": per_sweep["0"][0],
-        "device_ms_per_sweep": per_sweep["0"][1],
-        "debug_kernels_per_sweep": per_sweep["1"][0],
-        "debug_device_ms_per_sweep": per_sweep["1"][1],
     }
+
+
+def phase_profile(main_eng, sharded_eng) -> dict:
+    """torch.profiler over F 64 4: CUDA kernels and device ms per settled
+    sweep of the [main] engine with the debug bitmask off and on, and of the
+    [sharded] engine. It runs last: once the profiler has traced the card,
+    every later launch of the process pays more host time, which would
+    lower any rate measured after it."""
+    old = os.environ.get("HAMMLET_DEBUG")
+    res = {}
+    try:
+        for flag in ("0", "1"):
+            os.environ["HAMMLET_DEBUG"] = flag
+            res[flag] = profile_f(main_eng)
+        os.environ["HAMMLET_DEBUG"] = "0"
+        res["sharded"] = profile_f(sharded_eng)
+    finally:
+        if old is None:
+            del os.environ["HAMMLET_DEBUG"]
+        else:
+            os.environ["HAMMLET_DEBUG"] = old
+    check(res["0"][0] > 0 and res["sharded"][0] > 0, "the profiler saw no CUDA kernel")
+    check(res["1"][0] > res["0"][0], "HAMMLET_DEBUG=1 launched no kernel more than debug off")
+    return res
 
 
 def phase_cli(main_rate: float) -> dict:
@@ -449,6 +480,177 @@ def phase_debug() -> None:
             os.environ["HAMMLET_DEBUG"] = old
 
 
+def sharded_run(data: np.ndarray, tmp: str, tag: str, mesh=None) -> tuple:
+    """make_sharded_engine -> run_scheme -> finalize with marginals,
+    parameters and compression; returns (engine, setup s, stream bytes)."""
+    prefix = os.path.join(tmp, tag + "-")
+    rec = Records(T_MAIN, prefix, ".csv", 3,
+                  outputs={"marginals", "parameters", "compression"}, overwrite=True)
+    t0 = time.perf_counter()
+    eng = sharded.make_sharded_engine(
+        data, mesh=mesh, n_devices=P_SHARDED, nr_params=3, seed=SEED, records=rec,
+        device="cuda",
+    )
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    eng.run_scheme(SCHEME.split())
+    eng.finalize()
+    torch.cuda.synchronize()
+    out = {s: open(prefix + s + ".csv", "rb").read()
+           for s in ("marginals", "parameters", "compression")}
+    return eng, setup_s, out
+
+
+def phase_sharded(main_eng) -> dict:
+    """The position-sharded engine, P = 4 shards on the one card."""
+    data, truth = synth(T_MAIN, SEED)
+    res: dict = {}
+
+    # (a) sharded host ingest vs the kernel-driven device ingest
+    mesh = position_mesh(P_SHARDED, "cuda")
+    T_local, cell_bits = sharded._choose_layout(T_MAIN, P_SHARDED)
+    t0 = time.perf_counter()
+    ing = sharded_ingest(mesh, data, T_local=T_local, cell_bits=cell_bits)
+    torch.cuda.synchronize()
+    res["ingest_s"] = time.perf_counter() - t0
+    weights = torch.empty_like(ing.negw).scatter_(1, ing.rank, -ing.negw).reshape(-1)[:T_MAIN]
+    before = wavelet_cuda.maxlet_transform_cuda.launches
+    ref = runner.ingest_device(data, device="cuda")
+    check(wavelet_cuda.maxlet_transform_cuda.launches == before + 1, "ingest_device launched no kernel")
+    check(bits_equal(weights, ref.weights), "sharded ingest weights != ingest_device's (kernel)")
+    del ing, ref, weights
+
+    # the main sharded run (c), measured
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        wavelet_cuda.maxlet_transform_cuda.launches = 0
+        eng, res["setup_s"], plain = sharded_run(data, tmp, "plain")
+        res["launches"] = wavelet_cuda.maxlet_transform_cuda.launches
+        res["peak_mem_bytes"] = torch.cuda.max_memory_allocated() - base
+        sizes, counts = read_marginals(os.path.join(tmp, "plain-marginals.csv"))
+    check(eng.device.type == "cuda", f"sharded engine ran on {eng.device}")
+    check(int(sizes.sum()) == T_MAIN, "sharded marginal rows do not cover T")
+    check(bool((counts.sum(axis=1) == N_RECORDED).all()), "sharded marginal row sums != 128")
+    res["map_agreement"] = map_agreement(sizes, counts, truth)
+    check(res["map_agreement"] >= MAP_AGREEMENT_MIN, f"sharded MAP agreement {res['map_agreement']:.4f}")
+    f_sweeps = sum(n for m, n, _ in eng.phase_log if m == "F")
+    res["f_sweeps_per_s"] = f_sweeps / sum(t for m, _, t in eng.phase_log if m == "F")
+    res["cap_local"] = eng.cap_local
+    res["last_n_blocks"] = eng.last_n_blocks
+
+    # (d) a whole sharded F chunk with no host sync (at twice the settled
+    # capacity, so that no sweep overflows and every recording one records)
+    settled_cap = eng.cap_local
+    eng.cap_local = min(eng.T_local, 2 * settled_cap)
+    candpos, candrank = eng._shard_candidates()
+    eng.cap_local = settled_cap
+    buffers = eng.buffers.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = sharded.sharded_phase(
+            eng.mesh, eng.seed, 10**6, eng.model, eng.priors, eng.negw, candpos, candrank,
+            eng.r_t, eng.q2_hi, eng.q2_lo, buffers, None, method="F", T=eng.T,
+            T_local=eng.T_local, cell_bits=eng.cell_bits, mapping=eng._mapping,
+            nr_params=3, use_self_transitions=True, n_iters=8, thinning=2,
+            want_blocks=True,
+        )
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(int(out[3][0]) <= candrank.shape[1] and int(buffers.n_rec) == N_RECORDED + 4,
+          "the sync-free sharded chunk did not record its 4 sweeps")
+    del out, buffers
+
+    # settled rates of P = 1 ([main]'s engine) and P = 4 in turns, under the
+    # same conditions (one s s one), then kernels per sweep on the warm
+    # sharded engine
+    rates: dict = {"one": [], "sharded": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, e in (("one", main_eng), ("sharded", eng), ("sharded", eng), ("one", main_eng)):
+            e.records = Records(T_MAIN, os.path.join(tmp, tag + "-"), ".csv", 3,
+                                outputs={"marginals", "parameters", "compression"},
+                                overwrite=True)
+            e.run("F", 512, 4)
+            e.records.close()
+            rates[tag].append(512 / e.phase_log[-1][2])
+    eng.records = None
+    res["settled"] = rates
+    res["settled_ratio"] = float(np.median(rates["sharded"]) / np.median(rates["one"]))
+
+    # (b) one sweep under one fixed model: the same partition as P = 1
+    with tempfile.TemporaryDirectory() as tmp:
+        model = main_eng.model
+        eng.model = model._replace(**{k: v.clone() for k, v in model._asdict().items()})
+        for tag, e in (("one", main_eng), ("sharded", eng)):
+            e.records = Records(T_MAIN, os.path.join(tmp, tag + "-"), ".csv", 3,
+                                outputs={"blocks"}, overwrite=True)
+        main_eng.run("F", 1, 1)
+        eng._one_sweep("F", do_record=True)
+        for e in (main_eng, eng):
+            e.records.close()
+        blocks = [open(os.path.join(tmp, t + "-blocks.csv")).read() for t in ("one", "sharded")]
+    check(blocks[0] == blocks[1] and blocks[0].count("\t") > 100,
+          "sharded block partition != single-device partition")
+    res["n_blocks"] = blocks[0].count("\t") + 1
+    res["engine"] = eng  # profiled last (phase_profile)
+
+    # (e) the same run in a world-size-1 NCCL process group
+    env = {"HAMMLET_NUM_PROCESSES": "1", "HAMMLET_PROCESS_ID": "0",
+           "HAMMLET_COORDINATOR": f"localhost:{free_port()}"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        distributed.initialize_from_env()
+        check(torch.distributed.get_backend() == "nccl", "the process group is not NCCL")
+        with tempfile.TemporaryDirectory() as tmp:
+            eng_g, _, grouped = sharded_run(data, tmp, "nccl", mesh=position_mesh(P_SHARDED))
+        check(eng_g.mesh.group is not None, "the NCCL run had no process group")
+        del eng_g
+    finally:
+        distributed.shutdown()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for s in plain:
+        check(grouped[s] == plain[s], f"NCCL world-size-1 run: {s} differs from the run without a group")
+
+    # (f) P = 4 checkpoint resume at T_RESUME
+    small = synth(T_RESUME, SEED + 1)[0]
+
+    def build():
+        return sharded.make_sharded_engine(small, n_devices=P_SHARDED, nr_params=3,
+                                           seed=SEED + 1, device="cuda")
+
+    whole = build()
+    whole.run("M", 32, 0)
+    whole.run("F", 64, 4)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "resume.npz")
+        cut = build()
+        cut.run("M", 32, 0)
+        checkpoint.save_sharded_checkpoint(cut, path)
+        resumed = build()
+        checkpoint.restore_sharded_checkpoint(resumed, path)
+    resumed.run("F", 64, 4)
+    for name in ("counts", "everb", "n_rec", "n_bound"):
+        check(torch.equal(getattr(whole.buffers, name), getattr(resumed.buffers, name)),
+              f"sharded resume: {name} differs from the uninterrupted run")
+    check(all(torch.equal(a, b) for a, b in zip(whole.model, resumed.model)),
+          "sharded resume: the model differs from the uninterrupted run")
+    check(int(resumed.buffers.n_rec) == 16, "sharded resume recorded != 16 sweeps")
+    return res
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -482,16 +684,13 @@ def main() -> int:
               f"MAP agreement {m['map_agreement']:.4f}, maxlet launches "
               f"{m['launches']}, phases {m['phases']}", flush=True)
 
-        st = phase_settled(m.pop("engine"))
+        main_eng = m.pop("engine")
+        st = phase_settled(main_eng)
         print(f"[settled] T={T_MAIN} F 512 4 on the [main] engine, order m a a m: "
               f"marginals+parameters+compression {st['mpc_sweeps_per_s']} sweeps/s "
               f"(drain {st['mpc_drain_ms']:.3f} ms/chunk), all streams "
               f"{st['all_sweeps_per_s']} sweeps/s (drain {st['all_drain_ms']:.3f} "
-              f"ms/chunk), median ratio {st['ratio']:.4f}; torch.profiler F 64 4: "
-              f"HAMMLET_DEBUG off {st['kernels_per_sweep']} kernels/sweep, "
-              f"{st['device_ms_per_sweep']:.4f} device ms/sweep; on "
-              f"{st['debug_kernels_per_sweep']} kernels/sweep, "
-              f"{st['debug_device_ms_per_sweep']:.4f} device ms/sweep", flush=True)
+              f"ms/chunk), median ratio {st['ratio']:.4f}", flush=True)
 
         c = phase_cli(m["f_sweeps_per_s"])
         print(f"[cli] T={T_MAIN} all 7 outputs '{SCHEME}': setup {c['setup_s']:.3f} s, "
@@ -509,6 +708,28 @@ def main() -> int:
         phase_debug()
         print("[debug] HAMMLET_DEBUG=1: healthy F chunk error bits 0; NaN emission "
               "mean raised FloatingPointError", flush=True)
+
+        sh = phase_sharded(main_eng)
+        print(f"[sharded] T={T_MAIN} K=3 '{SCHEME}' P={P_SHARDED} shards on one card: "
+              f"setup {sh['setup_s']:.3f} s (host ingest alone {sh['ingest_s']:.3f} s), "
+              f"F-phase {sh['f_sweeps_per_s']:.2f} sweeps/s (first run) vs [main] P=1 "
+              f"{m['f_sweeps_per_s']:.2f}; settled F 512 4 in turns P=1 "
+              f"{sh['settled']['one']} / P=4 {sh['settled']['sharded']} sweeps/s, median "
+              f"ratio {sh['settled_ratio']:.4f}; cap_local "
+              f"{sh['cap_local']}, last blocks {sh['last_n_blocks']}, peak device memory "
+              f"{sh['peak_mem_bytes'] / 2**20:.1f} MiB, MAP agreement "
+              f"{sh['map_agreement']:.4f}, maxlet launches on this path {sh['launches']}; "
+              f"(a) weights bitwise = ingest_device's (kernel), (b) partition of "
+              f"{sh['n_blocks']} blocks = single-device's, (c) rows sum to {N_RECORDED}, "
+              "(d) F chunk under sync debug mode 'error', (e) NCCL world-size-1 run "
+              "byte-identical, (f) resume bitwise", flush=True)
+
+        pr = phase_profile(main_eng, sh.pop("engine"))
+        print(f"[profile] torch.profiler F 64 4 at T={T_MAIN}: [main] engine HAMMLET_DEBUG "
+              f"off {pr['0'][0]} kernels/sweep, {pr['0'][1]:.4f} device ms/sweep; on "
+              f"{pr['1'][0]} kernels/sweep, {pr['1'][1]:.4f} device ms/sweep; [sharded] "
+              f"engine (P={P_SHARDED}) {pr['sharded'][0]} kernels/sweep, "
+              f"{pr['sharded'][1]:.4f} device ms/sweep", flush=True)
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", flush=True)
         return 1

@@ -23,10 +23,13 @@ Flag grammar per src/main.cpp:33-65 and doc/hammlet-manpage.md:33-176:
   -m/-weight-multiplier X
   -C/-checkpoint PATH [EVERY]  periodic checkpointing (resumes from PATH
                                when it exists)
-  -D/-devices N        devices to shard over: only 1 in the port so far
+  -D/-devices N        shards of the position axis (parallel/sharded.py): N
+                       > 1 runs the sharded engine, N / W shards on each of
+                       the W processes (HAMMLET_NUM_PROCESSES,
+                       parallel/distributed.py); N must be a multiple of W
   -M/-multi            every -f file is an INDEPENDENT chain with its own
-                       priors/RNG/outputs, run one after another on the
-                       one device
+                       priors/RNG/outputs, run one after another (each
+                       sharded over -D N shards)
 """
 
 from __future__ import annotations
@@ -37,8 +40,10 @@ import time
 
 import numpy as np
 
-from hammlet_tpu_torch.io.input import read_values
+from hammlet_tpu_torch.io.input import ValueStream, read_values
 from hammlet_tpu_torch.io.records import Records
+from hammlet_tpu_torch.parallel import distributed
+from hammlet_tpu_torch.parallel.sharded import make_sharded_engine
 from hammlet_tpu_torch.runner import make_engine
 
 _FLAG_ALIASES = {
@@ -154,22 +159,35 @@ def main(argv: list[str] | None = None) -> int:
         print(f"\n[ERROR] {e}", file=sys.stderr)
         print("Terminating HaMMLET. The rest is silence.", file=sys.stderr)
         return 1
+    finally:
+        distributed.shutdown()
 
 
-def _check_single_process() -> None:
-    """The multi-host runtime (hammlet_tpu/parallel/distributed.py) is not
-    ported: refuse an environment that asks for it instead of running N
-    unaware copies that would each write every output."""
-    num = os.environ.get("HAMMLET_NUM_PROCESSES")
-    if num is not None and (num == "auto" or _conv(int, num) > 1):
+def _check_shards(n_devices: int) -> None:
+    """-D against the process layout, before any file is made: P >= 1, a
+    multiple of the W processes, and W times HAMMLET_LOCAL_DEVICES when
+    that is set."""
+    world = distributed.world_size()
+    if n_devices < 1:
+        raise ValueError(f"-D {n_devices}: need at least one shard")
+    if n_devices % world:
         raise ValueError(
-            f"HAMMLET_NUM_PROCESSES={num}: the multi-host runtime is not "
-            "ported to hammlet_tpu_torch yet (see ROADMAP.md); unset it"
+            f"-D {n_devices} is not a multiple of the {world} processes "
+            "(HAMMLET_NUM_PROCESSES); every process holds the same number "
+            "of shards"
+        )
+    local = distributed.local_shards_from_env()
+    if local is not None and local * world != n_devices:
+        raise ValueError(
+            f"-D {n_devices} != {world} processes x HAMMLET_LOCAL_DEVICES={local}"
         )
 
 
 def _run(args: dict[str, list[str]]) -> int:
-    _check_single_process()
+    # multi-process runtime: HAMMLET_NUM_PROCESSES & friends start the
+    # torch.distributed group before anything else; -D then shards the
+    # position axis over every process
+    distributed.initialize_from_env()
 
     def get(flag: str) -> list[str]:
         v = args.get(flag)
@@ -247,17 +265,14 @@ def _run(args: dict[str, list[str]]) -> int:
     outputs = {_OUTPUT_ALIASES.get(t, t) for t in get("-O")}
 
     n_devices = _parse_at(args["-D"], 0, int, "-D") if args.get("-D") else 1
-    if n_devices > 1:
-        raise ValueError(
-            f"-D {n_devices}: the position-sharded engine is not ported to "
-            "hammlet_tpu_torch yet (see ROADMAP.md); the port runs on one "
-            "device (-D 1)"
-        )
+    _check_shards(n_devices)
+    sharded = n_devices > 1
 
-    # the device the engine will take (make_engine's own choice)
+    # the device the engine will take (make_engine's own choice, or the
+    # process's device in a process group)
     from hammlet_tpu_torch.device import resolve_device
 
-    device = resolve_device(None)
+    device = distributed.process_device() if distributed.world_size() > 1 else resolve_device(None)
 
     if verbose:
         K = nr_params**nr_dim
@@ -282,8 +297,9 @@ def _run(args: dict[str, list[str]]) -> int:
     # -M: every -f file is an INDEPENDENT chain (the reference's WGS
     # workflow runs one process per chromosome, bin/samToCounts:5-7), each
     # with its own auto-priors, RNG stream, and output files
-    # {prefix}{filestem}-*{suffix}. The chains run one after another on the
-    # one device, as the JAX package runs them on one device. Each chain
+    # {prefix}{filestem}-*{suffix}. The chains run one after another (the
+    # JAX package spreads them over several local devices without -D; the
+    # port does not yet), each sharded over -D N shards. Each chain
     # checkpoints to its own file, PATH with "-{filestem}" before the
     # extension (one shared file would hand one chain's state to the next).
     if "-M" in args:
@@ -306,8 +322,17 @@ def _run(args: dict[str, list[str]]) -> int:
             rc |= _run(sub)
         return rc
 
-    data = read_values(args.get("-f"), nr_dim)
-    T = data.shape[0]
+    # sharded runs stream the input: the provider hands the ingest one
+    # token range at a time (each process reads only its own shards' ranges),
+    # so a multi-Gbp file never materializes on any host — the reference's
+    # one-pass istream ingest property (wavelet.hpp:98-188)
+    stream = None
+    if sharded and args.get("-f"):
+        stream = ValueStream(args["-f"], nr_dim)
+        data, T = stream, stream.T
+    else:
+        data = read_values(args.get("-f"), nr_dim)
+        T = data.shape[0]
     if verbose:
         print(f"Output will be written to {opref}*{osuff}")
         print(f"Number of data points: {T}")
@@ -323,7 +348,10 @@ def _run(args: dict[str, list[str]]) -> int:
         # the per-sweep streams keep the lines of the sweeps the checkpoint
         # holds and continue after them
         with np.load(ckpt_path) as z:
-            resume_records = int(z["n_records"])
+            resume_records = int(z["n_rec" if sharded else "n_records"])
+    # single writer: in a multi-process run only the primary process opens
+    # output files (Records.hpp:52-70 has one writer by construction); every
+    # other process takes part in the collectives with an inert hub
     records = Records(
         T,
         opref,
@@ -331,6 +359,7 @@ def _run(args: dict[str, list[str]]) -> int:
         nr_params**nr_dim,
         outputs=outputs,
         overwrite=overwrite,
+        write=distributed.is_primary(),
         resume_records=resume_records,
     )
     if "mapping" in outputs:
@@ -341,8 +370,7 @@ def _run(args: dict[str, list[str]]) -> int:
         from hammlet_tpu_torch.models.mapping import combinations_mapping
 
         records.save_mapping(combinations_mapping(nr_dim, nr_params))
-    engine = make_engine(
-        data,
+    common = dict(
         nr_params=nr_params,
         nr_data_dim=nr_dim,
         seed=seed,
@@ -356,13 +384,23 @@ def _run(args: dict[str, list[str]]) -> int:
         records=records,
         device=device,
     )
+    if sharded:
+        engine = make_sharded_engine(data, n_devices=n_devices, T=T, dim=nr_dim, **common)
+        if stream is not None:
+            stream.close()
+    else:
+        engine = make_engine(data, **common)
     if ckpt_path is not None:
-        from hammlet_tpu_torch.checkpoint import restore_checkpoint
+        from hammlet_tpu_torch.checkpoint import (
+            restore_checkpoint,
+            restore_sharded_checkpoint,
+        )
 
         engine.checkpoint_path = ckpt_path
         engine.checkpoint_every = ckpt_every
         if resume:
-            restore_checkpoint(engine, engine.checkpoint_path)
+            restore = restore_sharded_checkpoint if sharded else restore_checkpoint
+            restore(engine, engine.checkpoint_path)
             if verbose:
                 print(
                     f"Resumed from {engine.checkpoint_path} at sweep "

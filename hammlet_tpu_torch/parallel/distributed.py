@@ -1,0 +1,124 @@
+"""Multi-process runtime on torch.distributed.
+
+Port of hammlet_tpu/parallel/distributed.py. One process per device joins a
+torch.distributed process group; ``position_mesh()`` then spans every
+process, each holding P / W consecutive shards on its own device. CUDA
+processes talk over NCCL, CPU processes over gloo. Nothing else changes: the
+sharded engine, ingest and outputs are written against the mesh.
+
+Launch recipe (W processes, e.g. one per GPU):
+
+    export HAMMLET_COORDINATOR=host0:8476     # host:port of process 0
+    export HAMMLET_NUM_PROCESSES=W
+    export HAMMLET_PROCESS_ID=<0..W-1>
+    hammlet-torch -f counts.csv -D <P, a multiple of W> ...
+
+``HAMMLET_NUM_PROCESSES=auto`` takes torchrun's WORLD_SIZE, RANK,
+MASTER_ADDR and MASTER_PORT instead (``torchrun --nproc-per-node=4
+bin/hammlet-torch -D 4 ...``). ``HAMMLET_LOCAL_DEVICES`` states the shards
+per process; the CLI then checks that -D is W times it. A CUDA process uses
+``cuda:(LOCAL_RANK or rank) % device_count``, so two processes never share
+a card on a host with enough of them (NCCL refuses two ranks on one GPU).
+tests/test_torch_multiprocess.py runs two gloo processes on the CPU.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.distributed as dist
+
+
+def _env_int(name: str) -> int:
+    value = os.environ[name]
+    try:
+        return int(value)
+    except ValueError:
+        raise ValueError(f"{name}={value!r} is not an integer") from None
+
+
+def _require(names: tuple[str, ...], why: str) -> None:
+    missing = [n for n in names if n not in os.environ]
+    if missing:
+        raise ValueError(f"{why} needs {', '.join(missing)} in the environment")
+
+
+def _card_index(rank: int) -> int:
+    return int(os.environ.get("LOCAL_RANK", rank)) % torch.cuda.device_count()
+
+
+def process_device() -> torch.device:
+    """This process's device: its own card when CUDA is present, else the
+    CPU."""
+    if not torch.cuda.is_available():
+        return torch.device("cpu")
+    return torch.device("cuda", _card_index(dist.get_rank() if dist.is_initialized() else 0))
+
+
+def initialize_from_env() -> bool:
+    """Start the torch.distributed process group if the environment asks for
+    it. Must run before any other process-group use (the CLI calls it first
+    thing); a second call is a no-op. Returns True iff more than one process
+    takes part.
+
+    ``HAMMLET_NUM_PROCESSES=1`` with a coordinator starts a group of one
+    (every collective then runs through the backend); without one it starts
+    nothing."""
+    num = os.environ.get("HAMMLET_NUM_PROCESSES")
+    if num is None:
+        return False
+    if dist.is_initialized():
+        return dist.get_world_size() > 1
+    if num == "auto":
+        _require(("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"),
+                 "HAMMLET_NUM_PROCESSES=auto (torchrun's discovery)")
+        world, rank = _env_int("WORLD_SIZE"), _env_int("RANK")
+        coord = os.environ.get(
+            "HAMMLET_COORDINATOR",
+            f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
+        )
+    else:
+        world = _env_int("HAMMLET_NUM_PROCESSES")
+        if world < 1:
+            raise ValueError(f"HAMMLET_NUM_PROCESSES={world} must be >= 1")
+        coord = os.environ.get("HAMMLET_COORDINATOR")
+        if coord is None:
+            if world == 1:
+                return False
+            _require(("HAMMLET_COORDINATOR",), f"HAMMLET_NUM_PROCESSES={world}")
+        if world > 1:
+            _require(("HAMMLET_PROCESS_ID",), f"HAMMLET_NUM_PROCESSES={world}")
+        rank = _env_int("HAMMLET_PROCESS_ID") if world > 1 else 0
+    if not 0 <= rank < world:
+        raise ValueError(f"process id {rank} is outside 0..{world - 1}")
+    if torch.cuda.is_available():
+        torch.cuda.set_device(_card_index(rank))
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    dist.init_process_group(
+        backend, init_method=f"tcp://{coord}", world_size=world, rank=rank
+    )
+    return world > 1
+
+
+def local_shards_from_env() -> int | None:
+    """HAMMLET_LOCAL_DEVICES: the shards each process holds, if stated."""
+    return _env_int("HAMMLET_LOCAL_DEVICES") if "HAMMLET_LOCAL_DEVICES" in os.environ else None
+
+
+def world_size() -> int:
+    """W: the processes of the group (1 without one)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def is_primary() -> bool:
+    """True on the process that writes the output files."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def shutdown() -> None:
+    """Leave the process group (every process calls it at the same point)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()

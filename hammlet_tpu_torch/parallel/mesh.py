@@ -1,0 +1,114 @@
+"""The position mesh: P shards of the position axis over W processes.
+
+Port of hammlet_tpu/parallel/mesh.py. The JAX package maps each shard to
+one device of a 1-D mesh and runs the sweep under shard_map. Here every
+process drives ONE device and holds P / W consecutive shards on it, as a
+leading local-shard axis on every per-shard tensor; the collectives go
+through torch.distributed (NCCL for CUDA tensors, gloo for CPU tensors).
+One process with W = 1 and P = 4 is the counterpart of the JAX package's
+virtual CPU mesh, and is how one card runs the sharded path.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.distributed as dist
+
+from hammlet_tpu_torch.device import resolve_device
+
+# torch >= 2.13 renames all_gather_into_tensor; the old name still works
+_all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+@dataclass(frozen=True)
+class PositionMesh:
+    """P shards of the position axis, W processes, one device per process.
+
+    Rank r holds the global shards [r * S, (r + 1) * S), S = P / W, on
+    ``device``. ``group`` is None in a single process without
+    torch.distributed; every collective is then the identity."""
+
+    n_shards: int
+    device: torch.device
+    group: object | None = None
+
+    def __post_init__(self):
+        if self.n_shards < 1:
+            raise ValueError(f"-D {self.n_shards}: need at least one shard")
+        if self.n_shards % self.world_size:
+            raise ValueError(
+                f"-D {self.n_shards} is not a multiple of the {self.world_size} "
+                "processes (every process holds the same number of shards)"
+            )
+
+    @property
+    def world_size(self) -> int:
+        return 1 if self.group is None else dist.get_world_size(self.group)
+
+    @property
+    def rank(self) -> int:
+        return 0 if self.group is None else dist.get_rank(self.group)
+
+    @property
+    def local_shards(self) -> int:
+        """S: the shards this process holds."""
+        return self.n_shards // self.world_size
+
+    @property
+    def first_shard(self) -> int:
+        """Global index of this process's first shard."""
+        return self.rank * self.local_shards
+
+    @property
+    def local_ids(self) -> range:
+        return range(self.first_shard, self.first_shard + self.local_shards)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Concatenate ``x`` along axis 0 over the processes in rank order:
+        (S, ...) per-shard rows become the (P, ...) rows of every shard.
+        The identity without a process group."""
+        if self.group is None:
+            return x
+        x = x.contiguous()
+        out = torch.empty(
+            (self.world_size * x.shape[0],) + tuple(x.shape[1:]),
+            dtype=x.dtype, device=x.device,
+        )
+        _all_gather(out, x, group=self.group)
+        return out
+
+    def ordered_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of per-shard rows (S, ...) over all P shards, in shard order.
+
+        The counterpart of the JAX package's ``_osum`` (sharded.py:339-353):
+        an all_reduce's float reduction order depends on the transport, so
+        every float cross-shard sum is an all_gather followed by one sum
+        over the same (P, ...) tensor on every process, whatever W is."""
+        return torch.sum(self.all_gather(x), dim=0)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Integer sum over the processes (exact in any order)."""
+        if x.is_floating_point():
+            raise TypeError("psum is for integers; use ordered_sum for floats")
+        if self.group is None:
+            return x
+        x = x.clone()
+        dist.all_reduce(x, group=self.group)
+        return x
+
+
+def position_mesh(n_shards: int, device: str | torch.device | None = None) -> PositionMesh:
+    """A mesh of ``n_shards`` shards over the processes of the default
+    torch.distributed group (started by parallel.distributed), or over this
+    process alone. ``device`` None takes the process's device."""
+    group = dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
+    if device is None:
+        if group is not None:
+            from hammlet_tpu_torch.parallel.distributed import process_device
+
+            device = process_device()
+        else:
+            device = resolve_device(None)
+    return PositionMesh(n_shards, torch.device(device), group)

@@ -1,13 +1,552 @@
-"""Host-side pieces of the position-sharded engine.
+"""Position-sharded Gibbs sweep over a PositionMesh.
 
-Port of hammlet_tpu/parallel/sharded.py. So far only the record-drain
-reassembly (:710-771) is here; the single-device engine (runner.Engine) runs
-it as the P = 1, T_local = T case.
+Port of hammlet_tpu/parallel/sharded.py. The position axis is cut into P
+shards of T_local positions; each of W processes holds P / W consecutive
+shards on its one device as a leading local-shard axis (parallel/mesh.py).
+Each sweep exchanges only O(P * K^2) values between shards:
+
+- block boundaries: each shard thresholds its local weights; a block whose
+  start lies in shard k extends to the first boundary of any later shard,
+  found from an all_gather of P per-shard first-boundary positions. Block
+  *identity* is exactly the single-device (= reference) partition; blocks
+  are never split at shard edges.
+- block statistics: fully local via the cell-structured prefix sums (shard
+  sizes are cell-aligned and each shard holds one extra R entry for its
+  right edge), plus the all-gathered per-shard "head" statistics for blocks
+  spanning shards.
+- forward pass: local prefix scans of K x K block matrices, then a
+  cross-shard prefix over the P gathered shard-total matrices.
+- backward pass: local random-map suffix compositions, then a cross-shard
+  suffix over the P gathered shard-total maps; the final state is drawn
+  identically on every process from the replicated stream.
+- sweep statistics are all_gathered and summed in shard order
+  (``PositionMesh.ordered_sum``, transport-invariant, unlike all_reduce)
+  and the conjugate model update runs replicated (same stream -> the same
+  new model on every process, with no broadcast).
+
+Every cross-shard quantity is computed for all P shards from the replicated
+gathers, and each process then takes its own rows, so the arithmetic does
+not depend on how the shards are spread over processes: 1 x 4 and 2 x 2
+write the same bytes.
+
+Randomness: sweep i of chunk ``counter`` draws the last-state Gumbels and
+the model update from one replicated generator, (seed, counter, i), and the
+per-block Gumbels of each shard from that global shard's own generator,
+(seed, counter, i, shard) — the counterpart of JAX's k_z / k_model and
+fold_in(k_local, shard) (sharded.py:223-224). The draws do not depend on W.
+
+The marginal count buffers stay sharded with the position axis, so a 3 Gbp
+genome's counts never materialize on one device.
+
+Layout: T is padded to T_pad = P * T_local with T_local a multiple of the
+prefix-cell size; padding weights are -inf (never boundaries) and padded
+data is zero, so the block partition of [0, T) is untouched and padding
+positions belong to no block.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+from typing import NamedTuple
+
 import numpy as np
+import torch
+
+from hammlet_tpu_torch import debug as _debug
+from hammlet_tpu_torch import runner
+from hammlet_tpu_torch.checkpoint import save_sharded_checkpoint
+from hammlet_tpu_torch.io.records import Records
+from hammlet_tpu_torch.models.autopriors import nig_autoprior
+from hammlet_tpu_torch.models.distributions import emission_log_weights_t, gumbel
+from hammlet_tpu_torch.models.hmm import (
+    HMMPriors,
+    HMMState,
+    ModelSpec,
+    SweepStats,
+    resample_model,
+    sample_from_priors,
+)
+from hammlet_tpu_torch.parallel.ingest import sharded_ingest
+from hammlet_tpu_torch.parallel.mesh import PositionMesh, position_mesh
+from hammlet_tpu_torch.samplers.forward_backward import (
+    prefix_matmul_scan_t,
+    suffix_compose_scan_t,
+)
+from hammlet_tpu_torch.samplers.sweep import accumulate_sweep_stats, make_generator
+
+#: accumulate_sweep_stats over the local-shard axis of every argument
+#: (states, sizes, n_blocks, block stats (dim, 2, S, cap))
+_local_sweep_stats = torch.func.vmap(accumulate_sweep_stats, in_dims=(0, 0, 0, 2, None, None))
+
+
+@dataclass
+class ShardedBuffers:
+    """On-device recording state of this process's S shards (the sharded
+    counterpart of samplers.sweep.RecordBuffers), updated in place.
+
+    counts: (S, K*T_local) int32 — per-shard FLAT boundary-difference
+            accumulators; the marginals are the cumsum along the global
+            position axis, with the carry across shard edges
+    everb:  (S, T_local + 1) bool — per-shard union of recorded segment
+            starts; column T_local takes the masked writes
+    n_rec, n_bound: () int32 — recorded sweeps and the popcount of the
+            global boundary union, replicated
+    """
+
+    counts: torch.Tensor
+    everb: torch.Tensor
+    n_rec: torch.Tensor
+    n_bound: torch.Tensor
+
+    @staticmethod
+    def create(S: int, K: int, T_local: int, device) -> "ShardedBuffers":
+        return ShardedBuffers(
+            counts=torch.zeros((S, K * T_local), dtype=torch.int32, device=device),
+            everb=torch.zeros((S, T_local + 1), dtype=torch.bool, device=device),
+            n_rec=torch.zeros((), dtype=torch.int32, device=device),
+            n_bound=torch.zeros((), dtype=torch.int32, device=device),
+        )
+
+    def clone(self) -> "ShardedBuffers":
+        return ShardedBuffers(
+            self.counts.clone(), self.everb.clone(), self.n_rec.clone(), self.n_bound.clone()
+        )
+
+
+class _Layout(NamedTuple):
+    """Shard-layout constants of a chunk's sweeps (built once per chunk)."""
+
+    sidx: torch.Tensor  # (S,) local shard index
+    gid: torch.Tensor  # (S,) global index of each local shard
+    start: torch.Tensor  # (S,) first global position of each local shard
+    ids: torch.Tensor  # (P,) every global shard index
+    later: torch.Tensor  # (P, P) bool: shard j (column) after shard g (row)
+    earlier: torch.Tensor  # (P, P) bool: shard j before shard g
+    bidx: torch.Tensor  # (cap,) block slot index
+    rows: slice  # this process's rows of a (P, ...) array
+
+
+def _layout(mesh: PositionMesh, cap: int, T_local: int, device) -> _Layout:
+    ids = torch.arange(mesh.n_shards, device=device)
+    gid = ids[mesh.first_shard : mesh.first_shard + mesh.local_shards]
+    return _Layout(
+        sidx=gid - mesh.first_shard,
+        gid=gid,
+        start=gid * T_local,
+        ids=ids,
+        later=ids[None, :] > ids[:, None],
+        earlier=ids[None, :] < ids[:, None],
+        bidx=torch.arange(cap, device=device),
+        rows=slice(mesh.first_shard, mesh.first_shard + mesh.local_shards),
+    )
+
+
+class SweepOut(NamedTuple):
+    model: HMMState  # the replicated new model
+    states: torch.Tensor  # (S, cap) int64 per-block states, 0 past the blocks
+    sizes: torch.Tensor  # (S, cap) int64 block sizes (global blocks cut at
+    #                      no shard edge: a shard's last block runs on)
+    nb_all: torch.Tensor  # (P,) per-shard block counts (saturating at cap+1)
+    err: torch.Tensor | None  # () int32 debug bits of the local shards
+    stats: SweepStats  # the ordered cross-shard sweep statistics
+
+
+def _sharded_sweep_body(
+    mesh: PositionMesh,
+    generator: torch.Generator | None,
+    shard_generators: list[torch.Generator] | None,
+    model: HMMState,
+    priors: HMMPriors,
+    negw: torch.Tensor,  # (S, T_local) ascending sort of -weights per shard
+    candpos: torch.Tensor,  # (S, cap+1) position-sorted candidates (+T_local)
+    candrank: torch.Tensor,  # (S, cap) local weight rank of each candidate
+    r_t: torch.Tensor,  # (dim, 2, S, T_local+1) in-cell reverse prefix rows
+    q2c: torch.Tensor,  # (2, dim, 2, n_cells+1) stacked (hi, lo) cell prefix
+    buffers: ShardedBuffers,
+    threshold: torch.Tensor | None,
+    *,
+    layout: _Layout,
+    method: str,
+    T: int,
+    T_local: int,
+    cell_bits: int,
+    mapping: torch.Tensor,
+    nr_params: int,
+    use_self_transitions: bool,
+    record: bool,
+    debug: bool = False,
+    noise=None,
+) -> SweepOut:
+    """One sharded Gibbs sweep over this process's shards (the counterpart
+    of the JAX body under shard_map, sharded.py:79-403). ``threshold`` None
+    is dynamic (from the model). ``record`` is this sweep's recording flag;
+    it records in place into ``buffers`` unless a shard overflows the
+    capacity. ``noise`` replaces the draws of the per-block Gumbels: (K, S,
+    cap) for "M", (last-state Gumbels (K,), map Gumbels (K, K, S, cap)) for
+    "F"; the model update still draws from ``generator``. No op here waits
+    for the host."""
+    S, cap = candrank.shape
+    dim = r_t.shape[0]
+    K = mapping.shape[0]
+    dev = negw.device
+    start = layout.start
+    end = start + T_local
+    rows = layout.rows
+
+    def query_t(s_glob, e_glob):
+        """Block stats for global [s, e) with both endpoints in
+        [start, end] of their shard: (S, B) -> (dim, 2, S, B)."""
+        B = s_glob.shape[1]
+        ls = (s_glob - start[:, None])[None, None].expand(dim, 2, S, B)
+        le = (e_glob - start[:, None])[None, None].expand(dim, 2, S, B)
+        r_s = torch.gather(r_t, 3, ls)
+        r_e = torch.gather(r_t, 3, le)
+        qd = q2c[..., e_glob >> cell_bits] - q2c[..., s_glob >> cell_bits]  # (2, dim, 2, S, B)
+        return (r_s - r_e) + (qd[0] + qd[1])
+
+    thr = model.threshold(T) if threshold is None else threshold
+
+    # ---- local block boundaries (pre-sorted bucket candidates: a
+    # saturating masked count + a masked compaction, exact whenever the
+    # sweep fits cap, the only case whose count is used) --------------------
+    nb_l = torch.sum(negw[:, : min(cap + 1, T_local)] <= -thr, dim=1)  # (S,)
+    valid_c = candrank < nb_l[:, None]
+    slot = torch.where(valid_c, torch.cumsum(valid_c, dim=1) - 1, cap)
+    sel = torch.full((S, cap + 1), cap, dtype=torch.int64, device=dev)
+    sel.scatter_(1, slot, layout.bidx.expand(S, cap))
+    lstarts = torch.gather(candpos, 1, sel[:, :cap])  # padded -> T_local
+    gstarts = lstarts + start[:, None]  # padded -> shard end
+    valid_b = layout.bidx < nb_l[:, None]
+    is_last_real = layout.bidx == (nb_l - 1)[:, None]
+
+    first_b = torch.where(nb_l > 0, gstarts[:, 0], T)
+    head_end = torch.clamp(torch.minimum(first_b, end), min=start, max=end)
+    head_stat = query_t(start[:, None], head_end[:, None])[..., 0]  # (dim, 2, S)
+    firsts_all = mesh.all_gather(first_b)  # (P,)
+    heads_all = mesh.all_gather(head_stat.permute(2, 0, 1))  # (P, dim, 2)
+    nb_all = mesh.all_gather(nb_l)  # (P,)
+
+    # cross-shard values for every shard from the replicated gathers, then
+    # this process's rows (the same (P, ...) arithmetic whatever W is)
+    next_all = torch.amin(torch.where(layout.later, firsts_all[None, :], T), dim=1)
+    include = layout.later & (layout.ids[None, :] * T_local < next_all[:, None])
+    tail_all = torch.sum(torch.where(include[:, :, None, None], heads_all[None], 0.0), dim=1)
+    next_boundary = next_all[rows]
+
+    gends_next = torch.cat([gstarts[:, 1:], end[:, None]], dim=1)
+    gends = torch.where(is_last_real, next_boundary[:, None], gends_next)
+    sizes = gends - gstarts  # padded blocks: end - end = 0
+
+    # ---- block sufficient statistics: every block as if it ended inside
+    # its shard (the last real one cut at the shard end), plus the gathered
+    # heads of the shards the last block spans ------------------------------
+    bstats = query_t(gstarts, torch.minimum(gends, end[:, None]))  # (dim, 2, S, cap)
+    spans = is_last_real & (gends > end[:, None])
+    bstats = bstats + torch.where(
+        spans[None, None], tail_all[rows].permute(1, 2, 0)[..., None], 0.0
+    )
+
+    # ---- state sampling (K, S, cap) layout: block axis minor --------------
+    log_e = emission_log_weights_t(
+        bstats.reshape(dim, 2, S * cap), sizes.reshape(-1),
+        model.theta_mean, model.theta_var, mapping,
+    ).reshape(K, S, cap)
+
+    if method == "M":
+        g = noise if noise is not None else torch.stack(
+            [gumbel(gen, (K, cap), dev) for gen in shard_generators], dim=1
+        )
+        z = torch.where(valid_b, torch.argmax(log_e + g, dim=0), 0)
+    elif method == "F":
+        sizes_f = sizes.to(torch.float32)
+        log_a_ss = torch.log(torch.diagonal(model.A))
+        E = log_e
+        if use_self_transitions:
+            E = E + (sizes_f[None] - 1.0) * log_a_ss[:, None, None]
+        e_w = torch.exp(E - torch.amax(E, dim=0, keepdim=True))
+        M = model.A[:, :, None, None] * e_w[None]  # (K, K, S, cap)
+        eye = torch.eye(K, dtype=M.dtype, device=dev)
+        M = torch.where(valid_b[None, None], M, eye[:, :, None, None])
+        L = prefix_matmul_scan_t(M)
+        tots_all = mesh.all_gather(L[..., -1].permute(2, 0, 1))  # (P, K, K)
+        # cross-shard inclusive prefix products over the P shard totals
+        tot_prefix = prefix_matmul_scan_t(tots_all.permute(1, 2, 0))  # (K, K, P)
+        pre_all = torch.cat([eye[:, :, None], tot_prefix[:, :, :-1]], dim=2)
+        v_pre = torch.sum(model.pi[:, None, None] * pre_all, dim=0)[:, rows]  # (K, S)
+        alpha = torch.sum(v_pre[:, None, :, None] * L, dim=0)  # (K, S, cap)
+        alpha = alpha / torch.clamp(torch.sum(alpha, dim=0, keepdim=True), min=1e-35)
+        v_last = torch.sum(model.pi[:, None] * tot_prefix[:, :, -1], dim=0)
+        last_col = v_last / torch.clamp(torch.sum(v_last), min=1e-35)
+
+        m_star = torch.amax(torch.where(nb_all > 0, layout.ids, -1))
+        is_global_last = (layout.gid[:, None] == m_star) & is_last_real  # (S, cap)
+        if use_self_transitions:
+            scale = torch.exp((sizes_f[None] - 1.0) * log_a_ss[:, None, None])
+            cols = torch.where(is_global_last[None], alpha, alpha * scale)
+        else:
+            cols = alpha
+
+        if noise is None:
+            g_last = gumbel(generator, (K,), dev)
+            g_maps = torch.stack(
+                [gumbel(gen, (K, K, cap), dev) for gen in shard_generators], dim=2
+            )
+        else:
+            g_last, g_maps = noise
+        z_last = torch.argmax(torch.log(torch.clamp(last_col, min=1e-38)) + g_last).reshape(1)
+        logits = (
+            torch.log(torch.clamp(cols, min=1e-38))[:, None]
+            + torch.log(torch.clamp(model.A, min=1e-38))[:, :, None, None]
+        )  # (i, j, S, cap)
+        pred = torch.argmax(logits + g_maps, dim=0)  # (j, S, cap)
+        ident = torch.arange(K, device=dev)[:, None]
+        maps = torch.where((valid_b & ~is_global_last)[None], pred, ident[:, :, None])
+        r_suffix = suffix_compose_scan_t(maps)  # (K, S, cap)
+        tmaps_all = mesh.all_gather(r_suffix[:, :, 0].T)  # (P, K)
+        # cross-shard suffix: column g composes the maps of shards g..P-1;
+        # a shard enters through the composition of every LATER shard
+        suffix_all = suffix_compose_scan_t(tmaps_all.T)  # (K, P)
+        after = torch.cat([suffix_all[:, 1:], ident], dim=1)[:, rows]  # (K, S)
+        entry = torch.index_select(after, 0, z_last)  # (1, S)
+        z = torch.gather(r_suffix, 0, entry[:, :, None].expand(1, S, cap))[0]
+    else:
+        raise ValueError(f"unknown sampling method {method!r}")
+
+    # ---- carry states across shards: the chain state entering a shard is
+    # the last block state of the highest earlier shard with any blocks ----
+    last_state = torch.where(
+        nb_l > 0, torch.gather(z, 1, torch.clamp(nb_l - 1, 0, cap - 1)[:, None])[:, 0], 0
+    )
+    last_all = mesh.all_gather(last_state)  # (P,)
+    jbest = torch.amax(
+        torch.where(layout.earlier & (nb_all[None, :] > 0), layout.ids[None, :], -1), dim=1
+    )
+    carry = torch.where(jbest >= 0, last_all[torch.clamp(jbest, min=0)], 0)[rows]  # (S,)
+
+    # ---- sweep statistics: per shard, then the ordered sum over shards ---
+    st = _local_sweep_stats(z, sizes, nb_l, bstats, mapping, nr_params)
+    # accumulate_sweep_stats took state 0 as the previous state of a
+    # shard's first block; replace it with the carried state
+    # (one-hot arithmetic on integer-valued counts: exact, no indexed add)
+    kk = torch.arange(K, device=dev)
+    moved = (carry[:, None] == kk).to(torch.float32) - (kk == 0).to(torch.float32)
+    first = (z[:, 0, None] == kk) & (nb_l > 0)[:, None]  # (S, K)
+    trans = st.trans_counts + moved[:, :, None] * first[:, None, :]
+    tot = mesh.ordered_sum(torch.cat(
+        [st.theta_sums, st.theta_sumsqs, st.theta_counts, trans.reshape(S, K * K),
+         st.state_counts], dim=1,
+    ))
+    n_p = nr_params
+    stats = SweepStats(
+        theta_sums=tot[:n_p],
+        theta_sumsqs=tot[n_p : 2 * n_p],
+        theta_counts=tot[2 * n_p : 3 * n_p],
+        trans_counts=tot[3 * n_p : 3 * n_p + K * K].reshape(K, K),
+        state_counts=tot[3 * n_p + K * K :],
+    )
+    new_model = resample_model(generator, priors, stats)
+
+    # ---- recording: +1 at each local block start with its state, -1 with
+    # the previous state (a shard's first block takes the carried state,
+    # which also closes the block spanning in from earlier shards) ---------
+    if record:
+        rec = torch.amax(nb_all) <= cap  # an overflowing sweep never records
+        z_prev = torch.cat([carry[:, None], z[:, :-1]], dim=1)
+        valid_s = valid_b & (gstarts < T) & rec
+        dec_ok = valid_s & (gstarts > 0)
+        sidx = layout.sidx
+        base = (sidx * (K * T_local))[:, None]
+        idx = torch.cat([
+            torch.where(valid_s, z * T_local + lstarts, 0) + base,
+            torch.where(dec_ok, z_prev * T_local + lstarts, 0) + base,
+        ], dim=1)
+        val = torch.cat([valid_s.to(torch.int32), -dec_ok.to(torch.int32)], dim=1)
+        buffers.counts.view(-1).index_add_(0, idx.reshape(-1), val.reshape(-1))
+        chg = dec_ok & (z != z_prev)
+        # count newly-created boundaries before setting them
+        was_set = torch.gather(buffers.everb, 1, torch.clamp(lstarts, max=T_local - 1))
+        newly = torch.sum(chg & ~was_set)
+        everb_idx = torch.where(chg, lstarts, T_local) + (sidx * (T_local + 1))[:, None]
+        buffers.everb.view(-1).index_fill_(0, everb_idx.reshape(-1), True)
+        buffers.n_rec += rec.to(torch.int32)
+        buffers.n_bound += mesh.psum(newly).to(torch.int32)
+
+    err = None
+    if debug:
+        # the input model too: a poisoned parameter must fail the sweep that
+        # sampled from it (Observation.hpp:374-392 setter guards)
+        err = _debug.model_error_bits(model, bstats) | _debug.model_error_bits(new_model)
+    return SweepOut(new_model, z, sizes, nb_all, err, stats)
+
+
+def _or_over_processes(mesh: PositionMesh, err: torch.Tensor) -> torch.Tensor:
+    """Bitwise OR of a () int32 error bitmask over the processes (each
+    checks only its own shards' block statistics)."""
+    if mesh.group is None:
+        return err
+    errs = mesh.all_gather(err.reshape(1))  # (W,)
+    bits = 2 ** torch.arange(8, device=err.device, dtype=err.dtype)
+    return torch.sum(((errs[:, None] & bits) != 0).any(dim=0) * bits).to(err.dtype)
+
+
+def sharded_phase(
+    mesh: PositionMesh,
+    seed: int,
+    counter: int,
+    model: HMMState,
+    priors: HMMPriors,
+    negw: torch.Tensor,
+    candpos: torch.Tensor,
+    candrank: torch.Tensor,
+    r_t: torch.Tensor,
+    q2_hi: torch.Tensor,
+    q2_lo: torch.Tensor,
+    buffers: ShardedBuffers,
+    static_threshold: float | None,
+    *,
+    method: str,
+    T: int,
+    T_local: int,
+    cell_bits: int,
+    mapping: torch.Tensor,
+    nr_params: int,
+    use_self_transitions: bool,
+    n_iters: int,
+    thinning: int = 0,
+    record: bool = True,
+    want_blocks: bool = False,
+    debug: bool = False,
+):
+    """A chunk of n_iters sharded sweeps with no host sync (the counterpart
+    of build_sharded_phase, sharded.py:449, run eagerly like
+    samplers.sweep.gibbs_phase).
+
+    With ``record`` and ``thinning`` > 0, sweep i records when
+    i % thinning == thinning - 1. Returns (model, buffers, prev, diag,
+    rec_nbs, rec_means, rec_vars, blk): ``prev`` is the pre-chunk snapshot
+    of the buffers for an overflow replay (None when not recording);
+    ``diag`` = [max per-shard block count, last sweep's total block count,
+    error bits OR-reduced over the chunk and the processes]; rec_nbs is
+    (rows, P). ``blk`` is None unless ``want_blocks`` on a recording chunk;
+    then it stacks per recorded sweep this process's (S, cap) states in the
+    smallest dtype that fits K, and the post-record n_bound. Block sizes do
+    not travel: the drain rebuilds them from the candidates."""
+    dev = negw.device
+    record = record and thinning > 0
+    want_blocks = want_blocks and record
+    prev = buffers.clone() if record else None
+    thr = (
+        None if static_threshold is None
+        else torch.tensor(static_threshold, dtype=torch.float32, device=dev)
+    )
+    layout = _layout(mesh, candrank.shape[1], T_local, dev)
+    q2c = torch.stack([q2_hi.permute(1, 2, 0), q2_lo.permute(1, 2, 0)])
+    K = mapping.shape[0]
+    state_dtype = torch.int8 if K <= 127 else torch.int16 if K <= 32767 else torch.int32
+    nbs, means, varis, blk_states, blk_bounds = [], [], [], [], []
+    err = None
+    for i in range(n_iters):
+        rec = record and i % thinning == thinning - 1
+        out = _sharded_sweep_body(
+            mesh,
+            make_generator(dev, seed, counter, i),
+            [make_generator(dev, seed, counter, i, shard=g) for g in mesh.local_ids],
+            model, priors, negw, candpos, candrank, r_t, q2c, buffers, thr,
+            layout=layout, method=method, T=T, T_local=T_local, cell_bits=cell_bits,
+            mapping=mapping, nr_params=nr_params,
+            use_self_transitions=use_self_transitions, record=rec, debug=debug,
+        )
+        model = out.model
+        nbs.append(out.nb_all)
+        means.append(model.theta_mean)
+        varis.append(model.theta_var)
+        if debug:
+            err = out.err if err is None else err | out.err
+        if rec and want_blocks:
+            blk_states.append(out.states.to(state_dtype))
+            blk_bounds.append(buffers.n_bound.clone())
+        del out  # the (S, cap) int64 states before the next sweep's
+    nbs_t = torch.stack(nbs)  # (n_iters, P)
+    if err is None:
+        err = torch.zeros((), dtype=torch.int32, device=dev)
+    else:
+        err = _or_over_processes(mesh, err)
+    diag = torch.stack([nbs_t.max(), nbs_t[-1].sum(), err.to(nbs_t.dtype)])
+    rows = slice(thinning - 1, None, thinning) if record else slice(None)
+    blk = (torch.stack(blk_states), torch.stack(blk_bounds)) if want_blocks else None
+    return (
+        model, buffers, prev, diag, nbs_t[rows],
+        torch.stack(means)[rows], torch.stack(varis)[rows], blk,
+    )
+
+
+def _local_segment_gather(
+    counts_s: torch.Tensor, everb_s: torch.Tensor, K: int, T_local: int, is_first: bool
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decode one shard's boundary-diff buffer and gather the counts at its
+    segment starts (sharded.py:590): (n_seg,) local starts and (n_seg, K)
+    counts, without the carries of earlier shards."""
+    cum = torch.cumsum(counts_s.view(K, T_local), dim=1, dtype=torch.int32)
+    first = everb_s.clone()
+    if is_first:
+        first[0] = True
+    starts_l = torch.nonzero(first)[:, 0]
+    return starts_l, cum[:, starts_l].T
+
+
+def compact_sharded_marginals(engine) -> tuple[np.ndarray, np.ndarray]:
+    """RLE-compact the sharded marginal accumulators on the device and
+    download only per-segment rows (the reference keeps its marginal store
+    small, StateMarginals.hpp:20-21).
+
+    One small replicated summary ((P,) segment counts + (P, K) shard
+    totals) gives every process the cross-shard count carries; each process
+    then gathers its own shards' rows at their segment starts, and in a
+    multi-process run the rows are exchanged once, padded only to the
+    largest process payload (sharded.py:607). Every process must call it.
+
+    Returns (starts, seg_counts): global segment start positions (ascending
+    int64) and the (n_seg, K) recorded counts at those starts."""
+    mesh = engine.mesh
+    K = engine.spec.nr_states
+    T_local = engine.T_local
+    S = mesh.local_shards
+    buf = engine.buffers
+    everb = buf.everb[:, :T_local]
+    gid = torch.tensor(list(mesh.local_ids), device=everb.device)
+    # global position 0 starts a segment
+    n_seg_l = torch.sum(everb, dim=1) + (gid == 0)
+    tots_l = torch.sum(buf.counts.view(S, K, T_local), dim=2, dtype=torch.int64)
+    n_seg = mesh.all_gather(n_seg_l).cpu().numpy().astype(np.int64)  # (P,)
+    tots = mesh.all_gather(tots_l).cpu().numpy()  # (P, K)
+    carries = np.concatenate([np.zeros((1, K), np.int64), np.cumsum(tots, axis=0)[:-1]])
+
+    parts = []  # (n_j, 2 + K) int32: [shard, local start, counts...]
+    for s, j in enumerate(mesh.local_ids):
+        if n_seg[j] == 0:
+            continue
+        starts_l, seg = _local_segment_gather(buf.counts[s], everb[s], K, T_local, j == 0)
+        parts.append(torch.cat([
+            torch.full((len(starts_l), 1), j, dtype=torch.int32, device=everb.device),
+            starts_l.to(torch.int32)[:, None],
+            seg,
+        ], dim=1))
+    mine = torch.cat(parts) if parts else torch.empty(
+        (0, 2 + K), dtype=torch.int32, device=everb.device
+    )
+    if mesh.world_size > 1:
+        pad = int(n_seg.reshape(mesh.world_size, S).sum(axis=1).max())
+        sent = torch.full((pad, 2 + K), -1, dtype=torch.int32, device=everb.device)
+        sent[: len(mine)] = mine
+        rows = mesh.all_gather(sent).cpu().numpy()
+        rows = rows[rows[:, 0] >= 0]
+    else:
+        rows = mine.cpu().numpy()
+    order = np.lexsort((rows[:, 1], rows[:, 0]))  # global shard-major order
+    rows = rows[order]
+    starts = rows[:, 0].astype(np.int64) * T_local + rows[:, 1]
+    seg_counts = rows[:, 2:].astype(np.int64) + carries[rows[:, 0]]
+    return starts, seg_counts
 
 
 def _reassemble_block_rows(
@@ -70,3 +609,355 @@ def _reassemble_block_rows(
         states[r_i, :n_r] = np.concatenate(parts_z)
         sizes[r_i, :n_r] = np.diff(np.append(gstarts, T))
     return states, sizes, ns
+
+
+@dataclass
+class ShardedEngine(runner.ChainOps):
+    """Multi-shard engine mirroring runner.Engine with position sharding
+    (sharded.py:775). Every process of the mesh runs the same calls in the
+    same order: the capacity decisions come from replicated values."""
+
+    mesh: PositionMesh
+    spec: ModelSpec
+    priors: HMMPriors
+    seed: int
+    T: int
+    T_local: int
+    cell_bits: int
+    negw: torch.Tensor  # (S, T_local) per-shard ascending sort of -weights
+    rank: torch.Tensor  # (S, T_local) per-shard weight rank -> local position
+    r_t: torch.Tensor  # (dim, 2, S, T_local+1) per-shard local R rows
+    q2_hi: torch.Tensor
+    q2_lo: torch.Tensor
+    records: Records | None = None
+    cap_local: int = 1024
+    checkpoint_path: str | None = None
+    checkpoint_every: int = 0  # sweeps between checkpoints (0 = off)
+
+    model: HMMState = field(init=False)
+    buffers: ShardedBuffers = field(init=False)
+    sweep_counter: int = field(init=False, default=0)
+    sweeps_completed: int = field(init=False, default=0)
+    scheme_op_index: int = field(init=False, default=0)
+    scheme_op_done: int = field(init=False, default=0)
+    last_n_blocks: int = field(init=False, default=0)
+    #: one (method, sweeps, seconds) entry per run() call of this process
+    phase_log: list = field(init=False, default_factory=list)
+
+    def __post_init__(self):
+        self.n_shards = self.mesh.n_shards
+        self.device = self.mesh.device
+        K = self.spec.nr_states
+        if K * self.T_local >= 2**31:
+            # the checkpoint's flat per-shard index (and the JAX package's)
+            # is int32
+            raise ValueError(
+                f"per-shard marginal index K*T_local = {K}*{self.T_local} "
+                "exceeds int32; use more shards"
+            )
+        self._mapping = torch.as_tensor(
+            self.spec.mapping().astype(np.int64), device=self.device
+        )
+        self._cands: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        self._cands_h: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+        self._last_ckpt = 0
+        self.buffers = ShardedBuffers.create(
+            self.mesh.local_shards, K, self.T_local, self.device
+        )
+        self.model = sample_from_priors(self._next_generator(), self.priors)
+        self._dynamic = True
+        self._static_threshold = 0.0
+        # per-shard capacity ceiling (runner._MAX_CAPACITY): burn-in chunks
+        # overflowing it are accepted truncated
+        self.max_cap_local = max(
+            min(self.T_local, runner._MAX_CAPACITY), self.cap_local
+        )
+
+    def _shard_candidates(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Per-shard position-sorted candidates for the current cap_local
+        (sorted once per capacity change, not per sweep)."""
+        cap = self.cap_local
+        if cap not in self._cands:
+            prefix = self.rank[:, :cap]
+            order = torch.argsort(prefix, dim=1)  # positions are distinct
+            pos = torch.cat(
+                [torch.gather(prefix, 1, order), prefix.new_full((len(prefix), 1), self.T_local)],
+                dim=1,
+            )
+            self._cands[cap] = (pos, order)
+        return self._cands[cap]
+
+    def _shard_candidates_host(self, cap_local: int) -> tuple[np.ndarray, np.ndarray]:
+        """Host copies of every shard's candidates for one capacity (fetched
+        once per capacity; the record drain rebuilds block sizes from them).
+        A collective: every process calls it at the same point."""
+        if cap_local not in self._cands_h:
+            pos, rank = self._cands[cap_local]
+            self._cands_h[cap_local] = (
+                self.mesh.all_gather(pos).cpu().numpy(),
+                self.mesh.all_gather(rank).cpu().numpy(),
+            )
+        return self._cands_h[cap_local]
+
+    def _price_nb(self, thr: float) -> int:
+        """Worst-shard boundary count at a threshold (a per-shard binary
+        search; off the sweep path)."""
+        value = torch.full(
+            (self.mesh.local_shards, 1), -np.float32(thr), dtype=torch.float32,
+            device=self.device,
+        )
+        per_shard = torch.searchsorted(self.negw, value, right=True)[:, 0]
+        return int(self.mesh.all_gather(per_shard).max())
+
+    def _resize_capacity_for_phase(self) -> None:
+        """Re-size cap_local to the CURRENT threshold's worst-shard boundary
+        count at a phase boundary (both directions), as
+        runner.Engine._resize_capacity_for_phase."""
+        nb = self._price_nb(self._threshold_host())
+        self.cap_local = min(
+            self.T_local, self.max_cap_local, runner._round_capacity(nb + nb // 8 + 64)
+        )
+
+    def _run_phase(self, method: str, iterations: int, thinning: int, start: int = 0) -> None:
+        recording = thinning > 0
+        want_blocks = (
+            recording
+            and self.records is not None
+            and bool({"sequences", "blocks", "segments"} & self.records.enabled)
+        )
+        debug = _debug.debug_enabled()
+        done = start
+        end = start + iterations
+        while done < end:
+            n, thin_s, rec_s = runner._next_chunk(
+                done, end, thinning if recording else 0, runner.PHASE_CHUNK
+            )
+            self.sweep_counter += 1
+            counter = self.sweep_counter  # fixed across overflow replays
+            while True:
+                candpos, candrank = self._shard_candidates()
+                model, buffers, prev, diag, nbs, means, varis, blk = sharded_phase(
+                    self.mesh, self.seed, counter, self.model, self.priors,
+                    self.negw, candpos, candrank, self.r_t, self.q2_hi, self.q2_lo,
+                    self.buffers, None if self._dynamic else self._static_threshold,
+                    method=method, T=self.T, T_local=self.T_local,
+                    cell_bits=self.cell_bits, mapping=self._mapping,
+                    nr_params=self.spec.nr_params,
+                    use_self_transitions=self.spec.use_self_transitions,
+                    n_iters=n, thinning=thin_s, record=rec_s,
+                    want_blocks=want_blocks, debug=debug,
+                )
+                # the chunk's single host sync: [max_nb, last total, err]
+                diag_h = diag.cpu().numpy()
+                _debug.raise_on_error(int(diag_h[2]))
+                max_nb = int(diag_h[0])
+                self.last_n_blocks = int(diag_h[1])
+                if max_nb <= self.cap_local:
+                    self.model, self.buffers = model, buffers
+                    break
+                # per-shard counts saturate at cap_local+1: re-price the true
+                # worst-shard count at the pre-chunk threshold for a
+                # one-jump capacity grow
+                max_nb = max(max_nb, self._price_nb(self._threshold_host()))
+                grown = min(
+                    self.T_local, self.max_cap_local, runner._round_capacity(2 * max_nb)
+                )
+                if grown <= self.cap_local:
+                    # at the per-shard ceiling: burn-in chunks are accepted
+                    # truncated; a recording chunk must be exact
+                    if rec_s:
+                        raise RuntimeError(
+                            f"recording sweep needs {max_nb} blocks on its "
+                            f"worst shard but the capacity ceiling is "
+                            f"{self.cap_local}; raise the ceiling or extend "
+                            "burn-in"
+                        )
+                    self.model, self.buffers = model, buffers
+                    break
+                self.cap_local = grown
+                # replay the chunk (same counter) from the pre-chunk snapshot
+                if prev is not None:
+                    self.buffers = prev
+            if self.records is not None and rec_s:
+                self._drain_records(nbs, means, varis, blk, self.cap_local)
+            done += n
+            self.sweeps_completed += n
+            self.scheme_op_done = done
+            # track the falling block count after burn-in (grows back via
+            # same-counter replay on overflow)
+            target = min(
+                self.T_local, self.max_cap_local,
+                runner._round_capacity(max_nb + max_nb // 8 + 64),
+            )
+            if target < self.cap_local:
+                self.cap_local = target
+            self._maybe_checkpoint()
+
+    def _drain_records(self, nbs, means, varis, blk, cap_local: int) -> None:
+        """Drain one chunk's record stacks into the enabled streams (see
+        _reassemble_block_rows for the size-free block reconstruction).
+        Every process takes the same path: the state stacks and candidates
+        are gathered from all of them; only the primary's Records writes."""
+        wants_comp = "compression" in self.records.enabled
+        wants_params = "parameters" in self.records.enabled
+        if not (wants_comp or wants_params or blk is not None):
+            return
+        nbs_h = nbs.cpu().numpy()  # (R, P)
+        if blk is not None:
+            z = self.mesh.all_gather(blk[0].transpose(0, 1))  # (P, R, cap)
+            z_h = z.transpose(0, 1).reshape(len(nbs_h), -1).cpu().numpy()
+            pos_h, rank_h = self._shard_candidates_host(cap_local)
+            states, sizes, ns_tot = _reassemble_block_rows(
+                z_h.astype(np.int32), nbs_h, pos_h, rank_h, self.T, self.T_local
+            )
+            self.records.record_sweeps_batch(states, sizes, ns_tot, blk[1].cpu().numpy())
+        else:
+            self.records.record_compressions(nbs_h.sum(axis=1))
+        if wants_params:
+            for m, v in zip(means.cpu().numpy(), varis.cpu().numpy()):
+                self.records.record_theta(m, v)
+
+    def _save_checkpoint(self) -> None:
+        """A collective: every process reaches it after the same chunk."""
+        save_sharded_checkpoint(self, self.checkpoint_path)
+
+    def _one_sweep(self, method: str, do_record: bool) -> None:
+        """One sweep as its own chunk (test and debug surface; phases run
+        chunked), recorded into the streams when ``do_record``."""
+        self._run_phase(method, 1, 1 if do_record else 0)
+
+    def finalize(self) -> None:
+        if self.records is not None:
+            if "marginals" in self.records.enabled:
+                starts, seg_counts = compact_sharded_marginals(self)
+                # save-time invariant (StateMarginals.hpp:306-308)
+                _debug.check_marginal_sums(seg_counts, int(self.buffers.n_rec))
+                self.records.save_marginals_from_segments(starts, seg_counts)
+            self.records.close()
+
+    @property
+    def marginal_counts(self) -> np.ndarray:
+        """(K, T) decoded marginal state counts (gathered from every
+        process)."""
+        K = self.spec.nr_states
+        d = (
+            self.mesh.all_gather(self.buffers.counts).cpu().numpy()
+            .reshape(self.n_shards, K, self.T_local)
+            .transpose(1, 0, 2)
+            .reshape(K, self.n_shards * self.T_local)
+        )
+        return np.cumsum(d.astype(np.int64), axis=1)[:, : self.T].astype(np.int32)
+
+
+def _choose_layout(T: int, n_shards: int) -> tuple[int, int]:
+    """(T_local, cell_bits): shard size cell-aligned, cells <= 2^16."""
+    t0 = -(-T // n_shards)  # ceil
+    cell_bits = min(16, max(2, (max(t0, 4) - 1).bit_length()))
+    cell = 1 << cell_bits
+    T_local = -(-t0 // cell) * cell
+    return T_local, cell_bits
+
+
+def _local_r_with_edges(r_pad: np.ndarray, n_shards: int, T_local: int, cell: int):
+    """Rearrange the global R ((T_pad, dim, 2), position-major) into the JAX
+    package's per-shard layout: (n_shards * dim * 2, T_local + 1)
+    position-axis-minor component rows, the extra column being R[shard_end]
+    = the full sum of the cell starting at the shard's right edge (0 for the
+    last shard)."""
+    dim = r_pad.shape[1]
+    out = np.zeros((n_shards * dim * 2, T_local + 1), dtype=np.float32)
+    for j in range(n_shards):
+        lo = j * T_local
+        blk = np.zeros((T_local + 1, dim, 2), dtype=np.float32)
+        blk[:T_local] = r_pad[lo : lo + T_local]
+        edge = (j + 1) * T_local
+        if edge < n_shards * T_local:
+            blk[T_local] = r_pad[edge]
+        out[j * dim * 2 : (j + 1) * dim * 2] = blk.transpose(1, 2, 0).reshape(
+            dim * 2, T_local + 1
+        )
+    return out
+
+
+def make_sharded_engine(
+    data,
+    mesh: PositionMesh | None = None,
+    n_devices: int | None = None,
+    T: int | None = None,
+    dim: int | None = None,
+    nr_params: int = 3,
+    nr_data_dim: int = 1,
+    seed: int = 0,
+    s2: float = 0.2,
+    p: float = 0.9,
+    trans: float = 0.5,
+    self_trans: float = 0.5,
+    initial_alpha: float = 0.5,
+    weight_multiplier: float = 1.0,
+    use_self_transitions: bool = True,
+    records: Records | None = None,
+    cap_local: int | None = None,
+    device: str | torch.device | None = None,
+) -> ShardedEngine:
+    """Ingest + auto-priors + sharded engine construction.
+
+    ``mesh`` None builds ``position_mesh(n_devices, device)`` (one shard
+    when both are None). Ingest runs shard by shard with bounded host memory
+    (O(T_local * dim) peak instead of O(T); parallel/ingest.py). ``data`` is
+    either the (T, dim) array or a provider ``f(start, stop) -> chunk`` with
+    explicit T/dim, so genome-scale inputs stream from disk without ever
+    being resident."""
+    if mesh is None:
+        mesh = position_mesh(n_devices or 1, device)
+    n_shards = mesh.n_shards
+    if not callable(data):
+        data = np.asarray(data, dtype=np.float32)
+        if data.ndim == 1:
+            data = data[:, None]
+        T, dim = data.shape
+    elif T is None or dim is None:
+        raise ValueError("T and dim are required with a data provider")
+    T_local, cell_bits = _choose_layout(T, n_shards)
+
+    ing = sharded_ingest(
+        mesh, data, T, dim,
+        T_local=T_local, cell_bits=cell_bits,
+        weight_multiplier=weight_multiplier,
+    )
+
+    spec = ModelSpec(nr_params, nr_data_dim, use_self_transitions)
+    # auto-prior closed form from the streamed block means
+    # (AutoPriors.hpp:86-107; same reduction as autoprior_host)
+    S, S2, n = ing.block_means
+    n = max(n, 1.0)
+    mean = S / n
+    var = S2 / n - mean * mean
+    nig_row = nig_autoprior(s2, p, float(mean), float(var))
+    nig = np.tile(nig_row, (nr_params, 1))
+    priors = HMMPriors.create(
+        nig, spec.nr_states, trans, self_trans, initial_alpha, device=mesh.device
+    )
+
+    if cap_local is None:
+        # clamp the initial sizing by the capacity ceiling too: the
+        # prior-threshold boundary count is ~T
+        cap_local = min(
+            T_local, runner._MAX_CAPACITY, max(64, 4 * ing.nb0 // n_shards + 64)
+        )
+
+    return ShardedEngine(
+        mesh=mesh,
+        spec=spec,
+        priors=priors,
+        seed=seed,
+        T=T,
+        T_local=T_local,
+        cell_bits=cell_bits,
+        negw=ing.negw,
+        rank=ing.rank,
+        r_t=ing.r_t,
+        q2_hi=ing.q2_hi,
+        q2_lo=ing.q2_lo,
+        records=records,
+        cap_local=cap_local,
+    )

@@ -48,7 +48,6 @@ from hammlet_tpu_torch.ops.blocks import (
 )
 from hammlet_tpu_torch.ops.wavelet import breakpoint_weights, maxlet_transform
 from hammlet_tpu_torch.ops.wavelet_cuda import maxlet_transform_cuda
-from hammlet_tpu_torch.parallel.sharded import _reassemble_block_rows
 from hammlet_tpu_torch.samplers.sweep import RecordBuffers, gibbs_phase, make_generator
 
 
@@ -284,8 +283,78 @@ def ingest_device(data: np.ndarray, weight_multiplier: float = 1.0, device="cpu"
     )
 
 
+class ChainOps:
+    """The scheme ops, phase timing and periodic checkpoints that Engine and
+    the sharded engine (parallel/sharded.ShardedEngine) share. A subclass
+    provides ``T``, ``seed``, ``device``, ``priors``, ``model``,
+    ``_resize_capacity_for_phase``, ``_run_phase`` and ``_save_checkpoint``."""
+
+    def _next_generator(self) -> torch.Generator:
+        self.sweep_counter += 1
+        return make_generator(self.device, self.seed, self.sweep_counter)
+
+    def _threshold_host(self) -> float:
+        if not self._dynamic:
+            return self._static_threshold
+        return threshold_host(self.model.theta_var.cpu().numpy(), self.T)
+
+    # -- scheme ops -------------------------------------------------------
+
+    def sample_prior(self) -> None:
+        self.model = sample_from_priors(self._next_generator(), self.priors)
+
+    def set_static(self) -> None:
+        self._dynamic = False
+        self._static_threshold = float(self.model.threshold(self.T))
+
+    def set_dynamic(self) -> None:
+        self._dynamic = True
+
+    def run(
+        self, method: str, iterations: int, thinning: int, start: int = 0
+    ) -> None:
+        """One F/M phase of ``iterations`` sweeps with record thinning.
+        ``start`` offsets the thinning counter when resuming a phase whose
+        first ``start`` sweeps already ran."""
+        if iterations <= 0:
+            return
+        self._resize_capacity_for_phase()
+        t0 = time.perf_counter()
+        self._run_phase(method, iterations, thinning, start)
+        synchronize(self.device)
+        self.phase_log.append((method, iterations, time.perf_counter() - t0))
+
+    def run_scheme(self, tokens: list[str]) -> None:
+        run_scheme_resumable(self, tokens)
+
+    def _maybe_checkpoint(self) -> None:
+        """Save a checkpoint when ``checkpoint_every`` sweeps have completed
+        since the last one. The record streams drain synchronously after
+        each chunk and are flushed to the disk first, so every line the
+        checkpoint counts survives a kill after the save."""
+        if not self.checkpoint_path or self.checkpoint_every <= 0:
+            return
+        if self.sweeps_completed - self._last_ckpt >= self.checkpoint_every:
+            if self.records is not None:
+                self.records.flush()
+            self._save_checkpoint()
+            self._last_ckpt = self.sweeps_completed
+
+    @property
+    def total_sweeps(self) -> float:
+        return float(sum(n for _, n, _ in self.phase_log))
+
+    @property
+    def sample_time(self) -> float:
+        return sum(secs for _, _, secs in self.phase_log)
+
+    @property
+    def sweeps_per_second(self) -> float:
+        return self.total_sweeps / max(self.sample_time, 1e-9)
+
+
 @dataclass
-class Engine:
+class Engine(ChainOps):
     """Single-device sampling engine."""
 
     ing: Ingest
@@ -338,14 +407,12 @@ class Engine:
                 self.ing.T, self.max_capacity, _round_capacity(2 * nb + 64)
             )
 
-    def _next_generator(self) -> torch.Generator:
-        self.sweep_counter += 1
-        return make_generator(self.device, self.seed, self.sweep_counter)
+    @property
+    def T(self) -> int:
+        return self.ing.T
 
-    def _threshold_host(self) -> float:
-        if not self._dynamic:
-            return self._static_threshold
-        return threshold_host(self.model.theta_var.cpu().numpy(), self.ing.T)
+    def _save_checkpoint(self) -> None:
+        save_checkpoint(self, self.checkpoint_path)
 
     def _candidates(self) -> tuple[torch.Tensor, torch.Tensor]:
         """Position-sorted boundary candidates for the current capacity
@@ -365,18 +432,6 @@ class Engine:
             self._cands_h[capacity] = (cand_pos.cpu().numpy(), cand_rank.cpu().numpy())
         return self._cands_h[capacity]
 
-    # -- scheme ops -------------------------------------------------------
-
-    def sample_prior(self) -> None:
-        self.model = sample_from_priors(self._next_generator(), self.priors)
-
-    def set_static(self) -> None:
-        self._dynamic = False
-        self._static_threshold = float(self.model.threshold(self.ing.T))
-
-    def set_dynamic(self) -> None:
-        self._dynamic = True
-
     def _resize_capacity_for_phase(self) -> None:
         """Re-size the block capacity to the CURRENT threshold's boundary
         count at a phase boundary (both directions): a phase entered right
@@ -386,20 +441,6 @@ class Engine:
         self.capacity = min(
             self.ing.T, self.max_capacity, _round_capacity(nb + nb // 8 + 64)
         )
-
-    def run(
-        self, method: str, iterations: int, thinning: int, start: int = 0
-    ) -> None:
-        """One F/M phase of ``iterations`` sweeps with record thinning.
-        ``start`` offsets the thinning counter when resuming a phase whose
-        first ``start`` sweeps already ran."""
-        if iterations <= 0:
-            return
-        self._resize_capacity_for_phase()
-        t0 = time.perf_counter()
-        self._run_phase(method, iterations, thinning, start)
-        synchronize(self.device)
-        self.phase_log.append((method, iterations, time.perf_counter() - t0))
 
     def _run_phase(
         self, method: str, iterations: int, thinning: int, start: int = 0
@@ -507,6 +548,9 @@ class Engine:
             return
         nbs_h = nbs.cpu().numpy()
         if blk is not None:
+            # imported here: parallel.sharded imports this module
+            from hammlet_tpu_torch.parallel.sharded import _reassemble_block_rows
+
             pos_h, rank_h = self._candidates_host(capacity)
             # the P = 1, T_local = T case of the sharded drain
             states_d, sizes_d, ns_tot = _reassemble_block_rows(
@@ -526,22 +570,6 @@ class Engine:
             for m, v in zip(means.cpu().numpy(), varis.cpu().numpy()):
                 self.records.record_theta(m, v)
 
-    def _maybe_checkpoint(self) -> None:
-        """Save a checkpoint when ``checkpoint_every`` sweeps have completed
-        since the last one. The record streams drain synchronously after
-        each chunk and are flushed to the disk first, so every line the
-        checkpoint counts survives a kill after the save."""
-        if not self.checkpoint_path or self.checkpoint_every <= 0:
-            return
-        if self.sweeps_completed - self._last_ckpt >= self.checkpoint_every:
-            if self.records is not None:
-                self.records.flush()
-            save_checkpoint(self, self.checkpoint_path)
-            self._last_ckpt = self.sweeps_completed
-
-    def run_scheme(self, tokens: list[str]) -> None:
-        run_scheme_resumable(self, tokens)
-
     def finalize(self) -> None:
         if self.records is not None:
             if "marginals" in self.records.enabled:
@@ -558,18 +586,6 @@ class Engine:
         K = self.spec.nr_states
         flat = self.buffers.counts.cpu().numpy().astype(np.int64)
         return np.cumsum(flat.reshape(K, T), axis=1).astype(np.int32)
-
-    @property
-    def total_sweeps(self) -> float:
-        return float(sum(n for _, n, _ in self.phase_log))
-
-    @property
-    def sample_time(self) -> float:
-        return sum(secs for _, _, secs in self.phase_log)
-
-    @property
-    def sweeps_per_second(self) -> float:
-        return self.total_sweeps / max(self.sample_time, 1e-9)
 
 
 def make_engine(

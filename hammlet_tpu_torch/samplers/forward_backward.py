@@ -36,17 +36,21 @@ _TINY_SCALE = 1e-35
 
 def prefix_matmul_scan_t(Mt: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix products of B K x K matrices, block axis minor:
-    (K, K, B) -> (K, K, B), each product rescaled by its max entry.
-    Hillis-Steele: log2(B) levels of shift (identity-padded) + batched
-    combine."""
-    K, _, B = Mt.shape
-    eye = torch.eye(K, dtype=Mt.dtype, device=Mt.device)[:, :, None]
+    (K, K, B) -> (K, K, B), each product rescaled by its max entry; a
+    (K, K, *batch, B) stack scans every batch row on its own (the sharded
+    engine's local shards). Hillis-Steele: log2(B) levels of shift
+    (identity-padded) + batched combine."""
+    K, B = Mt.shape[0], Mt.shape[-1]
+    batch = tuple(Mt.shape[2:-1])
+    eye = torch.eye(K, dtype=Mt.dtype, device=Mt.device).reshape(
+        (K, K) + (1,) * (Mt.dim() - 2)
+    )
     x = Mt
     d = 1
     while d < B:
-        shifted = torch.cat([eye.expand(K, K, d), x[:, :, :-d]], dim=2)
+        shifted = torch.cat([eye.expand((K, K) + batch + (d,)), x[..., :-d]], dim=-1)
         # z[i,k,b] = sum_j shifted[i,j,b] * x[j,k,b]  (earlier @ later)
-        z = torch.sum(shifted[:, :, None, :] * x[None, :, :, :], dim=1)
+        z = torch.sum(shifted[:, :, None] * x[None], dim=1)
         m = torch.amax(z, dim=(0, 1), keepdim=True)
         x = z / torch.clamp(m, min=_TINY_SCALE)
         d <<= 1
@@ -55,13 +59,17 @@ def prefix_matmul_scan_t(Mt: torch.Tensor) -> torch.Tensor:
 
 def suffix_compose_scan_t(maps_t: torch.Tensor) -> torch.Tensor:
     """Suffix compositions r_b = m_b ∘ m_{b+1} ∘ ... of index maps, (K, B)
-    int64 (r_b[j] = m_b[r_{b+1}[j]]); identity-padded on the right."""
-    K, B = maps_t.shape
-    ident = torch.arange(K, dtype=maps_t.dtype, device=maps_t.device)[:, None]
+    int64 (r_b[j] = m_b[r_{b+1}[j]]); identity-padded on the right. A
+    (K, *batch, B) stack composes every batch row on its own."""
+    K, B = maps_t.shape[0], maps_t.shape[-1]
+    ident = torch.arange(K, dtype=maps_t.dtype, device=maps_t.device).reshape(
+        (K,) + (1,) * (maps_t.dim() - 1)
+    )
     x = maps_t
     d = 1
     while d < B:
-        later = torch.cat([x[:, d:], ident.expand(K, d)], dim=1)  # x[b+d]
+        # x[b+d], identity past the end
+        later = torch.cat([x[..., d:], ident.expand(tuple(x.shape[:-1]) + (d,))], dim=-1)
         x = torch.gather(x, 0, later)  # combined[j,b] = x[later[j,b], b]
         d <<= 1
     return x

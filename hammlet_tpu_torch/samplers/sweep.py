@@ -46,12 +46,14 @@ from hammlet_tpu_torch.samplers.mixture import mixture_sample_states
 _MASK64 = (1 << 64) - 1
 
 
-def stream_seed(seed: int, counter: int, index: int = -1) -> int:
+def stream_seed(seed: int, counter: int, index: int = -1, shard: int | None = None) -> int:
     """63-bit generator seed for one random stream, a splitmix64 mix of
-    (seed, counter, index); index -1 is the counter's own stream (prior
-    draws), index i >= 0 the i-th sweep of a chunk."""
+    (seed, counter, index[, shard]); index -1 is the counter's own stream
+    (prior draws), index i >= 0 the i-th sweep of a chunk. ``shard`` names
+    a global shard's own stream of a sharded sweep (parallel/sharded.py);
+    None is the sweep's replicated stream."""
     x = 0x9E3779B97F4A7C15
-    for v in (seed, counter, index):
+    for v in (seed, counter, index) + (() if shard is None else (shard,)):
         x = (x ^ (v & _MASK64)) * 0xBF58476D1CE4E5B9 & _MASK64
         x ^= x >> 31
         x = x * 0x94D049BB133111EB & _MASK64
@@ -59,9 +61,11 @@ def stream_seed(seed: int, counter: int, index: int = -1) -> int:
     return x >> 1
 
 
-def make_generator(device: torch.device, seed: int, counter: int, index: int = -1) -> torch.Generator:
+def make_generator(
+    device: torch.device, seed: int, counter: int, index: int = -1, shard: int | None = None
+) -> torch.Generator:
     gen = torch.Generator(device=device)
-    gen.manual_seed(stream_seed(seed, counter, index))
+    gen.manual_seed(stream_seed(seed, counter, index, shard))
     return gen
 
 

@@ -101,23 +101,27 @@ def _data_file(tmp_path, T=1200, seed=3):
     return str(f)
 
 
-def test_fails_before_any_output(tmp_path, capsys):
-    """Omitting -a, a malformed -i, -D 2 and HAMMLET_NUM_PROCESSES > 1 fail
-    before any output file exists; without -w an existing output stops the
-    run before the next stream's file is made."""
+def test_fails_before_any_output(tmp_path, capsys, monkeypatch):
+    """Omitting -a, a malformed -i, -D 0 and a -D that is not the processes
+    times HAMMLET_LOCAL_DEVICES fail before any output file exists; without
+    -w an existing output stops the run before the next stream's file is
+    made."""
     f = _data_file(tmp_path)
     base = ["-f", f, "-o", str(tmp_path / "o-"), ".csv", "-R", "1", "-O", "M", "S"]
     for extra, text in [
         ([], "use -a"),
         (["-a", "-i", "F", "10"], "multiples of 3"),
-        (["-a", "-D", "2"], "ROADMAP"),
-        (["-a", "-devices", "3", "-M"], "ROADMAP"),
+        (["-a", "-D", "0"], "at least one shard"),
+        (["-a", "-devices", "3", "-M"], "HAMMLET_LOCAL_DEVICES=2"),
     ]:
+        if "-M" in extra:
+            monkeypatch.setenv("HAMMLET_LOCAL_DEVICES", "2")
         assert tcli.main(base + extra) == 1
         err = capsys.readouterr().err
         assert "[ERROR]" in err and text in err, (extra, err)
         assert sorted(p.name for p in tmp_path.iterdir()) == ["d.csv"], extra
 
+    monkeypatch.delenv("HAMMLET_LOCAL_DEVICES")
     (tmp_path / "o-marginals.csv").write_text("keep\n")
     assert tcli.main(base + ["-a"]) == 1
     assert "already exists" in capsys.readouterr().err
@@ -127,10 +131,28 @@ def test_fails_before_any_output(tmp_path, capsys):
 
 @pytest.mark.parametrize("value", ["2", "auto"])
 def test_multi_host_env_refused(tmp_path, capsys, monkeypatch, value):
+    """A multi-process environment that does not say how to reach the other
+    processes (no HAMMLET_COORDINATOR and HAMMLET_PROCESS_ID; for auto, no
+    torchrun variables) stops with an [ERROR] before any file is made."""
+    for name in ("HAMMLET_COORDINATOR", "HAMMLET_PROCESS_ID", "WORLD_SIZE", "RANK",
+                 "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
     monkeypatch.setenv("HAMMLET_NUM_PROCESSES", value)
     f = _data_file(tmp_path)
-    assert tcli.main(["-f", f, "-a", "-R", "1", "-w"]) == 1
-    assert "multi-host runtime is not ported" in capsys.readouterr().err
+    assert tcli.main(["-f", f, "-a", "-R", "1", "-w", "-D", "2"]) == 1
+    err = capsys.readouterr().err
+    assert "[ERROR]" in err and ("HAMMLET_COORDINATOR" if value == "2" else "WORLD_SIZE") in err
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["d.csv"]
+
+
+def test_shards_not_a_multiple_of_processes_refused(tmp_path, capsys, monkeypatch):
+    """In a group of 2 processes, -D 3 stops with an [ERROR] before any file
+    is made (every process must hold the same number of shards)."""
+    monkeypatch.setattr(tcli.distributed, "world_size", lambda: 2)
+    f = _data_file(tmp_path)
+    assert tcli.main(["-f", f, "-a", "-R", "1", "-w", "-D", "3"]) == 1
+    err = capsys.readouterr().err
+    assert "[ERROR]" in err and "not a multiple of the 2 processes" in err
     assert sorted(p.name for p in tmp_path.iterdir()) == ["d.csv"]
 
 

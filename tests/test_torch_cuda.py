@@ -152,3 +152,62 @@ def test_resume_bitwise_on_card(cuda_device, tmp_path):
     assert torch.equal(e1.buffers.counts, e3.buffers.counts)
     assert torch.equal(e1.model.theta_mean, e3.model.theta_mean)
     assert int(e3.buffers.n_records) == 8
+
+
+@pytest.mark.cuda
+def test_sharded_chunk_on_card(cuda_device, tmp_path):
+    """The sharded engine, 4 shards on the card: a recording F chunk queues
+    its work with no host sync, and the finished run's marginal rows sum to
+    the recorded sweeps."""
+    from hammlet_tpu_torch.parallel import sharded
+
+    data = synth_segments(50000, 11)[0]
+    rec = Records(len(data), str(tmp_path / "sh-"), ".csv", 3, overwrite=True)
+    eng = sharded.make_sharded_engine(data, n_devices=4, seed=4, records=rec, device=cuda_device)
+    eng.run("M", 10, 0)
+    eng.run("F", 20, 0)
+    candpos, candrank = eng._shard_candidates()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = sharded.sharded_phase(
+            eng.mesh, eng.seed, 99, eng.model, eng.priors, eng.negw, candpos, candrank,
+            eng.r_t, eng.q2_hi, eng.q2_lo, eng.buffers, None, method="F", T=eng.T,
+            T_local=eng.T_local, cell_bits=eng.cell_bits, mapping=eng._mapping,
+            nr_params=3, use_self_transitions=True, n_iters=8, thinning=2,
+        )
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if int(out[3][0]) <= eng.cap_local:  # no overflow: every recording sweep recorded
+        assert int(eng.buffers.n_rec) == 4
+    eng.model = out[0]
+    eng.run("F", 16, 2)
+    eng.finalize()
+    rows = [list(map(int, x.split("\t"))) for x in (tmp_path / "sh-marginals.csv").read_text().splitlines()]
+    assert sum(r[0] for r in rows) == len(data)
+    assert all(sum(r[1:]) == int(eng.buffers.n_rec) for r in rows)
+    assert eng.device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [2, 3])
+def test_sharded_partition_on_card(cuda_device, tmp_path, P):
+    """Exact on the card: under one fixed model one sweep of the sharded
+    engine cuts the same blocks as the single-device engine."""
+    from hammlet_tpu_torch.parallel import sharded
+
+    data = synth_segments(60000, 12)[0]
+    one = runner.make_engine(data, seed=5, device=cuda_device)
+    one.run("M", 10, 0)
+    one.run("F", 10, 0)
+    eng = sharded.make_sharded_engine(data, n_devices=P, seed=5, device=cuda_device)
+    eng.model = one.model._replace(**{k: v.clone() for k, v in one.model._asdict().items()})
+    for tag, e in (("one", one), ("sh", eng)):
+        e.records = Records(len(data), str(tmp_path / f"{tag}-"), ".csv", 3, outputs={"blocks"}, overwrite=True)
+    one.run("F", 1, 1)
+    eng._one_sweep("F", do_record=True)
+    for e in (one, eng):
+        e.records.close()
+    want = (tmp_path / "one-blocks.csv").read_text()
+    assert want.count("\t") > 10
+    assert (tmp_path / "sh-blocks.csv").read_text() == want

@@ -36,6 +36,8 @@ def test_port_imports_no_jax():
         "import hammlet_tpu_torch.io.input, hammlet_tpu_torch.debug\n"
         "import hammlet_tpu_torch.cli, hammlet_tpu_torch.checkpoint\n"
         "import hammlet_tpu_torch.manpage, hammlet_tpu_torch.parallel.sharded\n"
+        "import hammlet_tpu_torch.parallel.mesh, hammlet_tpu_torch.parallel.distributed\n"
+        "import hammlet_tpu_torch.parallel.ingest, hammlet_tpu_torch.parallel.mh_worker\n"
         "import chip_smoke\n"
         "sys.argv = ['hammlet-torch', '-h']\n"
         "try:\n"
