@@ -7,12 +7,20 @@ Run from the repository root on a machine with a card:
 
 Phases, one line each (a failed phase exits non-zero and prints no result):
 1. card: nvidia-smi name and power limit, torch's device name;
-2. build: nvcc builds csrc/maxlet.cu for sm_90a into hammlet_tpu_torch/build/;
-3. kernel: the Hopper maxlet kernel against its plain torch versions, on the
-   card and on the CPU, bit for bit, at the sizes the main path uses; times;
+2. build: nvcc builds csrc/maxlet.cu for sm_90a into hammlet_tpu_torch/build/
+   (ptxas registers and spills of each kernel);
+3. kernel: each Hopper maxlet kernel (chunk, cross-chunk) against its own
+   plain torch version and the whole transform against
+   wavelet.maxlet_transform, on the card and on the CPU, bit for bit, at
+   KERNEL_SIZES x KERNEL_DIMS, and on the card at T = 64,000,000; NaN
+   propagation; the CUDA kernels of one transform call (torch.profiler, in
+   a child process: this script with PROFILE_FLAG); then one more line per
+   TIMED_SHAPES entry: CUDA-event times (L2 flushed; warm, device only;
+   warm with the host launch) of each kernel, the transform and their plain
+   versions, beside the bound;
 4. main path: make_engine -> run_scheme("M 64 0 F 512 4") -> finalize at
    T = 4,000,000 positions, 3 states (the repo benchmark's configuration),
-   checking that ingest went through the kernel, that every marginal row
+   checking that ingest launched both kernels, that every marginal row
    sums to the 128 recorded sweeps, and that the MAP state agrees with the
    true segmentation on >= 95% of positions;
 5. settled: on phase 4's engine after its run, F 512 4 with marginals +
@@ -21,7 +29,7 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    per 128-sweep chunk;
 6. cli: the same data as a text file through hammlet_tpu_torch.cli.main with
    all seven outputs (-i M 64 0 F 512 4), checking the engine ran on the
-   card through the kernel and every stream's structure (one line per
+   card through both kernels and every stream's structure (one line per
    recorded sweep; blocks and sequences cover T; compression is T/#blocks;
    sequence boundaries lie on marginals boundaries; each segments line
    counts the union of the boundaries recorded so far; rows sum to 128;
@@ -36,7 +44,7 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    shards on the one card (make_sharded_engine -> M 64 0 F 512 4 ->
    finalize), checking (a) that the sharded host ingest's per-position
    breakpoint weights equal ingest_device's (which launches the maxlet
-   kernel) bit for bit, (b) that under one fixed model one sweep's block
+   kernels) bit for bit, (b) that under one fixed model one sweep's block
    partition equals the single-device engine's, (c) marginal rows sum to
    128 and MAP agreement >= 0.95, (d) that a sharded F chunk runs under
    torch.cuda.set_sync_debug_mode("error"), (e) that the same run inside a
@@ -85,7 +93,21 @@ MAP_AGREEMENT_MIN = 0.95
 P_SHARDED = 4  # shards of the [sharded] phase, all on the one card
 KERNEL_SIZES = [100, 8192, 8193, 100_000, 4_000_000]
 KERNEL_DIMS = [1, 3]
+T_LARGE = 64_000_000  # whole transform checked on the card only
+TIMED_SHAPES = [(T_MAIN, 1), (T_MAIN, 3), (T_LARGE, 1)]
 TIMING_REPS = 20
+FLUSH_BYTES = 256 << 20  # written between timed repetitions: > the 50 MB L2
+SLEEP_CYCLES = 10_000_000  # ~5 ms of device sleep while the host queues a timed call
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+PROFILE_FLAG = "--profile-transform"
+COUNTED = (wavelet_cuda.maxlet_transform_cuda, wavelet_cuda.maxlet_chunks_cuda,
+           wavelet_cuda.maxlet_cross_cuda)
+COUNT_NAMES = ("transforms", "maxlet_chunk_kernel", "maxlet_cross_kernel")
+KERNEL_ROWS = (  # name, the TPU code it replaces, key in phase_kernel's results
+    ("maxlet_chunk_kernel", "hammlet_tpu/ops/wavelet_pallas.py:41", "chunk"),
+    ("maxlet_cross_kernel", "hammlet_tpu/ops/wavelet_pallas.py:130", "cross"),
+)
 
 
 class SmokeFailure(Exception):
@@ -139,12 +161,20 @@ def max_abs_err(a, b) -> float:
     return float((a[both] - b[both]).abs().max()) if both.any() else 0.0
 
 
-def time_ms(fn, reps: int = TIMING_REPS) -> float:
-    """Median milliseconds per call from CUDA events, after a warm-up."""
+def time_ms(fn, before=None, reps: int = TIMING_REPS) -> float:
+    """Median milliseconds per call from CUDA events, after a warm-up.
+    ``before`` queues device work ahead of each repetition, outside the
+    timed window: writing FLUSH_BYTES leaves none of fn's inputs in the
+    50 MB L2, and a sleep keeps them there; either keeps the card busy while
+    the host queues fn, so the window holds device time only. Without it the
+    inputs stay warm and a short call also times its host launch (how this
+    script timed the transform before it had the other two)."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if before is not None:
+            before()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -155,28 +185,71 @@ def time_ms(fn, reps: int = TIMING_REPS) -> float:
     return float(np.median(times))
 
 
+def reset_counts() -> None:
+    for f in COUNTED:
+        f.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: f.launches for name, f in zip(COUNT_NAMES, COUNTED)}
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    """Least time on the card: the bytes over the HBM rate or the float32
+    operations over the float32 peak, whichever is larger."""
+    b, o = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(b, o), "bytes" if b >= o else "operations"
+
+
+def transform_work(T: int, dim: int) -> dict:
+    """(bytes, float32 operations) each kernel and the whole transform
+    need at (T, dim): every input read once, every output written once; a
+    tree node costs a subtract, an abs, a multiply and an add per dim, and
+    a position dim - 1 maxes."""
+    n = -(-T // (1 << wavelet_cuda.CHUNK_BITS))
+    pairs, m = 0, n
+    while m >= 2:  # chunk starts whose wavelet the cross levels form
+        pairs += m // 2
+        m //= 2
+    per_node = 4 * dim + dim - 1
+    return {
+        "chunk": (4 * T * dim + 4 * T + 4 * n * dim, per_node * (T - n)),
+        "cross": (4 * n * dim + 4 * pairs, per_node * pairs),
+        "transform": (4 * T * dim + 4 * T, per_node * T),
+    }
+
+
 def phase_kernel() -> dict:
-    """Kernel vs plain torch, bitwise, on the card and on the CPU."""
-    chunk = 1 << wavelet_cuda.CHUNK_BITS
-    worst = 0.0
+    """Each kernel against its own plain version and the whole transform
+    against wavelet.maxlet_transform, bitwise, on the card and on the CPU;
+    times with L2 flushed and warm."""
+    worst = {"chunk": 0.0, "cross": 0.0, "transform": 0.0}
+
+    def check_at(x, x_cpu, T: int, dim: int) -> None:
+        kc, kt = wavelet_cuda.maxlet_chunks_cuda(x)
+        kx = wavelet_cuda.maxlet_cross_cuda(kc.clone(), kt)
+        got = wavelet_cuda.maxlet_transform_cuda(x)
+        check(got.shape == (T,) and got.dtype == torch.float32, f"shape T={T}")
+        for inp in (x, x_cpu) if x_cpu is not None else (x,):
+            where = f"{inp.device.type}, T={T} dim={dim}"
+            rc, rt = wavelet_cuda.maxlet_chunks_reference(inp)
+            check(bits_equal(kc, rc) and bits_equal(kt, rt), f"chunk kernel != plain ({where})")
+            rx = wavelet_cuda.maxlet_cross_reference(kc.to(inp.device, copy=True), kt.to(inp.device))
+            check(bits_equal(kx, rx), f"cross kernel != plain ({where})")
+            plain = wavelet.maxlet_transform(inp)
+            check(bits_equal(got, plain), f"transform != wavelet.maxlet_transform ({where})")
+            worst["chunk"] = max(worst["chunk"], max_abs_err(kc, rc), max_abs_err(kt, rt))
+            worst["cross"] = max(worst["cross"], max_abs_err(kx, rx))
+            worst["transform"] = max(worst["transform"], max_abs_err(got, plain))
+
     for T in KERNEL_SIZES:
         for dim in KERNEL_DIMS:
             data = np.random.default_rng(T * 7 + dim).normal(1, 2, (T, dim))
             x_cpu = torch.from_numpy(data.astype(np.float32))
-            x = x_cpu.cuda()
-            got = wavelet_cuda.maxlet_transform_cuda(x)
-            plain = wavelet.maxlet_transform(x)
-            plain_cpu = wavelet.maxlet_transform(x_cpu)
-            check(got.shape == (T,) and got.dtype == torch.float32, f"shape T={T}")
-            check(bits_equal(got, plain), f"kernel != plain on card, T={T} dim={dim}")
-            check(bits_equal(got, plain_cpu), f"kernel != plain on CPU, T={T} dim={dim}")
-            # the kernel's own outputs against its plain version
-            Tp = -(-T // chunk) * chunk
-            data_t = torch.nn.functional.pad(x.T, (0, Tp - T)).contiguous()
-            kc, kt = wavelet_cuda.maxlet_chunks_cuda(data_t)
-            rc, rt = wavelet_cuda.maxlet_chunks_reference(data_t)
-            check(bits_equal(kc, rc) and bits_equal(kt, rt), f"chunk outputs T={T} dim={dim}")
-            worst = max(worst, max_abs_err(got, plain), max_abs_err(kc, rc))
+            check_at(x_cpu.cuda(), x_cpu, T, dim)
+    big = large_input(T_LARGE, 1)
+    check_at(big, None, T_LARGE, 1)  # on the card only
+    del big
     # NaN input: the max over dims must propagate NaN like the plain version
     data = np.random.default_rng(5).normal(0, 1, (100_000, 3)).astype(np.float32)
     data[[17, 4096, 8191, 77_777], [0, 2, 1, 2]] = np.nan
@@ -187,18 +260,81 @@ def phase_kernel() -> dict:
     )
     torch.cuda.synchronize()
 
-    # times at the main path's shape
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    timed = {}
+    for T, dim in TIMED_SHAPES:
+        if (T, dim) == (T_MAIN, 1):  # the main path's data
+            x = torch.from_numpy(synth(T_MAIN, SEED)[0][:, None]).cuda()
+        else:
+            x = large_input(T, dim)
+        kc, kt = wavelet_cuda.maxlet_chunks_cuda(x)
+        buf = kc.clone()  # the cross-chunk step rewrites the same positions every call
+        fns = {
+            "chunk": lambda: wavelet_cuda.maxlet_chunks_cuda(x),
+            "cross": lambda: wavelet_cuda.maxlet_cross_cuda(buf, kt),
+            "transform": lambda: wavelet_cuda.maxlet_transform_cuda(x),
+            "chunk_plain": lambda: wavelet_cuda.maxlet_chunks_reference(x),
+            "cross_plain": lambda: wavelet_cuda.maxlet_cross_reference(buf, kt),
+            "transform_plain": lambda: wavelet.maxlet_transform(x),
+        }
+        row = {}
+        for name, fn in fns.items():
+            row[name] = time_ms(fn, flush.zero_)
+            row[name + "_warm_device"] = time_ms(fn, lambda: torch.cuda._sleep(SLEEP_CYCLES))
+            row[name + "_warm"] = time_ms(fn)
+        for name, (nbytes, ops) in transform_work(T, dim).items():
+            row[name + "_bound"], row[name + "_bound_by"] = bound_ms(nbytes, ops)
+        if dim > 1:  # the same rows off 16-byte alignment take the scalar-load instance
+            off = torch.empty(T * dim + 1, dtype=torch.float32, device="cuda")[1:].view(T, dim)
+            off.copy_(x)
+            row["chunk_scalar"] = time_ms(lambda: wavelet_cuda.maxlet_chunks_cuda(off), flush.zero_)
+            del off
+        timed[(T, dim)] = row
+        del x, kc, kt, buf, fns
+    del flush
+    torch.cuda.empty_cache()
+    n_kernels, names = transform_kernel_count()
+    check(n_kernels == 2, f"one maxlet_transform_cuda call ran {n_kernels} CUDA kernels: {names}")
+    return {"worst": worst, "timed": timed, "profiled": n_kernels}
+
+
+def large_input(T: int, dim: int) -> torch.Tensor:
+    """(T, dim) float32 N(1, 2) made on the card from SEED."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + T + dim)
+    return torch.randn((T, dim), generator=gen, device="cuda").mul_(2).add_(1)
+
+
+def transform_kernel_count() -> tuple[int, list[str]]:
+    """CUDA kernels of one maxlet_transform_cuda call at T_MAIN, counted by
+    torch.profiler in a child process: a process that has run the profiler
+    launches more slowly, which would lower every later phase's rates."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(here, "chip_smoke.py"), PROFILE_FLAG],
+        capture_output=True, text=True, timeout=300, cwd=here,
+    )
+    check(proc.returncode == 0, f"profiler child failed: {proc.stderr[-2000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    return res["kernels"], res["names"]
+
+
+def profile_transform() -> int:
+    """The child of transform_kernel_count: prints the CUDA kernels (no
+    memcpy or memset) that one warm transform call runs."""
     x = torch.from_numpy(synth(T_MAIN, SEED)[0][:, None]).cuda()
-    Tp = -(-T_MAIN // chunk) * chunk
-    data_t = torch.nn.functional.pad(x.T, (0, Tp - T_MAIN)).contiguous()
-    times = {
-        "kernel_ms": time_ms(lambda: wavelet_cuda.maxlet_chunks_cuda(data_t)),
-        "kernel_plain_ms": time_ms(lambda: wavelet_cuda.maxlet_chunks_reference(data_t)),
-        "transform_ms": time_ms(lambda: wavelet_cuda.maxlet_transform_cuda(x)),
-        "transform_plain_ms": time_ms(lambda: wavelet.maxlet_transform(x)),
-    }
-    times["max_abs_err"] = worst
-    return times
+    wavelet_cuda.maxlet_transform_cuda(x)
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+    ])
+    with prof:
+        wavelet_cuda.maxlet_transform_cuda(x)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    print(json.dumps({"kernels": len(names), "names": names}), flush=True)
+    return 0
 
 
 def read_marginals(path: str) -> tuple[np.ndarray, np.ndarray]:
@@ -221,7 +357,7 @@ def phase_main_path() -> dict:
         )
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        wavelet_cuda.maxlet_transform_cuda.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         eng = runner.make_engine(data, nr_params=3, seed=SEED, records=rec)
         torch.cuda.synchronize()
@@ -230,7 +366,7 @@ def phase_main_path() -> dict:
         eng.finalize()
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
-        launches = wavelet_cuda.maxlet_transform_cuda.launches
+        launches = read_counts()
         peak = torch.cuda.max_memory_allocated()
         sizes, counts = read_marginals(prefix + "marginals.csv")
         n_params = len(open(prefix + "parameters.csv").read().splitlines())
@@ -238,7 +374,8 @@ def phase_main_path() -> dict:
 
     check(eng.device.type == "cuda", f"engine ran on {eng.device}")
     check(eng.ing.weights_host is None, "ingest did not take the device path")
-    check(launches >= 1, "the main path never launched the maxlet kernel")
+    for name, n in launches.items():
+        check(n >= 1, f"the main path never launched {name}")
     check(int(sizes.sum()) == T_MAIN, f"marginal rows cover {sizes.sum()} positions")
     check(bool((counts.sum(axis=1) == N_RECORDED).all()), "marginal row sums != 128")
     check(n_params == N_RECORDED and n_comp == N_RECORDED, "stream line counts")
@@ -379,18 +516,19 @@ def phase_cli(main_rate: float) -> dict:
         argv = ["-f", path, "-s", "3", "-a", "-R", str(SEED), "-i", *SCHEME.split(),
                 "-O", *streams, "-w"]
         cli.make_engine = spy
-        wavelet_cuda.maxlet_transform_cuda.launches = 0
+        reset_counts()
         try:
             rc = cli.main(argv)
         finally:
             cli.make_engine = make_engine
-        launches = wavelet_cuda.maxlet_transform_cuda.launches
+        launches = read_counts()
         check(rc == 0 and len(engines) == 1, f"cli.main returned {rc}")
         lines = {s: open(os.path.join(tmp, f"smoke-{s}.txt")).read().splitlines()
                  for s in streams}
     eng, setup_s = engines[0]
     check(eng.device.type == "cuda", f"CLI engine ran on {eng.device}")
-    check(launches >= 1, "the CLI never launched the maxlet kernel")
+    for name, n in launches.items():
+        check(n >= 1, f"the CLI never launched {name}")
     for s in ("sequences", "parameters", "blocks", "compression", "segments"):
         check(len(lines[s]) == N_RECORDED, f"{s}: {len(lines[s])} lines, not {N_RECORDED}")
     check(lines["mapping"] == ["0", "1", "2"], "mapping stream")
@@ -514,9 +652,10 @@ def phase_sharded(main_eng) -> dict:
     torch.cuda.synchronize()
     res["ingest_s"] = time.perf_counter() - t0
     weights = torch.empty_like(ing.negw).scatter_(1, ing.rank, -ing.negw).reshape(-1)[:T_MAIN]
-    before = wavelet_cuda.maxlet_transform_cuda.launches
+    before = read_counts()
     ref = runner.ingest_device(data, device="cuda")
-    check(wavelet_cuda.maxlet_transform_cuda.launches == before + 1, "ingest_device launched no kernel")
+    check(all(read_counts()[k] == before[k] + 1 for k in COUNT_NAMES),
+          "ingest_device did not launch each maxlet kernel once")
     check(bits_equal(weights, ref.weights), "sharded ingest weights != ingest_device's (kernel)")
     del ing, ref, weights
 
@@ -656,6 +795,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    if sys.argv[1:] == [PROFILE_FLAG]:
+        return profile_transform()
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
     print(f"[card] {smi} | torch {torch.__version__} (cuda {torch.version.cuda}) | "
@@ -669,12 +810,24 @@ def main() -> int:
               + " | ".join(ptxas), flush=True)
 
         k = phase_kernel()
-        print(f"[kernel] bitwise equal to plain torch (card and CPU) at T in "
-              f"{KERNEL_SIZES} x dim in {KERNEL_DIMS}, NaN propagates; T={T_MAIN} "
-              f"dim=1: kernel {k['kernel_ms']:.4f} ms vs plain chunks "
-              f"{k['kernel_plain_ms']:.4f} ms; whole transform "
-              f"{k['transform_ms']:.4f} ms vs plain {k['transform_plain_ms']:.4f} ms",
-              flush=True)
+        print(f"[kernel] maxlet_chunk_kernel and maxlet_cross_kernel bitwise equal to "
+              f"their plain versions, and maxlet_transform_cuda to wavelet.maxlet_transform, "
+              f"on the card and the CPU at T in {KERNEL_SIZES} x dim in {KERNEL_DIMS} and on "
+              f"the card at T={T_LARGE} dim=1; NaN propagates; one transform call ran "
+              f"{k['profiled']} CUDA kernels (torch.profiler, child process)", flush=True)
+        for (T, dim), row in k["timed"].items():
+            print(f"[kernel] T={T} dim={dim}, ms with L2 flushed / warm, device only / "
+                  f"warm with the host launch (least time on the card, its share of the "
+                  f"flushed time): " + "; ".join(
+                      f"{key} {row[key]:.4f} / {row[key + '_warm_device']:.4f} / "
+                      f"{row[key + '_warm']:.4f} (bound "
+                      f"{row[key + '_bound']:.4g} by {row[key + '_bound_by']}, "
+                      f"{row[key + '_bound'] / row[key]:.1%}), plain "
+                      f"{row[key + '_plain']:.4f} / {row[key + '_plain_warm_device']:.4f} / "
+                      f"{row[key + '_plain_warm']:.4f}"
+                      for key in ("chunk", "cross", "transform"))
+                  + (f"; chunk through the scalar-load instance {row['chunk_scalar']:.4f} "
+                     "flushed" if "chunk_scalar" in row else ""), flush=True)
 
         m = phase_main_path()
         print(f"[main] T={T_MAIN} K=3 '{SCHEME}': setup {m['setup_s']:.3f} s, "
@@ -734,16 +887,20 @@ def main() -> int:
         print(f"chip_smoke FAILED: {exc}", flush=True)
         return 1
 
+    main_row = k["timed"][(T_MAIN, 1)]  # the main path's shape
     print(json.dumps({"kernels": [{
-        "name": "maxlet_chunk_kernel",
+        "name": kernel,
         "route": "cuda",
         "source": "hammlet_tpu_torch/csrc/maxlet.cu",
-        "replaces": "hammlet_tpu/ops/wavelet_pallas.py:41",
-        "launches": m["launches"] + c["launches"],
-        "max_abs_err": k["max_abs_err"],
-        "ms": k["kernel_ms"],
-        "plain_ms": k["kernel_plain_ms"],
-    }]}), flush=True)
+        "replaces": replaces,
+        "launches": m["launches"][kernel] + c["launches"][kernel],
+        "max_abs_err": k["worst"][key],
+        "ms": main_row[key],
+        "plain_ms": main_row[key + "_plain"],
+        "bound_ms": main_row[key + "_bound"],
+        "bound_by": main_row[key + "_bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the maxlet transform
+    } for kernel, replaces, key in KERNEL_ROWS]}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -5,7 +5,7 @@ Models, with the same algorithms, layouts and public names as the JAX
 package ``hammlet_tpu`` (the reference it is tested against):
 
 - ops/: Haar maxlet transform, breakpoint weights (plain torch) and the
-  hand-written Hopper maxlet kernel (csrc/maxlet.cu); block extraction and
+  hand-written Hopper maxlet kernels (csrc/maxlet.cu); block extraction and
   O(1) block statistics from cell-structured prefix sums.
 - models/: conjugate NIG / Dirichlet updates and the model state.
 - samplers/: FB-Gibbs (prefix matrix products + random-map composition),

@@ -3,7 +3,7 @@
 Port of hammlet_tpu/ops/wavelet.py. Both functions perform the reference's
 tree of pairwise float32 adds and exact max/compares (src/wavelet.hpp:98-188
 and :68-93), so they are bit-identical to the golden model on any device.
-This module is also the plain version that the Hopper maxlet kernel
+This module is also the plain version that the Hopper maxlet transform
 (ops/wavelet_cuda.py) is held against.
 
 Semantics:

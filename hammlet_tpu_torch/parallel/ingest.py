@@ -6,7 +6,7 @@ memory (src/wavelet.hpp:98-188); this module builds the sharded engine's
 arrays SHARD BY SHARD, so peak host memory is O(T_local * dim) regardless of
 T, and each finished piece goes straight to its device. Nothing global ever
 exists on the host except O(T / 2^cell) per-cell summaries. Like the JAX
-package's sharded ingest it runs on the host, in numpy; the maxlet kernel is
+package's sharded ingest it runs on the host, in numpy; the maxlet kernels are
 not on this path (its output is held against this one on the card by
 chip_smoke.py).
 

@@ -13,7 +13,7 @@ are never silently truncated (burn-in chunks at the capacity ceiling
 excepted, see _MAX_CAPACITY).
 
 Ingest at T >= 2M positions runs on the device: the maxlet transform goes
-through the hand-written Hopper kernel for CUDA data (ops/wavelet_cuda.py).
+through the hand-written Hopper kernels for CUDA data (ops/wavelet_cuda.py).
 """
 
 from __future__ import annotations
@@ -234,9 +234,11 @@ def _as_2d(data: np.ndarray) -> np.ndarray:
     return data[:, None] if data.ndim == 1 else data
 
 
-def ingest(data: np.ndarray, weight_multiplier: float = 1.0, device="cpu") -> Ingest:
+def ingest(data: np.ndarray, weight_multiplier: float = 1.0, device=None) -> Ingest:
     """maxlet transform -> noise estimate -> breakpoint weights -> prefix
-    sums (main.cpp:277-344) on the host; the results are uploaded."""
+    sums (main.cpp:277-344) on the host; the results are uploaded to
+    ``device`` (``resolve_device``: the card when one is present)."""
+    device = resolve_device(device)
     data = _as_2d(data)
     T, dim = data.shape
     coeffs_host, noise, weights_host = host_transform(data)
@@ -254,11 +256,13 @@ def ingest(data: np.ndarray, weight_multiplier: float = 1.0, device="cpu") -> In
     )
 
 
-def ingest_device(data: np.ndarray, weight_multiplier: float = 1.0, device="cpu") -> Ingest:
+def ingest_device(data: np.ndarray, weight_multiplier: float = 1.0, device=None) -> Ingest:
     """Device-side ingest: upload only the raw data and run the maxlet
-    transform (the Hopper kernel for CUDA data), the noise reduction, the
-    breakpoint weights, the ranking sort and the in-cell prefix sums on the
-    device. Bit-identical maxlet coefficients and weights."""
+    transform (the Hopper kernels for CUDA data), the noise reduction, the
+    breakpoint weights, the ranking sort and the in-cell prefix sums on
+    ``device`` (``resolve_device``: the card when one is present).
+    Bit-identical maxlet coefficients and weights."""
+    device = resolve_device(device)
     data = _as_2d(data)
     T, dim = data.shape
     data_dev = torch.from_numpy(data).to(device)

@@ -6,7 +6,7 @@ conftest.py, which imports jax):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-The plain torch versions these tests hold the kernel against are checked
+The plain torch versions these tests hold the kernels against are checked
 bitwise against the JAX package and the golden model by the CPU tests
 (tests/test_torch_wavelet.py).
 """
@@ -27,8 +27,9 @@ torch.set_num_threads(1)
 @pytest.mark.parametrize("T", [100, 8192, 8193, 20000, 65536, 100000])
 @pytest.mark.parametrize("dim", [1, 3])
 def test_kernel_bitwise_on_card(cuda_device, T, dim):
-    """Tolerance: bitwise. The Hopper kernel against the plain torch version
-    on the card and on the CPU; each call launches the kernel once."""
+    """Tolerance: bitwise. The transform through the Hopper kernels against
+    the plain torch version on the card and on the CPU; each call counts one
+    transform."""
     data = np.random.default_rng(T + dim).normal(1, 2, size=(T, dim)).astype(np.float32)
     x = torch.from_numpy(data).to(cuda_device)
     before = wavelet_cuda.maxlet_transform_cuda.launches
@@ -37,6 +38,63 @@ def test_kernel_bitwise_on_card(cuda_device, T, dim):
     assert wavelet_cuda.maxlet_transform_cuda.launches == before + 1
     assert_bitwise(got, wavelet.maxlet_transform(x))
     assert_bitwise(got, wavelet.maxlet_transform(torch.from_numpy(data)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [8193, 2**20 + 1])
+@pytest.mark.parametrize("dim", [1, 3])
+def test_each_kernel_bitwise_vs_its_plain_version(cuda_device, T, dim):
+    """Tolerance: bitwise. The chunk kernel against maxlet_chunks_reference
+    (coefficients and totals) and the cross kernel against
+    maxlet_cross_reference on the same inputs, each plain version run on
+    the card and on the CPU; a transform launches each kernel once."""
+    data = np.random.default_rng(T * 3 + dim).normal(1, 2, size=(T, dim)).astype(np.float32)
+    x = torch.from_numpy(data).to(cuda_device)
+    counters = (wavelet_cuda.maxlet_transform_cuda, wavelet_cuda.maxlet_chunks_cuda,
+                wavelet_cuda.maxlet_cross_cuda)
+    before = [f.launches for f in counters]
+    wavelet_cuda.maxlet_transform_cuda(x)
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
+    coeffs, totals = wavelet_cuda.maxlet_chunks_cuda(x)
+    crossed = wavelet_cuda.maxlet_cross_cuda(coeffs.clone(), totals)
+    torch.cuda.synchronize()
+    for inp in (x, torch.from_numpy(data)):
+        want_c, want_t = wavelet_cuda.maxlet_chunks_reference(inp)
+        assert_bitwise(coeffs, want_c)
+        assert_bitwise(totals, want_t)
+        assert_bitwise(crossed, wavelet_cuda.maxlet_cross_reference(
+            coeffs.to(inp.device, copy=True), totals.to(inp.device)))
+    assert_bitwise(crossed, wavelet.maxlet_transform(torch.from_numpy(data)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [1, 2, 5])
+def test_kernel_unaligned_and_wide_rows_on_card(cuda_device, dim):
+    """Tolerance: bitwise. Rows that start off a 16-byte boundary, and
+    dims without a vector-load instance (2, 5), take the kernel's
+    scalar-load instance."""
+    T = 3 * 8192 + 77
+    data = np.random.default_rng(dim).normal(0, 1, size=(T + 1) * dim).astype(np.float32)
+    buf = torch.from_numpy(data).to(cuda_device)
+    want = wavelet.maxlet_transform(torch.from_numpy(data[dim:].reshape(T, dim)))
+    for x in (buf[dim:].view(T, dim), buf[: T * dim].view(T, dim)):
+        assert_bitwise(wavelet_cuda.maxlet_transform_cuda(x),
+                       wavelet.maxlet_transform(x.cpu()))
+    assert_bitwise(wavelet_cuda.maxlet_transform_cuda(buf[dim:].view(T, dim)), want)
+
+
+@pytest.mark.cuda
+def test_ingest_device_defaults_to_card(cuda_device):
+    """With no device, ingest_device runs on the card through both kernels
+    (and the host ingest uploads to the card)."""
+    data = synth_segments(50000, 13)[0]
+    counters = (wavelet_cuda.maxlet_chunks_cuda, wavelet_cuda.maxlet_cross_cuda)
+    before = [f.launches for f in counters]
+    ing = runner.ingest_device(data)
+    assert ing.weights.device.type == "cuda"
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1]
+    assert_bitwise(ing.weights, runner.ingest_device(data, device="cpu").weights)
+    assert runner.ingest(data).weights.device.type == "cuda"
 
 
 @pytest.mark.cuda
@@ -55,8 +113,8 @@ def test_kernel_propagates_nan_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_main_path_on_card(cuda_device, tmp_path):
-    """On the card, device ingest launches the Hopper kernel once and the
-    slice records every sweep it should."""
+    """On the card, device ingest runs one transform through the Hopper
+    kernels and the slice records every sweep it should."""
     data = synth_segments(50000, 5)[0]
     rec = Records(
         len(data), str(tmp_path / "cuda-"), ".csv", 3,

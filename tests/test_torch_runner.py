@@ -91,6 +91,18 @@ def test_ingest_device_matches_jax(dim):
         assert got.count_boundaries(thr) == want.count_boundaries(thr)
 
 
+def test_ingest_default_device_is_resolve_device():
+    """With no device, both ingests land where ``resolve_device(None)``
+    points (the card when one is present, here the CPU), as the JAX
+    package's run on its default device."""
+    from hammlet_tpu_torch.device import resolve_device
+
+    data = np.random.default_rng(5).normal(0, 1, size=3000).astype(np.float32)
+    for ing in (trun.ingest_device(data), trun.ingest(data)):
+        assert ing.weights.device == resolve_device(None)
+        assert ing.ranked.neg_w_sorted.device == resolve_device(None)
+
+
 def test_host_ingest_matches_jax():
     """Host ingest (native library or the plain port): bitwise."""
     data = np.random.default_rng(4).normal(0, 1, size=5000).astype(np.float32)
