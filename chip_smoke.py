@@ -23,10 +23,13 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    checking that ingest launched both kernels, that every marginal row
    sums to the 128 recorded sweeps, and that the MAP state agrees with the
    true segmentation on >= 95% of positions;
-5. settled: on phase 4's engine after its run, F 512 4 with marginals +
-   parameters + compression and with every stream, in the order m a a m
-   after a warm-up, giving settled sweeps/s and the host record drain's ms
-   per 128-sweep chunk;
+5. settled: on phase 4's engine after its run, F 1536 4 (at least three
+   chunks at the settled capacity) with marginals + parameters +
+   compression (m), with every stream and the record drain on its worker
+   thread (a), and with every stream and the drain made inline on the
+   launching thread (i), three times each in the order m a i a i m i m a
+   after a warm-up, giving settled sweeps/s, the drain's ms per chunk on the
+   worker and the ms the launching thread waited for it;
 6. cli: the same data as a text file through hammlet_tpu_torch.cli.main with
    all seven outputs (-i M 64 0 F 512 4), checking the engine ran on the
    card through both kernels and every stream's structure (one line per
@@ -53,23 +56,43 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    the uninterrupted run; prints setup and host ingest seconds, the first
    F-phase rate next to phase 4's, the settled rates of P = 1 (phase 4's
    engine) and P = 4 taken in turns, and peak memory;
-10. profile: torch.profiler over F 64 4 on phase 4's engine with
+10. chains: two chromosomes of T = 2,500,000 positions (100-bp bins) as
+   text files; first each maxlet kernel against its plain version on each
+   chromosome's data as the CLI reads it, bit for bit, on the card and on
+   the CPU; then through cli.main -M, the threaded path (cli._chain_devices
+   giving cuda:0 twice: two threads) against the sequential one (one
+   device), in the order sequential, threads, threads, sequential, checking
+   byte-identical marginals/parameters/compression, two threads, and one
+   launch of each maxlet kernel per chain;
+11. tools: bin/hammlet-torch-max-segmentation and -sort-states on chain
+   1's outputs in subprocesses (this machine has no JAX);
+12. profile: torch.profiler over F 64 4 on phase 4's engine with
    HAMMLET_DEBUG off and on (the invariant bitmask must add kernels when on)
    and on phase 9's, giving CUDA kernels and device ms per sweep; last,
    because a process that has run the profiler launches more slowly;
 then the kernels JSON line, the nvidia-smi line, and the result line.
+
+``python3 chip_smoke.py --chains-cards N [PAIRS]`` runs phase 10 alone on N
+cards (one chain per card in threads, against the N chains one after
+another on cuda:0, in PAIRS pairs, 2 by default) and prints its line; it
+needs N cards. ``python3 chip_smoke.py --turns N`` runs phases 4, 5 and 10
+on one card with N pairs of each comparison (the side that runs first
+alternating) and prints the pairs each side won, medians and quartile
+distances.
 
 Needs no network and imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from itertools import permutations
 
@@ -77,6 +100,8 @@ import numpy as np
 import torch
 
 from hammlet_tpu_torch import checkpoint, cli, native, runner
+from hammlet_tpu_torch.device import synchronize
+from hammlet_tpu_torch.io.input import read_values
 from hammlet_tpu_torch.io.records import Records
 from hammlet_tpu_torch.ops import wavelet, wavelet_cuda
 from hammlet_tpu_torch.parallel import distributed, sharded
@@ -87,6 +112,12 @@ T_MAIN = 4_000_000
 T_RESUME = 200_000
 SCHEME = "M 64 0 F 512 4"
 N_RECORDED = 128  # F 512 sweeps at thinning 4
+SETTLED_ITERS = 1536  # [settled]: three 512-sweep chunks at the settled capacity
+SETTLED_ORDER = ("mpc", "all", "inline", "all", "inline", "mpc", "inline", "mpc", "all")
+T_CHAIN = 2_500_000  # [chains]: a chromosome at 100-bp bins, so device ingest runs
+CHAIN_SCHEME = "M 32 0 F 256 4"
+CHAIN_RECORDED = 64
+CHAIN_ORDER = ("sequential", "threads", "threads", "sequential")  # [chains], in turns
 SEGLEN = 500
 SEED = 0
 MAP_AGREEMENT_MIN = 0.95
@@ -101,6 +132,8 @@ SLEEP_CYCLES = 10_000_000  # ~5 ms of device sleep while the host queues a timed
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 PROFILE_FLAG = "--profile-transform"
+CHAINS_FLAG = "--chains-cards"  # N [PAIRS]: [chains] alone, one chain per card on N cards
+TURNS_FLAG = "--turns"  # N: N pairs of [settled]'s drain modes and of [chains]' -M paths
 COUNTED = (wavelet_cuda.maxlet_transform_cuda, wavelet_cuda.maxlet_chunks_cuda,
            wavelet_cuda.maxlet_cross_cuda)
 COUNT_NAMES = ("transforms", "maxlet_chunk_kernel", "maxlet_cross_kernel")
@@ -219,36 +252,42 @@ def transform_work(T: int, dim: int) -> dict:
     }
 
 
+def check_kernels(x, x_cpu, worst: dict) -> None:
+    """Each kernel on the card's ``x`` against its own plain version and the
+    whole transform against wavelet.maxlet_transform, bit for bit, on the
+    card and on the CPU (``x_cpu``, None for the card alone); the largest
+    absolute errors go into ``worst``. Not counted: callers reset the
+    counters before the run they count."""
+    T, dim = x.shape
+    kc, kt = wavelet_cuda.maxlet_chunks_cuda(x)
+    kx = wavelet_cuda.maxlet_cross_cuda(kc.clone(), kt)
+    got = wavelet_cuda.maxlet_transform_cuda(x)
+    check(got.shape == (T,) and got.dtype == torch.float32, f"shape T={T}")
+    for inp in (x, x_cpu) if x_cpu is not None else (x,):
+        where = f"{inp.device.type}, T={T} dim={dim}"
+        rc, rt = wavelet_cuda.maxlet_chunks_reference(inp)
+        check(bits_equal(kc, rc) and bits_equal(kt, rt), f"chunk kernel != plain ({where})")
+        rx = wavelet_cuda.maxlet_cross_reference(kc.to(inp.device, copy=True), kt.to(inp.device))
+        check(bits_equal(kx, rx), f"cross kernel != plain ({where})")
+        plain = wavelet.maxlet_transform(inp)
+        check(bits_equal(got, plain), f"transform != wavelet.maxlet_transform ({where})")
+        worst["chunk"] = max(worst["chunk"], max_abs_err(kc, rc), max_abs_err(kt, rt))
+        worst["cross"] = max(worst["cross"], max_abs_err(kx, rx))
+        worst["transform"] = max(worst["transform"], max_abs_err(got, plain))
+
+
 def phase_kernel() -> dict:
     """Each kernel against its own plain version and the whole transform
     against wavelet.maxlet_transform, bitwise, on the card and on the CPU;
     times with L2 flushed and warm."""
     worst = {"chunk": 0.0, "cross": 0.0, "transform": 0.0}
-
-    def check_at(x, x_cpu, T: int, dim: int) -> None:
-        kc, kt = wavelet_cuda.maxlet_chunks_cuda(x)
-        kx = wavelet_cuda.maxlet_cross_cuda(kc.clone(), kt)
-        got = wavelet_cuda.maxlet_transform_cuda(x)
-        check(got.shape == (T,) and got.dtype == torch.float32, f"shape T={T}")
-        for inp in (x, x_cpu) if x_cpu is not None else (x,):
-            where = f"{inp.device.type}, T={T} dim={dim}"
-            rc, rt = wavelet_cuda.maxlet_chunks_reference(inp)
-            check(bits_equal(kc, rc) and bits_equal(kt, rt), f"chunk kernel != plain ({where})")
-            rx = wavelet_cuda.maxlet_cross_reference(kc.to(inp.device, copy=True), kt.to(inp.device))
-            check(bits_equal(kx, rx), f"cross kernel != plain ({where})")
-            plain = wavelet.maxlet_transform(inp)
-            check(bits_equal(got, plain), f"transform != wavelet.maxlet_transform ({where})")
-            worst["chunk"] = max(worst["chunk"], max_abs_err(kc, rc), max_abs_err(kt, rt))
-            worst["cross"] = max(worst["cross"], max_abs_err(kx, rx))
-            worst["transform"] = max(worst["transform"], max_abs_err(got, plain))
-
     for T in KERNEL_SIZES:
         for dim in KERNEL_DIMS:
             data = np.random.default_rng(T * 7 + dim).normal(1, 2, (T, dim))
             x_cpu = torch.from_numpy(data.astype(np.float32))
-            check_at(x_cpu.cuda(), x_cpu, T, dim)
+            check_kernels(x_cpu.cuda(), x_cpu, worst)
     big = large_input(T_LARGE, 1)
-    check_at(big, None, T_LARGE, 1)  # on the card only
+    check_kernels(big, None, worst)  # on the card only
     del big
     # NaN input: the max over dims must propagate NaN like the plain version
     data = np.random.default_rng(5).normal(0, 1, (100_000, 3)).astype(np.float32)
@@ -419,20 +458,22 @@ def profile_f(eng, iters: int = 64) -> tuple[float, float]:
     return len(kernels) / iters, sum(e.time_range.elapsed_us() for e in kernels) / iters / 1e3
 
 
-def phase_settled(eng) -> dict:
-    """Settled F-phase rates and the record drain with and without the
-    per-sweep streams, on the [main] engine (its run is over and checked)."""
+def phase_settled(eng, order: tuple = SETTLED_ORDER) -> dict:
+    """Settled F-phase rates with and without the per-sweep streams on the
+    [main] engine (its run is over and checked), in the turns of ``order``:
+    marginals+parameters+compression (m), all streams with
+    the drain on its worker thread (a), and all streams with the drain made
+    inline on the launching thread (i, how the port drained before the
+    worker). Each phase runs SETTLED_ITERS sweeps, at least three chunks at
+    the settled capacity. The host's rate drifts by tens of percent between
+    runs, so each mode runs three times, once in each third of the order,
+    and the ratios are given of the medians and of the best runs."""
     mpc = {"marginals", "parameters", "compression"}
-    drains: list[float] = []
-    drain = runner.Engine._drain_records
-
-    def timed_drain(self, *args):
-        t0 = time.perf_counter()
-        drain(self, *args)
-        drains.append(time.perf_counter() - t0)
-
-    rates: dict = {"mpc": [], "all": []}
-    drain_ms: dict = {"mpc": [], "all": []}
+    rates: dict = {"mpc": [], "all": [], "inline": []}
+    busy: dict = {"all": [], "inline": []}
+    waited: list[float] = []
+    chunks: list[int] = []
+    submit = runner.RecordDrain.submit
     old = os.environ.get("HAMMLET_DEBUG")
     with tempfile.TemporaryDirectory() as tmp:
 
@@ -441,32 +482,51 @@ def phase_settled(eng) -> dict:
                 T_MAIN, os.path.join(tmp, tag + "-"), ".csv", 3,
                 outputs=mpc if tag == "mpc" else set(Records.STREAMS), overwrite=True,
             )
-            drains.clear()
-            eng.run("F", iters, 4)
+            if tag == "inline":  # run each drain at once on this thread
+                runner.RecordDrain.submit = lambda self, fn, *args: self._timed(fn, args)
+            eng.drain.busy.clear()
+            eng.drain.waited.clear()
+            try:
+                eng.run("F", iters, 4)
+            finally:
+                runner.RecordDrain.submit = submit
             eng.records.close()
             rates[tag].append(iters / eng.phase_log[-1][2])
-            drain_ms[tag].extend(1e3 * d for d in drains)
+            if tag != "mpc":
+                busy[tag].extend(1e3 * b for b in eng.drain.busy)
+            if tag == "all":
+                waited.extend(1e3 * w for w in eng.drain.waited)
+                chunks.append(len(eng.drain.busy))
 
-        runner.Engine._drain_records = timed_drain
         try:
             os.environ["HAMMLET_DEBUG"] = "0"
             run("all", 128)  # warm-up of the state stacks and the formatters
-            rates["all"].clear()
-            drain_ms["all"].clear()
-            for tag in ("mpc", "all", "all", "mpc"):
-                run(tag, 512)
+            for key in ("all", "mpc"):
+                rates[key].clear()
+            for lst in (busy["all"], waited, chunks):
+                lst.clear()
+            for tag in order:
+                run(tag, SETTLED_ITERS)
         finally:
-            runner.Engine._drain_records = drain
             if old is None:
                 del os.environ["HAMMLET_DEBUG"]
             else:
                 os.environ["HAMMLET_DEBUG"] = old
+    check(min(chunks) >= 3, f"a settled all-streams phase ran {chunks} chunks, not >= 3")
+    mpc_rate, mpc_best = float(np.median(rates["mpc"])), max(rates["mpc"])
     return {
         "mpc_sweeps_per_s": rates["mpc"],
         "all_sweeps_per_s": rates["all"],
-        "ratio": float(np.median(rates["all"]) / np.median(rates["mpc"])),
-        "mpc_drain_ms": float(np.median(drain_ms["mpc"])),
-        "all_drain_ms": float(np.median(drain_ms["all"])),
+        "inline_sweeps_per_s": rates["inline"],
+        "ratio": float(np.median(rates["all"])) / mpc_rate,
+        "inline_ratio": float(np.median(rates["inline"])) / mpc_rate,
+        "best_ratio": max(rates["all"]) / mpc_best,
+        "inline_best_ratio": max(rates["inline"]) / mpc_best,
+        "chunks": chunks,
+        "capacity": eng.capacity,
+        "drain_ms": float(np.median(busy["all"])),
+        "inline_drain_ms": float(np.median(busy["inline"])),
+        "waited_ms_per_chunk": float(np.sum(waited)) / max(sum(chunks), 1),
     }
 
 
@@ -784,6 +844,176 @@ def phase_sharded(main_eng) -> dict:
     return res
 
 
+def phase_chains(tmp: str, devices: list[torch.device] | None = None,
+                 order: tuple = CHAIN_ORDER) -> dict:
+    """One chromosome of T_CHAIN positions per device of ``devices`` (two
+    on cuda:0 by default) through ``cli.main -M``: the threaded path (one
+    chain per device of ``_chain_devices``) against the sequential path
+    (the first device alone), in the turns of ``order``, byte for byte;
+    every chain runs device ingest, so each maxlet kernel launches once per
+    chain. First each kernel is held against its plain version on each
+    chain's data as the CLI reads it (check_kernels). The counts are those
+    of the first threaded run."""
+    devices = devices or [torch.device("cuda", 0)] * 2
+    device, n = devices[0], len(devices)
+    files = []
+    worst = {"chunk": 0.0, "cross": 0.0, "transform": 0.0}
+    for i in range(n):
+        path = os.path.join(tmp, f"chr{i + 1}.txt")
+        with open(path, "w") as fh:
+            fh.write("\n".join(map(repr, synth(T_CHAIN, SEED + 10 + i)[0].astype(np.float64).tolist())))
+            fh.write("\n")
+        files.append(path)
+        x_cpu = torch.from_numpy(np.ascontiguousarray(read_values([path], 1)))
+        check_kernels(x_cpu.to(devices[i]), x_cpu, worst)
+    torch.cuda.empty_cache()
+    streams = ["marginals", "parameters", "compression"]
+    chain_devices = cli._chain_devices
+    seen: list = []
+    run_chain = cli._run_chain
+
+    def spy(sub, device, turn):
+        seen.append((threading.get_ident(), str(device)))
+        return run_chain(sub, device, turn)
+
+    res: dict = {"threads_s": [], "sequential_s": [], "worst": worst}
+    outputs = []
+    try:
+        cli._run_chain = spy
+        for turn, tag in enumerate(order):
+            chain_devs = devices if tag == "threads" else [device]
+            cli._chain_devices = lambda chain_devs=chain_devs: chain_devs
+            prefix = os.path.join(tmp, f"{tag}{turn}-")
+            argv = ["-M", "-f", *files, "-o", prefix, ".csv", "-s", "3", "-a", "-R", str(SEED),
+                    "-i", *CHAIN_SCHEME.split(), "-O", *streams, "-w"]
+            seen.clear()
+            for d in set(devices):
+                synchronize(d)
+            reset_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            for d in set(devices):
+                synchronize(d)
+            res[tag + "_s"].append(time.perf_counter() - t0)
+            counts = read_counts()
+            check(rc == 0, f"-M ({tag}) returned {rc}")
+            for name, c in counts.items():
+                check(c == n, f"-M ({tag}) launched {name} {c} times, not once per chain")
+            if tag == "threads":
+                check(len({t for t, _ in seen}) == n
+                      and sorted(d for _, d in seen) == sorted(map(str, devices)),
+                      f"threaded -M chains ran as {seen}")
+                res.setdefault("threads_launches", counts)
+                res.setdefault("prefix", prefix + "chr1-")
+            else:
+                check(not seen, f"sequential -M ran chains in threads: {seen}")
+            outputs.append({(i, s): open(f"{prefix}chr{i + 1}-{s}.csv", "rb").read()
+                            for i in range(n) for s in streams})
+    finally:
+        cli._chain_devices = chain_devices
+        cli._run_chain = run_chain
+    for turn, out in enumerate(outputs[1:], 1):
+        for key, b in out.items():
+            check(b == outputs[0][key], f"-M turn {turn} ({order[turn]}) chain {key} "
+                  "differs from the first run")
+    for i in range(n):
+        sizes, counts = read_marginals(f"{res['prefix'][:-len('chr1-')]}chr{i + 1}-marginals.csv")
+        check(int(sizes.sum()) == T_CHAIN and bool((counts.sum(axis=1) == CHAIN_RECORDED).all()),
+              f"chain {i + 1}: marginal rows do not cover T or sum to {CHAIN_RECORDED}")
+    res["ratio"] = float(np.median(res["sequential_s"]) / np.median(res["threads_s"]))
+    return res
+
+
+def phase_tools(prefix: str) -> dict:
+    """bin/hammlet-torch-max-segmentation and -sort-states on a [chains]
+    chain's outputs, each in a subprocess (no JAX on this machine); the
+    segmentation covers T and equals the tool function's output in this
+    process."""
+    from hammlet_tpu_torch.tools import max_segmentation
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for tool, args in (("max-segmentation", ["-i", prefix + "marginals.csv"]),
+                       ("sort-states", [prefix + "parameters.csv"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.join(here, "bin", f"hammlet-torch-{tool}"), *args],
+                              capture_output=True, text=True, timeout=300, cwd=here)
+        check(proc.returncode == 0, f"hammlet-torch-{tool} failed: {proc.stderr[-2000:]}")
+        out[tool] = (proc.stdout, time.perf_counter() - t0)
+    seg = np.array([line.split("\t") for line in out["max-segmentation"][0].splitlines()], dtype=np.int64)
+    check(int(seg[:, 0].sum()) == T_CHAIN and set(seg[:, 1].tolist()) <= {0, 1, 2},
+          "max-segmentation rows do not cover T in states 0-2")
+    with open(prefix + "marginals.csv") as fh:
+        inproc = io.StringIO()
+        max_segmentation.run(fh, inproc)
+    check(inproc.getvalue() == out["max-segmentation"][0], "max-segmentation subprocess != in-process")
+    lines = out["sort-states"][0].splitlines()
+    check(lines[0] == "#state\tmean" and sorted(int(x.split("\t")[0]) for x in lines[1:]) == [0, 1, 2],
+          f"sort-states printed {lines}")
+    return {"segments": len(seg), "means": lines[1:],
+            "seconds": {t: round(v[1], 3) for t, v in out.items()}}
+
+
+def chains_across_cards(n: int, pairs: int = 2) -> int:
+    """``chip_smoke.py --chains-cards N [PAIRS]``: [chains] alone with one
+    chain per card on N cards (threads) against the N chains one after
+    another on cuda:0, in PAIRS pairs, the -M layout of a multi-GPU node;
+    needs N cards."""
+    check(torch.cuda.device_count() >= n, f"--chains-cards {n} needs {n} cards")
+    print(f"[card] {nvidia_smi_line()} | {torch.cuda.get_device_name(0)} "
+          f"x{torch.cuda.device_count()}", flush=True)
+    order = alternating("sequential", "threads", pairs)
+    with tempfile.TemporaryDirectory() as tmp:
+        ch = phase_chains(tmp, [torch.device("cuda", i) for i in range(n)], order)
+    print(f"[chains] -M with {n} chromosomes of T={T_CHAIN} '{CHAIN_SCHEME}' in the order "
+          f"{' '.join(order)}: {n} threads on cuda:0-{n - 1} {ch['threads_s']} s, one "
+          f"after another on cuda:0 {ch['sequential_s']} s (ratio of medians "
+          f"{ch['ratio']:.3f}; {pair_summary(ch['threads_s'], ch['sequential_s'], False)}); "
+          f"marginals, parameters and compression byte-identical; maxlet "
+          f"launches in the first threaded run {ch['threads_launches']}", flush=True)
+    return 0
+
+
+def alternating(a: str, b: str, pairs: int) -> tuple:
+    """``pairs`` pairs of a and b, the side that runs first alternating."""
+    return tuple(x for j in range(pairs) for x in ((a, b) if j % 2 == 0 else (b, a)))
+
+
+def pair_summary(x: list[float], y: list[float], higher_is_better: bool) -> str:
+    """x against y run in pairs (the j-th of each list form pair j): the
+    pairs x won, ties counting for neither, and each side's median and
+    distance between its quartiles."""
+    wins = sum((a > b) if higher_is_better else (a < b) for a, b in zip(x, y))
+    iqr = [float(np.subtract(*np.percentile(v, [75, 25]))) for v in (x, y)]
+    return (f"{wins} of {len(x)} pairs won; medians {np.median(x):.4f} / {np.median(y):.4f}, "
+            f"quartile distances {iqr[0]:.4f} / {iqr[1]:.4f}")
+
+
+def measure_turns(pairs: int) -> int:
+    """``chip_smoke.py --turns N``: on one card, N pairs (the side that
+    runs first alternating) of [settled]'s all-streams phase with the drain
+    on its worker against the drain inline, after one marginals+parameters+
+    compression phase; then N pairs of [chains]' threaded -M against the
+    sequential -M."""
+    print(f"[card] {nvidia_smi_line()} | {torch.cuda.get_device_name(0)}", flush=True)
+    wavelet_cuda.build()
+    m = phase_main_path()
+    st = phase_settled(m["engine"], ("mpc",) + alternating("all", "inline", pairs))
+    print(f"[settled] T={T_MAIN} F {SETTLED_ITERS} 4, capacity {st['capacity']}: all streams, "
+          f"drain on its worker {st['all_sweeps_per_s']} vs inline {st['inline_sweeps_per_s']} "
+          f"sweeps/s: {pair_summary(st['all_sweeps_per_s'], st['inline_sweeps_per_s'], True)}; "
+          f"marginals+parameters+compression {st['mpc_sweeps_per_s']} sweeps/s; drain "
+          f"{st['drain_ms']:.3f} ms per chunk on the worker, launching thread waited "
+          f"{st['waited_ms_per_chunk']:.3f} ms per chunk", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        ch = phase_chains(tmp, order=alternating("sequential", "threads", pairs))
+    print(f"[chains] -M with two chromosomes of T={T_CHAIN} '{CHAIN_SCHEME}' on cuda:0, "
+          f"two threads {ch['threads_s']} s vs one after another {ch['sequential_s']} s: "
+          f"{pair_summary(ch['threads_s'], ch['sequential_s'], False)}; byte-identical",
+          flush=True)
+    return 0
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -797,6 +1027,10 @@ def main() -> int:
         return 2
     if sys.argv[1:] == [PROFILE_FLAG]:
         return profile_transform()
+    if sys.argv[1:2] == [CHAINS_FLAG]:
+        return chains_across_cards(*map(int, sys.argv[2:4]))
+    if sys.argv[1:2] == [TURNS_FLAG]:
+        return measure_turns(int(sys.argv[2]))
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
     print(f"[card] {smi} | torch {torch.__version__} (cuda {torch.version.cuda}) | "
@@ -839,11 +1073,17 @@ def main() -> int:
 
         main_eng = m.pop("engine")
         st = phase_settled(main_eng)
-        print(f"[settled] T={T_MAIN} F 512 4 on the [main] engine, order m a a m: "
-              f"marginals+parameters+compression {st['mpc_sweeps_per_s']} sweeps/s "
-              f"(drain {st['mpc_drain_ms']:.3f} ms/chunk), all streams "
-              f"{st['all_sweeps_per_s']} sweeps/s (drain {st['all_drain_ms']:.3f} "
-              f"ms/chunk), median ratio {st['ratio']:.4f}", flush=True)
+        print(f"[settled] T={T_MAIN} F {SETTLED_ITERS} 4 on the [main] engine (capacity "
+              f"{st['capacity']}, {st['chunks']} chunks per all-streams phase), order "
+              f"{' '.join(t[0] for t in SETTLED_ORDER)}: marginals+parameters+compression "
+              f"{st['mpc_sweeps_per_s']} "
+              f"sweeps/s; all streams, drain on its worker {st['all_sweeps_per_s']} sweeps/s "
+              f"(ratio of medians {st['ratio']:.4f}, of the best {st['best_ratio']:.4f}; drain "
+              f"{st['drain_ms']:.3f} ms per chunk on the worker, launching thread waited "
+              f"{st['waited_ms_per_chunk']:.3f} ms per chunk); all streams, drain inline "
+              f"{st['inline_sweeps_per_s']} sweeps/s (ratio of medians {st['inline_ratio']:.4f}, "
+              f"of the best {st['inline_best_ratio']:.4f}; drain {st['inline_drain_ms']:.3f} ms "
+              "per chunk)", flush=True)
 
         c = phase_cli(m["f_sweeps_per_s"])
         print(f"[cli] T={T_MAIN} all 7 outputs '{SCHEME}': setup {c['setup_s']:.3f} s, "
@@ -877,6 +1117,20 @@ def main() -> int:
               "(d) F chunk under sync debug mode 'error', (e) NCCL world-size-1 run "
               "byte-identical, (f) resume bitwise", flush=True)
 
+        with tempfile.TemporaryDirectory() as tmp:
+            ch = phase_chains(tmp)
+            print(f"[chains] -M with two chromosomes of T={T_CHAIN} '{CHAIN_SCHEME}' in the order "
+                  f"{' '.join(CHAIN_ORDER)}: two threads on cuda:0 {ch['threads_s']} s, one after "
+                  f"another {ch['sequential_s']} s (ratio of medians {ch['ratio']:.3f}); "
+                  f"marginals, parameters and compression byte-identical; maxlet launches in "
+                  f"the first threaded run {ch['threads_launches']}; both kernels bitwise equal "
+                  "to their plain versions on each chain's data, on the card and the CPU",
+                  flush=True)
+            tl = phase_tools(ch["prefix"])
+            print(f"[tools] bin/hammlet-torch-max-segmentation ({tl['segments']} segments, "
+                  f"covers T, = in-process) and bin/hammlet-torch-sort-states ({tl['means']}) "
+                  f"on chain 1 in subprocesses without JAX; seconds {tl['seconds']}", flush=True)
+
         pr = phase_profile(main_eng, sh.pop("engine"))
         print(f"[profile] torch.profiler F 64 4 at T={T_MAIN}: [main] engine HAMMLET_DEBUG "
               f"off {pr['0'][0]} kernels/sweep, {pr['0'][1]:.4f} device ms/sweep; on "
@@ -893,8 +1147,8 @@ def main() -> int:
         "route": "cuda",
         "source": "hammlet_tpu_torch/csrc/maxlet.cu",
         "replaces": replaces,
-        "launches": m["launches"][kernel] + c["launches"][kernel],
-        "max_abs_err": k["worst"][key],
+        "launches": m["launches"][kernel] + c["launches"][kernel] + ch["threads_launches"][kernel],
+        "max_abs_err": max(k["worst"][key], ch["worst"][key]),
         "ms": main_row[key],
         "plain_ms": main_row[key + "_plain"],
         "bound_ms": main_row[key + "_bound"],

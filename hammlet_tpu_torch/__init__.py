@@ -13,9 +13,19 @@ package ``hammlet_tpu`` (the reference it is tested against):
 - runner.py: ingest -> auto-priors -> ``-i`` scheme interpreter with the block
   capacity ladder and overflow replay.
 
-This package imports torch and never jax or hammlet_tpu.
+This package imports torch and never jax or hammlet_tpu. Importing the
+package itself imports neither, so that the numpy tools (tools/, pyhammlet/)
+start without torch.
 """
 
 __version__ = "0.1.0"
 
-from hammlet_tpu_torch.models.hmm import HMMPriors, HMMState, ModelSpec  # noqa: F401
+_LAZY = ("HMMPriors", "HMMState", "ModelSpec")  # from models.hmm, at first use
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        from hammlet_tpu_torch.models import hmm
+
+        return getattr(hmm, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -5,7 +5,8 @@ nvcc compiles ``csrc/*.cu`` by hand for Hopper (``sm_90a``) into
 and flags, so a fresh checkout builds itself. The libraries are loaded with
 ctypes: no PyTorch headers are compiled, which keeps a build to seconds.
 A missing nvcc or a failed build raises; nothing falls back to a plain
-version.
+version. Builds and library loads of one process take ``LOCK`` (chains of
+``-M`` run in threads and may reach a kernel's first use together).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -21,6 +23,10 @@ from typing import NamedTuple
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
+
+#: held around every build and first library load in this process; reentrant
+#: so that a loader can build under it
+LOCK = threading.RLock()
 
 #: ``-Xptxas=-v`` only prints each kernel's registers, shared memory and
 #: spills into the build log
@@ -56,7 +62,14 @@ class BuildResult(NamedTuple):
 
 def build(name: str, sources: list[Path]) -> BuildResult:
     """Compile ``sources`` into ``build/lib{name}-{hash}.so`` unless a
-    library of the same sources and flags is already there."""
+    library of the same sources and flags is already there. Threads of one
+    process build one at a time; processes write their own temporary file
+    and rename it into place."""
+    with LOCK:
+        return _build_locked(name, sources)
+
+
+def _build_locked(name: str, sources: list[Path]) -> BuildResult:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         digest.update(src.name.encode())
@@ -66,7 +79,7 @@ def build(name: str, sources: list[Path]) -> BuildResult:
         return BuildResult(out, 0.0, "")
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    tmp = out.with_name(f"{out.name}.{os.getpid()}-{threading.get_ident()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
         [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in sources)],

@@ -28,17 +28,23 @@ Flag grammar per src/main.cpp:33-65 and doc/hammlet-manpage.md:33-176:
                        the W processes (HAMMLET_NUM_PROCESSES,
                        parallel/distributed.py); N must be a multiple of W
   -M/-multi            every -f file is an INDEPENDENT chain with its own
-                       priors/RNG/outputs, run one after another (each
-                       sharded over -D N shards)
+                       priors/RNG/outputs: one chain per local card in
+                       threads when there are several cards, no -D and one
+                       process; else one after another (each sharded over
+                       -D N shards)
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
+import threading
 import time
+from concurrent.futures import FIRST_EXCEPTION, ThreadPoolExecutor, wait
 
 import numpy as np
+import torch
 
 from hammlet_tpu_torch.io.input import ValueStream, read_values
 from hammlet_tpu_torch.io.records import Records
@@ -183,7 +189,46 @@ def _check_shards(n_devices: int) -> None:
         )
 
 
-def _run(args: dict[str, list[str]]) -> int:
+def _chain_devices() -> list[torch.device]:
+    """The devices ``-M`` spreads its chains over: every local card."""
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _run_chain(sub: dict[str, list[str]], device: torch.device, turn: threading.Lock) -> int:
+    """One ``-M`` chain on its own device, from its own thread: the thread's
+    current card is the chain's (the counterpart of the JAX package's
+    ``jax.default_device``), and its engine samples a phase only while it
+    holds ``turn``, the lock all the chains share."""
+    with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
+        return _run(sub, device, turn)
+
+
+def _run_chains(subs: list[dict[str, list[str]]], devices: list[torch.device]) -> int:
+    """Run the ``-M`` chains: one per device in threads when there are
+    several of both, else one after another. Either way the exit code is
+    the largest of the chains', and a chain that raises stops every chain
+    that has not started; threads that are running finish first."""
+    if len(subs) < 2 or len(devices) < 2:
+        return max(_run(sub) for sub in subs)
+    turn = threading.Lock()
+    with ThreadPoolExecutor(max_workers=len(devices)) as ex:
+        futures = [
+            ex.submit(_run_chain, sub, devices[i % len(devices)], turn)
+            for i, sub in enumerate(subs)
+        ]
+        wait(futures, return_when=FIRST_EXCEPTION)
+        ex.shutdown(cancel_futures=True)
+        return max(f.result() for f in futures)
+
+
+def _run(
+    args: dict[str, list[str]],
+    device: torch.device | None = None,
+    turn: threading.Lock | None = None,
+) -> int:
+    """One run of the parsed flags. ``device`` (an -M chain's card) replaces
+    the device the engine would take; ``turn`` becomes the engine's
+    ``phase_turn``."""
     # multi-process runtime: HAMMLET_NUM_PROCESSES & friends start the
     # torch.distributed group before anything else; -D then shards the
     # position axis over every process
@@ -272,7 +317,8 @@ def _run(args: dict[str, list[str]]) -> int:
     # process's device in a process group)
     from hammlet_tpu_torch.device import resolve_device
 
-    device = distributed.process_device() if distributed.world_size() > 1 else resolve_device(None)
+    if device is None:
+        device = distributed.process_device() if distributed.world_size() > 1 else resolve_device(None)
 
     if verbose:
         K = nr_params**nr_dim
@@ -297,16 +343,18 @@ def _run(args: dict[str, list[str]]) -> int:
     # -M: every -f file is an INDEPENDENT chain (the reference's WGS
     # workflow runs one process per chromosome, bin/samToCounts:5-7), each
     # with its own auto-priors, RNG stream, and output files
-    # {prefix}{filestem}-*{suffix}. The chains run one after another (the
-    # JAX package spreads them over several local devices without -D; the
-    # port does not yet), each sharded over -D N shards. Each chain
-    # checkpoints to its own file, PATH with "-{filestem}" before the
-    # extension (one shared file would hand one chain's state to the next).
+    # {prefix}{filestem}-*{suffix}. With several local cards, no -D and one
+    # process, the chains run one per card in threads (hammlet_tpu/cli.py:
+    # 292-305); every engine draws from its own generators, so the outputs
+    # are the bytes of a sequential run. Otherwise they run one after
+    # another, each sharded over -D N shards. Each chain checkpoints to its
+    # own file, PATH with "-{filestem}" before the extension (one shared file
+    # would hand one chain's state to the next).
     if "-M" in args:
         files = args.get("-f") or []
         if len(files) < 1:
             raise ValueError("-M requires at least one -f input file")
-        rc = 0
+        subs = []
         for fpath in files:
             stem = os.path.basename(fpath)
             if stem.endswith(".gz"):
@@ -319,8 +367,9 @@ def _run(args: dict[str, list[str]]) -> int:
             if sub.get("-C"):
                 base, ext = os.path.splitext(sub["-C"][0])
                 sub["-C"][0] = f"{base}-{stem}{ext}"
-            rc |= _run(sub)
-        return rc
+            subs.append(sub)
+        one_process = "-D" not in args and distributed.world_size() == 1
+        return _run_chains(subs, _chain_devices() if one_process else [])
 
     # sharded runs stream the input: the provider hands the ingest one
     # token range at a time (each process reads only its own shards' ranges),
@@ -390,6 +439,8 @@ def _run(args: dict[str, list[str]]) -> int:
             stream.close()
     else:
         engine = make_engine(data, **common)
+    if turn is not None:
+        engine.phase_turn = turn
     if ckpt_path is not None:
         from hammlet_tpu_torch.checkpoint import (
             restore_checkpoint,

@@ -8,6 +8,7 @@ enables autocast.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -23,14 +24,20 @@ apply_float32_policy()
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """``None`` picks cuda when a card is present, else cpu. An explicit
-    cuda request without a card raises instead of falling back to the CPU."""
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {dev} requested but torch.cuda.is_available() is False"
-        )
+    cuda request without a card raises instead of falling back to the CPU.
+    A cuda device always comes back with its index (the calling thread's
+    current card when none is named), so that an engine driven from
+    another thread still syncs, seeds and launches on its own card."""
+    dev = torch.device(device if device is not None else (
+        "cuda" if torch.cuda.is_available() else "cpu"
+    ))
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {dev} requested but torch.cuda.is_available() is False"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -38,3 +45,23 @@ def synchronize(device: torch.device) -> None:
     """Wait for the device's queued work (no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def to_host(device: torch.device, tensors: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """Host copies of ``tensors`` (all on ``device``) with one wait.
+
+    On a card every copy is queued without blocking into pinned memory on
+    the device's current stream, and one CUDA event recorded after them is
+    waited on: the chunk's single host sync. (torch's sync debug mode does
+    not count an event wait, so a test can run a whole chunk under it and
+    count the waits itself.)"""
+    if device.type != "cuda":
+        return {k: t.cpu().numpy() for k, t in tensors.items()}
+    host = {}
+    for k, t in tensors.items():
+        host[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host[k].copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(device))
+    done.synchronize()
+    return {k: h.numpy() for k, h in host.items()}

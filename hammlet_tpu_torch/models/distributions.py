@@ -1,7 +1,8 @@
 """Conjugate updates and posterior draws as plain torch functions.
 
-Port of hammlet_tpu/models/distributions.py (the Normal family; the unwired
-Beta/Geometric family is not ported). Random draws come from an explicit
+Port of hammlet_tpu/models/distributions.py: the Normal family the sampler
+uses and the Beta/Geometric family the reference carries but main.cpp does
+not wire (kept for the same capability surface). Random draws come from an explicit
 ``torch.Generator``; every sampler also accepts its noise pre-drawn, so a
 test can feed it the JAX package's draws and demand the same result.
 """
@@ -135,6 +136,20 @@ def dirichlet_sample(
     return g / torch.sum(g, dim=-1, keepdim=True)
 
 
+def emission_log_weights(
+    block_stats: torch.Tensor,
+    sizes: torch.Tensor,
+    theta_mean: torch.Tensor,
+    theta_var: torch.Tensor,
+    mapping: torch.Tensor,
+) -> torch.Tensor:
+    """emission_log_weights_t in the block-major layout: block_stats is
+    (B, dim, 2) (ops.blocks.block_sufficient_stats) and the result (B, K)."""
+    return emission_log_weights_t(
+        block_stats.permute(1, 2, 0), sizes, theta_mean, theta_var, mapping
+    ).T
+
+
 def emission_log_weights_t(
     block_stats_t: torch.Tensor,
     sizes: torch.Tensor,
@@ -160,3 +175,48 @@ def emission_log_weights_t(
     C = torch.sum(c[mapping], dim=1)  # (K,)
     ip = A @ block_stats_t[:, 0, :] - Bc @ block_stats_t[:, 1, :]
     return ip - C[:, None] * sizes.to(torch.float32)[None, :]
+
+
+# -- Beta / Geometric family -------------------------------------------------
+# The reference carries a Geometric-emission/Beta-conjugate family in its
+# probability kernel (SufficientStatistics.hpp:310-388, Conjugate.hpp:209-215,
+# Distribution.hpp:94-107, EFD.hpp:64-77, Theta.hpp:248-257) although main.cpp
+# only wires the Normal family.
+
+
+def beta_update(prior: torch.Tensor, sums: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """Beta conjugate update for Geometric observations: rows (alpha, beta);
+    alpha += N, beta += sum (Conjugate.hpp:209-215)."""
+    return torch.stack([prior[:, 0] + counts.to(torch.float32), prior[:, 1] + sums], dim=1)
+
+
+def beta_sample(
+    generator: torch.Generator | None,
+    params: torch.Tensor,
+    gammas: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """Beta(alpha, beta) draws per row via two Gammas (Distribution.hpp:
+    94-107). ``gammas``: pre-drawn Gamma(alpha, 1) and Gamma(beta, 1)."""
+    if gammas is None:
+        a = torch._standard_gamma(params[:, 0].contiguous(), generator=generator)
+        b = torch._standard_gamma(params[:, 1].contiguous(), generator=generator)
+    else:
+        a, b = gammas
+    return a / (a + b)
+
+
+def geometric_log_weights(
+    sums: torch.Tensor, sizes: torch.Tensor, theta_value: torch.Tensor
+) -> torch.Tensor:
+    """Per-(block, param) Geometric log emission weight, (B, P):
+    innerProduct = sum * value, logNormalizer = log(value) (EFD.hpp:64-77)."""
+    return (
+        sums[:, None] * theta_value[None, :]
+        - sizes.to(torch.float32)[:, None] * torch.log(theta_value)[None, :]
+    )
+
+
+def beta_threshold_value(theta_value: torch.Tensor) -> torch.Tensor:
+    """Compression threshold statistic for Beta emissions: min over params of
+    (1 - p) / p^2 (Theta.hpp:248-257)."""
+    return torch.min((1.0 - theta_value) / (theta_value * theta_value))

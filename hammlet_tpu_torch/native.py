@@ -11,17 +11,25 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import threading
 
 import numpy as np
 
 _LIB = None
 _TRIED = False
+#: first loads from several threads (-M chains) wait for one build and load
+_LOAD_LOCK = threading.Lock()
 
 #: the shared C++ library at the repository root (also used by hammlet_tpu)
 _SRC_DIR = os.path.join(os.path.dirname(__file__), "..", "native")
 
 
 def _load():
+    with _LOAD_LOCK:
+        return _load_locked()
+
+
+def _load_locked():
     global _LIB, _TRIED
     if _TRIED:
         return _LIB
@@ -131,6 +139,18 @@ def _i64(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
 
 
+def _out_buffer(size: int) -> np.ndarray:
+    """A formatter's output buffer. np.empty, not
+    ctypes.create_string_buffer: that zero-fills ~100 MB per settled chunk
+    while holding the GIL, which the launching thread needs while the drain
+    worker formats."""
+    return np.empty(size, dtype=np.uint8)
+
+
+def _chars(buf: np.ndarray):
+    return buf.ctypes.data_as(ctypes.c_char_p)
+
+
 def format_int_lines(vals: np.ndarray, ns: np.ndarray) -> bytes | None:
     """(R, cap) int32 + per-row counts -> R tab-joined CSV lines."""
     lib = _load()
@@ -139,11 +159,11 @@ def format_int_lines(vals: np.ndarray, ns: np.ndarray) -> bytes | None:
     vals = np.ascontiguousarray(vals, dtype=np.int32)
     ns = np.ascontiguousarray(ns, dtype=np.int64)
     R, cap = vals.shape
-    buf = ctypes.create_string_buffer(int(12 * ns.sum() + R + 1))
+    buf = _out_buffer(int(12 * ns.sum() + R + 1))
     n = lib.hammlet_format_int_lines(
-        _i32(vals), _i64(ns), R, cap, buf, len(buf)
+        _i32(vals), _i64(ns), R, cap, _chars(buf), len(buf)
     )
-    return buf.raw[:n] if n >= 0 else None
+    return buf[:n].tobytes() if n >= 0 else None
 
 
 def format_rle_lines(
@@ -158,14 +178,14 @@ def format_rle_lines(
     sizes = np.ascontiguousarray(sizes, dtype=np.int32)
     ns = np.ascontiguousarray(ns, dtype=np.int64)
     R, cap = states.shape
-    buf = ctypes.create_string_buffer(int(25 * ns.sum() + R + 1))
+    buf = _out_buffer(int(25 * ns.sum() + R + 1))
     nsegs = np.zeros(R, dtype=np.int64)
     n = lib.hammlet_format_rle_lines(
-        _i32(states), _i32(sizes), _i64(ns), R, cap, buf, len(buf), _i64(nsegs)
+        _i32(states), _i32(sizes), _i64(ns), R, cap, _chars(buf), len(buf), _i64(nsegs)
     )
     if n < 0:
         return None
-    return buf.raw[:n], nsegs
+    return buf[:n].tobytes(), nsegs
 
 
 def reassemble_blocks(

@@ -44,6 +44,11 @@ class PrefixStats(NamedTuple):
     q2_lo: torch.Tensor
 
     @property
+    def r(self) -> torch.Tensor:
+        """(T+1, dim, 2) position-major view of ``r_t``."""
+        return self.r_t.permute(2, 0, 1)
+
+    @property
     def T(self) -> int:
         return self.r_t.shape[2] - 1
 
@@ -164,6 +169,55 @@ class BlockStructure(NamedTuple):
 
 def _ends(starts: torch.Tensor, T: int) -> torch.Tensor:
     return torch.cat([starts[1:], starts.new_full((1,), T)])
+
+
+def make_blocks(weights: torch.Tensor, threshold: torch.Tensor, capacity: int) -> BlockStructure:
+    """Threshold the breakpoint weights into a padded block structure: a
+    block starts at every position with weight >= threshold (w[0] = inf),
+    bit-identical to the reference's iterator for the same float32 threshold
+    (BreakpointArray.hpp:224-231). O(T); the sweep uses
+    make_blocks_bucketed."""
+    T = weights.shape[0]
+    mask = weights >= threshold
+    n_blocks = torch.sum(mask)
+    starts = torch.nonzero(mask)[:capacity, 0]
+    starts = torch.cat([starts, starts.new_full((capacity - len(starts),), T)])
+    ends = _ends(starts, T)
+    return BlockStructure(starts, ends, ends - starts, n_blocks)
+
+
+def blocks_from_sizes(sizes, capacity: int | None = None) -> BlockStructure:
+    """Static block structure from an explicit size list (the reference's
+    Blocks<Fixed>, src/Blocks/FixedBlocks.hpp:5-106; Splittable refinement is
+    obtained by passing a refined size list), padded to ``capacity``."""
+    sizes = np.asarray(sizes, dtype=np.int64)
+    if (sizes <= 0).any():
+        raise ValueError("block sizes must be positive")
+    T = int(sizes.sum())
+    n = len(sizes)
+    capacity = n if capacity is None else capacity
+    if capacity < n:
+        raise ValueError("capacity smaller than number of blocks")
+    starts = np.full(capacity, T, dtype=np.int64)
+    ends = np.full(capacity, T, dtype=np.int64)
+    csum = np.concatenate([[0], np.cumsum(sizes)])
+    starts[:n] = csum[:-1]
+    ends[:n] = csum[1:]
+    return BlockStructure(
+        torch.from_numpy(starts), torch.from_numpy(ends),
+        torch.from_numpy(ends - starts), torch.tensor(n),
+    )
+
+
+def split_block_sizes(sizes, index: int, s: int) -> list:
+    """Split block ``index`` so its tail piece has size ``s`` — the
+    reference's Blocks<Splittable>::split (src/Blocks/SplittableBlocks.hpp:
+    53-67: sizes[i] -= s and a new block of size s after it). Raises if the
+    block is not larger than ``s`` (the reference's guard)."""
+    sizes = [int(v) for v in sizes]
+    if sizes[index] <= s:
+        raise ValueError("Cannot split block into this size!")
+    return sizes[:index] + [sizes[index] - s, s] + sizes[index + 1 :]
 
 
 def make_blocks_ranked(

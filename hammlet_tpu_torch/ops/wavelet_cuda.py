@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import numpy as np
 import torch
@@ -30,11 +31,22 @@ CHUNK_BITS = 13  # 8192 positions per chunk; csrc/maxlet.cu uses the same
 MAX_LEVELS = 64  # normalizers handed to the kernels: any T < 2^63
 SOURCES = [_build.CSRC_DIR / "maxlet.cu"]
 
+_lib: ctypes.CDLL | None = None
+_count_lock = threading.Lock()
 
-@functools.cache
+
 def _library() -> ctypes.CDLL:
-    """Build (first use) and bind the kernel library."""
-    lib = ctypes.CDLL(str(build().path))
+    """The kernel library, built at first use and bound once per process
+    under the build lock (threads may reach the first use together)."""
+    global _lib
+    with _build.LOCK:
+        if _lib is None:
+            _lib = _bind(ctypes.CDLL(str(build().path)))
+        return _lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument and result types of the library's functions."""
     lib.hammlet_maxlet_chunks.argtypes = [
         ctypes.c_void_p,  # data (T, dim) float32, device
         ctypes.c_longlong,  # T
@@ -86,6 +98,13 @@ def _as_rows(data: torch.Tensor) -> torch.Tensor:
     if data.shape[0] == 0 or data.shape[1] == 0:
         raise ValueError(f"the maxlet transform needs T, dim >= 1, got {tuple(data.shape)}")
     return data
+
+
+def _count(wrapper) -> None:
+    """One more launch on ``wrapper``'s counter (chains in threads count
+    together)."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def _check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
@@ -156,7 +175,7 @@ def maxlet_chunks_cuda(data: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         data.device.index or 0, torch.cuda.current_stream(data.device).cuda_stream,
     )
     _check_launch(lib, err, "maxlet chunk kernel")
-    maxlet_chunks_cuda.launches += 1
+    _count(maxlet_chunks_cuda)
     return coeffs, totals
 
 
@@ -183,7 +202,7 @@ def maxlet_cross_cuda(coeffs: torch.Tensor, totals: torch.Tensor) -> torch.Tenso
         torch.cuda.current_stream(coeffs.device).cuda_stream,
     )
     _check_launch(lib, err, "maxlet cross kernel")
-    maxlet_cross_cuda.launches += 1
+    _count(maxlet_cross_cuda)
     return coeffs
 
 
@@ -198,7 +217,7 @@ def maxlet_transform_cuda(data: torch.Tensor) -> torch.Tensor:
     if data.is_cuda:
         coeffs, totals = maxlet_chunks_cuda(data)
         maxlet_cross_cuda(coeffs, totals)
-        maxlet_transform_cuda.launches += 1
+        _count(maxlet_transform_cuda)
         return coeffs
     if data.device.type != "cpu":
         raise ValueError(f"unsupported device {data.device}")

@@ -104,11 +104,8 @@ def position_mesh(n_shards: int, device: str | torch.device | None = None) -> Po
     torch.distributed group (started by parallel.distributed), or over this
     process alone. ``device`` None takes the process's device."""
     group = dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
-    if device is None:
-        if group is not None:
-            from hammlet_tpu_torch.parallel.distributed import process_device
+    if device is None and group is not None:
+        from hammlet_tpu_torch.parallel.distributed import process_device
 
-            device = process_device()
-        else:
-            device = resolve_device(None)
-    return PositionMesh(n_shards, torch.device(device), group)
+        device = process_device()
+    return PositionMesh(n_shards, resolve_device(device), group)

@@ -54,6 +54,7 @@ import torch
 
 from hammlet_tpu_torch import debug as _debug
 from hammlet_tpu_torch import runner
+from hammlet_tpu_torch.device import to_host
 from hammlet_tpu_torch.checkpoint import save_sharded_checkpoint
 from hammlet_tpu_torch.io.records import Records
 from hammlet_tpu_torch.models.autopriors import nig_autoprior
@@ -661,6 +662,7 @@ class ShardedEngine(runner.ChainOps):
         self._cands: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
         self._cands_h: dict[int, tuple[np.ndarray, np.ndarray]] = {}
         self._last_ckpt = 0
+        self.drain = runner.RecordDrain()
         self.buffers = ShardedBuffers.create(
             self.mesh.local_shards, K, self.T_local, self.device
         )
@@ -686,18 +688,6 @@ class ShardedEngine(runner.ChainOps):
             )
             self._cands[cap] = (pos, order)
         return self._cands[cap]
-
-    def _shard_candidates_host(self, cap_local: int) -> tuple[np.ndarray, np.ndarray]:
-        """Host copies of every shard's candidates for one capacity (fetched
-        once per capacity; the record drain rebuilds block sizes from them).
-        A collective: every process calls it at the same point."""
-        if cap_local not in self._cands_h:
-            pos, rank = self._cands[cap_local]
-            self._cands_h[cap_local] = (
-                self.mesh.all_gather(pos).cpu().numpy(),
-                self.mesh.all_gather(rank).cpu().numpy(),
-            )
-        return self._cands_h[cap_local]
 
     def _price_nb(self, thr: float) -> int:
         """Worst-shard boundary count at a threshold (a per-shard binary
@@ -730,7 +720,8 @@ class ShardedEngine(runner.ChainOps):
         end = start + iterations
         while done < end:
             n, thin_s, rec_s = runner._next_chunk(
-                done, end, thinning if recording else 0, runner.PHASE_CHUNK
+                done, end, thinning if recording else 0,
+                runner._chunk_for_capacity(self.cap_local, runner._scale_chunks(self.device)),
             )
             self.sweep_counter += 1
             counter = self.sweep_counter  # fixed across overflow replays
@@ -747,8 +738,11 @@ class ShardedEngine(runner.ChainOps):
                     n_iters=n, thinning=thin_s, record=rec_s,
                     want_blocks=want_blocks, debug=debug,
                 )
-                # the chunk's single host sync: [max_nb, last total, err]
-                diag_h = diag.cpu().numpy()
+                payload = self._record_payload(nbs, means, varis, blk) if rec_s else {}
+                # the chunk's single host sync: [max_nb, last total, err] and
+                # the record payload, copied in chunk order on this thread
+                host = to_host(self.device, {"diag": diag, **payload})
+                diag_h = host.pop("diag")
                 _debug.raise_on_error(int(diag_h[2]))
                 max_nb = int(diag_h[0])
                 self.last_n_blocks = int(diag_h[1])
@@ -769,8 +763,8 @@ class ShardedEngine(runner.ChainOps):
                         raise RuntimeError(
                             f"recording sweep needs {max_nb} blocks on its "
                             f"worst shard but the capacity ceiling is "
-                            f"{self.cap_local}; raise the ceiling or extend "
-                            "burn-in"
+                            f"{self.cap_local} (HAMMLET_MAX_CAPACITY); raise the "
+                            "ceiling or extend burn-in"
                         )
                     self.model, self.buffers = model, buffers
                     break
@@ -778,8 +772,8 @@ class ShardedEngine(runner.ChainOps):
                 # replay the chunk (same counter) from the pre-chunk snapshot
                 if prev is not None:
                     self.buffers = prev
-            if self.records is not None and rec_s:
-                self._drain_records(nbs, means, varis, blk, self.cap_local)
+            if host:
+                self._submit_drain(host, self.cap_local)
             done += n
             self.sweeps_completed += n
             self.scheme_op_done = done
@@ -793,29 +787,44 @@ class ShardedEngine(runner.ChainOps):
                 self.cap_local = target
             self._maybe_checkpoint()
 
-    def _drain_records(self, nbs, means, varis, blk, cap_local: int) -> None:
-        """Drain one chunk's record stacks into the enabled streams (see
+    def _record_payload(self, nbs, means, varis, blk) -> dict[str, torch.Tensor]:
+        """The device tensors a recording chunk's drain needs (see
         _reassemble_block_rows for the size-free block reconstruction).
-        Every process takes the same path: the state stacks and candidates
-        are gathered from all of them; only the primary's Records writes."""
-        wants_comp = "compression" in self.records.enabled
-        wants_params = "parameters" in self.records.enabled
-        if not (wants_comp or wants_params or blk is not None):
-            return
-        nbs_h = nbs.cpu().numpy()  # (R, P)
+        The gathers of every process's state stacks and, once per capacity,
+        candidates are collectives: they run here, on the launching thread,
+        at the same point on every process; only the primary's Records
+        writes."""
+        if self.records is None:
+            return {}
+        enabled = self.records.enabled
+        out = {}
         if blk is not None:
-            z = self.mesh.all_gather(blk[0].transpose(0, 1))  # (P, R, cap)
-            z_h = z.transpose(0, 1).reshape(len(nbs_h), -1).cpu().numpy()
-            pos_h, rank_h = self._shard_candidates_host(cap_local)
+            out.update(nbs=nbs, states=self.mesh.all_gather(blk[0].transpose(0, 1)), bounds=blk[1])
+            if self.cap_local not in self._cands_h:
+                pos, rank = self._cands[self.cap_local]
+                out["cand_pos"] = self.mesh.all_gather(pos)
+                out["cand_rank"] = self.mesh.all_gather(rank)
+        elif "compression" in enabled:
+            out["nbs"] = nbs
+        if "parameters" in enabled:
+            out.update(means=means, varis=varis)
+        return out
+
+    def _write_records(self, records: Records, h: dict[str, np.ndarray]) -> None:
+        """The host part of a chunk's drain, on the drain worker."""
+        if "states" in h:
+            nbs_h = h["nbs"]  # (R, P)
+            z_h = h["states"].transpose(1, 0, 2).reshape(len(nbs_h), -1)  # (P, R, cap) -> (R, P*cap)
+            pos_h, rank_h = h["cands"]
             states, sizes, ns_tot = _reassemble_block_rows(
                 z_h.astype(np.int32), nbs_h, pos_h, rank_h, self.T, self.T_local
             )
-            self.records.record_sweeps_batch(states, sizes, ns_tot, blk[1].cpu().numpy())
-        else:
-            self.records.record_compressions(nbs_h.sum(axis=1))
-        if wants_params:
-            for m, v in zip(means.cpu().numpy(), varis.cpu().numpy()):
-                self.records.record_theta(m, v)
+            records.record_sweeps_batch(states, sizes, ns_tot, h["bounds"])
+        elif "nbs" in h:
+            records.record_compressions(h["nbs"].sum(axis=1))
+        if "means" in h:
+            for m, v in zip(h["means"], h["varis"]):
+                records.record_theta(m, v)
 
     def _save_checkpoint(self) -> None:
         """A collective: every process reaches it after the same chunk."""
@@ -824,16 +833,32 @@ class ShardedEngine(runner.ChainOps):
     def _one_sweep(self, method: str, do_record: bool) -> None:
         """One sweep as its own chunk (test and debug surface; phases run
         chunked), recorded into the streams when ``do_record``."""
-        self._run_phase(method, 1, 1 if do_record else 0)
+        with self._draining():
+            self._run_phase(method, 1, 1 if do_record else 0)
 
     def finalize(self) -> None:
         if self.records is not None:
+            self.drain.close()
             if "marginals" in self.records.enabled:
                 starts, seg_counts = compact_sharded_marginals(self)
                 # save-time invariant (StateMarginals.hpp:306-308)
                 _debug.check_marginal_sums(seg_counts, int(self.buffers.n_rec))
                 self.records.save_marginals_from_segments(starts, seg_counts)
             self.records.close()
+
+    def metrics(self) -> dict:
+        """Per-run metrics under the JAX package's keys
+        (hammlet_tpu/parallel/sharded.py:1289); the rate from ``phase_log``."""
+        sps = self.sweeps_per_second
+        return {
+            "sweeps": self.total_sweeps,
+            "sweeps_per_second": sps,
+            "positions_per_second": sps * self.T,
+            "positions_per_second_per_chip": sps * self.T / self.n_shards,
+            "n_devices": self.n_shards,
+            "block_capacity_per_shard": self.cap_local,
+            "recorded_sweeps": int(self.buffers.n_rec),
+        }
 
     @property
     def marginal_counts(self) -> np.ndarray:
@@ -919,11 +944,13 @@ def make_sharded_engine(
         raise ValueError("T and dim are required with a data provider")
     T_local, cell_bits = _choose_layout(T, n_shards)
 
+    trace = runner._setup_tracer()
     ing = sharded_ingest(
         mesh, data, T, dim,
         T_local=T_local, cell_bits=cell_bits,
         weight_multiplier=weight_multiplier,
     )
+    trace(f"ingest done (sharded, P={n_shards}, T_local={T_local})")
 
     spec = ModelSpec(nr_params, nr_data_dim, use_self_transitions)
     # auto-prior closed form from the streamed block means
@@ -933,6 +960,7 @@ def make_sharded_engine(
     mean = S / n
     var = S2 / n - mean * mean
     nig_row = nig_autoprior(s2, p, float(mean), float(var))
+    trace("autoprior done")
     nig = np.tile(nig_row, (nr_params, 1))
     priors = HMMPriors.create(
         nig, spec.nr_states, trans, self_trans, initial_alpha, device=mesh.device
@@ -945,7 +973,7 @@ def make_sharded_engine(
             T_local, runner._MAX_CAPACITY, max(64, 4 * ing.nb0 // n_shards + 64)
         )
 
-    return ShardedEngine(
+    eng = ShardedEngine(
         mesh=mesh,
         spec=spec,
         priors=priors,
@@ -961,3 +989,5 @@ def make_sharded_engine(
         records=records,
         cap_local=cap_local,
     )
+    trace(f"engine init done (cap_local={eng.cap_local})")
+    return eng

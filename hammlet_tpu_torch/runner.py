@@ -14,11 +14,20 @@ excepted, see _MAX_CAPACITY).
 
 Ingest at T >= 2M positions runs on the device: the maxlet transform goes
 through the hand-written Hopper kernels for CUDA data (ops/wavelet_cuda.py).
+
+Run switches, as in the JAX package: HAMMLET_PHASE_CHUNK (chunk length;
+also turns the capacity scaling of chunk lengths off), HAMMLET_MAX_CAPACITY
+(the capacity ceiling), HAMMLET_PROFILE=<dir> (one torch.profiler trace per
+phase) and HAMMLET_SETUP_TRACE (timed setup stages on stderr).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import sys
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -26,7 +35,7 @@ import torch
 
 from hammlet_tpu_torch.checkpoint import save_checkpoint
 from hammlet_tpu_torch.debug import check_marginal_sums, debug_enabled, raise_on_error
-from hammlet_tpu_torch.device import resolve_device, synchronize
+from hammlet_tpu_torch.device import resolve_device, synchronize, to_host
 from hammlet_tpu_torch.io.records import Records
 from hammlet_tpu_torch.models.autopriors import autoprior, autoprior_host, noise_std_estimate
 from hammlet_tpu_torch.models.hmm import (
@@ -84,16 +93,125 @@ def parse_scheme(tokens: list[str]) -> list[tuple]:
     return ops
 
 
-#: sweeps per phase chunk: the engine syncs once per chunk (overflow check,
-#: record drain) and the capacity ladder moves between chunks
-PHASE_CHUNK = 128
+#: sweeps per phase chunk (the base of the capacity scaling below): the
+#: engine syncs once per chunk (overflow check, record payload) and the
+#: capacity ladder moves between chunks
+PHASE_CHUNK = int(os.environ.get("HAMMLET_PHASE_CHUNK", 128))
 
-#: ceiling on the block capacity. The first post-prior burn-in sweeps have
-#: ~T blocks, and a sweep at capacity ~T allocates O(K*K*cap) transients; a
-#: burn-in chunk that overflows the ceiling is ACCEPTED TRUNCATED (the sweep
-#: reduces to the top-capacity ranked weights, an effectively higher
-#: threshold for those sweeps). Recording chunks are never truncated.
-_MAX_CAPACITY = 1 << 25
+#: ceiling on the block capacity (HAMMLET_MAX_CAPACITY). The first
+#: post-prior burn-in sweeps have ~T blocks, and a sweep at capacity ~T
+#: allocates O(K*K*cap) transients; a burn-in chunk that overflows the
+#: ceiling is ACCEPTED TRUNCATED (the sweep reduces to the top-capacity
+#: ranked weights, an effectively higher threshold for those sweeps).
+#: Recording chunks are never truncated.
+_MAX_CAPACITY = int(os.environ.get("HAMMLET_MAX_CAPACITY", 0)) or (1 << 25)
+
+
+def _scale_chunks(device: torch.device) -> bool:
+    """Whether chunk lengths scale with the block capacity: on a card, as
+    the JAX package does off the CPU (hammlet_tpu/runner.py:109-120), unless
+    HAMMLET_PHASE_CHUNK pins the length. On the CPU a chunk costs no more
+    than its sweeps, and the tests pin chunk lengths."""
+    return device.type == "cuda" and "HAMMLET_PHASE_CHUNK" not in os.environ
+
+
+def _chunk_for_capacity(capacity: int, scale: bool) -> int:
+    """Sweeps per chunk at a block capacity: the JAX package's table.
+
+    Every chunk costs a host sync and, when it records, a hand-off to the
+    record drain, so small capacities (cheap sweeps) run long chunks; a
+    huge capacity (the first burn-in sweeps, ~T blocks) runs 8-sweep chunks
+    so that the capacity ladder can shrink within a few sweeps and an
+    overflow replays little."""
+    if capacity >= (1 << 23):
+        return min(8, PHASE_CHUNK)
+    if not scale:
+        return PHASE_CHUNK
+    if capacity <= (1 << 11):
+        return 16 * PHASE_CHUNK
+    if capacity <= (1 << 13):
+        return 8 * PHASE_CHUNK
+    if capacity <= (1 << 15):
+        return 4 * PHASE_CHUNK
+    if capacity <= (1 << 17):
+        return 2 * PHASE_CHUNK
+    return PHASE_CHUNK
+
+
+def _phase_profile(device: torch.device):
+    """HAMMLET_PROFILE=<dir>: torch.profiler over one phase, its trace
+    written into <dir> when the phase ends (the JAX package takes one
+    jax.profiler trace per phase)."""
+    profile_dir = os.environ.get("HAMMLET_PROFILE")
+    if not profile_dir:
+        return contextlib.nullcontext()
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(
+        activities=activities,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(profile_dir),
+    )
+
+
+def _setup_tracer():
+    """HAMMLET_SETUP_TRACE: a function that prints ``[setup +Ns] msg`` to
+    stderr, N the seconds since this call; a no-op otherwise."""
+    if not os.environ.get("HAMMLET_SETUP_TRACE"):
+        return lambda msg: None
+    t0 = time.time()
+    return lambda msg: print(f"[setup +{time.time() - t0:.1f}s] {msg}", file=sys.stderr, flush=True)
+
+
+class RecordDrain:
+    """Runs the host part of each recording chunk's drain (block-size
+    reconstruction, CSV formatting, writes) on one worker thread while the
+    launching thread queues the next chunk's sweeps; the native formatters
+    release the GIL.
+
+    The launching thread copies each chunk's payload to the host itself, in
+    chunk order, at the chunk's host sync, and keeps every collective: the
+    worker only formats numpy arrays. At most one chunk is in flight:
+    ``submit`` waits for the previous one first. An exception raised by a
+    drain is raised again on the launching thread at its next wait.
+    ``busy`` holds the worker's seconds per drain and ``waited`` the
+    launching thread's seconds per wait."""
+
+    def __init__(self):
+        self._pool: ThreadPoolExecutor | None = None
+        self._future: Future | None = None
+        self.busy: list[float] = []
+        self.waited: list[float] = []
+
+    def submit(self, fn, *args) -> None:
+        self.wait()
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="hammlet-drain")
+        self._future = self._pool.submit(self._timed, fn, args)
+
+    def _timed(self, fn, args) -> None:
+        t0 = time.perf_counter()
+        fn(*args)
+        self.busy.append(time.perf_counter() - t0)
+
+    def wait(self) -> None:
+        """Block until the pending drain is done; raise its exception."""
+        future, self._future = self._future, None
+        if future is not None:
+            t0 = time.perf_counter()
+            try:
+                future.result()
+            finally:
+                self.waited.append(time.perf_counter() - t0)
+
+    def close(self) -> None:
+        """Wait for the pending drain, then stop the worker."""
+        try:
+            self.wait()
+        finally:
+            if self._pool is not None:
+                self._pool.shutdown()
+                self._pool = None
 
 
 def compact_marginals(buffers: RecordBuffers) -> tuple[np.ndarray, np.ndarray]:
@@ -288,10 +406,19 @@ def ingest_device(data: np.ndarray, weight_multiplier: float = 1.0, device=None)
 
 
 class ChainOps:
-    """The scheme ops, phase timing and periodic checkpoints that Engine and
-    the sharded engine (parallel/sharded.ShardedEngine) share. A subclass
-    provides ``T``, ``seed``, ``device``, ``priors``, ``model``,
-    ``_resize_capacity_for_phase``, ``_run_phase`` and ``_save_checkpoint``."""
+    """The scheme ops, phase timing, record drain and periodic checkpoints
+    that Engine and the sharded engine (parallel/sharded.ShardedEngine)
+    share. A subclass provides ``T``, ``seed``, ``device``, ``priors``,
+    ``model``, ``records``, ``drain`` (a RecordDrain), ``_cands`` and
+    ``_cands_h``, ``_resize_capacity_for_phase``, ``_run_phase``,
+    ``_write_records`` and ``_save_checkpoint``."""
+
+    #: held while the engine launches a phase's sweeps. The CLI gives the
+    #: -M chains it runs in threads one shared lock, so that they take turns
+    #: at phases: torch releases and retakes the GIL around every op, and two
+    #: launch loops in one process hand it over at nearly every op. Ingest,
+    #: each phase's last record drain and output run outside it.
+    phase_turn = contextlib.nullcontext()
 
     def _next_generator(self) -> torch.Generator:
         self.sweep_counter += 1
@@ -319,26 +446,54 @@ class ChainOps:
     ) -> None:
         """One F/M phase of ``iterations`` sweeps with record thinning.
         ``start`` offsets the thinning counter when resuming a phase whose
-        first ``start`` sweeps already ran."""
+        first ``start`` sweeps already ran. The phase's time includes the
+        drain of its last recording chunk, not the wait for ``phase_turn``."""
         if iterations <= 0:
             return
-        self._resize_capacity_for_phase()
-        t0 = time.perf_counter()
-        self._run_phase(method, iterations, thinning, start)
+        with _phase_profile(self.device), self._draining():
+            with self.phase_turn:
+                self._resize_capacity_for_phase()
+                t0 = time.perf_counter()
+                self._run_phase(method, iterations, thinning, start)
         synchronize(self.device)
         self.phase_log.append((method, iterations, time.perf_counter() - t0))
 
     def run_scheme(self, tokens: list[str]) -> None:
         run_scheme_resumable(self, tokens)
 
+    @contextlib.contextmanager
+    def _draining(self):
+        """A span of chunks whose record drains may overlap the next chunk:
+        on the way out the last drain is waited for and the worker stopped.
+        A drain's exception is raised here unless the span itself failed,
+        whose exception then wins."""
+        try:
+            yield
+        except BaseException:
+            with contextlib.suppress(Exception):
+                self.drain.close()
+            raise
+        self.drain.close()
+
+    def _submit_drain(self, host: dict[str, np.ndarray], capacity: int) -> None:
+        """Hand a chunk's host payload to the drain worker. Candidate arrays
+        (fetched with the payload on a capacity's first recording chunk)
+        are kept per capacity on this thread."""
+        if "cand_pos" in host:
+            self._cands_h[capacity] = (host.pop("cand_pos"), host.pop("cand_rank"))
+        if "states" in host:
+            host["cands"] = self._cands_h[capacity]
+        self.drain.submit(self._write_records, self.records, host)
+
     def _maybe_checkpoint(self) -> None:
         """Save a checkpoint when ``checkpoint_every`` sweeps have completed
-        since the last one. The record streams drain synchronously after
-        each chunk and are flushed to the disk first, so every line the
-        checkpoint counts survives a kill after the save."""
+        since the last one. The pending record drain is waited for and every
+        stream flushed to the disk first, so every line the checkpoint
+        counts survives a kill after the save."""
         if not self.checkpoint_path or self.checkpoint_every <= 0:
             return
         if self.sweeps_completed - self._last_ckpt >= self.checkpoint_every:
+            self.drain.wait()
             if self.records is not None:
                 self.records.flush()
             self._save_checkpoint()
@@ -393,6 +548,7 @@ class Engine(ChainOps):
         self._cands: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
         self._cands_h: dict[int, tuple[np.ndarray, np.ndarray]] = {}
         self._last_ckpt = 0
+        self.drain = RecordDrain()
         self.buffers = RecordBuffers.create(
             self.ing.T, self.spec.nr_states, self.device
         )
@@ -427,15 +583,6 @@ class Engine(ChainOps):
             )
         return self._cands[self.capacity]
 
-    def _candidates_host(self, capacity: int) -> tuple[np.ndarray, np.ndarray]:
-        """Host copies of the candidate arrays for one capacity (downloaded
-        once per capacity; lets the record drain rebuild every sweep's block
-        sizes without shipping them from the device)."""
-        if capacity not in self._cands_h:
-            cand_pos, cand_rank = self._cands[capacity]
-            self._cands_h[capacity] = (cand_pos.cpu().numpy(), cand_rank.cpu().numpy())
-        return self._cands_h[capacity]
-
     def _resize_capacity_for_phase(self) -> None:
         """Re-size the block capacity to the CURRENT threshold's boundary
         count at a phase boundary (both directions): a phase entered right
@@ -445,6 +592,10 @@ class Engine(ChainOps):
         self.capacity = min(
             self.ing.T, self.max_capacity, _round_capacity(nb + nb // 8 + 64)
         )
+
+    def _max_chunk(self) -> int:
+        """Sweeps per chunk at the current capacity (_chunk_for_capacity)."""
+        return _chunk_for_capacity(self.capacity, _scale_chunks(self.device))
 
     def _run_phase(
         self, method: str, iterations: int, thinning: int, start: int = 0
@@ -460,7 +611,7 @@ class Engine(ChainOps):
         end = start + iterations
         while done < end:
             n, thin_s, rec_s = _next_chunk(
-                done, end, thinning if recording else 0, PHASE_CHUNK
+                done, end, thinning if recording else 0, self._max_chunk()
             )
             self.sweep_counter += 1
             counter = self.sweep_counter  # fixed across overflow replays
@@ -488,8 +639,11 @@ class Engine(ChainOps):
                     want_blocks=want_blocks,
                     debug=debug,
                 )
-                # the chunk's single host sync: [max_nb, last_nb, err]
-                diag_h = diag.cpu().numpy()
+                payload = self._record_payload(nbs, means, varis, blk) if rec_s else {}
+                # the chunk's single host sync: [max_nb, last_nb, err] and
+                # the record payload, copied in chunk order on this thread
+                host = to_host(self.device, {"diag": diag, **payload})
+                diag_h = host.pop("diag")
                 raise_on_error(int(diag_h[2]))
                 max_nb = int(diag_h[0])
                 if max_nb <= self.capacity:
@@ -509,9 +663,9 @@ class Engine(ChainOps):
                     if rec_s:
                         raise RuntimeError(
                             f"recording sweep needs {max_nb} blocks but the "
-                            f"capacity ceiling is {self.capacity}; raise "
-                            "max_capacity or extend burn-in so the threshold "
-                            "settles first"
+                            f"capacity ceiling is {self.capacity} "
+                            "(HAMMLET_MAX_CAPACITY); raise the ceiling or "
+                            "extend burn-in so the threshold settles first"
                         )
                     self.model, self.buffers = model, buffers
                     self.last_n_blocks = min(int(diag_h[1]), self.capacity)
@@ -521,8 +675,8 @@ class Engine(ChainOps):
                 # so recorded sweeps cannot double-record
                 if prev is not None:
                     self.buffers = prev
-            if self.records is not None and rec_s:
-                self._drain_records(nbs, means, varis, blk, self.capacity)
+            if host:
+                self._submit_drain(host, self.capacity)
             done += n
             self.sweeps_completed += n
             self.scheme_op_done = done
@@ -537,45 +691,55 @@ class Engine(ChainOps):
                 self.capacity = target
             self._maybe_checkpoint()
 
-    def _drain_records(self, nbs, means, varis, blk, capacity: int) -> None:
-        """Drain one chunk's per-recorded-sweep stacks into the enabled
-        record streams (one host copy per stack).
-
-        Block sizes never travel from the device: a sweep's boundary set is
-        exactly ``cand_pos[cand_rank < n_blocks]`` (make_blocks_bucketed)
-        and the candidate arrays are fixed per capacity, so the sizes are
-        rebuilt here from the per-sweep block count; the device ships only
-        the (R, capacity) states in the smallest dtype that fits K."""
-        wants_comp = "compression" in self.records.enabled
-        wants_params = "parameters" in self.records.enabled
-        if not (wants_comp or wants_params or blk is not None):
-            return
-        nbs_h = nbs.cpu().numpy()
+    def _record_payload(self, nbs, means, varis, blk) -> dict[str, torch.Tensor]:
+        """The device tensors a recording chunk's drain needs (none without
+        a per-sweep stream). Block sizes never travel from the device: a
+        sweep's boundary set is exactly ``cand_pos[cand_rank < n_blocks]``
+        (make_blocks_bucketed) and the candidate arrays are fixed per
+        capacity, so the drain rebuilds the sizes from the per-sweep block
+        count; the device ships the (R, capacity) states in the smallest
+        dtype that fits K, and each capacity's candidates once."""
+        if self.records is None:
+            return {}
+        enabled = self.records.enabled
+        out = {}
         if blk is not None:
+            out.update(nbs=nbs, states=blk[0], bounds=blk[1])
+            if self.capacity not in self._cands_h:
+                out["cand_pos"], out["cand_rank"] = self._cands[self.capacity]
+        elif "compression" in enabled:
+            out["nbs"] = nbs
+        if "parameters" in enabled:
+            out.update(means=means, varis=varis)
+        return out
+
+    def _write_records(self, records: Records, h: dict[str, np.ndarray]) -> None:
+        """The host part of a chunk's drain, on the drain worker: rebuild
+        the block sizes and write the enabled streams."""
+        if "states" in h:
             # imported here: parallel.sharded imports this module
             from hammlet_tpu_torch.parallel.sharded import _reassemble_block_rows
 
-            pos_h, rank_h = self._candidates_host(capacity)
+            pos_h, rank_h = h["cands"]
             # the P = 1, T_local = T case of the sharded drain
             states_d, sizes_d, ns_tot = _reassemble_block_rows(
-                blk[0].cpu().numpy().astype(np.int32),
-                nbs_h[:, None].astype(np.int64),
+                h["states"].astype(np.int32),
+                h["nbs"][:, None].astype(np.int64),
                 pos_h[None, :],
                 rank_h[None, :],
                 self.ing.T,
                 self.ing.T,
             )
-            self.records.record_sweeps_batch(
-                states_d, sizes_d, ns_tot, blk[1].cpu().numpy()
-            )
-        else:
-            self.records.record_compressions(nbs_h)
-        if wants_params:
-            for m, v in zip(means.cpu().numpy(), varis.cpu().numpy()):
-                self.records.record_theta(m, v)
+            records.record_sweeps_batch(states_d, sizes_d, ns_tot, h["bounds"])
+        elif "nbs" in h:
+            records.record_compressions(h["nbs"])
+        if "means" in h:
+            for m, v in zip(h["means"], h["varis"]):
+                records.record_theta(m, v)
 
     def finalize(self) -> None:
         if self.records is not None:
+            self.drain.close()
             if "marginals" in self.records.enabled:
                 starts, seg_counts = compact_marginals(self.buffers)
                 # save-time invariant (StateMarginals.hpp:306-308)
@@ -590,6 +754,21 @@ class Engine(ChainOps):
         K = self.spec.nr_states
         flat = self.buffers.counts.cpu().numpy().astype(np.int64)
         return np.cumsum(flat.reshape(K, T), axis=1).astype(np.int32)
+
+    def metrics(self) -> dict:
+        """Per-run metrics under the JAX package's keys
+        (hammlet_tpu/runner.py:887-899); the rate from ``phase_log``."""
+        sps = self.sweeps_per_second
+        return {
+            "sweeps": self.sweeps_completed,
+            "sweeps_per_second": sps,
+            "positions_per_second": sps * self.ing.T,
+            "compression_ratio": (
+                self.ing.T / self.last_n_blocks if self.last_n_blocks else None
+            ),
+            "block_capacity": self.capacity,
+            "recorded_sweeps": int(self.buffers.n_records),
+        }
 
 
 def make_engine(
@@ -612,6 +791,7 @@ def make_engine(
     """Build a ready-to-run engine with auto-priors (the only prior mode the
     reference implements, main.cpp:204-215). ``device`` None picks cuda
     when a card is present."""
+    trace = _setup_tracer()
     dev = resolve_device(device)
     if device_ingest is None:
         device_ingest = np.asarray(data).size >= 2_000_000
@@ -620,6 +800,7 @@ def make_engine(
         if device_ingest
         else ingest(data, weight_multiplier, dev)
     )
+    trace(f"ingest done (device={device_ingest})")
     spec = ModelSpec(nr_params, nr_data_dim, use_self_transitions)
     if ing.weights_host is not None:
         nig_row = autoprior_host(s2, p, data, ing.weights_host, ing.noise_std)
@@ -630,11 +811,12 @@ def make_engine(
             s2, p, ing.ranked, ing.prefix, ing.noise_std, ap_cap,
             cell_bits=ing.cell_bits,
         )
+    trace("autoprior done")
     nig = np.tile(nig_row, (nr_params, 1))
     priors = HMMPriors.create(
         nig, spec.nr_states, trans, self_trans, initial_alpha, device=dev
     )
-    return Engine(
+    eng = Engine(
         ing=ing,
         spec=spec,
         priors=priors,
@@ -642,3 +824,5 @@ def make_engine(
         records=records,
         capacity=capacity,
     )
+    trace(f"engine init done (capacity={eng.capacity})")
+    return eng

@@ -157,12 +157,14 @@ def fb_sample_states(
     pi: torch.Tensor,
     mapping: torch.Tensor,
     use_self_transitions: bool = True,
+    noise: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
-    """Sample a per-block state path with the FB-Gibbs kernel. (B,) int64."""
+    """Sample a per-block state path with the FB-Gibbs kernel. (B,) int64.
+    ``noise``: pre-drawn Gumbels (backward_sample_t)."""
     log_e_t = emission_log_weights_t(
         block_stats_t, sizes, theta_mean, theta_var, mapping
     )
     cols_t, last_col = forward_columns_t(
         log_e_t, sizes, n_blocks, A, pi, use_self_transitions
     )
-    return backward_sample_t(generator, cols_t, last_col, n_blocks, A)
+    return backward_sample_t(generator, cols_t, last_col, n_blocks, A, noise)

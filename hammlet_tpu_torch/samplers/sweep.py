@@ -24,6 +24,7 @@ overflow replay.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
@@ -106,6 +107,15 @@ class RecordBuffers:
         )
 
 
+class SweepOutputs(NamedTuple):
+    """One sweep's block-level results (gibbs_sweep)."""
+
+    states: torch.Tensor  # (Bcap,) int64 per-block states, 0 past the blocks
+    sizes: torch.Tensor  # (Bcap,) int64 block sizes (0 = padding)
+    n_blocks: torch.Tensor  # () int64, saturating at Bcap + 1
+    threshold: torch.Tensor  # () float32 compression threshold used
+
+
 def accumulate_sweep_stats(
     states: torch.Tensor,
     sizes: torch.Tensor,
@@ -146,6 +156,19 @@ def accumulate_sweep_stats(
         theta_sumsqs = theta_sumsqs + ohp @ block_stats_t[d, 1]
         theta_counts = theta_counts + ohp @ sizes_f
     return SweepStats(theta_sums, theta_sumsqs, theta_counts, trans_counts, state_counts)
+
+
+def position_states(
+    states: torch.Tensor, starts: torch.Tensor, n_blocks: torch.Tensor, T: int
+) -> torch.Tensor:
+    """Expand per-block states to per-position states, (T,). Padded starts
+    (= T) mark nothing."""
+    B = states.shape[0]
+    valid = (torch.arange(B, device=states.device) < n_blocks).to(torch.int32)
+    marks = torch.zeros((T + 1,), dtype=torch.int32, device=states.device)
+    marks.index_add_(0, starts, valid)
+    block_id = torch.cumsum(marks[:T], dim=0) - 1
+    return states[block_id]
 
 
 def record_sweep(
@@ -203,12 +226,15 @@ def _sweep_core(
     cell_bits: int,
     record: bool,
     debug: bool = False,
-) -> tuple[HMMState, torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    noise=None,
+) -> tuple[HMMState, SweepOutputs, torch.Tensor | None]:
     """One Gibbs iteration. ``threshold`` None means dynamic (from the
-    model). Returns (new model, n_blocks, per-block states, error bits);
+    model). Returns (new model, the sweep's SweepOutputs, error bits);
     records in place when ``record``. The error bits (hammlet_tpu_torch.debug)
     are None unless ``debug``: without it the sweep issues none of their
-    ops."""
+    ops. ``noise`` replaces the state draw's Gumbels (fb_sample_states,
+    mixture_sample_states); the model update still draws from
+    ``generator``."""
     T = ranked.pos_by_rank.shape[0]
     capacity = cand_rank.shape[0]
     thr = model.threshold(T) if threshold is None else threshold
@@ -221,12 +247,12 @@ def _sweep_core(
         states = fb_sample_states(
             generator, bstats, blocks.sizes, n_used,
             model.theta_mean, model.theta_var, model.A, model.pi,
-            mapping, use_self_transitions,
+            mapping, use_self_transitions, noise,
         )
     elif method == "M":
         states = mixture_sample_states(
             generator, bstats, blocks.sizes, n_used,
-            model.theta_mean, model.theta_var, mapping,
+            model.theta_mean, model.theta_var, mapping, noise,
         )
     else:
         raise ValueError(f"unknown sampling method {method!r}")
@@ -247,7 +273,43 @@ def _sweep_core(
         # would produce a finite model again (the reference guards every
         # parameter setter, Observation.hpp:374-392)
         err = _debug.model_error_bits(model, bstats) | _debug.model_error_bits(new_model)
-    return new_model, blocks.n_blocks, states, err
+    return new_model, SweepOutputs(states, blocks.sizes, blocks.n_blocks, thr), err
+
+
+def gibbs_sweep(
+    generator: torch.Generator | None,
+    model: HMMState,
+    priors: HMMPriors,
+    ranked: RankedWeights,
+    cand_pos: torch.Tensor,
+    cand_rank: torch.Tensor,
+    prefix: PrefixStats,
+    buffers: RecordBuffers,
+    static_threshold: float | None = None,
+    *,
+    method: str,
+    nr_params: int,
+    mapping: torch.Tensor,
+    use_self_transitions: bool = True,
+    cell_bits: int = 16,
+    record: bool = True,
+    noise=None,
+) -> tuple[HMMState, RecordBuffers, SweepOutputs]:
+    """One full Gibbs iteration (HMM.hpp:99-121), the single-sweep API:
+    (new model, buffers recorded in place when ``record``, SweepOutputs).
+    ``static_threshold`` None is the dynamic threshold; ``noise`` as in
+    _sweep_core. Phases run gibbs_phase."""
+    thr = (
+        None if static_threshold is None
+        else torch.tensor(static_threshold, dtype=torch.float32, device=cand_pos.device)
+    )
+    new_model, out, _ = _sweep_core(
+        generator, model, priors, ranked, cand_pos, cand_rank, prefix, buffers, thr,
+        method=method, nr_params=nr_params, mapping=mapping,
+        use_self_transitions=use_self_transitions, cell_bits=cell_bits,
+        record=record, noise=noise,
+    )
+    return new_model, buffers, out
 
 
 def gibbs_phase(
@@ -305,25 +367,26 @@ def gibbs_phase(
     err = None
     for i in range(n_iters):
         rec = record and i % thinning == thinning - 1
-        model, nb, states, e = _sweep_core(
+        model, out, e = _sweep_core(
             make_generator(dev, seed, counter, i), model, priors, ranked,
             cand_pos, cand_rank, prefix, buffers, thr,
             method=method, nr_params=nr_params, mapping=mapping,
             use_self_transitions=use_self_transitions, cell_bits=cell_bits,
             record=rec, debug=debug,
         )
-        nbs.append(nb)
+        nbs.append(out.n_blocks)
         means.append(model.theta_mean)
         varis.append(model.theta_var)
         if debug:
             err = e if err is None else err | e
         if rec and want_blocks:
-            blk_states.append(states.to(state_dtype))
+            blk_states.append(out.states.to(state_dtype))
             # the buffers update in place: keep this sweep's count
             blk_bounds.append(buffers.n_boundaries.clone())
-        # drop the (capacity,) int64 states before the next sweep allocates
-        # its own: at burn-in capacities ~T they would raise the peak memory
-        del states
+        # drop the (capacity,) int64 states and sizes before the next sweep
+        # allocates its own: at burn-in capacities ~T they would raise the
+        # peak memory
+        del out
     nbs_t = torch.stack(nbs)
     err = torch.zeros_like(nbs_t[-1]) if err is None else err.to(nbs_t.dtype)
     diag = torch.stack([nbs_t.max(), nbs_t[-1], err])

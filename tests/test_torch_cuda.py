@@ -269,3 +269,92 @@ def test_sharded_partition_on_card(cuda_device, tmp_path, P):
     want = (tmp_path / "one-blocks.csv").read_text()
     assert want.count("\t") > 10
     assert (tmp_path / "sh-blocks.csv").read_text() == want
+
+
+@pytest.mark.cuda
+def test_cold_build_from_two_threads_on_card(cuda_device, tmp_path, monkeypatch):
+    """Two threads reaching the kernel's first use on a fresh build
+    directory: nvcc runs once, one library is bound, both transforms are
+    bitwise equal to the plain version and no temporary file is left."""
+    import threading
+
+    from hammlet_tpu_torch import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(wavelet_cuda, "_lib", None)
+    data = np.random.default_rng(3).normal(0, 1, size=(50000, 1)).astype(np.float32)
+    x = torch.from_numpy(data).to(cuda_device)
+    barrier = threading.Barrier(2, timeout=120)
+    out, errors = [], []
+
+    def first_use():
+        barrier.wait()
+        try:
+            out.append(wavelet_cuda.maxlet_transform_cuda(x))
+        except Exception as exc:  # reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=first_use) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and errors == []
+    torch.cuda.synchronize()
+    assert [p.suffix for p in (tmp_path / "build").iterdir()] == [".so"]
+    for got in out:
+        assert_bitwise(got, wavelet.maxlet_transform(torch.from_numpy(data)))
+
+
+@pytest.mark.cuda
+def test_engine_on_named_card_driven_from_a_thread(cuda_device):
+    """An engine built and run from a worker thread on an explicit cuda:0
+    carries the indexed device: its generators and syncs name that card."""
+    import threading
+
+    from hammlet_tpu_torch.device import resolve_device
+
+    assert resolve_device("cuda").index == torch.cuda.current_device()
+    res = {}
+
+    def drive():
+        eng = runner.make_engine(synth_segments(50000, 14)[0], seed=3, device="cuda:0")
+        eng.run("M", 8, 0)
+        eng.run("F", 8, 2)
+        res["device"] = eng.device
+        res["generator"] = eng._next_generator().device
+        res["recorded"] = int(eng.buffers.n_records)
+
+    t = threading.Thread(target=drive)
+    t.start()
+    t.join(timeout=300)
+    assert not t.is_alive()
+    assert res == {"device": torch.device("cuda", 0), "generator": torch.device("cuda", 0),
+                   "recorded": 4}
+
+
+@pytest.mark.cuda
+def test_overlapped_drain_one_wait_per_chunk(cuda_device, tmp_path, monkeypatch):
+    """A recording phase with every stream, its drain on the worker thread,
+    runs under torch's sync debug mode "error" (no synchronizing call) and
+    waits on the card exactly once per chunk (one CUDA event)."""
+    data = synth_segments(50000, 15)[0]
+    eng = runner.make_engine(data, seed=4, device=cuda_device)
+    eng.run("M", 16, 0)
+    eng.capacity = eng.ing.T  # no overflow: no re-pricing sync
+    eng.records = Records(len(data), str(tmp_path / "d-"), ".csv", 3,
+                          outputs=set(Records.STREAMS), overwrite=True)
+    chunks, waits = [], []
+    real_phase, real_sync = runner.gibbs_phase, torch.cuda.Event.synchronize
+    monkeypatch.setattr(runner, "gibbs_phase", lambda *a, **k: chunks.append(1) or real_phase(*a, **k))
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", lambda self: waits.append(1) or real_sync(self))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with eng._draining():
+            eng._run_phase("F", 768, 4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.records.close()
+    assert len(chunks) >= 2 and len(waits) == len(chunks)
+    assert len((tmp_path / "d-sequences.csv").read_text().splitlines()) == 192

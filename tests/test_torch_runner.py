@@ -28,8 +28,9 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 def test_port_imports_no_jax():
-    """The port, chip_smoke.py and ``bin/hammlet-torch -h`` run with jax and
-    hammlet_tpu made unimportable."""
+    """The port (the post-processing tools included, which import matplotlib
+    only where they draw), chip_smoke.py and ``bin/hammlet-torch -h`` run
+    with jax and hammlet_tpu made unimportable."""
     code = (
         "import runpy, sys; sys.modules['jax'] = None; sys.modules['hammlet_tpu'] = None\n"
         "import hammlet_tpu_torch.runner, hammlet_tpu_torch.convert\n"
@@ -38,6 +39,11 @@ def test_port_imports_no_jax():
         "import hammlet_tpu_torch.manpage, hammlet_tpu_torch.parallel.sharded\n"
         "import hammlet_tpu_torch.parallel.mesh, hammlet_tpu_torch.parallel.distributed\n"
         "import hammlet_tpu_torch.parallel.ingest, hammlet_tpu_torch.parallel.mh_worker\n"
+        "import hammlet_tpu_torch.pyhammlet, hammlet_tpu_torch.pyhammlet.plotting\n"
+        "import hammlet_tpu_torch.tools.avg, hammlet_tpu_torch.tools.genome\n"
+        "import hammlet_tpu_torch.tools.max_segmentation, hammlet_tpu_torch.tools.sort_states\n"
+        "import hammlet_tpu_torch.tools.sam_to_counts, hammlet_tpu_torch.tools.plot_results\n"
+        "assert 'matplotlib' not in sys.modules\n"
         "import chip_smoke\n"
         "sys.argv = ['hammlet-torch', '-h']\n"
         "try:\n"
