@@ -25,13 +25,22 @@ Flag grammar per src/main.cpp:33-65 and doc/hammlet-manpage.md:33-176:
                                when it exists)
   -D/-devices N        shards of the position axis (parallel/sharded.py): N
                        > 1 runs the sharded engine, N / W shards on each of
-                       the W processes (HAMMLET_NUM_PROCESSES,
-                       parallel/distributed.py); N must be a multiple of W
+                       W processes. On a host with C > 1 cards and no
+                       HAMMLET_NUM_PROCESSES, the CLI starts W processes
+                       itself, one per card over NCCL, W the largest
+                       divisor of N that is at most C (parallel/launch.py),
+                       as the JAX CLI spans its local chips; the outputs
+                       are the bytes of one process. With one card, or
+                       under HAMMLET_NUM_PROCESSES (by hand or torchrun,
+                       parallel/distributed.py), the CLI runs in the
+                       processes it is given; N must be a multiple of W
   -M/-multi            every -f file is an INDEPENDENT chain with its own
-                       priors/RNG/outputs: one chain per local card in
-                       threads when there are several cards, no -D and one
-                       process; else one after another (each sharded over
-                       -D N shards)
+                       priors/RNG/outputs; the file names must differ in
+                       their stems (each chain writes {prefix}{stem}-*).
+                       One chain per local card in threads when there are
+                       several cards, no -D and one process; else one
+                       after another (each sharded over -D N shards, in
+                       the processes -D N spans)
 """
 
 from __future__ import annotations
@@ -160,6 +169,12 @@ def main(argv: list[str] | None = None) -> int:
         return 1
 
     try:
+        span = _cards_to_span(args)
+        if span is not None:
+            # one process per card: the workers run this CLI in a group
+            from hammlet_tpu_torch.parallel import launch
+
+            return launch.run_cli(args, *span)
         return _run(args)
     except Exception as e:  # mirror the reference's fatal handler
         print(f"\n[ERROR] {e}", file=sys.stderr)
@@ -167,6 +182,27 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     finally:
         distributed.shutdown()
+
+
+def _cards_to_span(args: dict[str, list[str]]) -> tuple[int, int] | None:
+    """(N, C) when ``-D N`` is to span C local cards in processes of their
+    own (parallel/launch.py): N > 1, no -h, no HAMMLET_NUM_PROCESSES, more
+    than one card, and a divisor of N above 1 that fits them. Else None:
+    the run stays in this process (a -D that is no integer fails there)."""
+    if "-h" in args or "HAMMLET_NUM_PROCESSES" in os.environ or not args.get("-D"):
+        return None
+    try:
+        n = int(args["-D"][0])
+    except ValueError:
+        return None
+    if n < 2:
+        return None
+    cards = distributed.card_count()
+    if cards < 2:
+        return None
+    from hammlet_tpu_torch.parallel.launch import pick_world
+
+    return (n, cards) if pick_world(n, cards) > 1 else None
 
 
 def _check_shards(n_devices: int) -> None:
@@ -187,6 +223,15 @@ def _check_shards(n_devices: int) -> None:
         raise ValueError(
             f"-D {n_devices} != {world} processes x HAMMLET_LOCAL_DEVICES={local}"
         )
+
+
+def _chain_stem(path: str) -> str:
+    """The name an -M chain's outputs carry: the file name without its
+    directory, ``.gz`` and last extension."""
+    stem = os.path.basename(path)
+    if stem.endswith(".gz"):
+        stem = stem[:-3]
+    return stem.rsplit(".", 1)[0]
 
 
 def _chain_devices() -> list[torch.device]:
@@ -328,6 +373,9 @@ def _run(
         print(f"Sampling scheme: {' '.join(get('-i'))}")
         print(f"Random seed: {seed}")
         print(f"Device: {device}")
+        if distributed.world_size() > 1:
+            print(f"Processes: {distributed.world_size()}, "
+                  f"shards per process: {n_devices // distributed.world_size()}")
         if "-f" in args:
             for f in args["-f"]:
                 print(f"Reading {f}")
@@ -354,12 +402,17 @@ def _run(
         files = args.get("-f") or []
         if len(files) < 1:
             raise ValueError("-M requires at least one -f input file")
+        stems = [_chain_stem(f) for f in files]
+        shared = sorted({s for s in stems if stems.count(s) > 1})
+        if shared:
+            # the chains' outputs and checkpoints are named by the stem alone
+            raise ValueError(
+                "-M chains need input files whose names differ without their "
+                f"directory and extension; {', '.join(shared)} appears more "
+                "than once, and those chains would write the same output files"
+            )
         subs = []
-        for fpath in files:
-            stem = os.path.basename(fpath)
-            if stem.endswith(".gz"):
-                stem = stem[:-3]
-            stem = stem.rsplit(".", 1)[0]
+        for fpath, stem in zip(files, stems):
             sub = {k: list(v) for k, v in args.items()}
             del sub["-M"]
             sub["-f"] = [fpath]

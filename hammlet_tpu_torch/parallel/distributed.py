@@ -6,7 +6,11 @@ process, each holding P / W consecutive shards on its own device. CUDA
 processes talk over NCCL, CPU processes over gloo. Nothing else changes: the
 sharded engine, ingest and outputs are written against the mesh.
 
-Launch recipe (W processes, e.g. one per GPU):
+On a host with C > 1 cards, ``hammlet-torch -D N`` with no
+HAMMLET_NUM_PROCESSES starts the group itself (parallel/launch.py): W
+processes, one per card, W the largest divisor of N that is at most C, each
+with N / W shards, as the JAX CLI spans N local chips. The counterpart of
+launching them by hand (W processes, e.g. one per GPU, or several hosts):
 
     export HAMMLET_COORDINATOR=host0:8476     # host:port of process 0
     export HAMMLET_NUM_PROCESSES=W
@@ -19,15 +23,26 @@ bin/hammlet-torch -D 4 ...``). ``HAMMLET_LOCAL_DEVICES`` states the shards
 per process; the CLI then checks that -D is W times it. A CUDA process uses
 ``cuda:(LOCAL_RANK or rank) % device_count``, so two processes never share
 a card on a host with enough of them (NCCL refuses two ranks on one GPU).
-tests/test_torch_multiprocess.py runs two gloo processes on the CPU.
+A collective that waits longer than COLLECTIVE_TIMEOUT for a process fails
+the run. tests/test_torch_multiprocess.py and tests/test_torch_launch.py run
+two gloo processes on the CPU.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
+import subprocess
+import sys
+from datetime import timedelta
 
 import torch
 import torch.distributed as dist
+
+#: how long a collective (and the group's rendezvous) waits for the other
+#: processes before the run fails: longer than any gap between two
+#: collectives of a healthy run (a genome-scale ingest or checkpoint write)
+COLLECTIVE_TIMEOUT = timedelta(minutes=30)
 
 
 def _env_int(name: str) -> int:
@@ -92,15 +107,67 @@ def initialize_from_env() -> bool:
         rank = _env_int("HAMMLET_PROCESS_ID") if world > 1 else 0
     if not 0 <= rank < world:
         raise ValueError(f"process id {rank} is outside 0..{world - 1}")
+    kwargs = {}
     if torch.cuda.is_available():
-        torch.cuda.set_device(_card_index(rank))
-        backend = "nccl"
+        card = torch.device("cuda", _card_index(rank))
+        torch.cuda.set_device(card)
+        # NCCL binds the process's card and builds its communicator now,
+        # not at the first collective
+        backend, kwargs["device_id"] = "nccl", card
     else:
         backend = "gloo"
     dist.init_process_group(
-        backend, init_method=f"tcp://{coord}", world_size=world, rank=rank
+        backend, init_method=f"tcp://{coord}", world_size=world, rank=rank,
+        timeout=COLLECTIVE_TIMEOUT, **kwargs,
     )
     return world > 1
+
+
+def card_count() -> int:
+    """The cards this process could use, counted without initialising CUDA
+    (NVML, then CUDA_VISIBLE_DEVICES), so that a launcher can still start
+    its workers cleanly. Falls back to torch.cuda.device_count() in a child
+    process when NVML cannot be loaded; 0 without a CUDA build of torch."""
+    if not torch.backends.cuda.is_built():
+        return 0
+    n = _nvml_count()
+    if n is None:
+        probe = subprocess.run(
+            [sys.executable, "-c", "import torch; print(torch.cuda.device_count())"],
+            capture_output=True, text=True, timeout=300,
+        )
+        return int(probe.stdout.strip() or 0) if probe.returncode == 0 else 0
+    return _visible_cards(n, os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+
+def _nvml_count() -> int | None:
+    """The cards NVML sees (None when the library or the driver is
+    missing)."""
+    try:
+        nvml = ctypes.CDLL("libnvidia-ml.so.1")
+    except OSError:
+        return None
+    if nvml.nvmlInit_v2() != 0:
+        return None
+    try:
+        n = ctypes.c_uint(0)
+        return n.value if nvml.nvmlDeviceGetCount_v2(ctypes.byref(n)) == 0 else None
+    finally:
+        nvml.nvmlShutdown()
+
+
+def _visible_cards(n: int, visible: str | None) -> int:
+    """How many of ``n`` cards CUDA_VISIBLE_DEVICES leaves, read as CUDA
+    reads it: entries up to the first invalid index (UUIDs count)."""
+    if visible is None:
+        return n
+    count = 0
+    for tok in visible.split(","):
+        tok = tok.strip()
+        if not tok or (tok.lstrip("-").isdigit() and not 0 <= int(tok) < n):
+            break
+        count += 1
+    return min(count, n)
 
 
 def local_shards_from_env() -> int | None:

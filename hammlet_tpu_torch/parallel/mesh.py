@@ -6,7 +6,9 @@ process drives ONE device and holds P / W consecutive shards on it, as a
 leading local-shard axis on every per-shard tensor; the collectives go
 through torch.distributed (NCCL for CUDA tensors, gloo for CPU tensors).
 One process with W = 1 and P = 4 is the counterpart of the JAX package's
-virtual CPU mesh, and is how one card runs the sharded path.
+virtual CPU mesh, and is how one card runs the sharded path; ``-D N`` on a
+host with several cards runs one process per card (parallel/launch.py), the
+counterpart of the JAX package's mesh over the local chips.
 """
 
 from __future__ import annotations
@@ -18,8 +20,16 @@ import torch.distributed as dist
 
 from hammlet_tpu_torch.device import resolve_device
 
-# torch >= 2.13 renames all_gather_into_tensor; the old name still works
+# torch >= 2.13 renames all_gather_into_tensor (the name older releases,
+# such as 2.11, only have); both take (output, input, group=...)
 _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+#: dtypes every backend gathers as they are (NCCL sends bool as uint8 and
+#: has no 16-bit integers); any other dtype travels as its bytes
+_WIRE_DTYPES = {
+    torch.bool, torch.int8, torch.uint8, torch.int32, torch.int64,
+    torch.float16, torch.bfloat16, torch.float32, torch.float64,
+}
 
 
 @dataclass(frozen=True)
@@ -68,10 +78,14 @@ class PositionMesh:
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Concatenate ``x`` along axis 0 over the processes in rank order:
         (S, ...) per-shard rows become the (P, ...) rows of every shard.
-        The identity without a process group."""
+        The identity without a process group. ``x`` has at least one axis;
+        a dtype outside _WIRE_DTYPES (the int16 state stacks of K > 127
+        states) is gathered as bytes and viewed back."""
         if self.group is None:
             return x
         x = x.contiguous()
+        if x.dtype not in _WIRE_DTYPES:
+            return self.all_gather(x.view(torch.uint8)).view(x.dtype)
         out = torch.empty(
             (self.world_size * x.shape[0],) + tuple(x.shape[1:]),
             dtype=x.dtype, device=x.device,
@@ -94,9 +108,9 @@ class PositionMesh:
             raise TypeError("psum is for integers; use ordered_sum for floats")
         if self.group is None:
             return x
-        x = x.clone()
-        dist.all_reduce(x, group=self.group)
-        return x
+        y = x.reshape(1).clone() if x.dim() == 0 else x.clone()
+        dist.all_reduce(y, group=self.group)
+        return y.reshape(x.shape)
 
 
 def position_mesh(n_shards: int, device: str | torch.device | None = None) -> PositionMesh:

@@ -75,9 +75,18 @@ from hammlet_tpu_torch.samplers.forward_backward import (
 )
 from hammlet_tpu_torch.samplers.sweep import accumulate_sweep_stats, make_generator
 
-#: accumulate_sweep_stats over the local-shard axis of every argument
-#: (states, sizes, n_blocks, block stats (dim, 2, S, cap))
-_local_sweep_stats = torch.func.vmap(accumulate_sweep_stats, in_dims=(0, 0, 0, 2, None, None))
+def _local_sweep_stats(z, sizes, nb_l, bstats, mapping, nr_params) -> SweepStats:
+    """accumulate_sweep_stats of each local shard on its own (states, sizes,
+    block counts on the leading shard axis, block stats (dim, 2, S, cap)),
+    stacked on a leading shard axis. One call per shard, never one batched
+    call: a batched matmul sums its floats in an order that depends on the
+    batch, so S = 4 shards in one process would sum differently from one
+    shard in each of four, and the bytes would depend on W."""
+    per = [
+        accumulate_sweep_stats(z[s], sizes[s], nb_l[s], bstats[:, :, s], mapping, nr_params)
+        for s in range(z.shape[0])
+    ]
+    return SweepStats(*(torch.stack(field) for field in zip(*per)))
 
 
 @dataclass

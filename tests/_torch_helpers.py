@@ -93,3 +93,82 @@ def synth_segments(T: int, seed: int, seglen: int = 500, scale: float = 1.0):
     reps[-1] = T - seglen * (n_seg - 1)
     data = np.repeat(means[state], reps) + rng.normal(0, 1, size=T)
     return data.astype(np.float32), np.repeat(state, reps)
+
+
+def fail_on_last_rank() -> None:
+    """A parallel/launch.py ``run_on_cards`` target: the last process of the
+    group raises while the others wait for it in a barrier."""
+    import torch.distributed as dist
+
+    if dist.get_rank() == dist.get_world_size() - 1:
+        raise RuntimeError("the last process failed on purpose")
+    dist.barrier()
+
+
+class ThreadRanks:
+    """The W processes of a group played by W threads of this process: the
+    torch.distributed calls parallel/mesh.py makes (get_world_size,
+    get_rank, all_reduce, and its all_gather), answered through a barrier.
+    ``install(monkeypatch)`` routes mesh.py's calls here; ``run(fn)`` calls
+    ``fn(rank)`` in W threads and returns the W results. A mesh of W
+    thread ranks is ``PositionMesh(P, device, group=ranks)``."""
+
+    def __init__(self, world: int):
+        import threading
+
+        self.world = world
+        self.barrier = threading.Barrier(world, timeout=600)
+        self.slots = [None] * world
+        self.local = threading.local()
+
+    def install(self, monkeypatch) -> None:
+        from types import SimpleNamespace
+
+        from hammlet_tpu_torch.parallel import mesh
+
+        monkeypatch.setattr(mesh, "_all_gather", self.all_gather)
+        monkeypatch.setattr(mesh, "dist", SimpleNamespace(
+            get_world_size=self.get_world_size, get_rank=self.get_rank,
+            all_reduce=self.all_reduce,
+        ))
+
+    def get_world_size(self, group=None) -> int:
+        return self.world
+
+    def get_rank(self, group=None) -> int:
+        return self.local.rank
+
+    def _exchange(self, x: torch.Tensor) -> list:
+        self.slots[self.local.rank] = x.clone()
+        self.barrier.wait()
+        got = list(self.slots)
+        self.barrier.wait()
+        return got
+
+    def all_gather(self, out: torch.Tensor, x: torch.Tensor, group=None) -> None:
+        out.copy_(torch.cat(self._exchange(x)))
+
+    def all_reduce(self, x: torch.Tensor, group=None) -> None:
+        x.copy_(torch.stack(self._exchange(x)).sum(dim=0))
+
+    def run(self, fn) -> list:
+        import threading
+
+        results, errors = [None] * self.world, []
+
+        def body(rank):
+            self.local.rank = rank
+            try:
+                results[rank] = fn(rank)
+            except BaseException as exc:  # reported below; free the others
+                errors.append(exc)
+                self.barrier.abort()
+
+        threads = [threading.Thread(target=body, args=(r,)) for r in range(self.world)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return results

@@ -4,6 +4,7 @@ same -g dump, the same streams end to end, and -M chains."""
 
 import itertools
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -281,3 +282,38 @@ def test_multi_chain_matches_solo_runs(tmp_path):
     assert tcli.main(argv) == 0  # every chain's checkpoint is finished
     for (i, s), b in outputs.items():
         assert (tmp_path / f"wgs-chr{i + 1}-{s}.csv").read_bytes() == b, (i, s)
+
+
+@pytest.mark.parametrize("names", [("a/chr1.txt", "b/chr1.txt", "chr2.txt"),
+                                   ("chr1.txt", "chr2.txt", "chr1.csv.gz")],
+                         ids=["directories", "extensions"])
+@pytest.mark.parametrize("n_devices", [1, 2], ids=["sequential", "threads"])
+def test_multi_chain_refuses_shared_stems(tmp_path, capsys, monkeypatch, names, n_devices):
+    """-M with two files of one stem (their chains would write the same
+    outputs and checkpoint) stops with an [ERROR] before any chain runs and
+    any file is made, on the sequential path and the threaded one (two CPU
+    devices standing in for two cards)."""
+    import gzip
+
+    files = []
+    for name in names:
+        path = tmp_path / "in" / name
+        path.parent.mkdir(parents=True, exist_ok=True)
+        values = "\n".join(map(str, synth_segments(600, 1)[0])) + "\n"
+        if name.endswith(".gz"):
+            with gzip.open(path, "wt") as fh:
+                fh.write(values)
+        else:
+            path.write_text(values)
+        files.append(str(path))
+    before = sorted(p.relative_to(tmp_path) for p in tmp_path.rglob("*"))
+    monkeypatch.setattr(tcli, "_chain_devices", lambda: [torch.device("cpu")] * n_devices)
+    out = tmp_path / "out"
+    out.mkdir()
+    argv = ["-M", "-f", *files, "-o", str(out / "w-"), ".csv", "-a", "-R", "1", "-w",
+            "-C", str(out / "ck.npz"), "8", "-i", "M", "4", "0", "F", "4", "2"]
+    assert tcli.main(argv) == 1
+    err = capsys.readouterr().err
+    assert "[ERROR]" in err and "chr1 appears more than once" in err, err
+    assert list(out.iterdir()) == []
+    assert sorted(p.relative_to(tmp_path) for p in tmp_path.rglob("*")) == before + [Path("out")]

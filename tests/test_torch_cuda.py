@@ -358,3 +358,82 @@ def test_overlapped_drain_one_wait_per_chunk(cuda_device, tmp_path, monkeypatch)
     eng.records.close()
     assert len(chunks) >= 2 and len(waits) == len(chunks)
     assert len((tmp_path / "d-sequences.csv").read_text().splitlines()) == 192
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [8193, 2**20 + 1])
+@pytest.mark.parametrize("dim", [1, 3])
+def test_each_kernel_matches_golden_on_card(cuda_device, T, dim):
+    """Tolerance: bitwise. The chunk kernel's coefficients off the chunk
+    starts (the levels it forms), and the coefficients after the cross-chunk
+    kernel everywhere, against the golden model's transform
+    (hammlet_tpu_torch.golden.reference, numpy) of the same data."""
+    from hammlet_tpu_torch.golden import reference as golden
+
+    data = np.random.default_rng(T * 5 + dim).normal(1, 2, size=(T, dim)).astype(np.float32)
+    want = golden.maxlet_transform(data)
+    coeffs, totals = wavelet_cuda.maxlet_chunks_cuda(torch.from_numpy(data).to(cuda_device))
+    crossed = wavelet_cuda.maxlet_cross_cuda(coeffs.clone(), totals)
+    off = np.arange(T) % (1 << wavelet_cuda.CHUNK_BITS) != 0
+    assert_bitwise(coeffs.cpu().numpy()[off], want[off])
+    assert_bitwise(crossed, want)
+
+
+@pytest.mark.cuda
+def test_cli_shards_span_two_cards(cuda_device, tmp_path, monkeypatch, capsys):
+    """On a host with two or more cards, bin/hammlet-torch -D 2 (cli.main)
+    runs two processes, one per card, over NCCL, and writes the bytes of
+    one process with -D 2 on one card; skipped with fewer cards."""
+    from hammlet_tpu_torch import cli
+    from hammlet_tpu_torch.parallel import distributed, launch
+
+    if distributed.card_count() < 2:
+        pytest.skip("needs two cards")
+    for name in ("HAMMLET_NUM_PROCESSES", "HAMMLET_COORDINATOR", "HAMMLET_PROCESS_ID",
+                 "HAMMLET_LOCAL_DEVICES"):
+        monkeypatch.delenv(name, raising=False)
+    np.savetxt(tmp_path / "d.csv", synth_segments(50000, 16)[0])
+    started = []
+    real = launch.subprocess.Popen
+    monkeypatch.setattr(launch.subprocess, "Popen",
+                        lambda *a, **k: started.append(real(*a, **k)) or started[-1])
+    argv = ["-f", str(tmp_path / "d.csv"), "-a", "-R", "4", "-D", "2", "-w", "-v",
+            "-O", "marginals", "parameters", "compression", "-i", "M", "16", "0", "F", "32", "2"]
+    assert cli.main(argv + ["-o", str(tmp_path / "two-"), ".csv"]) == 0
+    assert "2 processes, one per card" in capsys.readouterr().out
+    assert len(started) == 2 and all(p.poll() == 0 for p in started)
+    monkeypatch.setattr(distributed, "card_count", lambda: 1)
+    assert cli.main(argv + ["-o", str(tmp_path / "one-"), ".csv"]) == 0
+    assert len(started) == 2
+    for s in ("marginals", "parameters", "compression"):
+        assert (tmp_path / f"two-{s}.csv").read_bytes() == (tmp_path / f"one-{s}.csv").read_bytes()
+
+
+@pytest.mark.cuda
+def test_thread_ranks_match_one_process_on_card(cuda_device, tmp_path, monkeypatch):
+    """Exact on the card: P = 4 shards over four ranks played by threads
+    (_torch_helpers.ThreadRanks, one shard each) write the bytes of one
+    process holding all four, at T = 1,000,000, where the card's batched
+    float sums over the local shards gave other parameters before the
+    per-shard statistics ran one shard at a time."""
+    from _torch_helpers import ThreadRanks
+    from hammlet_tpu_torch.parallel import sharded
+    from hammlet_tpu_torch.parallel.mesh import PositionMesh
+
+    data = synth_segments(1_000_000, 22)[0]
+    streams = {"marginals", "parameters", "compression"}
+    device = torch.device("cuda", torch.cuda.current_device())
+
+    def run(tag, mesh, rank=0):
+        rec = Records(len(data), str(tmp_path / f"{tag}-"), ".csv", 3, outputs=streams,
+                      overwrite=True, write=rank == 0)
+        eng = sharded.make_sharded_engine(data, mesh=mesh, nr_params=3, seed=9, records=rec)
+        eng.run_scheme("M 16 0 F 64 4".split())
+        eng.finalize()
+
+    run("one", PositionMesh(4, device))
+    ranks = ThreadRanks(4)
+    ranks.install(monkeypatch)
+    ranks.run(lambda r: run("ranks", PositionMesh(4, device, group=ranks), r))
+    for s in sorted(streams):
+        assert (tmp_path / f"ranks-{s}.csv").read_bytes() == (tmp_path / f"one-{s}.csv").read_bytes(), s

@@ -39,6 +39,8 @@ def test_port_imports_no_jax():
         "import hammlet_tpu_torch.manpage, hammlet_tpu_torch.parallel.sharded\n"
         "import hammlet_tpu_torch.parallel.mesh, hammlet_tpu_torch.parallel.distributed\n"
         "import hammlet_tpu_torch.parallel.ingest, hammlet_tpu_torch.parallel.mh_worker\n"
+        "import hammlet_tpu_torch.parallel.launch, hammlet_tpu_torch.entry\n"
+        "import hammlet_tpu_torch.golden.reference, hammlet_tpu_torch.golden.parity\n"
         "import hammlet_tpu_torch.pyhammlet, hammlet_tpu_torch.pyhammlet.plotting\n"
         "import hammlet_tpu_torch.tools.avg, hammlet_tpu_torch.tools.genome\n"
         "import hammlet_tpu_torch.tools.max_segmentation, hammlet_tpu_torch.tools.sort_states\n"

@@ -539,3 +539,31 @@ def test_nan_model_fails_loudly():
     e.model = e.model._replace(theta_mean=mean)
     with pytest.raises(FloatingPointError, match="emission mean"):
         e.run("F", 4, 0)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_thread_ranks_match_one_process(tmp_path, monkeypatch, world):
+    """Exact: P = 4 shards over ``world`` ranks, played by threads of this
+    process (_torch_helpers.ThreadRanks), write the bytes of one process
+    holding all four, at T = 100,000, where the per-shard float sums are
+    long enough that a summation order that depends on the shards per
+    process shows in the parameters."""
+    from _torch_helpers import ThreadRanks
+    from hammlet_tpu_torch.parallel.mesh import PositionMesh
+
+    data = synth_segments(100_000, 21)[0]
+    streams = {"marginals", "parameters", "compression"}
+
+    def run(tag, mesh, rank=0):
+        rec = Records(len(data), str(tmp_path / f"{tag}-"), ".csv", 3, outputs=streams,
+                      overwrite=True, write=rank == 0)
+        eng = tsh.make_sharded_engine(data, mesh=mesh, nr_params=3, seed=8, records=rec)
+        eng.run_scheme("M 16 0 F 32 4".split())
+        eng.finalize()
+
+    run("one", PositionMesh(4, torch.device("cpu")))
+    ranks = ThreadRanks(world)
+    ranks.install(monkeypatch)
+    ranks.run(lambda r: run("ranks", PositionMesh(4, torch.device("cpu"), group=ranks), r))
+    for s in sorted(streams):
+        assert (tmp_path / f"ranks-{s}.csv").read_bytes() == (tmp_path / f"one-{s}.csv").read_bytes(), s
