@@ -23,8 +23,10 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
 4. main path: make_engine -> run_scheme("M 64 0 F 512 4") -> finalize at
    T = 4,000,000 positions, 3 states (the repo benchmark's configuration),
    checking that ingest launched both kernels, that every marginal row
-   sums to the 128 recorded sweeps, and that the MAP state agrees with the
-   true segmentation on >= 95% of positions; then the FB sampler's
+   sums to the 128 recorded sweeps, that the MAP state agrees with the
+   true segmentation on >= 95% of positions, and that every sweep was a
+   replay of a captured CUDA graph (samplers/phase_graph.py); then the FB
+   sampler's
    per-block state frequencies on the card against
    golden.reference.fb_gibbs_sweep on a small model, FB_DRAWS draws each,
    within the Monte-Carlo bound of tests/test_torch_samplers.py;
@@ -35,6 +37,14 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    launching thread (i), three times each in the order m a i a i m i m a
    after a warm-up, giving settled sweeps/s, the drain's ms per chunk on the
    worker and the ms the launching thread waited for it;
+5b. graph: phase 4's configuration through a graphed engine and through an
+   engine whose chunks run the eager gibbs_phase (the plain version of the
+   graphs), same seed: the same bytes (marginals, parameters, compression),
+   graph captures and capture seconds per phase, peak device memory of
+   each; then settled F 1536 4 on both in GRAPH_PAIRS alternating pairs
+   (N under --turns N), medians and quartile distances; then T =
+   64,000,000 on the one card, M 16 0 F 32 4 with graphs: setup, sweeps/s,
+   peak memory, marginal rows and MAP agreement;
 6. cli: the same data as a text file through hammlet_tpu_torch.cli.main with
    all seven outputs (-i M 64 0 F 512 4), checking the engine ran on the
    card through both kernels and every stream's structure (one line per
@@ -45,7 +55,8 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    phase 4's;
 7. resume: at T = 200,000, M 32 0 -> save_checkpoint -> new engine ->
    restore_checkpoint -> F 64 4 must equal the uninterrupted run bit for bit
-   (marginal counts and emission means);
+   (marginal counts and emission means), and equal to the run whose chunks
+   run the eager gibbs_phase; both graphed engines replayed graphs;
 8. debug: with HAMMLET_DEBUG=1 a healthy F chunk reports error bits 0 and a
    NaN emission mean raises FloatingPointError;
 9. sharded: phase 4's data through the position-sharded engine with P = 4
@@ -67,16 +78,22 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    text files; first each maxlet kernel against its plain version on each
    chromosome's data as the CLI reads it, bit for bit, on the card and on
    the CPU; then through cli.main -M, the threaded path (cli._chain_devices
-   giving cuda:0 twice: two threads) against the sequential one (one
-   device), in the order sequential, threads, threads, sequential, checking
-   byte-identical marginals/parameters/compression, two threads, and one
-   launch of each maxlet kernel per chain;
+   giving cuda:0 twice: two threads, taking turns at phases) and the
+   threaded path without turns ("free") against the sequential one (one
+   device), in the order of CHAIN_ORDER, checking byte-identical
+   marginals/parameters/compression, two threads, one launch of each
+   maxlet kernel per chain, and graph replays in every chain's engine;
 11. tools: bin/hammlet-torch-max-segmentation and -sort-states on chain
    1's outputs in subprocesses (this machine has no JAX);
 12. profile: torch.profiler over F 64 4 on phase 4's engine with
    HAMMLET_DEBUG off and on (the invariant bitmask must add kernels when on)
-   and on phase 9's, giving CUDA kernels and device ms per sweep; last,
-   because a process that has run the profiler launches more slowly;
+   and on phase 9's, giving CUDA kernels and device ms per sweep; per
+   settled sweep of the graphed engine and of the eager one, the CUDA
+   runtime's launch calls (cudaLaunchKernel, cudaGraphLaunch), device
+   kernels, device ms and busy share, and the ten costliest kernels inside
+   the graphed sweep; the eager sweep's device ms by the stage of the sweep
+   that launched each kernel; last, because a process that has
+   run the profiler launches more slowly;
 then the kernels JSON line, the nvidia-smi line, and the result line.
 
 ``python3 chip_smoke.py --sharded-cards N [PAIRS [T]]`` runs phase [cards]
@@ -100,7 +117,8 @@ cards (one chain per card in threads, against the N chains one after
 another on cuda:0, in PAIRS pairs, 2 by default) and prints its line; it
 needs N cards. ``python3 chip_smoke.py --turns N`` runs phases 4, 5 and 10
 on one card with N pairs of each comparison (the side that runs first
-alternating) and prints the pairs each side won, medians and quartile
+alternating), and N pairs of [graph]'s graphed against eager settled
+phases, and prints the pairs each side won, medians and quartile
 distances.
 
 Needs no network and imports nothing of JAX.
@@ -131,6 +149,7 @@ from hammlet_tpu_torch.ops import wavelet, wavelet_cuda
 from hammlet_tpu_torch.parallel import distributed, launch, sharded
 from hammlet_tpu_torch.parallel.ingest import sharded_ingest
 from hammlet_tpu_torch.parallel.mesh import PositionMesh, position_mesh
+from hammlet_tpu_torch.samplers import sweep
 from hammlet_tpu_torch.samplers.forward_backward import fb_sample_states
 
 T_MAIN = 4_000_000
@@ -142,7 +161,12 @@ SETTLED_ORDER = ("mpc", "all", "inline", "all", "inline", "mpc", "inline", "mpc"
 T_CHAIN = 2_500_000  # [chains]: a chromosome at 100-bp bins, so device ingest runs
 CHAIN_SCHEME = "M 32 0 F 256 4"
 CHAIN_RECORDED = 64
-CHAIN_ORDER = ("sequential", "threads", "threads", "sequential")  # [chains], in turns
+CHAIN_ORDER = ("sequential", "threads", "free", "free", "threads", "sequential")  # [chains]
+GRAPH_PAIRS = 3  # [graph]: settled pairs of graphed and eager phases (--turns N: N)
+T_ONE_CARD = 64_000_000  # [graph]: the largest single-card run of this script
+ONE_CARD_SCHEME = "M 16 0 F 32 4"
+ONE_CARD_RECORDED = 8
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch")
 SEGLEN = 500
 SEED = 0
 MAP_AGREEMENT_MIN = 0.95
@@ -260,6 +284,44 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: f.launches for name, f in zip(COUNT_NAMES, COUNTED)}
+
+
+def eager_engine(eng):
+    """``eng`` (a runner.Engine) with every phase chunk run through the
+    eager samplers.sweep.gibbs_phase, the plain version of the CUDA graphs
+    the engine replays: same streams, same bytes. Returns ``eng``."""
+
+    class EagerEngine(runner.Engine):
+        def _run_chunk(self, counter, method, n, thinning, record, want_blocks, debug):
+            cand_pos, cand_rank = self._candidates()
+            self._new_model, _, self._prev, *out = sweep.gibbs_phase(
+                self.seed, counter, self.model, self.priors, self.ing.ranked, cand_pos,
+                cand_rank, self.ing.prefix, self.buffers,
+                None if self._dynamic else self._static_threshold,
+                method=method, nr_params=self.spec.nr_params, mapping=self._mapping,
+                use_self_transitions=self.spec.use_self_transitions, n_iters=n,
+                thinning=thinning, cell_bits=self.ing.cell_bits, record=record,
+                want_blocks=want_blocks, debug=debug,
+            )
+            return out
+
+        def _accept_chunk(self):
+            self.model = self._new_model
+
+        def _rewind_chunk(self):
+            if self._prev is not None:
+                self.buffers = self._prev
+
+    eng.__class__ = EagerEngine
+    return eng
+
+
+def check_graphed(eng, where: str) -> None:
+    """Every sweep ``eng`` ran in this process was a replay of a captured
+    CUDA graph (an overflowed chunk replays its sweeps again)."""
+    pg, swept = eng.phase_graphs, int(eng.total_sweeps)
+    check(eng.device.type == "cuda" and pg.captures >= 1 and pg.replays >= swept >= 1,
+          f"{where}: {swept} sweeps but {pg.captures} captures and {pg.replays} graph replays")
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -467,6 +529,7 @@ def phase_main_path() -> dict:
         n_comp = len(open(prefix + "compression.csv").read().splitlines())
 
     check(eng.device.type == "cuda", f"engine ran on {eng.device}")
+    check_graphed(eng, "[main]")
     check(eng.ing.weights_host is None, "ingest did not take the device path")
     for name, n in launches.items():
         check(n >= 1, f"the main path never launched {name}")
@@ -487,6 +550,8 @@ def phase_main_path() -> dict:
         "last_n_blocks": eng.last_n_blocks,
         "peak_mem_bytes": peak,
         "map_agreement": agreement,
+        "captures": eng.phase_graphs.captures,
+        "capture_s": eng.phase_graphs.capture_seconds,
         "engine": eng,
     }
 
@@ -640,6 +705,208 @@ def phase_settled(eng, order: tuple = SETTLED_ORDER) -> dict:
     }
 
 
+def log_captures(eng) -> list:
+    """(method, sweeps, graph captures, capture seconds) of each phase of
+    ``eng`` as it runs (its ``run`` wrapped)."""
+    log, pg, real = [], eng.phase_graphs, eng.run
+
+    def run(method, iterations, thinning, start=0):
+        captures, seconds = pg.captures, pg.capture_seconds
+        real(method, iterations, thinning, start)
+        log.append((method, iterations, pg.captures - captures, round(pg.capture_seconds - seconds, 4)))
+
+    eng.run = run
+    return log
+
+
+def phase_graph(pairs: int = GRAPH_PAIRS) -> dict:
+    """[graph]: SCHEME at T_MAIN through a graphed engine and through one
+    whose chunks run the eager gibbs_phase, same seed: the same bytes,
+    captures per phase, peak device memory of each (above what was
+    allocated before it); then settled F SETTLED_ITERS 4 on both in
+    ``pairs`` alternating pairs; then T_ONE_CARD with graphs."""
+    data = synth(T_MAIN, SEED)[0]
+    streams = ("marginals", "parameters", "compression")
+    res: dict = {}
+    engines: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = {}
+        for tag in ("graph", "eager"):
+            prefix = os.path.join(tmp, tag + "-")
+            rec = Records(T_MAIN, prefix, ".csv", 3, outputs=set(streams), overwrite=True)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            eng = runner.make_engine(data, nr_params=3, seed=SEED, records=rec)
+            if tag == "eager":
+                eager_engine(eng)
+            log = log_captures(eng)
+            eng.run_scheme(SCHEME.split())
+            eng.finalize()
+            torch.cuda.synchronize()
+            res[tag] = {"peak_mem_bytes": torch.cuda.max_memory_allocated() - base,
+                        "phases": [(m, n, round(t, 4)) for m, n, t in eng.phase_log],
+                        "captures": list(log)}
+            outs[tag] = {s: open(prefix + s + ".csv", "rb").read() for s in streams}
+            engines[tag] = eng
+        for s in streams:
+            check(outs["graph"][s] == outs["eager"][s], f"[graph] {s}: the graphed engine's bytes "
+                  "differ from the eager gibbs_phase engine's")
+        check_graphed(engines["graph"], "[graph]")
+        check(engines["eager"].phase_graphs.replays == 0, "[graph] the eager engine replayed graphs")
+        rates: dict = {"graph": [], "eager": []}
+        for turn, tag in enumerate(alternating("graph", "eager", pairs)):
+            eng = engines[tag]
+            eng.records = Records(T_MAIN, os.path.join(tmp, f"{tag}{turn}-"), ".csv", 3,
+                                  outputs=set(streams), overwrite=True)
+            eng.run("F", SETTLED_ITERS, 4)
+            eng.records.close()
+            rates[tag].append(SETTLED_ITERS / eng.phase_log[-1][2])
+        res["settled"] = rates
+        res["capacity"] = engines["graph"].capacity
+    del engines, eng
+    torch.cuda.empty_cache()
+    res["one_card"] = one_card_big()
+    return res
+
+
+def one_card_big() -> dict:
+    """T_ONE_CARD positions of synth on the one card with graphs,
+    ONE_CARD_SCHEME, marginals: setup seconds, M and F sweeps/s, peak
+    device memory, captures; the marginal rows cover T and count the
+    recorded sweeps, MAP agreement >= MAP_AGREEMENT_MIN."""
+    data, truth = synth(T_ONE_CARD, SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "big-")
+        rec = Records(T_ONE_CARD, prefix, ".csv", 3, outputs={"marginals"}, overwrite=True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = runner.make_engine(data, nr_params=3, seed=SEED, records=rec)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        log = log_captures(eng)
+        eng.run_scheme(ONE_CARD_SCHEME.split())
+        eng.finalize()
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        sizes, counts = read_marginals(prefix + "marginals.csv")
+    check_graphed(eng, "[graph] T_ONE_CARD")
+    check(int(sizes.sum()) == T_ONE_CARD, f"[graph] big run: marginal rows cover {sizes.sum()}")
+    check(bool((counts.sum(axis=1) == ONE_CARD_RECORDED).all()),
+          f"[graph] big run: marginal rows do not count {ONE_CARD_RECORDED} sweeps")
+    res = {"T": T_ONE_CARD, "setup_s": setup_s, "total_s": total_s, "peak_mem_bytes": peak,
+           "capacity": eng.capacity, "rows": len(sizes), "captures": list(log),
+           "phases": [(m, n, round(t, 4)) for m, n, t in eng.phase_log],
+           "map_agreement": map_agreement(sizes, counts, truth)}
+    check(res["map_agreement"] >= MAP_AGREEMENT_MIN, f"[graph] big run MAP agreement {res['map_agreement']:.4f}")
+    for method in ("M", "F"):
+        res[method] = (sum(n for m, n, _ in eng.phase_log if m == method)
+                       / sum(t for m, _, t in eng.phase_log if m == method))
+    return res
+
+
+def profile_launches(eng, iters: int = 64) -> dict:
+    """torch.profiler over ``F iters 4`` on a warm engine: per sweep, the
+    CUDA runtime's launch calls by name (LAUNCH_CALLS), device kernels,
+    their device ms summed and as the union of their intervals (a graph
+    runs independent nodes at once, so the sum can exceed the time the
+    device was busy), wall ms (the profiler's overhead included, so the
+    busy share under it is a lower bound), and the ten costliest kernels
+    by device time (name, launches per sweep, device ms per sweep)."""
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+    ])
+    torch.cuda.synchronize()
+    with prof:
+        t0 = time.perf_counter()
+        eng.run("F", iters, 4)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    kernels = device_kernels(prof)
+    calls: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name in LAUNCH_CALLS:
+            calls[e.name] = calls.get(e.name, 0) + 1
+    by: dict = {}
+    for e in kernels:
+        n, us = by.get(e.name, (0, 0.0))
+        by[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    device_ms = sum(us for _, us in by.values()) / iters / 1e3
+    union_us, end = 0.0, float("-inf")
+    for lo, hi in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        union_us += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    top = sorted(by.items(), key=lambda kv: -kv[1][1])[:10]
+    return {
+        "launch_calls": {k: v / iters for k, v in sorted(calls.items())},
+        "kernels": len(kernels) / iters,
+        "device_ms": device_ms,
+        "busy_ms": union_us / iters / 1e3,
+        "wall_ms": wall_ms,
+        "busy": union_us / iters / 1e3 / wall_ms,
+        "top": [(name[:120], n / iters, round(us / iters / 1e3, 5)) for name, (n, us) in top],
+    }
+
+
+def split_stages() -> tuple:
+    """(module, function name) of each stage of the sweep that
+    device_split_by_stage labels, looked up where the sweep calls it."""
+    from hammlet_tpu_torch.models import distributions
+    from hammlet_tpu_torch.samplers import forward_backward as fb
+
+    return ((sweep, "sweep_step"), (sweep, "make_blocks_bucketed"),
+            (sweep, "block_sufficient_stats_t"), (fb, "emission_log_weights_t"),
+            (fb, "forward_columns_t"), (fb, "prefix_matmul_scan_t"), (fb, "backward_sample_t"),
+            (fb, "gumbel"), (fb, "suffix_compose_scan_t"), (sweep, "accumulate_sweep_stats"),
+            (sweep, "resample_model"), (distributions, "gamma_fixed_tries"),
+            (sweep, "record_sweep"))
+
+
+def device_split_by_stage(eng, iters: int = 16) -> dict:
+    """torch.profiler over ``F iters 4`` of an engine whose chunks run
+    eagerly, each function of split_stages() wrapped for the run in a
+    torch.profiler.record_function range: the device ms per sweep of the
+    kernels each stage launched outside the stages it calls (the innermost
+    range among the ancestors of the operator that launched them), largest
+    first, and their total. A graph replays the same kernels, so this is
+    the graphed sweep's split too."""
+    def labelled(name, fn):
+        def run(*args, **kwargs):
+            with torch.profiler.record_function("stage:" + name):
+                return fn(*args, **kwargs)
+        return run
+
+    saved = [(mod, name, getattr(mod, name)) for mod, name in split_stages()]
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+    ])
+    try:
+        for mod, name, fn in saved:
+            setattr(mod, name, labelled(name, fn))
+        with prof:
+            eng.run("F", iters, 4)
+            torch.cuda.synchronize()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    by: dict = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        where, node = "(outside the stages)", e.cpu_parent
+        while node is not None:
+            if node.name.startswith("stage:"):
+                where = node.name[len("stage:"):]
+                break
+            node = node.cpu_parent
+        by[where] = by.get(where, 0.0) + sum(k.duration for k in e.kernels)
+    return {"stages": [(w, round(us / iters / 1e3, 5)) for w, us in sorted(by.items(), key=lambda kv: -kv[1])],
+            "total_ms": sum(by.values()) / iters / 1e3}
+
+
 def phase_profile(main_eng, sharded_eng) -> dict:
     """torch.profiler over F 64 4: CUDA kernels and device ms per settled
     sweep of the [main] engine with the debug bitmask off and on, and of the
@@ -661,6 +928,13 @@ def phase_profile(main_eng, sharded_eng) -> dict:
             os.environ["HAMMLET_DEBUG"] = old
     check(res["0"][0] > 0 and res["sharded"][0] > 0, "the profiler saw no CUDA kernel")
     check(res["1"][0] > res["0"][0], "HAMMLET_DEBUG=1 launched no kernel more than debug off")
+    res["graph"] = profile_launches(main_eng)
+    calls = res["graph"]["launch_calls"]
+    check(calls.get("cudaGraphLaunch", 0) >= 1, f"the graphed sweep launched no graph: {calls}")
+    check(sum(calls.values()) <= 8, f"the graphed sweep made {calls} launch calls per sweep")
+    eager_engine(main_eng)  # its chunks run the eager gibbs_phase from here on
+    res["eager"] = profile_launches(main_eng)
+    res["split"] = device_split_by_stage(main_eng)
     return res
 
 
@@ -697,6 +971,7 @@ def phase_cli(main_rate: float) -> dict:
                  for s in streams}
     eng, setup_s = engines[0]
     check(eng.device.type == "cuda", f"CLI engine ran on {eng.device}")
+    check_graphed(eng, "[cli]")
     for name, n in launches.items():
         check(n >= 1, f"the CLI never launched {name}")
     for s in ("sequences", "parameters", "blocks", "compression", "segments"):
@@ -745,22 +1020,27 @@ def phase_resume() -> None:
     def build():
         return runner.make_engine(data, nr_params=3, seed=SEED + 1)
 
-    whole = build()
-    whole.run("M", 32, 0)
-    whole.run("F", 64, 4)
+    whole, eager = build(), eager_engine(build())
+    for eng in (whole, eager):
+        eng.run("M", 32, 0)
+        eng.run("F", 64, 4)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "resume.npz")
         cut = build()
         cut.run("M", 32, 0)
         checkpoint.save_checkpoint(cut, path)
         resumed = build()
+        resumed.run("M", 2, 0)  # graphs captured on its buffers before the restore
         checkpoint.restore_checkpoint(resumed, path)
     resumed.run("F", 64, 4)
     check(resumed.device.type == "cuda", f"resume ran on {resumed.device}")
-    check(torch.equal(whole.buffers.counts, resumed.buffers.counts),
-          "resumed marginal counts differ from the uninterrupted run")
-    check(torch.equal(whole.model.theta_mean, resumed.model.theta_mean),
-          "resumed emission means differ from the uninterrupted run")
+    for eng, tag in ((whole, "uninterrupted"), (cut, "cut"), (resumed, "resumed")):
+        check_graphed(eng, f"[resume] {tag} run")
+    for other, tag in ((whole, "uninterrupted"), (eager, "uninterrupted eager")):
+        check(torch.equal(other.buffers.counts, resumed.buffers.counts),
+              f"resumed marginal counts differ from the {tag} run")
+        check(torch.equal(other.model.theta_mean, resumed.model.theta_mean),
+              f"resumed emission means differ from the {tag} run")
     check(int(resumed.buffers.n_records) == 16, "resumed run recorded != 16 sweeps")
 
 
@@ -979,12 +1259,13 @@ def phase_chains(tmp: str, devices: list[torch.device] | None = None,
                  order: tuple = CHAIN_ORDER) -> dict:
     """One chromosome of T_CHAIN positions per device of ``devices`` (two
     on cuda:0 by default) through ``cli.main -M``: the threaded path (one
-    chain per device of ``_chain_devices``) against the sequential path
+    chain per device of ``_chain_devices``), taking turns at phases
+    ("threads", the CLI's way) or not ("free"), against the sequential path
     (the first device alone), in the turns of ``order``, byte for byte;
     every chain runs device ingest, so each maxlet kernel launches once per
-    chain. First each kernel is held against its plain version on each
-    chain's data as the CLI reads it (check_kernels). The counts are those
-    of the first threaded run."""
+    chain, and every chain's engine replays CUDA graphs. First each kernel
+    is held against its plain version on each chain's data as the CLI reads
+    it (check_kernels). The counts are those of the first threaded run."""
     devices = devices or [torch.device("cuda", 0)] * 2
     device, n = devices[0], len(devices)
     files = []
@@ -1001,18 +1282,22 @@ def phase_chains(tmp: str, devices: list[torch.device] | None = None,
     streams = ["marginals", "parameters", "compression"]
     chain_devices = cli._chain_devices
     seen: list = []
-    run_chain = cli._run_chain
+    engines: list = []
+    run_chain, make_engine = cli._run_chain, cli.make_engine
+    free = [False]
 
     def spy(sub, device, turn):
         seen.append((threading.get_ident(), str(device)))
-        return run_chain(sub, device, turn)
+        return run_chain(sub, device, None if free[0] else turn)
 
-    res: dict = {"threads_s": [], "sequential_s": [], "worst": worst}
+    res: dict = {"threads_s": [], "free_s": [], "sequential_s": [], "worst": worst}
     outputs = []
     try:
         cli._run_chain = spy
+        cli.make_engine = lambda *a, **k: engines.append(make_engine(*a, **k)) or engines[-1]
         for turn, tag in enumerate(order):
-            chain_devs = devices if tag == "threads" else [device]
+            free[0] = tag == "free"
+            chain_devs = devices if tag != "sequential" else [device]
             cli._chain_devices = lambda chain_devs=chain_devs: chain_devs
             prefix = os.path.join(tmp, f"{tag}{turn}-")
             argv = ["-M", "-f", *files, "-o", prefix, ".csv", "-s", "3", "-a", "-R", str(SEED),
@@ -1030,19 +1315,25 @@ def phase_chains(tmp: str, devices: list[torch.device] | None = None,
             check(rc == 0, f"-M ({tag}) returned {rc}")
             for name, c in counts.items():
                 check(c == n, f"-M ({tag}) launched {name} {c} times, not once per chain")
-            if tag == "threads":
+            if tag != "sequential":
                 check(len({t for t, _ in seen}) == n
                       and sorted(d for _, d in seen) == sorted(map(str, devices)),
                       f"threaded -M chains ran as {seen}")
+            if tag == "threads":
                 res.setdefault("threads_launches", counts)
                 res.setdefault("prefix", prefix + "chr1-")
-            else:
+            elif tag == "sequential":
                 check(not seen, f"sequential -M ran chains in threads: {seen}")
+            check(len(engines) == n, f"-M ({tag}) built {len(engines)} engines, not {n}")
+            for eng in engines:
+                check_graphed(eng, f"-M ({tag})")
+            engines.clear()
             outputs.append({(i, s): open(f"{prefix}chr{i + 1}-{s}.csv", "rb").read()
                             for i in range(n) for s in streams})
     finally:
         cli._chain_devices = chain_devices
         cli._run_chain = run_chain
+        cli.make_engine = make_engine
     for turn, out in enumerate(outputs[1:], 1):
         for key, b in out.items():
             check(b == outputs[0][key], f"-M turn {turn} ({order[turn]}) chain {key} "
@@ -1052,6 +1343,8 @@ def phase_chains(tmp: str, devices: list[torch.device] | None = None,
         check(int(sizes.sum()) == T_CHAIN and bool((counts.sum(axis=1) == CHAIN_RECORDED).all()),
               f"chain {i + 1}: marginal rows do not cover T or sum to {CHAIN_RECORDED}")
     res["ratio"] = float(np.median(res["sequential_s"]) / np.median(res["threads_s"]))
+    if res["free_s"]:
+        res["free_ratio"] = float(np.median(res["sequential_s"]) / np.median(res["free_s"]))
     return res
 
 
@@ -1428,13 +1721,41 @@ def measure_turns(pairs: int) -> int:
           f"marginals+parameters+compression {st['mpc_sweeps_per_s']} sweeps/s; drain "
           f"{st['drain_ms']:.3f} ms per chunk on the worker, launching thread waited "
           f"{st['waited_ms_per_chunk']:.3f} ms per chunk", flush=True)
+    g = phase_graph(pairs)
+    print_graph(g)
+    order = tuple(x for j in range(pairs) for x in
+                  (("sequential", "threads", "free"), ("free", "threads", "sequential"))[j % 2])
     with tempfile.TemporaryDirectory() as tmp:
-        ch = phase_chains(tmp, order=alternating("sequential", "threads", pairs))
-    print(f"[chains] -M with two chromosomes of T={T_CHAIN} '{CHAIN_SCHEME}' on cuda:0, "
-          f"two threads {ch['threads_s']} s vs one after another {ch['sequential_s']} s: "
-          f"{pair_summary(ch['threads_s'], ch['sequential_s'], False)}; byte-identical",
-          flush=True)
+        ch = phase_chains(tmp, order=order)
+    print(f"[chains] -M with two chromosomes of T={T_CHAIN} '{CHAIN_SCHEME}' on cuda:0 in the "
+          f"order {' '.join(order)}, seconds: two threads taking turns {ch['threads_s']} vs one "
+          f"after another {ch['sequential_s']}: "
+          f"{pair_summary(ch['threads_s'], ch['sequential_s'], False)}; two threads without "
+          f"turns {ch['free_s']} vs one after another: "
+          f"{pair_summary(ch['free_s'], ch['sequential_s'], False)}; without turns vs with: "
+          f"{pair_summary(ch['free_s'], ch['threads_s'], False)}; byte-identical", flush=True)
     return 0
+
+
+def print_graph(g: dict) -> None:
+    """The [graph] lines."""
+    for tag in ("graph", "eager"):
+        print(f"[graph] T={T_MAIN} '{SCHEME}' {tag}: peak device memory "
+              f"{g[tag]['peak_mem_bytes'] / 2**20:.1f} MiB, phases {g[tag]['phases']}, captures "
+              f"per phase (method, sweeps, captures, seconds) {g[tag]['captures']}", flush=True)
+    st = g["settled"]
+    print(f"[graph] graphed and eager engines wrote the same bytes (marginals, parameters, "
+          f"compression); settled F {SETTLED_ITERS} 4 (capacity {g['capacity']}) graphed "
+          f"{st['graph']} vs eager {st['eager']} sweeps/s: "
+          f"{pair_summary(st['graph'], st['eager'], True)}; ratio of medians "
+          f"{np.median(st['graph']) / np.median(st['eager']):.3f}", flush=True)
+    b = g["one_card"]
+    print(f"[graph] T={b['T']} '{ONE_CARD_SCHEME}' on one card with graphs: setup "
+          f"{b['setup_s']:.2f} s, total {b['total_s']:.2f} s, M {b['M']:.3f} / F {b['F']:.3f} "
+          f"sweeps/s, peak device memory {b['peak_mem_bytes'] / 2**30:.3f} GiB, capacity "
+          f"{b['capacity']}, {b['rows']} marginal rows cover T and count {ONE_CARD_RECORDED} "
+          f"sweeps each, MAP agreement {b['map_agreement']:.4f}, phases {b['phases']}, captures "
+          f"{b['captures']}", flush=True)
 
 
 def free_port() -> int:
@@ -1500,7 +1821,8 @@ def main() -> int:
               f"capacity {m['capacity']}, last blocks {m['last_n_blocks']}, "
               f"peak device memory {m['peak_mem_bytes'] / 2**20:.1f} MiB, "
               f"MAP agreement {m['map_agreement']:.4f}, maxlet launches "
-              f"{m['launches']}, phases {m['phases']}", flush=True)
+              f"{m['launches']}, phases {m['phases']}; every sweep a CUDA graph replay "
+              f"({m['captures']} captures, {m['capture_s']:.3f} s)", flush=True)
 
         fb = fb_golden()
         print(f"[main] FB sampler on the card vs golden.reference.fb_gibbs_sweep: "
@@ -1522,6 +1844,9 @@ def main() -> int:
               f"of the best {st['inline_best_ratio']:.4f}; drain {st['inline_drain_ms']:.3f} ms "
               "per chunk)", flush=True)
 
+        g = phase_graph()
+        print_graph(g)
+
         c = phase_cli(m["f_sweeps_per_s"])
         print(f"[cli] T={T_MAIN} all 7 outputs '{SCHEME}': setup {c['setup_s']:.3f} s, "
               f"F-phase {c['f_sweeps_per_s']:.2f} sweeps/s all streams = "
@@ -1531,9 +1856,9 @@ def main() -> int:
               flush=True)
 
         phase_resume()
-        print(f"[resume] T={T_RESUME}: M 32 0 -> checkpoint -> restore -> F 64 4 "
-              "bitwise equal to the uninterrupted run (counts, emission means)",
-              flush=True)
+        print(f"[resume] T={T_RESUME}: M 32 0 -> checkpoint -> restore into a graphed engine "
+              "-> F 64 4 bitwise equal to the uninterrupted run, graphed and eager (counts, "
+              "emission means); every sweep a CUDA graph replay", flush=True)
 
         phase_debug()
         print("[debug] HAMMLET_DEBUG=1: healthy F chunk error bits 0; NaN emission "
@@ -1559,12 +1884,14 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             ch = phase_chains(tmp)
             print(f"[chains] -M with two chromosomes of T={T_CHAIN} '{CHAIN_SCHEME}' in the order "
-                  f"{' '.join(CHAIN_ORDER)}: two threads on cuda:0 {ch['threads_s']} s, one after "
-                  f"another {ch['sequential_s']} s (ratio of medians {ch['ratio']:.3f}); "
-                  f"marginals, parameters and compression byte-identical; maxlet launches in "
-                  f"the first threaded run {ch['threads_launches']}; both kernels bitwise equal "
-                  "to their plain versions on each chain's data, on the card and the CPU",
-                  flush=True)
+                  f"{' '.join(CHAIN_ORDER)}: two threads on cuda:0 taking turns at phases "
+                  f"{ch['threads_s']} s, without turns {ch['free_s']} s, one after another "
+                  f"{ch['sequential_s']} s (sequential / threaded ratio of medians "
+                  f"{ch['ratio']:.3f}, without turns {ch['free_ratio']:.3f}); marginals, "
+                  f"parameters and compression byte-identical; every chain's sweeps CUDA graph "
+                  f"replays; maxlet launches in the first threaded run {ch['threads_launches']}; "
+                  "both kernels bitwise equal to their plain versions on each chain's data, on "
+                  "the card and the CPU", flush=True)
             tl = phase_tools(ch["prefix"])
             print(f"[tools] bin/hammlet-torch-max-segmentation ({tl['segments']} segments, "
                   f"covers T, = in-process) and bin/hammlet-torch-sort-states ({tl['means']}) "
@@ -1576,6 +1903,22 @@ def main() -> int:
               f"{pr['1'][0]} kernels/sweep, {pr['1'][1]:.4f} device ms/sweep; [sharded] "
               f"engine (P={P_SHARDED}) {pr['sharded'][0]} kernels/sweep, "
               f"{pr['sharded'][1]:.4f} device ms/sweep", flush=True)
+        for tag in ("graph", "eager"):
+            p = pr[tag]
+            print(f"[profile] {tag} [main] engine, per settled sweep of F 64 4: launch calls "
+                  f"{p['launch_calls']}, {p['kernels']} device kernels, {p['device_ms']:.4f} device "
+                  f"ms summed, {p['busy_ms']:.4f} as the union of their intervals, "
+                  f"{p['wall_ms']:.4f} wall ms under the profiler (busy {p['busy']:.1%}); "
+                  f"costliest kernels (name, per sweep, device ms per sweep) {p['top']}", flush=True)
+        walls = {t: 1e3 / float(np.median(g["settled"][t])) for t in ("graph", "eager")}
+        print(f"[profile] wall ms per sweep without the profiler ([graph] settled medians) "
+              f"against the union of the kernels' intervals under it: graphed "
+              f"{walls['graph']:.4f} vs {pr['graph']['busy_ms']:.4f} ms "
+              f"({pr['graph']['busy_ms'] / walls['graph']:.1%}; over 100 % where the profiler "
+              f"lengthens the kernels), eager {walls['eager']:.4f} vs {pr['eager']['busy_ms']:.4f} "
+              f"ms ({pr['eager']['busy_ms'] / walls['eager']:.1%}); "
+              f"eager sweep's device ms per sweep by the stage that launched it (record_function "
+              f"ranges, {pr['split']['total_ms']:.4f} ms in all): {pr['split']['stages']}", flush=True)
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", flush=True)
         return 1

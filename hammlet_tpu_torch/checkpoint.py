@@ -98,7 +98,7 @@ def restore_checkpoint(engine, path: str) -> None:
         engine._dynamic = bool(z["dynamic"])
         engine._static_threshold = float(z["static_threshold"])
         engine.model = convert.hmm_state(z.f, engine.device)
-        engine.buffers = convert.record_buffers(
+        saved = convert.record_buffers(
             SimpleNamespace(
                 counts=z["counts"],
                 ever_boundary=z["ever_boundary"],
@@ -110,6 +110,10 @@ def restore_checkpoint(engine, path: str) -> None:
             ),
             engine.device,
         )
+        # into the engine's own buffers: the engine's CUDA graphs
+        # (samplers/phase_graph.py) record into those addresses
+        for name in ("counts", "ever_boundary", "n_records", "n_boundaries"):
+            getattr(engine.buffers, name).copy_(getattr(saved, name))
         # total_sweeps/sample_time are process-local throughput counters and
         # are not restored (a resumed process reports its own rate)
         _restore_cursor(engine, z)

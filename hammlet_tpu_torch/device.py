@@ -42,9 +42,12 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
 
 def synchronize(device: torch.device) -> None:
-    """Wait for the device's queued work (no-op on the CPU)."""
+    """Wait for the work the calling thread queued on ``device`` (its
+    current stream there; no-op on the CPU). Not the whole device: another
+    thread may be capturing a CUDA graph (samplers/phase_graph.py), and a
+    device-wide synchronization invalidates a capture in progress."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 def to_host(device: torch.device, tensors: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
@@ -54,9 +57,10 @@ def to_host(device: torch.device, tensors: dict[str, torch.Tensor]) -> dict[str,
     the device's current stream, and one CUDA event recorded after them is
     waited on: the chunk's single host sync. (torch's sync debug mode does
     not count an event wait, so a test can run a whole chunk under it and
-    count the waits itself.)"""
+    count the waits itself.) On the CPU the arrays are copies, never views
+    of tensors that the next chunk overwrites."""
     if device.type != "cuda":
-        return {k: t.cpu().numpy() for k, t in tensors.items()}
+        return {k: t.cpu().numpy().copy() for k, t in tensors.items()}
     host = {}
     for k, t in tensors.items():
         host[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)

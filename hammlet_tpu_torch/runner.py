@@ -14,6 +14,9 @@ excepted, see _MAX_CAPACITY).
 
 Ingest at T >= 2M positions runs on the device: the maxlet transform goes
 through the hand-written Hopper kernels for CUDA data (ops/wavelet_cuda.py).
+On a card every phase chunk of ``Engine`` runs as replays of CUDA graphs
+captured per sweep kind (samplers/phase_graph.py); on the CPU the same
+sweep step runs eagerly on the same fixed storage.
 
 Run switches, as in the JAX package: HAMMLET_PHASE_CHUNK (chunk length;
 also turns the capacity scaling of chunk lengths off), HAMMLET_MAX_CAPACITY
@@ -57,7 +60,8 @@ from hammlet_tpu_torch.ops.blocks import (
 )
 from hammlet_tpu_torch.ops.wavelet import breakpoint_weights, maxlet_transform
 from hammlet_tpu_torch.ops.wavelet_cuda import maxlet_transform_cuda
-from hammlet_tpu_torch.samplers.sweep import RecordBuffers, gibbs_phase, make_generator
+from hammlet_tpu_torch.samplers.phase_graph import PhaseGraphs
+from hammlet_tpu_torch.samplers.sweep import RecordBuffers, make_generator
 
 
 def parse_scheme(tokens: list[str]) -> list[tuple]:
@@ -416,8 +420,10 @@ class ChainOps:
     #: held while the engine launches a phase's sweeps. The CLI gives the
     #: -M chains it runs in threads one shared lock, so that they take turns
     #: at phases: torch releases and retakes the GIL around every op, and two
-    #: launch loops in one process hand it over at nearly every op. Ingest,
-    #: each phase's last record drain and output run outside it.
+    #: eager launch loops in one process hand it over at nearly every op (a
+    #: graphed Engine issues a few calls per sweep, the sharded engine still
+    #: one per op). Ingest, each phase's last record drain and output run
+    #: outside it.
     phase_turn = contextlib.nullcontext()
 
     def _next_generator(self) -> torch.Generator:
@@ -514,7 +520,10 @@ class ChainOps:
 
 @dataclass
 class Engine(ChainOps):
-    """Single-device sampling engine."""
+    """Single-device sampling engine. Its phase chunks run through
+    ``phase_graphs`` (samplers/phase_graph.PhaseGraphs): ``_run_chunk``,
+    ``_accept_chunk`` and ``_rewind_chunk`` are the whole interface, so a
+    test can run the chunks through the eager ``gibbs_phase`` instead."""
 
     ing: Ingest
     spec: ModelSpec
@@ -553,6 +562,12 @@ class Engine(ChainOps):
             self.ing.T, self.spec.nr_states, self.device
         )
         self.model = sample_from_priors(self._next_generator(), self.priors)
+        self.phase_graphs = PhaseGraphs(
+            self.seed, self.priors, self.ing.ranked, self.ing.prefix, self._mapping,
+            nr_params=self.spec.nr_params,
+            use_self_transitions=self.spec.use_self_transitions,
+            cell_bits=self.ing.cell_bits,
+        )
         self._dynamic = True
         self._static_threshold = 0.0
         # explicit capacities above the default ceiling are honored
@@ -616,28 +631,8 @@ class Engine(ChainOps):
             self.sweep_counter += 1
             counter = self.sweep_counter  # fixed across overflow replays
             while True:
-                cand_pos, cand_rank = self._candidates()
-                model, buffers, prev, diag, nbs, means, varis, blk = gibbs_phase(
-                    self.seed,
-                    counter,
-                    self.model,
-                    self.priors,
-                    self.ing.ranked,
-                    cand_pos,
-                    cand_rank,
-                    self.ing.prefix,
-                    self.buffers,
-                    None if self._dynamic else self._static_threshold,
-                    method=method,
-                    nr_params=self.spec.nr_params,
-                    mapping=self._mapping,
-                    use_self_transitions=self.spec.use_self_transitions,
-                    n_iters=n,
-                    thinning=thin_s,
-                    cell_bits=self.ing.cell_bits,
-                    record=rec_s,
-                    want_blocks=want_blocks,
-                    debug=debug,
+                diag, nbs, means, varis, blk = self._run_chunk(
+                    counter, method, n, thin_s, rec_s, want_blocks, debug
                 )
                 payload = self._record_payload(nbs, means, varis, blk) if rec_s else {}
                 # the chunk's single host sync: [max_nb, last_nb, err] and
@@ -647,7 +642,7 @@ class Engine(ChainOps):
                 raise_on_error(int(diag_h[2]))
                 max_nb = int(diag_h[0])
                 if max_nb <= self.capacity:
-                    self.model, self.buffers = model, buffers
+                    self._accept_chunk()
                     self.last_n_blocks = int(diag_h[1])
                     break
                 # the device count SATURATES at capacity+1; re-price the true
@@ -667,14 +662,13 @@ class Engine(ChainOps):
                             "(HAMMLET_MAX_CAPACITY); raise the ceiling or "
                             "extend burn-in so the threshold settles first"
                         )
-                    self.model, self.buffers = model, buffers
+                    self._accept_chunk()
                     self.last_n_blocks = min(int(diag_h[1]), self.capacity)
                     break
                 self.capacity = grown
-                # replay the chunk (same counter) from the pre-chunk snapshot
+                # replay the chunk (same counter) from the pre-chunk state
                 # so recorded sweeps cannot double-record
-                if prev is not None:
-                    self.buffers = prev
+                self._rewind_chunk()
             if host:
                 self._submit_drain(host, self.capacity)
             done += n
@@ -690,6 +684,29 @@ class Engine(ChainOps):
             if target < self.capacity:
                 self.capacity = target
             self._maybe_checkpoint()
+
+    def _run_chunk(self, counter, method, n, thinning, record, want_blocks, debug):
+        """One phase chunk from the engine's model and buffers at the
+        current capacity, through ``phase_graphs`` (graph replays on a
+        card): (diag, rec_nbs, rec_means, rec_vars, blk) as gibbs_phase
+        returns them, on the device."""
+        cand_pos, cand_rank = self._candidates()
+        return self.phase_graphs.run_chunk(
+            counter, self.model, self.buffers, cand_pos, cand_rank,
+            None if self._dynamic else self._static_threshold,
+            method=method, n_iters=n, thinning=thinning, record=record,
+            want_blocks=want_blocks, debug=debug,
+        )
+
+    def _accept_chunk(self) -> None:
+        """Take the chunk's model (a copy: the slots are overwritten by the
+        next chunk); its records are already in the buffers."""
+        self.model = self.phase_graphs.model_copy()
+
+    def _rewind_chunk(self) -> None:
+        """Undo an overflowed chunk before its replay: the buffers get their
+        pre-chunk contents back in place (the model was never replaced)."""
+        self.phase_graphs.restore_buffers(self.buffers)
 
     def _record_payload(self, nbs, means, varis, blk) -> dict[str, torch.Tensor]:
         """The device tensors a recording chunk's drain needs (none without

@@ -16,6 +16,10 @@ Per-sweep randomness comes from a ``torch.Generator`` seeded from
 fold_in keys, so the engine replays an identical chunk after a capacity
 overflow by passing the same counter.
 
+A sweep runs as ``sweep_step`` on fixed storage (``PhaseSlots``): it reads
+and writes only preallocated tensors, so the eager loop of ``gibbs_phase``
+and the CUDA graphs of samplers/phase_graph.py run the same code.
+
 The record buffers are updated IN PLACE (the JAX package rebuilds them
 functionally): a recording chunk snapshots them once, at its start, for the
 overflow replay.
@@ -104,6 +108,59 @@ class RecordBuffers:
         return RecordBuffers(
             self.counts.clone(), self.ever_boundary.clone(),
             self.n_records.clone(), self.n_boundaries.clone(),
+        )
+
+
+def state_dtype(K: int) -> torch.dtype:
+    """The smallest integer dtype that holds the states 0..K-1."""
+    return torch.int8 if K <= 127 else torch.int16 if K <= 32767 else torch.int32
+
+
+class PhaseSlots(NamedTuple):
+    """Fixed storage of a phase chunk: every tensor a sweep step reads or
+    writes besides the run's constants.
+
+    model:      the chain's model, overwritten by every sweep (``copy_``)
+    buffers:    the record buffers, updated in place by recording sweeps
+    threshold:  () float32 static threshold (not read when dynamic)
+    row:        () int64 next output row; a row-writing sweep advances it
+    diag:       (3,) int64 [max n_blocks, last n_blocks, OR of the error bits]
+    nbs, means, varis: (R,) int64 / (R, P) / (R, P) float32 output rows
+    blk_states: (R, capacity) block states in ``state_dtype(K)``, or None
+    blk_bounds: (R,) int32 post-record ``n_boundaries``, or None
+    """
+
+    model: HMMState
+    buffers: RecordBuffers
+    threshold: torch.Tensor
+    row: torch.Tensor
+    diag: torch.Tensor
+    nbs: torch.Tensor
+    means: torch.Tensor
+    varis: torch.Tensor
+    blk_states: torch.Tensor | None
+    blk_bounds: torch.Tensor | None
+
+    @staticmethod
+    def create(
+        model: HMMState, buffers: RecordBuffers, rows: int, capacity: int, want_blocks: bool
+    ) -> "PhaseSlots":
+        """Slots holding a copy of ``model`` and ``rows`` output rows, with
+        block stacks of width ``capacity`` when ``want_blocks``."""
+        dev = model.theta_mean.device
+        P, K = model.theta_mean.shape[0], model.pi.shape[0]
+        zeros = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device=dev)  # noqa: E731
+        return PhaseSlots(
+            model=HMMState(*(t.clone() for t in model)),
+            buffers=buffers,
+            threshold=zeros(),
+            row=zeros(dtype=torch.int64),
+            diag=zeros(3, dtype=torch.int64),
+            nbs=zeros(rows, dtype=torch.int64),
+            means=zeros(rows, P),
+            varis=zeros(rows, P),
+            blk_states=zeros(rows, capacity, dtype=state_dtype(K)) if want_blocks else None,
+            blk_bounds=zeros(rows, dtype=torch.int32) if want_blocks else None,
         )
 
 
@@ -312,6 +369,62 @@ def gibbs_sweep(
     return new_model, buffers, out
 
 
+def sweep_step(
+    generator: torch.Generator,
+    slots: PhaseSlots,
+    priors: HMMPriors,
+    ranked: RankedWeights,
+    cand_pos: torch.Tensor,
+    cand_rank: torch.Tensor,
+    prefix: PrefixStats,
+    *,
+    method: str,
+    nr_params: int,
+    mapping: torch.Tensor,
+    use_self_transitions: bool,
+    cell_bits: int,
+    dynamic: bool,
+    record: bool,
+    write_row: bool,
+    debug: bool,
+) -> None:
+    """One Gibbs sweep on fixed storage: the sweep samples from
+    ``slots.model`` and writes the new model back into it, folds its block
+    count and (with ``debug``) error bits into ``slots.diag``, records into
+    ``slots.buffers`` when ``record``, and with ``write_row`` writes row
+    ``slots.row`` of the output stacks (and of the block stacks, when
+    ``slots`` has them and the sweep records) and advances it. The
+    threshold is the model's when ``dynamic``, else ``slots.threshold``.
+
+    No host sync, no host-to-device copy, and nothing outlives the call but
+    what it writes into ``slots``: a CUDA graph can capture it
+    (samplers/phase_graph.py)."""
+    new_model, out, err = _sweep_core(
+        generator, slots.model, priors, ranked, cand_pos, cand_rank, prefix, slots.buffers,
+        None if dynamic else slots.threshold,
+        method=method, nr_params=nr_params, mapping=mapping,
+        use_self_transitions=use_self_transitions, cell_bits=cell_bits,
+        record=record, debug=debug,
+    )
+    nb, diag = out.n_blocks, slots.diag
+    diag[0] = torch.maximum(diag[0], nb)
+    diag[1] = nb
+    if debug:
+        diag[2] = diag[2] | err
+    if write_row:
+        at = slots.row.view(1)
+        slots.nbs.index_copy_(0, at, nb.view(1))
+        slots.means.index_copy_(0, at, new_model.theta_mean[None])
+        slots.varis.index_copy_(0, at, new_model.theta_var[None])
+        if record and slots.blk_states is not None:
+            slots.blk_states.index_copy_(0, at, out.states.to(slots.blk_states.dtype)[None])
+            # the buffers update in place: keep this sweep's count
+            slots.blk_bounds.index_copy_(0, at, slots.buffers.n_boundaries.view(1))
+        slots.row.add_(1)
+    for dst, src in zip(slots.model, new_model):
+        dst.copy_(src)
+
+
 def gibbs_phase(
     seed: int,
     counter: int,
@@ -335,7 +448,10 @@ def gibbs_phase(
     want_blocks: bool = False,
     debug: bool = False,
 ):
-    """n_iters Gibbs sweeps with no host sync.
+    """n_iters Gibbs sweeps with no host sync, run eagerly: the plain
+    version of a chunk that the engine runs as CUDA graph replays on a card
+    (samplers/phase_graph.py), through the same ``sweep_step``, with a new
+    generator seeded (seed, counter, i) for sweep i.
 
     ``static_threshold`` None means the dynamic threshold. With ``record``
     and ``thinning`` > 0, sweep i records when i % thinning == thinning-1
@@ -357,42 +473,19 @@ def gibbs_phase(
     record = record and thinning > 0
     want_blocks = want_blocks and record
     prev = buffers.clone() if record else None
-    thr = (
-        None if static_threshold is None
-        else torch.tensor(static_threshold, dtype=torch.float32, device=dev)
-    )
-    K = mapping.shape[0]
-    state_dtype = torch.int8 if K <= 127 else torch.int16 if K <= 32767 else torch.int32
-    nbs, means, varis, blk_states, blk_bounds = [], [], [], [], []
-    err = None
+    rows = n_iters // thinning if record else n_iters
+    slots = PhaseSlots.create(model, buffers, rows, cand_rank.shape[0], want_blocks)
+    if static_threshold is not None:
+        slots.threshold.fill_(static_threshold)
     for i in range(n_iters):
         rec = record and i % thinning == thinning - 1
-        model, out, e = _sweep_core(
-            make_generator(dev, seed, counter, i), model, priors, ranked,
-            cand_pos, cand_rank, prefix, buffers, thr,
+        sweep_step(
+            make_generator(dev, seed, counter, i), slots, priors, ranked,
+            cand_pos, cand_rank, prefix,
             method=method, nr_params=nr_params, mapping=mapping,
             use_self_transitions=use_self_transitions, cell_bits=cell_bits,
-            record=rec, debug=debug,
+            dynamic=static_threshold is None, record=rec, write_row=rec or not record,
+            debug=debug,
         )
-        nbs.append(out.n_blocks)
-        means.append(model.theta_mean)
-        varis.append(model.theta_var)
-        if debug:
-            err = e if err is None else err | e
-        if rec and want_blocks:
-            blk_states.append(out.states.to(state_dtype))
-            # the buffers update in place: keep this sweep's count
-            blk_bounds.append(buffers.n_boundaries.clone())
-        # drop the (capacity,) int64 states and sizes before the next sweep
-        # allocates its own: at burn-in capacities ~T they would raise the
-        # peak memory
-        del out
-    nbs_t = torch.stack(nbs)
-    err = torch.zeros_like(nbs_t[-1]) if err is None else err.to(nbs_t.dtype)
-    diag = torch.stack([nbs_t.max(), nbs_t[-1], err])
-    rows = slice(thinning - 1, None, thinning) if record else slice(None)
-    blk = (torch.stack(blk_states), torch.stack(blk_bounds)) if want_blocks else None
-    return (
-        model, buffers, prev, diag, nbs_t[rows],
-        torch.stack(means)[rows], torch.stack(varis)[rows], blk,
-    )
+    blk = (slots.blk_states, slots.blk_bounds) if want_blocks else None
+    return slots.model, buffers, prev, slots.diag, slots.nbs, slots.means, slots.varis, blk

@@ -95,6 +95,15 @@ def synth_segments(T: int, seed: int, seglen: int = 500, scale: float = 1.0):
     return data.astype(np.float32), np.repeat(state, reps)
 
 
+def eager_engine(eng):
+    """``eng`` (a runner.Engine) with every phase chunk run through the
+    eager samplers.sweep.gibbs_phase: the plain version the graphed chunks
+    (samplers/phase_graph.py) are held against; chip_smoke.py's helper."""
+    from chip_smoke import eager_engine as eager
+
+    return eager(eng)
+
+
 def fail_on_last_rank() -> None:
     """A parallel/launch.py ``run_on_cards`` target: the last process of the
     group raises while the others wait for it in a barrier."""

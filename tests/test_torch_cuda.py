@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import assert_bitwise, cuda_device, synth_segments  # noqa: F401
-from hammlet_tpu_torch import runner
+from _torch_helpers import assert_bitwise, cuda_device, eager_engine, synth_segments  # noqa: F401
+from hammlet_tpu_torch import cli, runner
 from hammlet_tpu_torch.io.records import Records
 from hammlet_tpu_torch.ops import wavelet, wavelet_cuda
 
@@ -344,10 +344,10 @@ def test_overlapped_drain_one_wait_per_chunk(cuda_device, tmp_path, monkeypatch)
     eng.capacity = eng.ing.T  # no overflow: no re-pricing sync
     eng.records = Records(len(data), str(tmp_path / "d-"), ".csv", 3,
                           outputs=set(Records.STREAMS), overwrite=True)
-    chunks, waits = [], []
-    real_phase, real_sync = runner.gibbs_phase, torch.cuda.Event.synchronize
-    monkeypatch.setattr(runner, "gibbs_phase", lambda *a, **k: chunks.append(1) or real_phase(*a, **k))
+    waits = []
+    real_sync = torch.cuda.Event.synchronize
     monkeypatch.setattr(torch.cuda.Event, "synchronize", lambda self: waits.append(1) or real_sync(self))
+    chunks = eng.phase_graphs.chunks
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -356,7 +356,8 @@ def test_overlapped_drain_one_wait_per_chunk(cuda_device, tmp_path, monkeypatch)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     eng.records.close()
-    assert len(chunks) >= 2 and len(waits) == len(chunks)
+    chunks = eng.phase_graphs.chunks - chunks
+    assert chunks >= 2 and len(waits) == chunks
     assert len((tmp_path / "d-sequences.csv").read_text().splitlines()) == 192
 
 
@@ -437,3 +438,176 @@ def test_thread_ranks_match_one_process_on_card(cuda_device, tmp_path, monkeypat
     ranks.run(lambda r: run("ranks", PositionMesh(4, device, group=ranks), r))
     for s in sorted(streams):
         assert (tmp_path / f"ranks-{s}.csv").read_bytes() == (tmp_path / f"one-{s}.csv").read_bytes(), s
+
+
+def _graphed(eng) -> bool:
+    """Every sweep the engine ran on the card in this process was a graph
+    replay (an overflowed chunk replays its sweeps again)."""
+    pg = eng.phase_graphs
+    return eng.device.type == "cuda" and pg.captures >= 1 and pg.replays >= eng.total_sweeps >= 1
+
+
+STREAMS = ["marginals", "sequences", "parameters", "blocks", "compression", "mapping", "segments"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [100_000, 4_000_000])
+def test_graph_matches_eager_on_card(cuda_device, tmp_path, monkeypatch, T):
+    """Exact on the card: cli.main with all seven outputs writes the same
+    bytes whether the engine replays its CUDA graphs or runs the eager
+    gibbs_phase (marginals, parameters and compression among them); every
+    sweep of the graphed run was a replay."""
+    np.savetxt(tmp_path / "d.csv", synth_segments(T, 17)[0], fmt="%.6f")
+    make = cli.make_engine
+    engines, out = [], {}
+    for tag in ("graph", "eager"):
+        wrap = eager_engine if tag == "eager" else (lambda e: e)
+        monkeypatch.setattr(cli, "make_engine", lambda *a, **k: engines.append(wrap(make(*a, **k))) or engines[-1])
+        argv = ["-f", str(tmp_path / "d.csv"), "-s", "3", "-a", "-R", "3", "-i", "M", "32", "0",
+                "F", "128", "4", "-O", *STREAMS, "-o", str(tmp_path / f"{tag}-"), ".csv", "-w"]
+        assert cli.main(argv) == 0
+        out[tag] = {s: (tmp_path / f"{tag}-{s}.csv").read_bytes() for s in STREAMS}
+    assert engines[0].device.type == "cuda" and _graphed(engines[0])
+    assert engines[1].phase_graphs.replays == 0
+    for s in STREAMS:
+        assert out["graph"][s] == out["eager"][s], s
+    assert out["graph"]["parameters"].count(b"\n") == 32
+
+
+@pytest.mark.cuda
+def test_graph_overflow_replay_on_card(cuda_device):
+    """Exact on the card: from a small starting capacity recording chunks
+    overflow, are replayed at a grown capacity after their buffers are
+    restored in place (new graphs at each capacity), and end with the
+    eager engine's bytes."""
+    data = synth_segments(200_000, 18, seglen=250)[0]
+    engines = []
+    for eager in (False, True):
+        eng = runner.make_engine(data, seed=4, capacity=128, device=cuda_device)
+        if eager:
+            eager_engine(eng)
+        eng.run("M", 8, 0)
+        eng._resize_capacity_for_phase = lambda: None  # keep the small capacity
+        eng.capacity = 128
+        counts = eng.buffers.counts
+        eng.run("F", 16, 2)
+        assert eng.capacity > 128
+        engines.append((eng, counts))
+    (g, counts), (e, _) = engines
+    assert g.buffers.counts is counts and _graphed(g)
+    assert g.phase_graphs.replays > g.total_sweeps  # the overflowed chunks ran again
+    for name in ("counts", "ever_boundary", "n_records", "n_boundaries"):
+        assert torch.equal(getattr(g.buffers, name), getattr(e.buffers, name)), name
+    assert all(torch.equal(a, b) for a, b in zip(g.model, e.model))
+    assert set(g.marginal_counts.sum(axis=0).tolist()) == {8}
+
+
+@pytest.mark.cuda
+def test_resume_into_graphed_engine_on_card(cuda_device, tmp_path):
+    """Exact on the card: a checkpoint restored into an engine that has
+    already captured graphs (its buffers keep their addresses) continues
+    with the bytes of the uninterrupted eager run."""
+    from hammlet_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint
+
+    data = synth_segments(300_000, 19)[0]
+
+    def build():
+        return runner.make_engine(data, seed=5, device=cuda_device)
+
+    whole = eager_engine(build())
+    whole.run("M", 16, 0)
+    whole.run("F", 64, 4)
+    cut = build()
+    cut.run("M", 16, 0)
+    save_checkpoint(cut, str(tmp_path / "c.npz"))
+    resumed = build()
+    resumed.run("M", 4, 0)
+    tensors = (resumed.buffers.counts, resumed.buffers.ever_boundary)
+    restore_checkpoint(resumed, str(tmp_path / "c.npz"))
+    assert (resumed.buffers.counts, resumed.buffers.ever_boundary) == tensors
+    resumed.run("F", 64, 4)
+    assert _graphed(resumed) and int(resumed.buffers.n_records) == 16
+    for name in ("counts", "ever_boundary", "n_records", "n_boundaries"):
+        assert torch.equal(getattr(whole.buffers, name), getattr(resumed.buffers, name)), name
+    assert all(torch.equal(a, b) for a, b in zip(whole.model, resumed.model))
+
+
+@pytest.mark.cuda
+def test_threaded_chains_graphed_on_card(cuda_device, tmp_path, monkeypatch):
+    """Exact on the card: two -M chains in two threads on cuda:0, taking
+    turns at phases (the CLI's default) and not (captures and replays of
+    both chains at once), write the bytes of the two chains one after
+    another; every chain's engine replayed graphs."""
+    files = []
+    for i in range(2):
+        f = tmp_path / f"chr{i + 1}.csv"
+        np.savetxt(f, synth_segments(150_000, 20 + i)[0], fmt="%.6f")
+        files.append(str(f))
+    engines, real_make, real_chain = [], cli.make_engine, cli._run_chain
+    monkeypatch.setattr(cli, "make_engine", lambda *a, **k: engines.append(real_make(*a, **k)) or engines[-1])
+    out = {}
+    for tag, devices, turns in (("seq", 1, True), ("turns", 2, True), ("free", 2, False)):
+        monkeypatch.setattr(cli, "_chain_devices", lambda n=devices: [cuda_device] * n)
+        monkeypatch.setattr(cli, "_run_chain", lambda sub, dev, turn, t=turns: real_chain(sub, dev, turn if t else None))
+        argv = ["-M", "-f", *files, "-o", str(tmp_path / f"{tag}-"), ".csv", "-s", "3", "-a", "-R", "7",
+                "-i", "M", "16", "0", "F", "64", "2", "-O", "marginals", "parameters", "compression", "-w"]
+        assert cli.main(argv) == 0
+        out[tag] = {(i, s): (tmp_path / f"{tag}-chr{i + 1}-{s}.csv").read_bytes()
+                    for i in range(2) for s in ("marginals", "parameters", "compression")}
+    assert len(engines) == 6 and all(_graphed(e) for e in engines)
+    assert out["turns"] == out["seq"] and out["free"] == out["seq"]
+
+
+@pytest.mark.cuda
+def test_graphed_chunk_never_syncs(cuda_device):
+    """A graphed recording phase, its captures at a new capacity included,
+    queues its work with no synchronizing call (torch's sync debug mode
+    "error" raises on any) and replays one graph per sweep."""
+    eng = runner.make_engine(synth_segments(50000, 6)[0], seed=2, device=cuda_device)
+    eng.run("M", 10, 0)
+    eng._resize_capacity_for_phase = lambda: None
+    eng.capacity = eng.ing.T  # no overflow: no re-pricing sync; a capacity never captured
+    before = (eng.phase_graphs.captures, eng.phase_graphs.replays)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with eng._draining():
+            eng._run_phase("F", 16, 4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert eng.phase_graphs.captures == before[0] + 2
+    assert eng.phase_graphs.replays == before[1] + 16
+    assert int(eng.buffers.n_records) == 4
+
+
+@pytest.mark.cuda
+def test_synchronize_leaves_another_threads_capture_alone(cuda_device):
+    """device.synchronize (what an engine calls at the end of each phase)
+    waits for the calling thread's stream only: a thread that calls it
+    without pause while another thread's engine captures a new graph at
+    every phase does not invalidate those captures."""
+    import threading
+
+    from hammlet_tpu_torch.device import synchronize
+
+    eng = runner.make_engine(synth_segments(100_000, 23)[0], seed=6, device=cuda_device)
+    eng._resize_capacity_for_phase = lambda: None
+    done, errors = threading.Event(), []
+
+    def hammer():
+        while not done.is_set():
+            synchronize(eng.device)
+
+    t = threading.Thread(target=hammer)
+    t.start()
+    try:
+        for capacity in (4096, 5120, 6144, 7168):
+            eng.capacity = capacity  # a new capacity: new captures
+            eng.run("M", 2, 0)
+    except Exception as exc:  # reported below, after the thread stops
+        errors.append(exc)
+    finally:
+        done.set()
+        t.join(timeout=60)
+    assert not t.is_alive() and errors == []
+    assert eng.phase_graphs.captures >= 4 and _graphed(eng)

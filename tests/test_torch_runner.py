@@ -34,6 +34,7 @@ def test_port_imports_no_jax():
     code = (
         "import runpy, sys; sys.modules['jax'] = None; sys.modules['hammlet_tpu'] = None\n"
         "import hammlet_tpu_torch.runner, hammlet_tpu_torch.convert\n"
+        "import hammlet_tpu_torch.samplers.phase_graph\n"
         "import hammlet_tpu_torch.io.input, hammlet_tpu_torch.debug\n"
         "import hammlet_tpu_torch.cli, hammlet_tpu_torch.checkpoint\n"
         "import hammlet_tpu_torch.manpage, hammlet_tpu_torch.parallel.sharded\n"
