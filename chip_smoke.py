@@ -66,14 +66,20 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    kernels) bit for bit, (b) that under one fixed model one sweep's block
    partition equals the single-device engine's, (c) marginal rows sum to
    128 and MAP agreement >= 0.95, (d) that a sharded F chunk runs under
-   torch.cuda.set_sync_debug_mode("error"), (e) that the same run inside a
-   world-size-1 NCCL process group writes the same bytes as without one,
-   (f) that a P = 4 checkpoint resume at T = 200,000 is bitwise equal to
-   the uninterrupted run, and (g) that bin/hammlet-torch -D 4 with one card
-   visible stays in one process (and NVML counts the cards torch counts);
-   prints setup and host ingest seconds, the first
-   F-phase rate next to phase 4's, the settled rates of P = 1 (phase 4's
-   engine) and P = 4 taken in turns, and peak memory;
+   torch.cuda.set_sync_debug_mode("error") (the plain version; the graphed
+   engine's chunks are held to the same in tests/test_torch_cuda.py), (e)
+   that the same run inside a world-size-1 NCCL process group, where every
+   collective goes through NCCL between the replays of the sweep's segment
+   graphs, writes the same bytes as without one, (f) that a P = 4
+   checkpoint resume at T = 200,000 into a graphed engine is bitwise equal
+   to the uninterrupted run, (g) that bin/hammlet-torch -D 4 with one card
+   visible stays in one process (and NVML counts the cards torch counts),
+   and (h) that the engine whose chunks run the eager sharded_phase (the
+   plain version of the graphs) writes the graphed engine's bytes; prints
+   setup and host ingest seconds, the first F-phase rate next to phase 4's,
+   captures, the settled rates of P = 1 (phase 4's engine) first and last
+   and of P = 4 graphed and eager in SHARDED_PAIRS alternating pairs, and
+   peak memory;
 10. chains: two chromosomes of T = 2,500,000 positions (100-bp bins) as
    text files; first each maxlet kernel against its plain version on each
    chromosome's data as the CLI reads it, bit for bit, on the card and on
@@ -88,7 +94,8 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
 12. profile: torch.profiler over F 64 4 on phase 4's engine with
    HAMMLET_DEBUG off and on (the invariant bitmask must add kernels when on)
    and on phase 9's, giving CUDA kernels and device ms per sweep; per
-   settled sweep of the graphed engine and of the eager one, the CUDA
+   settled sweep of the graphed engine and of the eager one, and of phase
+   9's graphed and eager engines, the CUDA
    runtime's launch calls (cudaLaunchKernel, cudaGraphLaunch), device
    kernels, device ms and busy share, and the ten costliest kernels inside
    the graphed sweep; the eager sweep's device ms by the stage of the sweep
@@ -103,10 +110,14 @@ and 3); (b) the main path's data and scheme through bin/hammlet-torch -f
 -D N with -C, which spawns N processes, one per card, over NCCL, against
 the same command under CUDA_VISIBLE_DEVICES=0 (one process, N shards on one
 card), byte for byte, and a third N-process run killed after its first
-checkpoint and resumed, byte for byte; (c) in one N-process group, settled
-F 512 4 rates in PAIRS rotations of W = N (one shard per card), P = 1 and
-P = N on card 0, then torch.profiler on rank 0 over F 64 4: CUDA kernels,
-NCCL kernels and NCCL device ms per sweep; (d) T positions (250,000,000 by
+checkpoint and resumed, byte for byte (every engine graphed); (c) in one
+N-process group, W = N (one shard per card) graphed (segment graphs, the
+collectives eager between them) against W = N with its chunks through the
+eager sharded_phase, byte for byte, then settled F 512 4 rates in PAIRS
+rotations of the two, P = 1 and P = N on card 0, then torch.profiler on
+rank 0 over F 64 4 of W = N graphed and eager: launch calls, CUDA kernels,
+NCCL kernels and NCCL device ms per sweep, and host ms in the collective
+calls; (d) T positions (250,000,000 by
 default: chr1 at 1 bp) made by a data provider in each process, -D N over N
 cards, M 16 0 F 32 4: setup seconds, M and F sweeps/s, each card's peak
 memory, marginal rows that cover T and count the 8 recorded sweeps, MAP
@@ -171,6 +182,7 @@ SEGLEN = 500
 SEED = 0
 MAP_AGREEMENT_MIN = 0.95
 P_SHARDED = 4  # shards of the [sharded] phase, all on the one card
+SHARDED_PAIRS = 3  # [sharded]: settled pairs of graphed and eager P = 4 phases
 KERNEL_SIZES = [100, 8192, 8193, 100_000, 4_000_000]
 KERNEL_DIMS = [1, 3]
 T_LARGE = 64_000_000  # whole transform checked on the card only
@@ -313,6 +325,37 @@ def eager_engine(eng):
                 self.buffers = self._prev
 
     eng.__class__ = EagerEngine
+    return eng
+
+
+def eager_sharded_engine(eng):
+    """``eng`` (a parallel.sharded.ShardedEngine) with every phase chunk
+    run through the eager sharded.sharded_phase, the plain version of the
+    CUDA graphs the engine replays: same streams, same bytes; an overflow
+    replay rebinds the snapshot the plain version took. Returns ``eng``."""
+
+    class EagerShardedEngine(sharded.ShardedEngine):
+        def _run_chunk(self, counter, method, n, thinning, record, want_blocks, debug):
+            candpos, candrank = self._shard_candidates()
+            self._new_model, _, self._prev, *out = sharded.sharded_phase(
+                self.mesh, self.seed, counter, self.model, self.priors, self.negw, candpos,
+                candrank, self.r_t, self.q2_hi, self.q2_lo, self.buffers,
+                None if self._dynamic else self._static_threshold,
+                method=method, T=self.T, T_local=self.T_local, cell_bits=self.cell_bits,
+                mapping=self._mapping, nr_params=self.spec.nr_params,
+                use_self_transitions=self.spec.use_self_transitions, n_iters=n,
+                thinning=thinning, record=record, want_blocks=want_blocks, debug=debug,
+            )
+            return out
+
+        def _accept_chunk(self):
+            self.model = self._new_model
+
+        def _rewind_chunk(self):
+            if self._prev is not None:
+                self.buffers = self._prev
+
+    eng.__class__ = EagerShardedEngine
     return eng
 
 
@@ -907,12 +950,13 @@ def device_split_by_stage(eng, iters: int = 16) -> dict:
             "total_ms": sum(by.values()) / iters / 1e3}
 
 
-def phase_profile(main_eng, sharded_eng) -> dict:
+def phase_profile(main_eng, sharded_eng, sharded_eager) -> dict:
     """torch.profiler over F 64 4: CUDA kernels and device ms per settled
     sweep of the [main] engine with the debug bitmask off and on, and of the
-    [sharded] engine. It runs last: once the profiler has traced the card,
-    every later launch of the process pays more host time, which would
-    lower any rate measured after it."""
+    [sharded] engine; launch calls, kernels and device ms per sweep of the
+    graphed and the eager [main] and [sharded] engines. It runs last: once
+    the profiler has traced the card, every later launch of the process pays
+    more host time, which would lower any rate measured after it."""
     old = os.environ.get("HAMMLET_DEBUG")
     res = {}
     try:
@@ -932,6 +976,11 @@ def phase_profile(main_eng, sharded_eng) -> dict:
     calls = res["graph"]["launch_calls"]
     check(calls.get("cudaGraphLaunch", 0) >= 1, f"the graphed sweep launched no graph: {calls}")
     check(sum(calls.values()) <= 8, f"the graphed sweep made {calls} launch calls per sweep")
+    res["sharded_graph"] = profile_launches(sharded_eng)
+    calls = res["sharded_graph"]["launch_calls"]
+    check(calls.get("cudaGraphLaunch", 0) >= 1 and sum(calls.values()) <= 8 + 2 * P_SHARDED,
+          f"the graphed P = {P_SHARDED} sweep made {calls} launch calls per sweep")
+    res["sharded_eager"] = profile_launches(sharded_eager)
     eager_engine(main_eng)  # its chunks run the eager gibbs_phase from here on
     res["eager"] = profile_launches(main_eng)
     res["split"] = device_split_by_stage(main_eng)
@@ -1068,9 +1117,10 @@ def phase_debug() -> None:
             os.environ["HAMMLET_DEBUG"] = old
 
 
-def sharded_run(data: np.ndarray, tmp: str, tag: str, mesh=None) -> tuple:
+def sharded_run(data: np.ndarray, tmp: str, tag: str, mesh=None, eager: bool = False) -> tuple:
     """make_sharded_engine -> run_scheme -> finalize with marginals,
-    parameters and compression; returns (engine, setup s, stream bytes)."""
+    parameters and compression, the chunks graphed or (``eager``) through
+    the plain sharded_phase; returns (engine, setup s, stream bytes)."""
     prefix = os.path.join(tmp, tag + "-")
     rec = Records(T_MAIN, prefix, ".csv", 3,
                   outputs={"marginals", "parameters", "compression"}, overwrite=True)
@@ -1081,6 +1131,8 @@ def sharded_run(data: np.ndarray, tmp: str, tag: str, mesh=None) -> tuple:
     )
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    if eager:
+        eager_sharded_engine(eng)
     eng.run_scheme(SCHEME.split())
     eng.finalize()
     torch.cuda.synchronize()
@@ -1089,7 +1141,7 @@ def sharded_run(data: np.ndarray, tmp: str, tag: str, mesh=None) -> tuple:
     return eng, setup_s, out
 
 
-def phase_sharded(main_eng) -> dict:
+def phase_sharded(main_eng, pairs: int = SHARDED_PAIRS) -> dict:
     """The position-sharded engine, P = 4 shards on the one card."""
     data, truth = synth(T_MAIN, SEED)
     res: dict = {}
@@ -1119,7 +1171,23 @@ def phase_sharded(main_eng) -> dict:
         res["launches"] = wavelet_cuda.maxlet_transform_cuda.launches
         res["peak_mem_bytes"] = torch.cuda.max_memory_allocated() - base
         sizes, counts = read_marginals(os.path.join(tmp, "plain-marginals.csv"))
+        # (h) the same run with its chunks through the eager sharded_phase
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eager, _, eager_out = sharded_run(data, tmp, "eager", eager=True)
+        res["eager_peak_mem_bytes"] = torch.cuda.max_memory_allocated() - base
     check(eng.device.type == "cuda", f"sharded engine ran on {eng.device}")
+    check_graphed(eng, "[sharded]")
+    pg = eng.phase_graphs
+    check(pg.graphs == pg.captures, f"[sharded] {pg.graphs} graphs for {pg.captures} sweep kinds: "
+          "without a process group a sweep is one graph")
+    check(eager.phase_graphs.replays == 0, "[sharded] the eager engine replayed graphs")
+    for s_ in plain:
+        check(eager_out[s_] == plain[s_], f"[sharded] {s_}: the graphed engine's bytes differ from "
+              "the eager sharded_phase engine's")
+    res["captures"] = [pg.captures, pg.graphs, round(pg.capture_seconds, 4)]
+    res["eager_phases"] = [(m, n, round(t, 4)) for m, n, t in eager.phase_log]
     check(int(sizes.sum()) == T_MAIN, "sharded marginal rows do not cover T")
     check(bool((counts.sum(axis=1) == N_RECORDED).all()), "sharded marginal row sums != 128")
     res["map_agreement"] = map_agreement(sizes, counts, truth)
@@ -1152,21 +1220,24 @@ def phase_sharded(main_eng) -> dict:
           "the sync-free sharded chunk did not record its 4 sweeps")
     del out, buffers
 
-    # settled rates of P = 1 ([main]'s engine) and P = 4 in turns, under the
-    # same conditions (one s s one), then kernels per sweep on the warm
-    # sharded engine
-    rates: dict = {"one": [], "sharded": []}
+    # settled rates of P = 1 ([main]'s engine) and of P = 4 graphed and
+    # eager in alternating pairs, P = 1 first and last
+    rates: dict = {"one": [], "sharded": [], "eager": []}
+    engines = {"one": main_eng, "sharded": eng, "eager": eager}
+    res["settled_order"] = ("one",) + alternating("sharded", "eager", pairs) + ("one",)
     with tempfile.TemporaryDirectory() as tmp:
-        for tag, e in (("one", main_eng), ("sharded", eng), ("sharded", eng), ("one", main_eng)):
-            e.records = Records(T_MAIN, os.path.join(tmp, tag + "-"), ".csv", 3,
+        for turn, tag in enumerate(res["settled_order"]):
+            e = engines[tag]
+            e.records = Records(T_MAIN, os.path.join(tmp, f"{tag}{turn}-"), ".csv", 3,
                                 outputs={"marginals", "parameters", "compression"},
                                 overwrite=True)
             e.run("F", 512, 4)
             e.records.close()
             rates[tag].append(512 / e.phase_log[-1][2])
-    eng.records = None
+    eng.records = eager.records = None
     res["settled"] = rates
     res["settled_ratio"] = float(np.median(rates["sharded"]) / np.median(rates["one"]))
+    res["graph_ratio"] = float(np.median(rates["sharded"]) / np.median(rates["eager"]))
 
     # (b) one sweep under one fixed model: the same partition as P = 1
     with tempfile.TemporaryDirectory() as tmp:
@@ -1183,7 +1254,7 @@ def phase_sharded(main_eng) -> dict:
     check(blocks[0] == blocks[1] and blocks[0].count("\t") > 100,
           "sharded block partition != single-device partition")
     res["n_blocks"] = blocks[0].count("\t") + 1
-    res["engine"] = eng  # profiled last (phase_profile)
+    res["engine"], res["eager_engine"] = eng, eager  # profiled last (phase_profile)
 
     # (e) the same run in a world-size-1 NCCL process group
     env = {"HAMMLET_NUM_PROCESSES": "1", "HAMMLET_PROCESS_ID": "0",
@@ -1196,6 +1267,12 @@ def phase_sharded(main_eng) -> dict:
         with tempfile.TemporaryDirectory() as tmp:
             eng_g, _, grouped = sharded_run(data, tmp, "nccl", mesh=position_mesh(P_SHARDED))
         check(eng_g.mesh.group is not None, "the NCCL run had no process group")
+        # every collective goes through NCCL: a sweep kind is several graphs
+        pg = eng_g.phase_graphs
+        check_graphed(eng_g, "[sharded] (e)")
+        check(pg.graphs >= 4 * pg.captures, f"[sharded] (e) {pg.graphs} graphs for {pg.captures} "
+              "sweep kinds in an NCCL group: the collectives are not between the graphs")
+        res["nccl_captures"] = [pg.captures, pg.graphs, round(pg.capture_seconds, 4)]
         del eng_g
     finally:
         distributed.shutdown()
@@ -1225,6 +1302,7 @@ def phase_sharded(main_eng) -> dict:
         resumed = build()
         checkpoint.restore_sharded_checkpoint(resumed, path)
     resumed.run("F", 64, 4)
+    check_graphed(resumed, "[sharded] (f)")
     for name in ("counts", "everb", "n_rec", "n_bound"):
         check(torch.equal(getattr(whole.buffers, name), getattr(resumed.buffers, name)),
               f"sharded resume: {name} differs from the uninterrupted run")
@@ -1507,9 +1585,10 @@ def cards_cli(n: int, tmp: str) -> dict:
 
 
 def profile_nccl(eng, iters: int = 64) -> dict:
-    """torch.profiler over ``F iters 4``: CUDA kernels, NCCL kernels and
-    their device ms, each per sweep; and the host ms per sweep inside the
-    collective calls (the profiler's "c10d::" operator events)."""
+    """torch.profiler over ``F iters 4``: the CUDA runtime's launch calls by
+    name (LAUNCH_CALLS), CUDA kernels, NCCL kernels and their device ms,
+    each per sweep; and the host ms per sweep inside the collective calls
+    (the profiler's "c10d::" operator events)."""
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
     ])
@@ -1520,7 +1599,12 @@ def profile_nccl(eng, iters: int = 64) -> dict:
     nccl = [e for e in kernels if e.name.startswith(("ncclDevKernel", "ncclKernel"))]
     calls = [e for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("c10d::")]
+    launches: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name in LAUNCH_CALLS:
+            launches[e.name] = launches.get(e.name, 0) + 1
     return {
+        "launch_calls": {k: v / iters for k, v in sorted(launches.items())},
         "kernels_per_sweep": len(kernels) / iters,
         "device_ms_per_sweep": sum(e.time_range.elapsed_us() for e in kernels) / iters / 1e3,
         "nccl_kernels_per_sweep": len(nccl) / iters,
@@ -1536,24 +1620,28 @@ def profile_nccl(eng, iters: int = 64) -> dict:
 def cards_rates(n: int, pairs: int) -> dict:
     """[cards] (c), in each process of an n-process group (one card each,
     launch.run_on_cards): the main path's data and scheme through the
-    sharded engine with one shard per card (W = n), and on rank 0 also
-    through the single-device engine (P = 1) and the sharded engine with n
-    shards on card 0 (P = n); then settled F 512 4 phases in ``pairs``
-    rotations of the three (the other ranks wait at a barrier while rank 0
-    runs P = 1 or P = n alone), then torch.profiler on rank 0 over F 64 4 of
-    W = n. Returns rank 0's sweeps/s and profile."""
+    sharded engine with one shard per card (W = n), graphed and with its
+    chunks through the eager sharded_phase (rank 0 checks that the two
+    wrote the same bytes), and on rank 0 also through the single-device
+    engine (P = 1) and the sharded engine with n shards on card 0 (P = n);
+    then settled F 512 4 phases in ``pairs`` rotations of the four (the
+    other ranks wait at a barrier while rank 0 runs P = 1 or P = n alone),
+    then torch.profiler on rank 0 over F 64 4 of W = n, graphed and eager.
+    Returns rank 0's sweeps/s, profiles and graph counters."""
     rank = torch.distributed.get_rank()
     dev = distributed.process_device()
     data = synth(T_MAIN, SEED)[0]
-    mpc = {"marginals", "parameters", "compression"}
+    mpc = ("marginals", "parameters", "compression")
     with tempfile.TemporaryDirectory() as tmp:
 
         def records(tag: str) -> Records:
-            return Records(T_MAIN, os.path.join(tmp, tag + "-"), ".csv", 3, outputs=mpc,
+            return Records(T_MAIN, os.path.join(tmp, tag + "-"), ".csv", 3, outputs=set(mpc),
                            overwrite=True, write=rank == 0)
 
-        engines = {"cards": sharded.make_sharded_engine(data, mesh=position_mesh(n), nr_params=3,
-                                                        seed=SEED, records=records("cards"))}
+        engines = {tag: sharded.make_sharded_engine(data, mesh=position_mesh(n), nr_params=3,
+                                                    seed=SEED, records=records(tag))
+                   for tag in ("cards", "eager")}
+        eager_sharded_engine(engines["eager"])
         if rank == 0:
             engines["one"] = runner.make_engine(data, nr_params=3, seed=SEED, records=records("one"),
                                                 device=dev)
@@ -1562,23 +1650,37 @@ def cards_rates(n: int, pairs: int) -> dict:
         for eng in engines.values():
             eng.run_scheme(SCHEME.split())
             eng.finalize()
+        pg = engines["cards"].phase_graphs
+        check_graphed(engines["cards"], "[cards] (c)")
+        check(pg.graphs >= 4 * pg.captures, f"[cards] (c) {pg.graphs} graphs for {pg.captures} "
+              "sweep kinds: the collectives are not between the graphs")
+        check(engines["eager"].phase_graphs.replays == 0, "[cards] (c) the eager engine replayed graphs")
+        if rank == 0:
+            for s_ in mpc:
+                got, want = (open(os.path.join(tmp, f"{t}-{s_}.csv"), "rb").read()
+                             for t in ("cards", "eager"))
+                check(got == want, f"[cards] (c) W={n} graphed and eager {s_} differ")
         torch.distributed.barrier()
-        tags = ("cards", "one", "shards")
-        order = [tags[(i + j) % 3] for j in range(pairs) for i in range(3)]
+        tags = ("cards", "eager", "one", "shards")
+        order = [tags[(i + j) % 4] for j in range(pairs) for i in range(4)]
         rates: dict = {t: [] for t in tags}
         for turn, tag in enumerate(order):
-            if tag == "cards" or rank == 0:
+            if tag in ("cards", "eager") or rank == 0:
                 eng = engines[tag]
                 eng.records = records(f"{tag}{turn}")
                 eng.run("F", 512, 4)
                 eng.records.close()
                 rates[tag].append(512 / eng.phase_log[-1][2])
             torch.distributed.barrier()
-        eng = engines["cards"]
-        eng.records = None
-        prof = profile_nccl(eng) if rank == 0 else eng.run("F", 64, 4)
-        torch.distributed.barrier()
-    return {"order": order, "rates": rates, "profile": prof, "cap_local": eng.cap_local}
+        prof = {}
+        for tag in ("cards", "eager"):
+            eng = engines[tag]
+            eng.records = None
+            prof[tag] = profile_nccl(eng) if rank == 0 else eng.run("F", 64, 4)
+            torch.distributed.barrier()
+    return {"order": order, "rates": rates, "profile": prof["cards"], "eager_profile": prof["eager"],
+            "cap_local": engines["cards"].cap_local,
+            "captures": [pg.captures, pg.graphs, round(pg.capture_seconds, 4)]}
 
 
 def cards_big(n: int, T: int) -> dict:
@@ -1604,10 +1706,13 @@ def cards_big(n: int, T: int) -> dict:
         eng.finalize()
         torch.cuda.synchronize(dev)
         total_s = time.perf_counter() - t0
+        check_graphed(eng, "[cards] (d)")
         peak = eng.mesh.all_gather(
             torch.tensor([torch.cuda.max_memory_allocated(dev)], device=dev)).tolist()
+        pg = eng.phase_graphs
         res = {"T": T, "setup_s": setup_s, "total_s": total_s, "peak_mem_bytes": peak,
                "cap_local": eng.cap_local, "last_n_blocks": eng.last_n_blocks,
+               "captures": [pg.captures, pg.graphs, round(pg.capture_seconds, 4)],
                "phases": [(m, k, round(s, 4)) for m, k, s in eng.phase_log]}
         for method in ("M", "F"):
             res[method] = (sum(k for m, k, _ in eng.phase_log if m == method)
@@ -1645,22 +1750,28 @@ def sharded_cards(n: int, pairs: int = CARDS_PAIRS, t_big: int = T_BIG) -> int:
           flush=True)
     rc, c = launch.run_on_cards("chip_smoke:cards_rates", n, (n, pairs))
     check(rc == 0 and c is not None, f"[cards] (c) exited {rc}")
-    pr = c["profile"]
+    r = c["rates"]
     print(f"[cards] (c) settled F 512 4 at T={T_MAIN}, sweeps/s in the order {' '.join(c['order'])}: "
-          f"W={n} (one shard per card) {c['rates']['cards']}, P=1 on cuda:0 {c['rates']['one']}, "
-          f"P={n} on cuda:0 {c['rates']['shards']}; medians W={n} "
-          f"{np.median(c['rates']['cards']):.2f} / P=1 {np.median(c['rates']['one']):.2f} / "
-          f"P={n} {np.median(c['rates']['shards']):.2f}; cap_local {c['cap_local']}; "
-          f"torch.profiler F 64 4 on rank 0: {pr['kernels_per_sweep']} CUDA kernels/sweep, "
-          f"{pr['device_ms_per_sweep']:.4f} device ms/sweep, of them {pr['nccl_kernels_per_sweep']} "
-          f"NCCL kernels/sweep, {pr['nccl_ms_per_sweep']:.4f} NCCL device ms/sweep, one NCCL "
-          f"kernel's us min / median / 90th percentile {pr['nccl_kernel_us']} "
-          f"({pr['nccl_names']}); on the host {pr['collective_calls_per_sweep']} collective calls "
-          f"and {pr['collective_host_ms_per_sweep']:.4f} ms per sweep inside them", flush=True)
+          f"W={n} (one shard per card) graphed {r['cards']}, eager {r['eager']}, P=1 on cuda:0 "
+          f"{r['one']}, P={n} on cuda:0 (graphed) {r['shards']}; W={n} graphed vs eager: "
+          f"{pair_summary(r['cards'], r['eager'], True)}; medians P=1 {np.median(r['one']):.2f} / "
+          f"P={n} {np.median(r['shards']):.2f}; cap_local {c['cap_local']}; W={n} graphed and eager "
+          f"byte-identical; sweep kinds captured, graphs, capture seconds on rank 0 "
+          f"{c['captures']}", flush=True)
+    for tag, pr in (("graphed", c["profile"]), ("eager", c["eager_profile"])):
+        print(f"[cards] (c) torch.profiler F 64 4 on rank 0, W={n} {tag}: launch calls per sweep "
+              f"{pr['launch_calls']}, {pr['kernels_per_sweep']} CUDA kernels/sweep, "
+              f"{pr['device_ms_per_sweep']:.4f} device ms/sweep, of them "
+              f"{pr['nccl_kernels_per_sweep']} NCCL kernels/sweep, {pr['nccl_ms_per_sweep']:.4f} "
+              f"NCCL device ms/sweep, one NCCL kernel's us min / median / 90th percentile "
+              f"{pr['nccl_kernel_us']} ({pr['nccl_names']}); on the host "
+              f"{pr['collective_calls_per_sweep']} collective calls and "
+              f"{pr['collective_host_ms_per_sweep']:.4f} ms per sweep inside them", flush=True)
     rc, d = launch.run_on_cards("chip_smoke:cards_big", n, (n, t_big))
     check(rc == 0 and d is not None, f"[cards] (d) exited {rc}")
     print(f"[cards] (d) T={d['T']} (chr1 at 1 bp, made in each process) '{BIG_SCHEME}' -D {n} on "
-          f"{n} cards: setup {d['setup_s']:.2f} s, total {d['total_s']:.2f} s, M {d['M']:.3f} / "
+          f"{n} cards, graphed (sweep kinds, graphs, capture seconds on rank 0 "
+          f"{d['captures']}): setup {d['setup_s']:.2f} s, total {d['total_s']:.2f} s, M {d['M']:.3f} / "
           f"F {d['F']:.3f} sweeps/s, peak device memory per card "
           f"{[round(p / 2**30, 3) for p in d['peak_mem_bytes']]} GiB, cap_local {d['cap_local']}, "
           f"last blocks {d['last_n_blocks']}, {d['rows']} marginal rows cover T and count "
@@ -1756,6 +1867,32 @@ def print_graph(g: dict) -> None:
           f"{b['capacity']}, {b['rows']} marginal rows cover T and count {ONE_CARD_RECORDED} "
           f"sweeps each, MAP agreement {b['map_agreement']:.4f}, phases {b['phases']}, captures "
           f"{b['captures']}", flush=True)
+
+
+def print_sharded(sh: dict, main_rate: float) -> None:
+    """The [sharded] lines."""
+    st = sh["settled"]
+    print(f"[sharded] T={T_MAIN} K=3 '{SCHEME}' P={P_SHARDED} shards on one card, graphed: "
+          f"setup {sh['setup_s']:.3f} s (host ingest alone {sh['ingest_s']:.3f} s), "
+          f"F-phase {sh['f_sweeps_per_s']:.2f} sweeps/s (first run) vs [main] P=1 "
+          f"{main_rate:.2f}; cap_local {sh['cap_local']}, last blocks {sh['last_n_blocks']}, "
+          f"peak device memory {sh['peak_mem_bytes'] / 2**20:.1f} MiB (eager "
+          f"{sh['eager_peak_mem_bytes'] / 2**20:.1f} MiB), MAP agreement "
+          f"{sh['map_agreement']:.4f}, maxlet launches on this path {sh['launches']}; sweep kinds "
+          f"captured, graphs, capture seconds {sh['captures']}; eager phases {sh['eager_phases']}",
+          flush=True)
+    print(f"[sharded] settled F 512 4 in the order {' '.join(sh['settled_order'])}: P=1 "
+          f"{st['one']}, P={P_SHARDED} graphed {st['sharded']} vs eager {st['eager']} sweeps/s: "
+          f"{pair_summary(st['sharded'], st['eager'], True)}; ratio of medians graphed/eager "
+          f"{sh['graph_ratio']:.4f}, graphed P={P_SHARDED}/P=1 {sh['settled_ratio']:.4f}; "
+          f"(h) graphed and eager engines byte-identical (marginals, parameters, compression), "
+          f"(a) weights bitwise = ingest_device's (kernel), (b) partition of "
+          f"{sh['n_blocks']} blocks = single-device's, (c) rows sum to {N_RECORDED}, "
+          "(d) eager F chunk under sync debug mode 'error', (e) NCCL world-size-1 run "
+          f"byte-identical, its collectives between segment graphs (kinds, graphs, seconds "
+          f"{sh['nccl_captures']}), (f) resume into a graphed engine bitwise, (g) "
+          f"bin/hammlet-torch -D {P_SHARDED} with one card visible ran in one process (NVML and "
+          f"torch count {sh['cards']} cards)", flush=True)
 
 
 def free_port() -> int:
@@ -1865,21 +2002,7 @@ def main() -> int:
               "mean raised FloatingPointError", flush=True)
 
         sh = phase_sharded(main_eng)
-        print(f"[sharded] T={T_MAIN} K=3 '{SCHEME}' P={P_SHARDED} shards on one card: "
-              f"setup {sh['setup_s']:.3f} s (host ingest alone {sh['ingest_s']:.3f} s), "
-              f"F-phase {sh['f_sweeps_per_s']:.2f} sweeps/s (first run) vs [main] P=1 "
-              f"{m['f_sweeps_per_s']:.2f}; settled F 512 4 in turns P=1 "
-              f"{sh['settled']['one']} / P=4 {sh['settled']['sharded']} sweeps/s, median "
-              f"ratio {sh['settled_ratio']:.4f}; cap_local "
-              f"{sh['cap_local']}, last blocks {sh['last_n_blocks']}, peak device memory "
-              f"{sh['peak_mem_bytes'] / 2**20:.1f} MiB, MAP agreement "
-              f"{sh['map_agreement']:.4f}, maxlet launches on this path {sh['launches']}; "
-              f"(a) weights bitwise = ingest_device's (kernel), (b) partition of "
-              f"{sh['n_blocks']} blocks = single-device's, (c) rows sum to {N_RECORDED}, "
-              "(d) F chunk under sync debug mode 'error', (e) NCCL world-size-1 run "
-              f"byte-identical, (f) resume bitwise, (g) bin/hammlet-torch -D {P_SHARDED} with one "
-              f"card visible ran in one process (NVML and torch count {sh['cards']} cards)",
-              flush=True)
+        print_sharded(sh, m["f_sweeps_per_s"])
 
         with tempfile.TemporaryDirectory() as tmp:
             ch = phase_chains(tmp)
@@ -1897,15 +2020,17 @@ def main() -> int:
                   f"covers T, = in-process) and bin/hammlet-torch-sort-states ({tl['means']}) "
                   f"on chain 1 in subprocesses without JAX; seconds {tl['seconds']}", flush=True)
 
-        pr = phase_profile(main_eng, sh.pop("engine"))
+        pr = phase_profile(main_eng, sh.pop("engine"), sh.pop("eager_engine"))
         print(f"[profile] torch.profiler F 64 4 at T={T_MAIN}: [main] engine HAMMLET_DEBUG "
               f"off {pr['0'][0]} kernels/sweep, {pr['0'][1]:.4f} device ms/sweep; on "
               f"{pr['1'][0]} kernels/sweep, {pr['1'][1]:.4f} device ms/sweep; [sharded] "
               f"engine (P={P_SHARDED}) {pr['sharded'][0]} kernels/sweep, "
               f"{pr['sharded'][1]:.4f} device ms/sweep", flush=True)
-        for tag in ("graph", "eager"):
+        for tag in ("graph", "eager", "sharded_graph", "sharded_eager"):
             p = pr[tag]
-            print(f"[profile] {tag} [main] engine, per settled sweep of F 64 4: launch calls "
+            what = (f"{tag[8:]} [sharded] engine (P={P_SHARDED})" if tag.startswith("sharded")
+                    else f"{tag} [main] engine")
+            print(f"[profile] {what}, per settled sweep of F 64 4: launch calls "
                   f"{p['launch_calls']}, {p['kernels']} device kernels, {p['device_ms']:.4f} device "
                   f"ms summed, {p['busy_ms']:.4f} as the union of their intervals, "
                   f"{p['wall_ms']:.4f} wall ms under the profiler (busy {p['busy']:.1%}); "

@@ -185,13 +185,12 @@ def restore_sharded_checkpoint(engine, path: str) -> None:
         engine._dynamic = bool(z["dynamic"])
         engine._static_threshold = float(z["static_threshold"])
         engine.model = convert.hmm_state(z.f, engine.device)
+        # into the engine's own buffers: the engine's CUDA graphs
+        # (samplers/phase_graph.py) record into those addresses
         buf = engine.buffers
-        buf.counts = torch.from_numpy(np.ascontiguousarray(counts, dtype=np.int32)).to(engine.device)
-        buf.everb = torch.from_numpy(everb).to(engine.device)
-        buf.n_rec = torch.tensor(int(z["n_rec"]), dtype=torch.int32, device=engine.device)
-        buf.n_bound = torch.tensor(
-            int(z["n_bound"]) if "n_bound" in z.files else int(z["everb"].sum()),
-            dtype=torch.int32, device=engine.device,
-        )
+        buf.counts.copy_(torch.from_numpy(np.ascontiguousarray(counts, dtype=np.int32)))
+        buf.everb.copy_(torch.from_numpy(everb))
+        buf.n_rec.fill_(int(z["n_rec"]))
+        buf.n_bound.fill_(int(z["n_bound"]) if "n_bound" in z.files else int(z["everb"].sum()))
         _restore_cursor(engine, z)
     engine._last_ckpt = engine.sweeps_completed

@@ -8,8 +8,15 @@ enables autocast.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+
+#: how a process names its device when a caller passes none: ``cpu`` is the
+#: one way to run the port on the CPU without passing ``device="cpu"``
+#: (the counterpart of the JAX package's ``JAX_PLATFORMS=cpu``)
+DEVICE_VAR = "HAMMLET_TORCH_DEVICE"
 
 
 def apply_float32_policy() -> None:
@@ -23,18 +30,19 @@ apply_float32_policy()
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``None`` picks cuda when a card is present, else cpu. An explicit
-    cuda request without a card raises instead of falling back to the CPU.
-    A cuda device always comes back with its index (the calling thread's
-    current card when none is named), so that an engine driven from
-    another thread still syncs, seeds and launches on its own card."""
-    dev = torch.device(device if device is not None else (
-        "cuda" if torch.cuda.is_available() else "cpu"
-    ))
+    """``None`` takes the device that HAMMLET_TORCH_DEVICE names, else the
+    card. A cuda device without a card raises: the port runs on the CPU
+    only when asked for it by name (``device="cpu"`` or
+    HAMMLET_TORCH_DEVICE=cpu), never because no card was found. A cuda
+    device always comes back with its index (the calling thread's current
+    card when none is named), so that an engine driven from another thread
+    still syncs, seeds and launches on its own card."""
+    dev = torch.device(device if device is not None else os.environ.get(DEVICE_VAR) or "cuda")
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                f"device {dev} requested but torch.cuda.is_available() is False"
+                f"device {dev}: torch.cuda.is_available() is False; to run on the CPU, "
+                f"pass device='cpu' or set {DEVICE_VAR}=cpu"
             )
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())

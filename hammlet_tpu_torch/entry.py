@@ -37,8 +37,8 @@ def _synth(T: int = 100_000, seed: int = 0) -> np.ndarray:
 def entry():
     """(step, example_args): one full Gibbs sweep (blocks -> FB state draw
     -> accumulate_sweep_stats -> resample_model, samplers/sweep.gibbs_sweep)
-    on the flagship 3-state univariate CNV model, on one device (the card
-    when there is one). ``step(generator, theta_mean, theta_var, A, pi)``
+    on the flagship 3-state univariate CNV model, on one device (the card,
+    or the CPU under HAMMLET_TORCH_DEVICE=cpu). ``step(generator, theta_mean, theta_var, A, pi)``
     returns the new model's four tensors."""
     from hammlet_tpu_torch.models.hmm import HMMState
     from hammlet_tpu_torch.runner import make_engine
@@ -61,16 +61,17 @@ def entry():
     return step, example_args
 
 
-def dryrun_shards(n_shards: int) -> int:
+def dryrun_shards(n_shards: int, device: str | None = None) -> int:
     """The sharded engine with P = ``n_shards`` over the processes of the
-    group when there is one (else on this process's device): one recorded
-    FB sweep, then one mixture sweep. Every process calls it; returns the
-    recorded sweeps, which every position must count exactly once."""
+    group when there is one (else on ``device``, None: this process's
+    device): one recorded FB sweep, then one mixture sweep. Every process
+    calls it; returns the recorded sweeps, which every position must count
+    exactly once."""
     from hammlet_tpu_torch.parallel.mesh import position_mesh
     from hammlet_tpu_torch.parallel.sharded import make_sharded_engine
 
     eng = make_sharded_engine(
-        _synth(T=4096, seed=1), mesh=position_mesh(n_shards), nr_params=3, seed=0
+        _synth(T=4096, seed=1), mesh=position_mesh(n_shards, device), nr_params=3, seed=0
     )
     eng.run("F", 1, 1)  # one recorded FB sweep end-to-end
     eng.run("M", 1, 0)  # and one mixture sweep
@@ -83,9 +84,12 @@ def dryrun_multichip(n_devices: int) -> None:
     """The sharded engine with P = ``n_devices`` shards, one recorded FB
     sweep and one mixture sweep. With at least n_devices > 1 cards it runs
     in n_devices processes of one card each (parallel/launch.py), else in
-    this process. On a host without a card and n_devices >= 2 it also runs
-    the CLI in two gloo processes (parallel/mh_worker.py), streaming ingest
-    from a shared file, one writer, and checks that the marginals cover T."""
+    this process. On a host without a card it runs on the CPU, which it asks
+    for by name, and with n_devices >= 2 it also runs the CLI in two gloo
+    processes (parallel/mh_worker.py, HAMMLET_TORCH_DEVICE=cpu), streaming
+    ingest from a shared file, one writer, and checks that the marginals
+    cover T."""
+    from hammlet_tpu_torch.device import DEVICE_VAR
     from hammlet_tpu_torch.parallel import distributed, launch
 
     cards = distributed.card_count()
@@ -94,13 +98,13 @@ def dryrun_multichip(n_devices: int) -> None:
                                            (n_devices,))
         assert rc == 0 and recorded == 1, f"{n_devices} processes: exit code {rc}"
     else:
-        dryrun_shards(n_devices)
+        dryrun_shards(n_devices, "cpu" if cards == 0 else None)
 
     if cards == 0 and n_devices >= 2:
         with socket.socket() as s:
             s.bind(("localhost", 0))
             port = s.getsockname()[1]
-        env = {**os.environ, "PYTHONPATH": _REPO}
+        env = {**os.environ, "PYTHONPATH": _REPO, DEVICE_VAR: "cpu"}
         for name in ("HAMMLET_NUM_PROCESSES", "HAMMLET_COORDINATOR", "HAMMLET_PROCESS_ID",
                      "HAMMLET_LOCAL_DEVICES"):
             env.pop(name, None)

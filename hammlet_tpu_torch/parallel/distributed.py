@@ -24,8 +24,9 @@ per process; the CLI then checks that -D is W times it. A CUDA process uses
 ``cuda:(LOCAL_RANK or rank) % device_count``, so two processes never share
 a card on a host with enough of them (NCCL refuses two ranks on one GPU).
 A collective that waits longer than COLLECTIVE_TIMEOUT for a process fails
-the run. tests/test_torch_multiprocess.py and tests/test_torch_launch.py run
-two gloo processes on the CPU.
+the run. A process runs on the CPU, over gloo, only when
+HAMMLET_TORCH_DEVICE=cpu asks for it; tests/test_torch_multiprocess.py and
+tests/test_torch_launch.py run two such processes.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ from datetime import timedelta
 
 import torch
 import torch.distributed as dist
+
+from hammlet_tpu_torch.device import DEVICE_VAR, resolve_device
 
 #: how long a collective (and the group's rendezvous) waits for the other
 #: processes before the run fails: longer than any gap between two
@@ -63,12 +66,18 @@ def _card_index(rank: int) -> int:
     return int(os.environ.get("LOCAL_RANK", rank)) % torch.cuda.device_count()
 
 
-def process_device() -> torch.device:
-    """This process's device: its own card when CUDA is present, else the
-    CPU."""
-    if not torch.cuda.is_available():
-        return torch.device("cpu")
-    return torch.device("cuda", _card_index(dist.get_rank() if dist.is_initialized() else 0))
+def process_device(rank: int | None = None) -> torch.device:
+    """This process's device (``rank`` None: its rank in the group, 0
+    without one): the device HAMMLET_TORCH_DEVICE names (``cpu`` asks for
+    the CPU), else the process's own card. Raises when it is to be a card
+    and there is none (device.resolve_device)."""
+    dev = torch.device(os.environ.get(DEVICE_VAR) or "cuda")
+    if dev.type != "cuda" or dev.index is not None:
+        return resolve_device(dev)
+    resolve_device(dev)  # raises without a card
+    if rank is None:
+        rank = dist.get_rank() if dist.is_initialized() else 0
+    return torch.device("cuda", _card_index(rank))
 
 
 def initialize_from_env() -> bool:
@@ -108,12 +117,12 @@ def initialize_from_env() -> bool:
     if not 0 <= rank < world:
         raise ValueError(f"process id {rank} is outside 0..{world - 1}")
     kwargs = {}
-    if torch.cuda.is_available():
-        card = torch.device("cuda", _card_index(rank))
-        torch.cuda.set_device(card)
+    dev = process_device(rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
         # NCCL binds the process's card and builds its communicator now,
         # not at the first collective
-        backend, kwargs["device_id"] = "nccl", card
+        backend, kwargs["device_id"] = "nccl", dev
     else:
         backend = "gloo"
     dist.init_process_group(

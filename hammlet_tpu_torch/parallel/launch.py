@@ -9,8 +9,8 @@ CLI with the user's flags under HAMMLET_NUM_PROCESSES=W,
 HAMMLET_PROCESS_ID=r, HAMMLET_COORDINATOR=127.0.0.1:<free port>,
 HAMMLET_LOCAL_DEVICES=N/W and LOCAL_RANK=r, and the group forms over NCCL
 (gloo on the CPU). The outputs are the bytes of one process with -D N:
-the cross-shard float sums do not depend on W (mesh.PositionMesh.ordered_sum)
-and only rank 0 writes.
+the cross-shard float sums do not depend on W (all_gathered and summed in
+shard order, parallel/sharded.py) and only rank 0 writes.
 
 The workers are new interpreters (not forks): this process never touches
 CUDA (``distributed.card_count`` reads NVML). Each dies with this process

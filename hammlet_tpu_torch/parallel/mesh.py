@@ -78,39 +78,45 @@ class PositionMesh:
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Concatenate ``x`` along axis 0 over the processes in rank order:
         (S, ...) per-shard rows become the (P, ...) rows of every shard.
-        The identity without a process group. ``x`` has at least one axis;
-        a dtype outside _WIRE_DTYPES (the int16 state stacks of K > 127
-        states) is gathered as bytes and viewed back."""
+        The identity without a process group. ``x`` has at least one axis."""
         if self.group is None:
             return x
-        x = x.contiguous()
-        if x.dtype not in _WIRE_DTYPES:
-            return self.all_gather(x.view(torch.uint8)).view(x.dtype)
         out = torch.empty(
             (self.world_size * x.shape[0],) + tuple(x.shape[1:]),
             dtype=x.dtype, device=x.device,
         )
-        _all_gather(out, x, group=self.group)
+        self.all_gather_into(out, x)
         return out
 
-    def ordered_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum of per-shard rows (S, ...) over all P shards, in shard order.
-
-        The counterpart of the JAX package's ``_osum`` (sharded.py:339-353):
-        an all_reduce's float reduction order depends on the transport, so
-        every float cross-shard sum is an all_gather followed by one sum
-        over the same (P, ...) tensor on every process, whatever W is."""
-        return torch.sum(self.all_gather(x), dim=0)
+    def all_gather_into(self, out: torch.Tensor, x: torch.Tensor) -> None:
+        """``all_gather`` into ``out``, a contiguous (W * S, ...) tensor of
+        ``x``'s dtype that the caller keeps (a CUDA graph reads it at a
+        fixed address). A dtype outside _WIRE_DTYPES (the int16 state
+        stacks of K > 127 states) is gathered as bytes."""
+        x = x.contiguous()
+        if x.dtype not in _WIRE_DTYPES:
+            out, x = out.view(torch.uint8), x.view(torch.uint8)
+        _all_gather(out, x, group=self.group)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """Integer sum over the processes (exact in any order)."""
-        if x.is_floating_point():
-            raise TypeError("psum is for integers; use ordered_sum for floats")
         if self.group is None:
+            if x.is_floating_point():
+                raise TypeError("psum is for integers; a float sum over shards is an all_gather "
+                                "and one sum in shard order")
             return x
-        y = x.reshape(1).clone() if x.dim() == 0 else x.clone()
-        dist.all_reduce(y, group=self.group)
+        y = torch.empty((x.numel(),), dtype=x.dtype, device=x.device)
+        self.psum_into(y, x)
         return y.reshape(x.shape)
+
+    def psum_into(self, out: torch.Tensor, x: torch.Tensor) -> None:
+        """``psum`` of ``x`` into ``out``, a 1-D tensor of its dtype and
+        size that the caller keeps."""
+        if x.is_floating_point():
+            raise TypeError("psum is for integers; a float sum over shards is an all_gather "
+                            "and one sum in shard order")
+        out.copy_(x.reshape(-1))
+        dist.all_reduce(out, group=self.group)
 
 
 def position_mesh(n_shards: int, device: str | torch.device | None = None) -> PositionMesh:

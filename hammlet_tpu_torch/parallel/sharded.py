@@ -19,8 +19,10 @@ Each sweep exchanges only O(P * K^2) values between shards:
 - backward pass: local random-map suffix compositions, then a cross-shard
   suffix over the P gathered shard-total maps; the final state is drawn
   identically on every process from the replicated stream.
-- sweep statistics are all_gathered and summed in shard order
-  (``PositionMesh.ordered_sum``, transport-invariant, unlike all_reduce)
+- sweep statistics are all_gathered and summed in shard order, one sum
+  over the same (P, ...) rows on every process (the counterpart of the JAX
+  package's ``_osum``, sharded.py:339-353: an all_reduce's float reduction
+  order depends on the transport)
   and the conjugate model update runs replicated (same stream -> the same
   new model on every process, with no broadcast).
 
@@ -35,6 +37,14 @@ per-block Gumbels of each shard from that global shard's own generator,
 (seed, counter, i, shard) — the counterpart of JAX's k_z / k_model and
 fold_in(k_local, shard) (sharded.py:223-224). The draws do not depend on W.
 
+The sweep is a fixed list of local pieces and, between them, the
+collectives (ShardedSweep). On a card the engine's chunks replay CUDA
+graphs (samplers/phase_graph.py): one graph per sweep kind in one process,
+where every collective is the identity, else one graph per run of local
+pieces, each collective issued eagerly between two replays into a tensor
+kept per capacity. ``sharded_phase`` runs the same pieces eagerly: it is
+the plain version the tests hold the graphs against.
+
 The marginal count buffers stay sharded with the position axis, so a 3 Gbp
 genome's counts never materialize on one device.
 
@@ -47,6 +57,7 @@ positions belong to no block.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -73,7 +84,19 @@ from hammlet_tpu_torch.samplers.forward_backward import (
     prefix_matmul_scan_t,
     suffix_compose_scan_t,
 )
-from hammlet_tpu_torch.samplers.sweep import accumulate_sweep_stats, make_generator
+from hammlet_tpu_torch.samplers.phase_graph import (
+    GraphKey,
+    Local,
+    PhaseGraphs,
+    graph_key,
+    run_pieces,
+)
+from hammlet_tpu_torch.samplers.sweep import (
+    PhaseSlots,
+    accumulate_sweep_stats,
+    finish_sweep,
+    stream_seed,
+)
 
 def _local_sweep_stats(z, sizes, nb_l, bstats, mapping, nr_params) -> SweepStats:
     """accumulate_sweep_stats of each local shard on its own (states, sizes,
@@ -124,7 +147,7 @@ class ShardedBuffers:
 
 
 class _Layout(NamedTuple):
-    """Shard-layout constants of a chunk's sweeps (built once per chunk)."""
+    """Shard-layout constants of a capacity's sweeps."""
 
     sidx: torch.Tensor  # (S,) local shard index
     gid: torch.Tensor  # (S,) global index of each local shard
@@ -151,246 +174,413 @@ def _layout(mesh: PositionMesh, cap: int, T_local: int, device) -> _Layout:
     )
 
 
-class SweepOut(NamedTuple):
-    model: HMMState  # the replicated new model
-    states: torch.Tensor  # (S, cap) int64 per-block states, 0 past the blocks
-    sizes: torch.Tensor  # (S, cap) int64 block sizes (global blocks cut at
-    #                      no shard edge: a shard's last block runs on)
-    nb_all: torch.Tensor  # (P,) per-shard block counts (saturating at cap+1)
-    err: torch.Tensor | None  # () int32 debug bits of the local shards
-    stats: SweepStats  # the ordered cross-shard sweep statistics
+class _Gather:
+    """A collective piece of the sweep (phase_graph's protocol): for each
+    (src, dst) name pair, ``st.dst`` = the all_gather of ``st.src`` over
+    the processes, written into a tensor allocated on the first call and
+    kept, which the next graph reads."""
+
+    def __init__(self, mesh: PositionMesh, *pairs: tuple[str, str]):
+        self.mesh, self.pairs = mesh, pairs
+        self.outs: list[torch.Tensor] | None = None
+
+    def bind(self, st: SimpleNamespace) -> None:
+        if self.outs is None:
+            w = self.mesh.world_size
+            self.outs = [
+                torch.empty((w * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
+                for x in (getattr(st, src) for src, _ in self.pairs)
+            ]
+        for (_, dst), out in zip(self.pairs, self.outs):
+            setattr(st, dst, out)
+
+    def __call__(self, st: SimpleNamespace) -> None:
+        self.bind(st)
+        for (src, _), out in zip(self.pairs, self.outs):
+            self.mesh.all_gather_into(out, getattr(st, src))
 
 
-def _sharded_sweep_body(
-    mesh: PositionMesh,
-    generator: torch.Generator | None,
-    shard_generators: list[torch.Generator] | None,
-    model: HMMState,
-    priors: HMMPriors,
-    negw: torch.Tensor,  # (S, T_local) ascending sort of -weights per shard
-    candpos: torch.Tensor,  # (S, cap+1) position-sorted candidates (+T_local)
-    candrank: torch.Tensor,  # (S, cap) local weight rank of each candidate
-    r_t: torch.Tensor,  # (dim, 2, S, T_local+1) in-cell reverse prefix rows
-    q2c: torch.Tensor,  # (2, dim, 2, n_cells+1) stacked (hi, lo) cell prefix
-    buffers: ShardedBuffers,
-    threshold: torch.Tensor | None,
-    *,
-    layout: _Layout,
-    method: str,
-    T: int,
-    T_local: int,
-    cell_bits: int,
-    mapping: torch.Tensor,
-    nr_params: int,
-    use_self_transitions: bool,
-    record: bool,
-    debug: bool = False,
-    noise=None,
-) -> SweepOut:
+class _Psum:
+    """A collective piece: ``st.dst`` = the integer sum of ``st.src`` over
+    the processes, in a tensor allocated on the first call and kept."""
+
+    def __init__(self, mesh: PositionMesh, src: str, dst: str):
+        self.mesh, self.src, self.dst = mesh, src, dst
+        self.out: torch.Tensor | None = None
+
+    def bind(self, st: SimpleNamespace) -> None:
+        x = getattr(st, self.src)
+        if self.out is None:
+            self.out = torch.empty((x.numel(),), dtype=x.dtype, device=x.device)
+        setattr(st, self.dst, self.out.view(x.shape))
+
+    def __call__(self, st: SimpleNamespace) -> None:
+        self.bind(st)
+        self.mesh.psum_into(self.out, getattr(st, self.src))
+
+
+def _identity(*pairs: tuple[str, str]) -> Local:
+    """What a collective is without a process group: ``st.dst`` is
+    ``st.src``, inside the graph."""
+
+    def run(slots, st):
+        for src, dst in pairs:
+            setattr(st, dst, getattr(st, src))
+
+    return Local(run)
+
+
+class ShardedSweep:
     """One sharded Gibbs sweep over this process's shards (the counterpart
-    of the JAX body under shard_map, sharded.py:79-403). ``threshold`` None
-    is dynamic (from the model). ``record`` is this sweep's recording flag;
-    it records in place into ``buffers`` unless a shard overflows the
-    capacity. ``noise`` replaces the draws of the per-block Gumbels: (K, S,
-    cap) for "M", (last-state Gumbels (K,), map Gumbels (K, K, S, cap)) for
-    "F"; the model update still draws from ``generator``. No op here waits
-    for the host."""
-    S, cap = candrank.shape
-    dim = r_t.shape[0]
-    K = mapping.shape[0]
-    dev = negw.device
-    start = layout.start
-    end = start + T_local
-    rows = layout.rows
+    of the JAX body under shard_map, sharded.py:79-403) as a program of
+    samplers/phase_graph.py: a fixed list of local pieces and, between
+    them, the collectives, which the graphs leave out. Per sweep: the
+    gathers of the shards' first boundaries, head statistics and block
+    counts; on the F method the gathers of the shard-total forward
+    matrices and backward maps; the gather of each shard's last state; the
+    gather of the per-shard sweep statistics (the first half of their sum
+    in shard order); on a recording sweep the integer sum of
+    the new boundaries. Without a process group each collective is the
+    identity, a local piece, and the whole sweep is one graph. The plain
+    version, ``sharded_phase``, runs the same pieces eagerly.
 
-    def query_t(s_glob, e_glob):
-        """Block stats for global [s, e) with both endpoints in
-        [start, end] of their shard: (S, B) -> (dim, 2, S, B)."""
-        B = s_glob.shape[1]
-        ls = (s_glob - start[:, None])[None, None].expand(dim, 2, S, B)
-        le = (e_glob - start[:, None])[None, None].expand(dim, 2, S, B)
-        r_s = torch.gather(r_t, 3, ls)
-        r_e = torch.gather(r_t, 3, le)
-        qd = q2c[..., e_glob >> cell_bits] - q2c[..., s_glob >> cell_bits]  # (2, dim, 2, S, B)
-        return (r_s - r_e) + (qd[0] + qd[1])
+    The generators: ``generator``, replicated, seeded (seed, counter, i)
+    for sweep i, draws the last-state Gumbels and the model update; one per
+    local shard, seeded (seed, counter, i, global shard), draws that
+    shard's per-block Gumbels. The replicated one draws in two graphs of a
+    sweep; its Philox offset carries from the first to the second."""
 
-    thr = model.threshold(T) if threshold is None else threshold
+    def __init__(
+        self,
+        mesh: PositionMesh,
+        seed: int,
+        priors: HMMPriors,
+        negw: torch.Tensor,  # (S, T_local) ascending sort of -weights per shard
+        r_t: torch.Tensor,  # (dim, 2, S, T_local+1) in-cell reverse prefix rows
+        q2_hi: torch.Tensor,  # (n_cells+1, dim, 2) cell prefix, high part
+        q2_lo: torch.Tensor,  # low part
+        *,
+        T: int,
+        T_local: int,
+        cell_bits: int,
+        mapping: torch.Tensor,
+        nr_params: int,
+        use_self_transitions: bool,
+    ):
+        self.mesh, self.seed, self.priors = mesh, seed, priors
+        self.device = mesh.device
+        self.negw, self.r_t = negw, r_t
+        # (2, dim, 2, n_cells+1) stacked (hi, lo) cell prefix
+        self.q2c = torch.stack([q2_hi.permute(1, 2, 0), q2_lo.permute(1, 2, 0)])
+        self.T, self.T_local, self.cell_bits = T, T_local, cell_bits
+        self.mapping, self.nr_params = mapping, nr_params
+        self.use_self_transitions = use_self_transitions
+        self.generator = torch.Generator(device=self.device)
+        self.shard_generators = tuple(torch.Generator(device=self.device) for _ in mesh.local_ids)
+        self.generators = (self.generator, *self.shard_generators)
 
-    # ---- local block boundaries (pre-sorted bucket candidates: a
-    # saturating masked count + a masked compaction, exact whenever the
-    # sweep fits cap, the only case whose count is used) --------------------
-    nb_l = torch.sum(negw[:, : min(cap + 1, T_local)] <= -thr, dim=1)  # (S,)
-    valid_c = candrank < nb_l[:, None]
-    slot = torch.where(valid_c, torch.cumsum(valid_c, dim=1) - 1, cap)
-    sel = torch.full((S, cap + 1), cap, dtype=torch.int64, device=dev)
-    sel.scatter_(1, slot, layout.bidx.expand(S, cap))
-    lstarts = torch.gather(candpos, 1, sel[:, :cap])  # padded -> T_local
-    gstarts = lstarts + start[:, None]  # padded -> shard end
-    valid_b = layout.bidx < nb_l[:, None]
-    is_last_real = layout.bidx == (nb_l - 1)[:, None]
+    def seed_sweep(self, counter: int, i: int) -> None:
+        self.generator.manual_seed(stream_seed(self.seed, counter, i))
+        for g, gen in zip(self.mesh.local_ids, self.shard_generators):
+            gen.manual_seed(stream_seed(self.seed, counter, i, shard=g))
 
-    first_b = torch.where(nb_l > 0, gstarts[:, 0], T)
-    head_end = torch.clamp(torch.minimum(first_b, end), min=start, max=end)
-    head_stat = query_t(start[:, None], head_end[:, None])[..., 0]  # (dim, 2, S)
-    firsts_all = mesh.all_gather(first_b)  # (P,)
-    heads_all = mesh.all_gather(head_stat.permute(2, 0, 1))  # (P, dim, 2)
-    nb_all = mesh.all_gather(nb_l)  # (P,)
+    def create_slots(self, model, buffers, rows, cand_rank, want_blocks) -> PhaseSlots:
+        return PhaseSlots.create(model, buffers, rows, tuple(cand_rank.shape), want_blocks,
+                                 nb_shape=(self.mesh.n_shards,))
 
-    # cross-shard values for every shard from the replicated gathers, then
-    # this process's rows (the same (P, ...) arithmetic whatever W is)
-    next_all = torch.amin(torch.where(layout.later, firsts_all[None, :], T), dim=1)
-    include = layout.later & (layout.ids[None, :] * T_local < next_all[:, None])
-    tail_all = torch.sum(torch.where(include[:, :, None, None], heads_all[None], 0.0), dim=1)
-    next_boundary = next_all[rows]
+    def _gather(self, *pairs: tuple[str, str]):
+        return _identity(*pairs) if self.mesh.group is None else _Gather(self.mesh, *pairs)
 
-    gends_next = torch.cat([gstarts[:, 1:], end[:, None]], dim=1)
-    gends = torch.where(is_last_real, next_boundary[:, None], gends_next)
-    sizes = gends - gstarts  # padded blocks: end - end = 0
-
-    # ---- block sufficient statistics: every block as if it ended inside
-    # its shard (the last real one cut at the shard end), plus the gathered
-    # heads of the shards the last block spans ------------------------------
-    bstats = query_t(gstarts, torch.minimum(gends, end[:, None]))  # (dim, 2, S, cap)
-    spans = is_last_real & (gends > end[:, None])
-    bstats = bstats + torch.where(
-        spans[None, None], tail_all[rows].permute(1, 2, 0)[..., None], 0.0
-    )
-
-    # ---- state sampling (K, S, cap) layout: block axis minor --------------
-    log_e = emission_log_weights_t(
-        bstats.reshape(dim, 2, S * cap), sizes.reshape(-1),
-        model.theta_mean, model.theta_var, mapping,
-    ).reshape(K, S, cap)
-
-    if method == "M":
-        g = noise if noise is not None else torch.stack(
-            [gumbel(gen, (K, cap), dev) for gen in shard_generators], dim=1
+    def _check_ranks_agree(self, key: GraphKey, write_row: bool) -> None:
+        """Every process must build (and, on a card, warm up and capture)
+        the same sweep kinds in the same order, or their collectives would
+        pair up wrongly: compare the kind over the processes."""
+        mine = torch.tensor(
+            [key.capacity, "FM".index(key.method), key.record, key.want_blocks, key.debug,
+             key.dynamic, write_row], device=self.device,
         )
-        z = torch.where(valid_b, torch.argmax(log_e + g, dim=0), 0)
-    elif method == "F":
-        sizes_f = sizes.to(torch.float32)
-        log_a_ss = torch.log(torch.diagonal(model.A))
-        E = log_e
-        if use_self_transitions:
-            E = E + (sizes_f[None] - 1.0) * log_a_ss[:, None, None]
-        e_w = torch.exp(E - torch.amax(E, dim=0, keepdim=True))
-        M = model.A[:, :, None, None] * e_w[None]  # (K, K, S, cap)
-        eye = torch.eye(K, dtype=M.dtype, device=dev)
-        M = torch.where(valid_b[None, None], M, eye[:, :, None, None])
-        L = prefix_matmul_scan_t(M)
-        tots_all = mesh.all_gather(L[..., -1].permute(2, 0, 1))  # (P, K, K)
-        # cross-shard inclusive prefix products over the P shard totals
-        tot_prefix = prefix_matmul_scan_t(tots_all.permute(1, 2, 0))  # (K, K, P)
-        pre_all = torch.cat([eye[:, :, None], tot_prefix[:, :, :-1]], dim=2)
-        v_pre = torch.sum(model.pi[:, None, None] * pre_all, dim=0)[:, rows]  # (K, S)
-        alpha = torch.sum(v_pre[:, None, :, None] * L, dim=0)  # (K, S, cap)
-        alpha = alpha / torch.clamp(torch.sum(alpha, dim=0, keepdim=True), min=1e-35)
-        v_last = torch.sum(model.pi[:, None] * tot_prefix[:, :, -1], dim=0)
-        last_col = v_last / torch.clamp(torch.sum(v_last), min=1e-35)
+        every = self.mesh.all_gather(mine[None])
+        if not bool((every == mine).all()):
+            raise RuntimeError(f"the processes build different sweeps: {every.tolist()}")
 
-        m_star = torch.amax(torch.where(nb_all > 0, layout.ids, -1))
-        is_global_last = (layout.gid[:, None] == m_star) & is_last_real  # (S, cap)
-        if use_self_transitions:
-            scale = torch.exp((sizes_f[None] - 1.0) * log_a_ss[:, None, None])
-            cols = torch.where(is_global_last[None], alpha, alpha * scale)
-        else:
-            cols = alpha
+    def pieces(
+        self, key: GraphKey, cand_pos: torch.Tensor, cand_rank: torch.Tensor, write_row: bool,
+        noise=None,
+    ) -> list:
+        """The sweep of kind ``key`` on the per-shard candidates
+        (cand_pos (S, cap+1) position-sorted, + T_local; cand_rank (S, cap)
+        local weight ranks), as pieces. A recording sweep records in place
+        into ``slots.buffers`` unless a shard overflows the capacity; with
+        ``write_row`` it writes a row of the slots' stacks. ``noise``
+        replaces the draws of the per-block Gumbels: (K, S, cap) for "M",
+        (last-state Gumbels (K,), map Gumbels (K, K, S, cap)) for "F"; the
+        model update still draws from ``generator``. No piece waits for the
+        host."""
+        if key.method not in ("F", "M"):
+            raise ValueError(f"unknown sampling method {key.method!r}")
+        mesh, T, T_local, cell_bits = self.mesh, self.T, self.T_local, self.cell_bits
+        mapping, negw, r_t, q2c = self.mapping, self.negw, self.r_t, self.q2c
+        if mesh.group is not None:
+            self._check_ranks_agree(key, write_row)
+        S, cap = cand_rank.shape
+        dim = r_t.shape[0]
+        K = mapping.shape[0]
+        dev = negw.device
+        lay = _layout(mesh, cap, T_local, dev)  # once per sweep kind and capacity
+        start = lay.start
+        end = start + T_local
+        rows = lay.rows
+        # what a gather sends must be contiguous; without a group the
+        # gather is the identity and the views go on as they are
+        send = (lambda x: x) if mesh.group is None else torch.Tensor.contiguous  # noqa: E731
 
-        if noise is None:
-            g_last = gumbel(generator, (K,), dev)
-            g_maps = torch.stack(
-                [gumbel(gen, (K, K, cap), dev) for gen in shard_generators], dim=2
+        def query_t(s_glob, e_glob):
+            """Block stats for global [s, e) with both endpoints in
+            [start, end] of their shard: (S, B) -> (dim, 2, S, B)."""
+            B = s_glob.shape[1]
+            ls = (s_glob - start[:, None])[None, None].expand(dim, 2, S, B)
+            le = (e_glob - start[:, None])[None, None].expand(dim, 2, S, B)
+            r_s = torch.gather(r_t, 3, ls)
+            r_e = torch.gather(r_t, 3, le)
+            qd = q2c[..., e_glob >> cell_bits] - q2c[..., s_glob >> cell_bits]  # (2, dim, 2, S, B)
+            return (r_s - r_e) + (qd[0] + qd[1])
+
+        def boundaries(slots, st):
+            """Local block boundaries (pre-sorted bucket candidates: a
+            saturating masked count + a masked compaction, exact whenever
+            the sweep fits cap, the only case whose count is used), and what
+            the other shards need of them."""
+            thr = slots.model.threshold(T) if key.dynamic else slots.threshold
+            st.nb_l = nb_l = torch.sum(negw[:, : min(cap + 1, T_local)] <= -thr, dim=1)  # (S,)
+            valid_c = cand_rank < nb_l[:, None]
+            slot = torch.where(valid_c, torch.cumsum(valid_c, dim=1) - 1, cap)
+            sel = torch.full((S, cap + 1), cap, dtype=torch.int64, device=dev)
+            sel.scatter_(1, slot, lay.bidx.expand(S, cap))
+            st.lstarts = torch.gather(cand_pos, 1, sel[:, :cap])  # padded -> T_local
+            st.gstarts = st.lstarts + start[:, None]  # padded -> shard end
+            st.valid_b = lay.bidx < nb_l[:, None]
+            st.is_last_real = lay.bidx == (nb_l - 1)[:, None]
+            st.first_b = torch.where(nb_l > 0, st.gstarts[:, 0], T)
+            head_end = torch.clamp(torch.minimum(st.first_b, end), min=start, max=end)
+            head_stat = query_t(start[:, None], head_end[:, None])[..., 0]  # (dim, 2, S)
+            st.heads = send(head_stat.permute(2, 0, 1))
+
+        def block_stats(slots, st):
+            """Cross-shard values for every shard from the replicated
+            gathers, then this process's rows (the same (P, ...) arithmetic
+            whatever W is); block statistics: every block as if it ended
+            inside its shard (the last real one cut at the shard end), plus
+            the gathered heads of the shards the last block spans; then the
+            emission log-weights, (K, S, cap), block axis minor."""
+            next_all = torch.amin(torch.where(lay.later, st.firsts_all[None, :], T), dim=1)
+            include = lay.later & (lay.ids[None, :] * T_local < next_all[:, None])
+            tail_all = torch.sum(
+                torch.where(include[:, :, None, None], st.heads_all[None], 0.0), dim=1
             )
+            next_boundary = next_all[rows]
+            gends_next = torch.cat([st.gstarts[:, 1:], end[:, None]], dim=1)
+            gends = torch.where(st.is_last_real, next_boundary[:, None], gends_next)
+            st.sizes = gends - st.gstarts  # padded blocks: end - end = 0
+            bstats = query_t(st.gstarts, torch.minimum(gends, end[:, None]))  # (dim, 2, S, cap)
+            spans = st.is_last_real & (gends > end[:, None])
+            st.bstats = bstats + torch.where(
+                spans[None, None], tail_all[rows].permute(1, 2, 0)[..., None], 0.0
+            )
+            st.log_e = emission_log_weights_t(
+                st.bstats.reshape(dim, 2, S * cap), st.sizes.reshape(-1),
+                slots.model.theta_mean, slots.model.theta_var, mapping,
+            ).reshape(K, S, cap)
+
+        def mixture_states(slots, st):
+            g = noise if noise is not None else torch.stack(
+                [gumbel(gen, (K, cap), dev) for gen in self.shard_generators], dim=1
+            )
+            st.z = torch.where(st.valid_b, torch.argmax(st.log_e + g, dim=0), 0)
+
+        def forward(slots, st):
+            """Local prefix scans of the K x K block matrices; each shard's
+            total goes to the others."""
+            model = slots.model
+            st.sizes_f = st.sizes.to(torch.float32)
+            st.log_a_ss = torch.log(torch.diagonal(model.A))
+            E = st.log_e
+            if self.use_self_transitions:
+                E = E + (st.sizes_f[None] - 1.0) * st.log_a_ss[:, None, None]
+            e_w = torch.exp(E - torch.amax(E, dim=0, keepdim=True))
+            M = model.A[:, :, None, None] * e_w[None]  # (K, K, S, cap)
+            eye = torch.eye(K, dtype=M.dtype, device=dev)
+            M = torch.where(st.valid_b[None, None], M, eye[:, :, None, None])
+            st.L = prefix_matmul_scan_t(M)
+            st.tots = send(st.L[..., -1].permute(2, 0, 1))  # (S, K, K)
+
+        def backward(slots, st):
+            """The cross-shard prefix over the P gathered shard totals, the
+            forward columns, the last state (drawn identically on every
+            process from the replicated stream) and the local random-map
+            suffix compositions; each shard's composed map goes to the
+            others."""
+            model = slots.model
+            eye = torch.eye(K, dtype=st.L.dtype, device=dev)
+            # cross-shard inclusive prefix products over the P shard totals
+            tot_prefix = prefix_matmul_scan_t(st.tots_all.permute(1, 2, 0))  # (K, K, P)
+            pre_all = torch.cat([eye[:, :, None], tot_prefix[:, :, :-1]], dim=2)
+            v_pre = torch.sum(model.pi[:, None, None] * pre_all, dim=0)[:, rows]  # (K, S)
+            alpha = torch.sum(v_pre[:, None, :, None] * st.L, dim=0)  # (K, S, cap)
+            alpha = alpha / torch.clamp(torch.sum(alpha, dim=0, keepdim=True), min=1e-35)
+            v_last = torch.sum(model.pi[:, None] * tot_prefix[:, :, -1], dim=0)
+            last_col = v_last / torch.clamp(torch.sum(v_last), min=1e-35)
+
+            m_star = torch.amax(torch.where(st.nb_all > 0, lay.ids, -1))
+            is_global_last = (lay.gid[:, None] == m_star) & st.is_last_real  # (S, cap)
+            if self.use_self_transitions:
+                scale = torch.exp((st.sizes_f[None] - 1.0) * st.log_a_ss[:, None, None])
+                cols = torch.where(is_global_last[None], alpha, alpha * scale)
+            else:
+                cols = alpha
+
+            if noise is None:
+                g_last = gumbel(self.generator, (K,), dev)
+                g_maps = torch.stack(
+                    [gumbel(gen, (K, K, cap), dev) for gen in self.shard_generators], dim=2
+                )
+            else:
+                g_last, g_maps = noise
+            st.z_last = torch.argmax(torch.log(torch.clamp(last_col, min=1e-38)) + g_last).reshape(1)
+            logits = (
+                torch.log(torch.clamp(cols, min=1e-38))[:, None]
+                + torch.log(torch.clamp(model.A, min=1e-38))[:, :, None, None]
+            )  # (i, j, S, cap)
+            pred = torch.argmax(logits + g_maps, dim=0)  # (j, S, cap)
+            ident = torch.arange(K, device=dev)[:, None]
+            maps = torch.where((st.valid_b & ~is_global_last)[None], pred, ident[:, :, None])
+            st.r_suffix = suffix_compose_scan_t(maps)  # (K, S, cap)
+            st.tmaps = send(st.r_suffix[:, :, 0].T)  # (S, K)
+
+        def fb_states(slots, st):
+            """The cross-shard suffix: column g composes the maps of shards
+            g..P-1; a shard enters through the composition of every LATER
+            shard."""
+            ident = torch.arange(K, device=dev)[:, None]
+            suffix_all = suffix_compose_scan_t(st.tmaps_all.T)  # (K, P)
+            after = torch.cat([suffix_all[:, 1:], ident], dim=1)[:, rows]  # (K, S)
+            entry = torch.index_select(after, 0, st.z_last)  # (1, S)
+            st.z = torch.gather(st.r_suffix, 0, entry[:, :, None].expand(1, S, cap))[0]
+
+        def last_state(slots, st):
+            """Each shard's last block state: the chain state entering a
+            shard is that of the highest earlier shard with any blocks."""
+            nb_l = st.nb_l
+            st.last_state = torch.where(
+                nb_l > 0, torch.gather(st.z, 1, torch.clamp(nb_l - 1, 0, cap - 1)[:, None])[:, 0], 0
+            )
+
+        def sweep_stats(slots, st):
+            """The sweep statistics per shard, their shard-order sum's
+            input (S, 3 P + K^2 + K)."""
+            jbest = torch.amax(
+                torch.where(lay.earlier & (st.nb_all[None, :] > 0), lay.ids[None, :], -1), dim=1
+            )
+            st.carry = torch.where(jbest >= 0, st.last_all[torch.clamp(jbest, min=0)], 0)[rows]
+            loc = _local_sweep_stats(st.z, st.sizes, st.nb_l, st.bstats, mapping, self.nr_params)
+            # accumulate_sweep_stats took state 0 as the previous state of a
+            # shard's first block; replace it with the carried state
+            # (one-hot arithmetic on integer-valued counts: exact, no indexed add)
+            kk = torch.arange(K, device=dev)
+            moved = (st.carry[:, None] == kk).to(torch.float32) - (kk == 0).to(torch.float32)
+            first = (st.z[:, 0, None] == kk) & (st.nb_l > 0)[:, None]  # (S, K)
+            trans = loc.trans_counts + moved[:, :, None] * first[:, None, :]
+            st.stats_l = torch.cat(
+                [loc.theta_sums, loc.theta_sumsqs, loc.theta_counts, trans.reshape(S, K * K),
+                 loc.state_counts], dim=1,
+            )
+
+        def update(slots, st):
+            """The ordered sum's second half (one sum over the gathered
+            (P, ...) rows, the same on every process), the replicated model
+            update, and the recording: +1 at each local block start with its
+            state, -1 with the previous state (a shard's first block takes
+            the carried state, which also closes the block spanning in from
+            earlier shards)."""
+            tot = torch.sum(st.stats_all, dim=0)
+            n_p = self.nr_params
+            st.stats = SweepStats(
+                theta_sums=tot[:n_p],
+                theta_sumsqs=tot[n_p : 2 * n_p],
+                theta_counts=tot[2 * n_p : 3 * n_p],
+                trans_counts=tot[3 * n_p : 3 * n_p + K * K].reshape(K, K),
+                state_counts=tot[3 * n_p + K * K :],
+            )
+            st.new_model = resample_model(self.generator, self.priors, st.stats)
+            if not key.record:
+                return
+            buffers, z = slots.buffers, st.z
+            rec = torch.amax(st.nb_all) <= cap  # an overflowing sweep never records
+            z_prev = torch.cat([st.carry[:, None], z[:, :-1]], dim=1)
+            valid_s = st.valid_b & (st.gstarts < T) & rec
+            dec_ok = valid_s & (st.gstarts > 0)
+            lstarts, sidx = st.lstarts, lay.sidx
+            base = (sidx * (K * T_local))[:, None]
+            idx = torch.cat([
+                torch.where(valid_s, z * T_local + lstarts, 0) + base,
+                torch.where(dec_ok, z_prev * T_local + lstarts, 0) + base,
+            ], dim=1)
+            val = torch.cat([valid_s.to(torch.int32), -dec_ok.to(torch.int32)], dim=1)
+            buffers.counts.view(-1).index_add_(0, idx.reshape(-1), val.reshape(-1))
+            chg = dec_ok & (z != z_prev)
+            # count newly-created boundaries before setting them
+            was_set = torch.gather(buffers.everb, 1, torch.clamp(lstarts, max=T_local - 1))
+            st.newly = torch.sum(chg & ~was_set)
+            everb_idx = torch.where(chg, lstarts, T_local) + (sidx * (T_local + 1))[:, None]
+            buffers.everb.view(-1).index_fill_(0, everb_idx.reshape(-1), True)
+            buffers.n_rec += rec.to(torch.int32)
+
+        def finish(slots, st):
+            buffers = slots.buffers
+            if key.record:
+                buffers.n_bound += st.newly_all.to(torch.int32)
+            err = None
+            if key.debug:
+                # the input model too: a poisoned parameter must fail the
+                # sweep that sampled from it (Observation.hpp:374-392 setter
+                # guards)
+                err = (_debug.model_error_bits(slots.model, st.bstats)
+                       | _debug.model_error_bits(st.new_model))
+            finish_sweep(
+                slots, st.new_model, torch.amax(st.nb_all), torch.sum(st.nb_all), st.nb_all,
+                st.z, err, buffers.n_bound, record=key.record, write_row=write_row,
+            )
+
+        out = [
+            Local(boundaries),
+            self._gather(("first_b", "firsts_all"), ("heads", "heads_all"), ("nb_l", "nb_all")),
+            Local(block_stats),
+        ]
+        if key.method == "M":
+            out.append(Local(mixture_states, self.shard_generators))
         else:
-            g_last, g_maps = noise
-        z_last = torch.argmax(torch.log(torch.clamp(last_col, min=1e-38)) + g_last).reshape(1)
-        logits = (
-            torch.log(torch.clamp(cols, min=1e-38))[:, None]
-            + torch.log(torch.clamp(model.A, min=1e-38))[:, :, None, None]
-        )  # (i, j, S, cap)
-        pred = torch.argmax(logits + g_maps, dim=0)  # (j, S, cap)
-        ident = torch.arange(K, device=dev)[:, None]
-        maps = torch.where((valid_b & ~is_global_last)[None], pred, ident[:, :, None])
-        r_suffix = suffix_compose_scan_t(maps)  # (K, S, cap)
-        tmaps_all = mesh.all_gather(r_suffix[:, :, 0].T)  # (P, K)
-        # cross-shard suffix: column g composes the maps of shards g..P-1;
-        # a shard enters through the composition of every LATER shard
-        suffix_all = suffix_compose_scan_t(tmaps_all.T)  # (K, P)
-        after = torch.cat([suffix_all[:, 1:], ident], dim=1)[:, rows]  # (K, S)
-        entry = torch.index_select(after, 0, z_last)  # (1, S)
-        z = torch.gather(r_suffix, 0, entry[:, :, None].expand(1, S, cap))[0]
-    else:
-        raise ValueError(f"unknown sampling method {method!r}")
-
-    # ---- carry states across shards: the chain state entering a shard is
-    # the last block state of the highest earlier shard with any blocks ----
-    last_state = torch.where(
-        nb_l > 0, torch.gather(z, 1, torch.clamp(nb_l - 1, 0, cap - 1)[:, None])[:, 0], 0
-    )
-    last_all = mesh.all_gather(last_state)  # (P,)
-    jbest = torch.amax(
-        torch.where(layout.earlier & (nb_all[None, :] > 0), layout.ids[None, :], -1), dim=1
-    )
-    carry = torch.where(jbest >= 0, last_all[torch.clamp(jbest, min=0)], 0)[rows]  # (S,)
-
-    # ---- sweep statistics: per shard, then the ordered sum over shards ---
-    st = _local_sweep_stats(z, sizes, nb_l, bstats, mapping, nr_params)
-    # accumulate_sweep_stats took state 0 as the previous state of a
-    # shard's first block; replace it with the carried state
-    # (one-hot arithmetic on integer-valued counts: exact, no indexed add)
-    kk = torch.arange(K, device=dev)
-    moved = (carry[:, None] == kk).to(torch.float32) - (kk == 0).to(torch.float32)
-    first = (z[:, 0, None] == kk) & (nb_l > 0)[:, None]  # (S, K)
-    trans = st.trans_counts + moved[:, :, None] * first[:, None, :]
-    tot = mesh.ordered_sum(torch.cat(
-        [st.theta_sums, st.theta_sumsqs, st.theta_counts, trans.reshape(S, K * K),
-         st.state_counts], dim=1,
-    ))
-    n_p = nr_params
-    stats = SweepStats(
-        theta_sums=tot[:n_p],
-        theta_sumsqs=tot[n_p : 2 * n_p],
-        theta_counts=tot[2 * n_p : 3 * n_p],
-        trans_counts=tot[3 * n_p : 3 * n_p + K * K].reshape(K, K),
-        state_counts=tot[3 * n_p + K * K :],
-    )
-    new_model = resample_model(generator, priors, stats)
-
-    # ---- recording: +1 at each local block start with its state, -1 with
-    # the previous state (a shard's first block takes the carried state,
-    # which also closes the block spanning in from earlier shards) ---------
-    if record:
-        rec = torch.amax(nb_all) <= cap  # an overflowing sweep never records
-        z_prev = torch.cat([carry[:, None], z[:, :-1]], dim=1)
-        valid_s = valid_b & (gstarts < T) & rec
-        dec_ok = valid_s & (gstarts > 0)
-        sidx = layout.sidx
-        base = (sidx * (K * T_local))[:, None]
-        idx = torch.cat([
-            torch.where(valid_s, z * T_local + lstarts, 0) + base,
-            torch.where(dec_ok, z_prev * T_local + lstarts, 0) + base,
-        ], dim=1)
-        val = torch.cat([valid_s.to(torch.int32), -dec_ok.to(torch.int32)], dim=1)
-        buffers.counts.view(-1).index_add_(0, idx.reshape(-1), val.reshape(-1))
-        chg = dec_ok & (z != z_prev)
-        # count newly-created boundaries before setting them
-        was_set = torch.gather(buffers.everb, 1, torch.clamp(lstarts, max=T_local - 1))
-        newly = torch.sum(chg & ~was_set)
-        everb_idx = torch.where(chg, lstarts, T_local) + (sidx * (T_local + 1))[:, None]
-        buffers.everb.view(-1).index_fill_(0, everb_idx.reshape(-1), True)
-        buffers.n_rec += rec.to(torch.int32)
-        buffers.n_bound += mesh.psum(newly).to(torch.int32)
-
-    err = None
-    if debug:
-        # the input model too: a poisoned parameter must fail the sweep that
-        # sampled from it (Observation.hpp:374-392 setter guards)
-        err = _debug.model_error_bits(model, bstats) | _debug.model_error_bits(new_model)
-    return SweepOut(new_model, z, sizes, nb_all, err, stats)
+            out += [
+                Local(forward),
+                self._gather(("tots", "tots_all")),
+                Local(backward, self.generators),
+                self._gather(("tmaps", "tmaps_all")),
+                Local(fb_states),
+            ]
+        out += [
+            Local(last_state),
+            self._gather(("last_state", "last_all")),
+            Local(sweep_stats),
+            self._gather(("stats_l", "stats_all")),
+            Local(update, (self.generator,)),
+        ]
+        if key.record:
+            out.append(_identity(("newly", "newly_all")) if mesh.group is None
+                       else _Psum(mesh, "newly", "newly_all"))
+        out.append(Local(finish))
+        return out
 
 
 def _or_over_processes(mesh: PositionMesh, err: torch.Tensor) -> torch.Tensor:
-    """Bitwise OR of a () int32 error bitmask over the processes (each
+    """Bitwise OR of a () integer error bitmask over the processes (each
     checks only its own shards' block statistics)."""
     if mesh.group is None:
         return err
@@ -427,9 +617,12 @@ def sharded_phase(
     want_blocks: bool = False,
     debug: bool = False,
 ):
-    """A chunk of n_iters sharded sweeps with no host sync (the counterpart
-    of build_sharded_phase, sharded.py:449, run eagerly like
-    samplers.sweep.gibbs_phase).
+    """A chunk of n_iters sharded sweeps with no host sync, run eagerly:
+    the plain version of the chunks the engine runs as CUDA graph replays
+    (samplers/phase_graph.py), through the same ShardedSweep pieces, with
+    fresh slots and the generators seeded for each sweep as the graphs'
+    are (the counterpart of build_sharded_phase, sharded.py:449, as
+    samplers.sweep.gibbs_phase is of the JAX gibbs_phase).
 
     With ``record`` and ``thinning`` > 0, sweep i records when
     i % thinning == thinning - 1. Returns (model, buffers, prev, diag,
@@ -437,57 +630,36 @@ def sharded_phase(
     of the buffers for an overflow replay (None when not recording);
     ``diag`` = [max per-shard block count, last sweep's total block count,
     error bits OR-reduced over the chunk and the processes]; rec_nbs is
-    (rows, P). ``blk`` is None unless ``want_blocks`` on a recording chunk;
-    then it stacks per recorded sweep this process's (S, cap) states in the
+    (rows, P), one row per recorded sweep (per sweep when not recording).
+    ``blk`` is None unless ``want_blocks`` on a recording chunk; then it
+    stacks per recorded sweep this process's (S, cap) states in the
     smallest dtype that fits K, and the post-record n_bound. Block sizes do
     not travel: the drain rebuilds them from the candidates."""
-    dev = negw.device
     record = record and thinning > 0
     want_blocks = want_blocks and record
     prev = buffers.clone() if record else None
-    thr = (
-        None if static_threshold is None
-        else torch.tensor(static_threshold, dtype=torch.float32, device=dev)
+    program = ShardedSweep(
+        mesh, seed, priors, negw, r_t, q2_hi, q2_lo, T=T, T_local=T_local, cell_bits=cell_bits,
+        mapping=mapping, nr_params=nr_params, use_self_transitions=use_self_transitions,
     )
-    layout = _layout(mesh, candrank.shape[1], T_local, dev)
-    q2c = torch.stack([q2_hi.permute(1, 2, 0), q2_lo.permute(1, 2, 0)])
-    K = mapping.shape[0]
-    state_dtype = torch.int8 if K <= 127 else torch.int16 if K <= 32767 else torch.int32
-    nbs, means, varis, blk_states, blk_bounds = [], [], [], [], []
-    err = None
+    rows = n_iters // thinning if record else n_iters
+    slots = program.create_slots(model, buffers, rows, candrank, want_blocks)
+    if static_threshold is not None:
+        slots.threshold.fill_(static_threshold)
+    kinds: dict[bool, list] = {}
     for i in range(n_iters):
         rec = record and i % thinning == thinning - 1
-        out = _sharded_sweep_body(
-            mesh,
-            make_generator(dev, seed, counter, i),
-            [make_generator(dev, seed, counter, i, shard=g) for g in mesh.local_ids],
-            model, priors, negw, candpos, candrank, r_t, q2c, buffers, thr,
-            layout=layout, method=method, T=T, T_local=T_local, cell_bits=cell_bits,
-            mapping=mapping, nr_params=nr_params,
-            use_self_transitions=use_self_transitions, record=rec, debug=debug,
-        )
-        model = out.model
-        nbs.append(out.nb_all)
-        means.append(model.theta_mean)
-        varis.append(model.theta_var)
-        if debug:
-            err = out.err if err is None else err | out.err
-        if rec and want_blocks:
-            blk_states.append(out.states.to(state_dtype))
-            blk_bounds.append(buffers.n_bound.clone())
-        del out  # the (S, cap) int64 states before the next sweep's
-    nbs_t = torch.stack(nbs)  # (n_iters, P)
-    if err is None:
-        err = torch.zeros((), dtype=torch.int32, device=dev)
-    else:
-        err = _or_over_processes(mesh, err)
-    diag = torch.stack([nbs_t.max(), nbs_t[-1].sum(), err.to(nbs_t.dtype)])
-    rows = slice(thinning - 1, None, thinning) if record else slice(None)
-    blk = (torch.stack(blk_states), torch.stack(blk_bounds)) if want_blocks else None
-    return (
-        model, buffers, prev, diag, nbs_t[rows],
-        torch.stack(means)[rows], torch.stack(varis)[rows], blk,
-    )
+        if rec not in kinds:
+            key = graph_key(candrank.shape[1], method, rec, want_blocks, debug,
+                            static_threshold is None)
+            kinds[rec] = program.pieces(key, candpos, candrank, write_row=rec or not record)
+        program.seed_sweep(counter, i)
+        run_pieces(kinds[rec], slots, SimpleNamespace())
+    diag = slots.diag
+    if debug:
+        diag[2] = _or_over_processes(mesh, diag[2])
+    blk = (slots.blk_states, slots.blk_bounds) if want_blocks else None
+    return slots.model, buffers, prev, diag, slots.nbs, slots.means, slots.varis, blk
 
 
 def _local_segment_gather(
@@ -625,7 +797,11 @@ def _reassemble_block_rows(
 class ShardedEngine(runner.ChainOps):
     """Multi-shard engine mirroring runner.Engine with position sharding
     (sharded.py:775). Every process of the mesh runs the same calls in the
-    same order: the capacity decisions come from replicated values."""
+    same order: the capacity decisions come from replicated values. Its
+    phase chunks run through ``phase_graphs`` (samplers/phase_graph.
+    PhaseGraphs over a ShardedSweep): ``_run_chunk``, ``_accept_chunk`` and
+    ``_rewind_chunk`` are the whole interface, so a test can run the chunks
+    through the eager ``sharded_phase`` instead."""
 
     mesh: PositionMesh
     spec: ModelSpec
@@ -676,6 +852,11 @@ class ShardedEngine(runner.ChainOps):
             self.mesh.local_shards, K, self.T_local, self.device
         )
         self.model = sample_from_priors(self._next_generator(), self.priors)
+        self.phase_graphs = PhaseGraphs(ShardedSweep(
+            self.mesh, self.seed, self.priors, self.negw, self.r_t, self.q2_hi, self.q2_lo,
+            T=self.T, T_local=self.T_local, cell_bits=self.cell_bits, mapping=self._mapping,
+            nr_params=self.spec.nr_params, use_self_transitions=self.spec.use_self_transitions,
+        ))
         self._dynamic = True
         self._static_threshold = 0.0
         # per-shard capacity ceiling (runner._MAX_CAPACITY): burn-in chunks
@@ -735,17 +916,8 @@ class ShardedEngine(runner.ChainOps):
             self.sweep_counter += 1
             counter = self.sweep_counter  # fixed across overflow replays
             while True:
-                candpos, candrank = self._shard_candidates()
-                model, buffers, prev, diag, nbs, means, varis, blk = sharded_phase(
-                    self.mesh, self.seed, counter, self.model, self.priors,
-                    self.negw, candpos, candrank, self.r_t, self.q2_hi, self.q2_lo,
-                    self.buffers, None if self._dynamic else self._static_threshold,
-                    method=method, T=self.T, T_local=self.T_local,
-                    cell_bits=self.cell_bits, mapping=self._mapping,
-                    nr_params=self.spec.nr_params,
-                    use_self_transitions=self.spec.use_self_transitions,
-                    n_iters=n, thinning=thin_s, record=rec_s,
-                    want_blocks=want_blocks, debug=debug,
+                diag, nbs, means, varis, blk = self._run_chunk(
+                    counter, method, n, thin_s, rec_s, want_blocks, debug
                 )
                 payload = self._record_payload(nbs, means, varis, blk) if rec_s else {}
                 # the chunk's single host sync: [max_nb, last total, err] and
@@ -756,7 +928,7 @@ class ShardedEngine(runner.ChainOps):
                 max_nb = int(diag_h[0])
                 self.last_n_blocks = int(diag_h[1])
                 if max_nb <= self.cap_local:
-                    self.model, self.buffers = model, buffers
+                    self._accept_chunk()
                     break
                 # per-shard counts saturate at cap_local+1: re-price the true
                 # worst-shard count at the pre-chunk threshold for a
@@ -775,12 +947,11 @@ class ShardedEngine(runner.ChainOps):
                             f"{self.cap_local} (HAMMLET_MAX_CAPACITY); raise the "
                             "ceiling or extend burn-in"
                         )
-                    self.model, self.buffers = model, buffers
+                    self._accept_chunk()
                     break
                 self.cap_local = grown
-                # replay the chunk (same counter) from the pre-chunk snapshot
-                if prev is not None:
-                    self.buffers = prev
+                # replay the chunk (same counter) from the pre-chunk state
+                self._rewind_chunk()
             if host:
                 self._submit_drain(host, self.cap_local)
             done += n
@@ -795,6 +966,33 @@ class ShardedEngine(runner.ChainOps):
             if target < self.cap_local:
                 self.cap_local = target
             self._maybe_checkpoint()
+
+    def _run_chunk(self, counter, method, n, thinning, record, want_blocks, debug):
+        """One phase chunk from the engine's model and buffers at the
+        current capacity, through ``phase_graphs`` (graph replays on a
+        card): (diag, rec_nbs, rec_means, rec_vars, blk) as sharded_phase
+        returns them, on the device; the error bits are OR-reduced over the
+        processes after the chunk, outside the graphs."""
+        candpos, candrank = self._shard_candidates()
+        diag, *out = self.phase_graphs.run_chunk(
+            counter, self.model, self.buffers, candpos, candrank,
+            None if self._dynamic else self._static_threshold,
+            method=method, n_iters=n, thinning=thinning, record=record,
+            want_blocks=want_blocks, debug=debug,
+        )
+        if debug:
+            diag[2] = _or_over_processes(self.mesh, diag[2])
+        return (diag, *out)
+
+    def _accept_chunk(self) -> None:
+        """Take the chunk's model (a copy: the slots are overwritten by the
+        next chunk); its records are already in the buffers."""
+        self.model = self.phase_graphs.model_copy()
+
+    def _rewind_chunk(self) -> None:
+        """Undo an overflowed chunk before its replay: the buffers get their
+        pre-chunk contents back in place (the model was never replaced)."""
+        self.phase_graphs.restore_buffers(self.buffers)
 
     def _record_payload(self, nbs, means, varis, blk) -> dict[str, torch.Tensor]:
         """The device tensors a recording chunk's drain needs (see

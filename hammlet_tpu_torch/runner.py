@@ -60,7 +60,7 @@ from hammlet_tpu_torch.ops.blocks import (
 )
 from hammlet_tpu_torch.ops.wavelet import breakpoint_weights, maxlet_transform
 from hammlet_tpu_torch.ops.wavelet_cuda import maxlet_transform_cuda
-from hammlet_tpu_torch.samplers.phase_graph import PhaseGraphs
+from hammlet_tpu_torch.samplers.phase_graph import OneDeviceSweep, PhaseGraphs
 from hammlet_tpu_torch.samplers.sweep import RecordBuffers, make_generator
 
 
@@ -359,7 +359,8 @@ def _as_2d(data: np.ndarray) -> np.ndarray:
 def ingest(data: np.ndarray, weight_multiplier: float = 1.0, device=None) -> Ingest:
     """maxlet transform -> noise estimate -> breakpoint weights -> prefix
     sums (main.cpp:277-344) on the host; the results are uploaded to
-    ``device`` (``resolve_device``: the card when one is present)."""
+    ``device`` (``resolve_device``: None is the card, or the device
+    HAMMLET_TORCH_DEVICE names)."""
     device = resolve_device(device)
     data = _as_2d(data)
     T, dim = data.shape
@@ -382,7 +383,8 @@ def ingest_device(data: np.ndarray, weight_multiplier: float = 1.0, device=None)
     """Device-side ingest: upload only the raw data and run the maxlet
     transform (the Hopper kernels for CUDA data), the noise reduction, the
     breakpoint weights, the ranking sort and the in-cell prefix sums on
-    ``device`` (``resolve_device``: the card when one is present).
+    ``device`` (``resolve_device``: None is the card, or the device
+    HAMMLET_TORCH_DEVICE names).
     Bit-identical maxlet coefficients and weights."""
     device = resolve_device(device)
     data = _as_2d(data)
@@ -421,9 +423,8 @@ class ChainOps:
     #: -M chains it runs in threads one shared lock, so that they take turns
     #: at phases: torch releases and retakes the GIL around every op, and two
     #: eager launch loops in one process hand it over at nearly every op (a
-    #: graphed Engine issues a few calls per sweep, the sharded engine still
-    #: one per op). Ingest, each phase's last record drain and output run
-    #: outside it.
+    #: graphed engine issues a few calls per sweep). Ingest, each phase's
+    #: last record drain and output run outside it.
     phase_turn = contextlib.nullcontext()
 
     def _next_generator(self) -> torch.Generator:
@@ -562,12 +563,12 @@ class Engine(ChainOps):
             self.ing.T, self.spec.nr_states, self.device
         )
         self.model = sample_from_priors(self._next_generator(), self.priors)
-        self.phase_graphs = PhaseGraphs(
+        self.phase_graphs = PhaseGraphs(OneDeviceSweep(
             self.seed, self.priors, self.ing.ranked, self.ing.prefix, self._mapping,
             nr_params=self.spec.nr_params,
             use_self_transitions=self.spec.use_self_transitions,
             cell_bits=self.ing.cell_bits,
-        )
+        ))
         self._dynamic = True
         self._static_threshold = 0.0
         # explicit capacities above the default ceiling are honored
@@ -806,8 +807,8 @@ def make_engine(
     device: str | torch.device | None = None,
 ) -> Engine:
     """Build a ready-to-run engine with auto-priors (the only prior mode the
-    reference implements, main.cpp:204-215). ``device`` None picks cuda
-    when a card is present."""
+    reference implements, main.cpp:204-215). ``device`` None is the card,
+    or the device HAMMLET_TORCH_DEVICE names (device.resolve_device)."""
     trace = _setup_tracer()
     dev = resolve_device(device)
     if device_ingest is None:

@@ -118,15 +118,20 @@ def state_dtype(K: int) -> torch.dtype:
 
 class PhaseSlots(NamedTuple):
     """Fixed storage of a phase chunk: every tensor a sweep step reads or
-    writes besides the run's constants.
+    writes besides the run's constants. Shapes are the single-device
+    sweep's; the sharded sweep's (parallel/sharded.py) have a shard axis
+    where noted.
 
     model:      the chain's model, overwritten by every sweep (``copy_``)
-    buffers:    the record buffers, updated in place by recording sweeps
+    buffers:    the record buffers (RecordBuffers; sharded.ShardedBuffers),
+                updated in place by recording sweeps
     threshold:  () float32 static threshold (not read when dynamic)
     row:        () int64 next output row; a row-writing sweep advances it
     diag:       (3,) int64 [max n_blocks, last n_blocks, OR of the error bits]
-    nbs, means, varis: (R,) int64 / (R, P) / (R, P) float32 output rows
-    blk_states: (R, capacity) block states in ``state_dtype(K)``, or None
+    nbs:        (R,) int64 block counts; sharded (R, P), per shard
+    means, varis: (R, P) float32 output rows (P emission parameters)
+    blk_states: (R, capacity) block states in ``state_dtype(K)``, or None;
+                sharded (R, S, capacity)
     blk_bounds: (R,) int32 post-record ``n_boundaries``, or None
     """
 
@@ -143,10 +148,12 @@ class PhaseSlots(NamedTuple):
 
     @staticmethod
     def create(
-        model: HMMState, buffers: RecordBuffers, rows: int, capacity: int, want_blocks: bool
+        model: HMMState, buffers, rows: int, block_shape: tuple, want_blocks: bool,
+        nb_shape: tuple = (),
     ) -> "PhaseSlots":
-        """Slots holding a copy of ``model`` and ``rows`` output rows, with
-        block stacks of width ``capacity`` when ``want_blocks``."""
+        """Slots holding a copy of ``model`` and ``rows`` output rows, each
+        block count row of shape ``nb_shape``, with block stacks of shape
+        ``block_shape`` per row when ``want_blocks``."""
         dev = model.theta_mean.device
         P, K = model.theta_mean.shape[0], model.pi.shape[0]
         zeros = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device=dev)  # noqa: E731
@@ -156,10 +163,10 @@ class PhaseSlots(NamedTuple):
             threshold=zeros(),
             row=zeros(dtype=torch.int64),
             diag=zeros(3, dtype=torch.int64),
-            nbs=zeros(rows, dtype=torch.int64),
+            nbs=zeros(rows, *nb_shape, dtype=torch.int64),
             means=zeros(rows, P),
             varis=zeros(rows, P),
-            blk_states=zeros(rows, capacity, dtype=state_dtype(K)) if want_blocks else None,
+            blk_states=zeros(rows, *block_shape, dtype=state_dtype(K)) if want_blocks else None,
             blk_bounds=zeros(rows, dtype=torch.int32) if want_blocks else None,
         )
 
@@ -406,20 +413,47 @@ def sweep_step(
         use_self_transitions=use_self_transitions, cell_bits=cell_bits,
         record=record, debug=debug,
     )
-    nb, diag = out.n_blocks, slots.diag
-    diag[0] = torch.maximum(diag[0], nb)
-    diag[1] = nb
-    if debug:
+    finish_sweep(
+        slots, new_model, out.n_blocks, out.n_blocks, out.n_blocks, out.states, err,
+        slots.buffers.n_boundaries, record=record, write_row=write_row,
+    )
+
+
+def finish_sweep(
+    slots: PhaseSlots,
+    new_model: HMMState,
+    nb_max: torch.Tensor,
+    nb_last: torch.Tensor,
+    nb_row: torch.Tensor,
+    states: torch.Tensor,
+    err: torch.Tensor | None,
+    n_bound: torch.Tensor,
+    *,
+    record: bool,
+    write_row: bool,
+) -> None:
+    """The end of a sweep on fixed storage (sweep_step, and the sharded
+    sweep's last piece): fold the block counts (``nb_max`` into the
+    chunk's max, ``nb_last`` as the last) and the error bits (None without
+    debug) into ``slots.diag``; with ``write_row`` write row ``slots.row``
+    of the output stacks (``nb_row``, the new model's emission parameters,
+    and when the slots have block stacks and the sweep records, ``states``
+    and ``n_bound``, the buffers' boundary count after this sweep) and
+    advance it; then write the new model into ``slots.model``."""
+    diag = slots.diag
+    diag[0] = torch.maximum(diag[0], nb_max)
+    diag[1] = nb_last
+    if err is not None:
         diag[2] = diag[2] | err
     if write_row:
         at = slots.row.view(1)
-        slots.nbs.index_copy_(0, at, nb.view(1))
+        slots.nbs.index_copy_(0, at, nb_row[None])
         slots.means.index_copy_(0, at, new_model.theta_mean[None])
         slots.varis.index_copy_(0, at, new_model.theta_var[None])
         if record and slots.blk_states is not None:
-            slots.blk_states.index_copy_(0, at, out.states.to(slots.blk_states.dtype)[None])
+            slots.blk_states.index_copy_(0, at, states.to(slots.blk_states.dtype)[None])
             # the buffers update in place: keep this sweep's count
-            slots.blk_bounds.index_copy_(0, at, slots.buffers.n_boundaries.view(1))
+            slots.blk_bounds.index_copy_(0, at, n_bound.view(1))
         slots.row.add_(1)
     for dst, src in zip(slots.model, new_model):
         dst.copy_(src)
@@ -474,7 +508,7 @@ def gibbs_phase(
     want_blocks = want_blocks and record
     prev = buffers.clone() if record else None
     rows = n_iters // thinning if record else n_iters
-    slots = PhaseSlots.create(model, buffers, rows, cand_rank.shape[0], want_blocks)
+    slots = PhaseSlots.create(model, buffers, rows, (cand_rank.shape[0],), want_blocks)
     if static_threshold is not None:
         slots.threshold.fill_(static_threshold)
     for i in range(n_iters):

@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import torch
 
+from hammlet_tpu_torch.device import DEVICE_VAR
+
 
 def to_np(x) -> np.ndarray:
     """numpy copy of a torch tensor or a JAX/numpy array."""
@@ -37,6 +39,17 @@ def assert_ulp(got, want, max_ulp: int) -> None:
     w = np.ascontiguousarray(to_np(want), dtype=np.float32).view(np.int32)
     dist = np.abs(g.astype(np.int64) - w.astype(np.int64))
     assert dist.max() <= max_ulp, (dist.max(), to_np(got), to_np(want))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def cpu_requested():
+    """HAMMLET_TORCH_DEVICE=cpu for every test of a module that imports
+    this fixture, and so for the processes those tests start: the port
+    runs on the CPU only when asked for it by name (the JAX package's
+    tests ask with JAX_PLATFORMS=cpu). Restored after the module."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv(DEVICE_VAR, "cpu")
+        yield
 
 
 @pytest.fixture
@@ -104,6 +117,15 @@ def eager_engine(eng):
     return eager(eng)
 
 
+def eager_sharded_engine(eng):
+    """``eng`` (a parallel.sharded.ShardedEngine) with every phase chunk
+    run through the eager parallel.sharded.sharded_phase, the plain version
+    of its graphed chunks; chip_smoke.py's helper."""
+    from chip_smoke import eager_sharded_engine as eager
+
+    return eager(eng)
+
+
 def fail_on_last_rank() -> None:
     """A parallel/launch.py ``run_on_cards`` target: the last process of the
     group raises while the others wait for it in a barrier."""
@@ -149,6 +171,10 @@ class ThreadRanks:
 
     def _exchange(self, x: torch.Tensor) -> list:
         self.slots[self.local.rank] = x.clone()
+        if x.is_cuda:
+            # as a real collective, ordered after the caller's queued work
+            # (threads may queue on streams of their own: a graph warm-up)
+            torch.cuda.current_stream(x.device).synchronize()
         self.barrier.wait()
         got = list(self.slots)
         self.barrier.wait()

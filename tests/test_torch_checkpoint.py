@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import synth_segments
+from _torch_helpers import synth_segments, cpu_requested  # noqa: F401
 from hammlet_tpu import checkpoint as jckpt
 from hammlet_tpu import runner as jrun
 from hammlet_tpu_torch import cli, runner

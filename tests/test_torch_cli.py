@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import synth_segments
+from _torch_helpers import synth_segments, cpu_requested  # noqa: F401
 from hammlet_tpu import cli as jcli
 from hammlet_tpu.golden.parity import read_marginals, tv_aligned
 from hammlet_tpu_torch import cli as tcli
@@ -128,6 +128,48 @@ def test_fails_before_any_output(tmp_path, capsys, monkeypatch):
     assert "already exists" in capsys.readouterr().err
     assert (tmp_path / "o-marginals.csv").read_text() == "keep\n"
     assert not (tmp_path / "o-sequences.csv").exists()
+
+
+@pytest.mark.parametrize("how", ["main", "bin"])
+def test_no_card_without_the_cpu_request_fails(tmp_path, capsys, monkeypatch, how):
+    """Without a card and without HAMMLET_TORCH_DEVICE the CLI (cli.main
+    with torch.cuda.is_available() made False; bin/hammlet-torch in a
+    process that sees no card) prints one [ERROR] that names the request,
+    exits 1 and makes no file. With HAMMLET_TORCH_DEVICE=cpu the same
+    command runs, on the CPU."""
+    import os
+    import subprocess
+    import sys
+
+    from hammlet_tpu_torch.device import DEVICE_VAR
+
+    f = _data_file(tmp_path, T=600)
+    argv = ["-f", f, "-o", str(tmp_path / "o-"), ".csv", "-a", "-R", "1", "-i", "M", "4", "0",
+            "F", "4", "2", "-O", "M", "-v"]
+    monkeypatch.delenv(DEVICE_VAR)
+    if how == "main":
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+        def run(env):
+            for name, value in env.items():
+                monkeypatch.setenv(name, value)
+            rc = tcli.main(argv)
+            got = capsys.readouterr()
+            return rc, got.out, got.err
+    else:
+        exe = str(Path(__file__).resolve().parents[1] / "bin" / "hammlet-torch")
+
+        def run(env):
+            proc = subprocess.run([sys.executable, exe, *argv], capture_output=True, text=True,
+                                  timeout=300, env={**os.environ, "CUDA_VISIBLE_DEVICES": "", **env})
+            return proc.returncode, proc.stdout, proc.stderr
+
+    rc, out, err = run({})
+    assert rc == 1 and err.count("[ERROR]") == 1 and f"{DEVICE_VAR}=cpu" in err, (rc, err)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["d.csv"]
+    rc, out, err = run({DEVICE_VAR: "cpu"})
+    assert rc == 0 and "Device: cpu" in out, (rc, err)
+    assert (tmp_path / "o-marginals.csv").exists()
 
 
 @pytest.mark.parametrize("value", ["2", "auto"])

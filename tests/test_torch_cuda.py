@@ -611,3 +611,220 @@ def test_synchronize_leaves_another_threads_capture_alone(cuda_device):
         t.join(timeout=60)
     assert not t.is_alive() and errors == []
     assert eng.phase_graphs.captures >= 4 and _graphed(eng)
+
+
+def _sharded(data, device, seed, mesh=None, P=4, **kw):
+    """The sharded engine with P shards on ``device`` (or on ``mesh``)."""
+    from hammlet_tpu_torch.parallel import sharded
+
+    return sharded.make_sharded_engine(data, mesh=mesh, n_devices=None if mesh else P, nr_params=3,
+                                       seed=seed, device=None if mesh else device, **kw)
+
+
+@pytest.mark.cuda
+def test_sharded_graph_matches_eager_on_card(cuda_device, tmp_path, monkeypatch):
+    """Exact on the card: cli.main -D 4 (four shards in one process) with
+    all seven outputs, static and dynamic thresholds, writes the same bytes
+    whether the sharded engine replays one graph per sweep kind or runs its
+    chunks through the eager sharded_phase; every sweep of the graphed run
+    was a replay, and the eager engine replayed none."""
+    from _torch_helpers import eager_sharded_engine
+
+    np.savetxt(tmp_path / "d.csv", synth_segments(100_000, 24)[0], fmt="%.6f")
+    make = cli.make_sharded_engine
+    engines, out = [], {}
+    for tag in ("graph", "eager"):
+        wrap = eager_sharded_engine if tag == "eager" else (lambda e: e)
+        monkeypatch.setattr(cli, "make_sharded_engine",
+                            lambda *a, **k: engines.append(wrap(make(*a, **k))) or engines[-1])
+        argv = ["-f", str(tmp_path / "d.csv"), "-s", "3", "-a", "-R", "6", "-D", "4", "-i",
+                *"M 16 0 S F 32 4 D F 32 2".split(), "-O", *STREAMS, "-o",
+                str(tmp_path / f"{tag}-"), ".csv", "-w"]
+        assert cli.main(argv) == 0
+        out[tag] = {s: (tmp_path / f"{tag}-{s}.csv").read_bytes() for s in STREAMS}
+    g, e = engines
+    assert g.device.type == "cuda" and _graphed(g) and g.phase_graphs.graphs == g.phase_graphs.captures
+    assert e.phase_graphs.replays == 0
+    for s in STREAMS:
+        assert out["graph"][s] == out["eager"][s], s
+    assert out["graph"]["parameters"].count(b"\n") == 8 + 16
+
+
+@pytest.mark.cuda
+def test_sharded_graph_overflow_replay_on_card(cuda_device):
+    """Exact on the card: from a small per-shard capacity recording chunks
+    overflow and are replayed at a grown capacity after their buffers are
+    restored in place (new graphs at each capacity), ending with the eager
+    engine's bytes."""
+    from _torch_helpers import eager_sharded_engine
+
+    data = synth_segments(200_000, 25, seglen=100)[0]
+    engines = []
+    for eager in (False, True):
+        eng = _sharded(data, cuda_device, 4, cap_local=128)
+        if eager:
+            eager_sharded_engine(eng)
+        eng.run("M", 8, 0)
+        eng._resize_capacity_for_phase = lambda: None  # keep the small capacity
+        eng.cap_local = 128
+        counts = eng.buffers.counts
+        eng.run("F", 16, 2)
+        assert eng.cap_local > 128
+        engines.append((eng, counts))
+    (g, counts), (e, _) = engines
+    assert g.buffers.counts is counts and _graphed(g)
+    assert g.phase_graphs.replays > g.total_sweeps  # the overflowed chunks ran again
+    for name in ("counts", "everb", "n_rec", "n_bound"):
+        assert torch.equal(getattr(g.buffers, name), getattr(e.buffers, name)), name
+    assert all(torch.equal(a, b) for a, b in zip(g.model, e.model))
+    assert set(g.marginal_counts.sum(axis=0).tolist()) == {8}
+
+
+@pytest.mark.cuda
+def test_resume_into_graphed_sharded_engine_on_card(cuda_device, tmp_path):
+    """Exact on the card: a sharded checkpoint restored into an engine that
+    has captured graphs (its buffers keep their addresses) continues with
+    the bytes of the uninterrupted eager run."""
+    from _torch_helpers import eager_sharded_engine
+    from hammlet_tpu_torch.checkpoint import restore_sharded_checkpoint, save_sharded_checkpoint
+
+    data = synth_segments(300_000, 26)[0]
+    whole = eager_sharded_engine(_sharded(data, cuda_device, 5))
+    whole.run("M", 16, 0)
+    whole.run("F", 64, 4)
+    cut = _sharded(data, cuda_device, 5)
+    cut.run("M", 16, 0)
+    save_sharded_checkpoint(cut, str(tmp_path / "c.npz"))
+    resumed = _sharded(data, cuda_device, 5)
+    resumed.run("M", 4, 0)
+    tensors = (resumed.buffers.counts, resumed.buffers.everb)
+    restore_sharded_checkpoint(resumed, str(tmp_path / "c.npz"))
+    assert (resumed.buffers.counts, resumed.buffers.everb) == tensors
+    resumed.run("F", 64, 4)
+    assert _graphed(resumed) and int(resumed.buffers.n_rec) == 16
+    for name in ("counts", "everb", "n_rec", "n_bound"):
+        assert torch.equal(getattr(whole.buffers, name), getattr(resumed.buffers, name)), name
+    assert all(torch.equal(a, b) for a, b in zip(whole.model, resumed.model))
+
+
+@pytest.mark.cuda
+def test_sharded_graphed_chunk_never_syncs_and_counts(cuda_device):
+    """A graphed recording phase of the sharded engine at a capacity never
+    captured queues its work with no synchronizing call; the captures,
+    graphs and replays counters move by one sweep kind each (quiet and
+    recording), one graph each, and one replay per sweep."""
+    eng = _sharded(synth_segments(100_000, 27)[0], cuda_device, 2)
+    eng.run("M", 10, 0)
+    eng._resize_capacity_for_phase = lambda: None
+    eng.cap_local = eng.T_local  # no overflow: no re-pricing sync
+    pg = eng.phase_graphs
+    before = (pg.captures, pg.graphs, pg.replays)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with eng._draining():
+            eng._run_phase("F", 16, 4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (pg.captures, pg.graphs, pg.replays) == (before[0] + 2, before[1] + 2, before[2] + 16)
+    assert int(eng.buffers.n_rec) == 4
+
+
+@pytest.mark.cuda
+def test_sharded_capture_failure_raises_on_card(cuda_device):
+    """A capture that fails (here: a piece that waits for the host inside
+    it) raises out of the phase; the engine does not run the eager loop
+    instead, and replays nothing."""
+    from hammlet_tpu_torch.samplers.phase_graph import Local
+
+    eng = _sharded(synth_segments(50_000, 28)[0], cuda_device, 3)
+    program = eng.phase_graphs.program
+    real = program.pieces
+
+    def pieces(*args, **kwargs):
+        return real(*args, **kwargs) + [Local(lambda slots, st: slots.diag.sum().item())]
+
+    program.pieces = pieces
+    model = eng.model
+    with pytest.raises(RuntimeError):
+        eng.run("M", 4, 0)
+    assert eng.phase_graphs.replays == 0 and eng.phase_graphs.captures == 0
+    assert eng.model is model and int(eng.buffers.n_rec) == 0
+
+
+@pytest.mark.cuda
+def test_segment_graphs_in_nccl_group_of_one_on_card(cuda_device, tmp_path):
+    """Exact on the card: inside a one-process NCCL group every collective
+    of the sweep runs through NCCL, so each sweep kind is captured as
+    several graphs (its local runs) with the collectives issued eagerly
+    between their replays; the run writes the bytes of the same run
+    without a group (one graph per kind)."""
+    import socket
+
+    import torch.distributed as dist
+    from hammlet_tpu_torch.parallel.mesh import PositionMesh
+
+    data = synth_segments(300_000, 29)[0]
+    streams = {"marginals", "parameters", "compression", "sequences"}
+    engines, out = {}, {}
+
+    def run(tag, mesh):
+        rec = Records(len(data), str(tmp_path / f"{tag}-"), ".csv", 3, outputs=streams,
+                      overwrite=True)
+        eng = _sharded(data, cuda_device, 8, mesh=mesh, records=rec)
+        eng.run_scheme("M 16 0 F 64 4".split())
+        eng.finalize()
+        engines[tag] = eng
+        out[tag] = {s: (tmp_path / f"{tag}-{s}.csv").read_bytes() for s in streams}
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    run("alone", PositionMesh(4, device))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0,
+                            device_id=device)
+    try:
+        run("group", PositionMesh(4, device, dist.group.WORLD))
+    finally:
+        dist.destroy_process_group()
+    assert out["group"] == out["alone"]
+    a, g = engines["alone"].phase_graphs, engines["group"].phase_graphs
+    assert _graphed(engines["group"]) and a.graphs == a.captures
+    assert g.graphs >= 4 * g.captures  # M sweeps: 4 runs; F: 6, recording F: 7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 4])
+def test_graph_inputs_outlive_the_capture_on_card(cuda_device, P):
+    """Exact on the card: memory allocated between the replays (here, small
+    tensors of every size to 4 KiB filled with -7, made and dropped before
+    every sweep) is never memory that a captured graph reads, such as a
+    constant the sweep's pieces made before the capture; the graphed
+    sharded engine still writes the eager engine's bytes."""
+    from _torch_helpers import eager_sharded_engine
+
+    data = synth_segments(200_000, 30)[0]
+    engines, junk = [], []
+    for eager in (False, True):
+        eng = _sharded(data, cuda_device, 7, P=P)
+        if eager:
+            eager_sharded_engine(eng)
+        program = eng.phase_graphs.program
+        real = program.seed_sweep
+
+        def seed_sweep(counter, i, real=real):
+            real(counter, i)
+            junk.clear()
+            junk.extend(torch.full((n,), -7, dtype=torch.int64, device=cuda_device)
+                        for n in range(1, 513, 3))
+
+        program.seed_sweep = seed_sweep
+        eng.run("M", 8, 0)
+        eng.run("F", 32, 2)
+        engines.append(eng)
+    g, e = engines
+    assert _graphed(g)
+    for name in ("counts", "everb", "n_rec", "n_bound"):
+        assert torch.equal(getattr(g.buffers, name), getattr(e.buffers, name)), name
+    assert all(torch.equal(a, b) for a, b in zip(g.model, e.model))

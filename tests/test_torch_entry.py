@@ -4,6 +4,8 @@ the sharded dry run with its two-process gloo run of the CLI."""
 
 import torch
 
+from _torch_helpers import cpu_requested  # noqa: F401
+
 from hammlet_tpu_torch import entry as tentry
 from hammlet_tpu_torch.models.hmm import HMMState
 

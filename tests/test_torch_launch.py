@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_helpers import cpu_requested  # noqa: F401
+
 from hammlet_tpu_torch import cli
 from hammlet_tpu_torch.parallel import distributed, launch
 

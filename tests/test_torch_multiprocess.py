@@ -17,6 +17,8 @@ import sys
 import numpy as np
 import pytest
 
+from _torch_helpers import cpu_requested  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCHEME = "M 10 0 F 10 0 F 20 2".split()
 STREAMS = ("marginals", "parameters", "compression")

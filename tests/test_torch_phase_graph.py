@@ -15,7 +15,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from _torch_helpers import eager_engine, synth_segments, to_np
+from _torch_helpers import eager_engine, synth_segments, to_np, cpu_requested  # noqa: F401
 from hammlet_tpu import runner as jrun
 from hammlet_tpu.models.hmm import HMMPriors as JHMMPriors
 from hammlet_tpu.models.hmm import HMMState as JHMMState
@@ -46,10 +46,10 @@ def assert_same_buffers(a, b) -> None:
 
 
 def phase_graphs(eng) -> phase_graph.PhaseGraphs:
-    return phase_graph.PhaseGraphs(
+    return phase_graph.PhaseGraphs(phase_graph.OneDeviceSweep(
         eng.seed, eng.priors, eng.ing.ranked, eng.ing.prefix, eng._mapping,
         nr_params=eng.spec.nr_params, use_self_transitions=True, cell_bits=eng.ing.cell_bits,
-    )
+    ))
 
 
 @pytest.fixture(scope="module")
@@ -304,9 +304,9 @@ def test_chunk_vs_jax_gibbs_phase(method):
         record=True, want_blocks=True, debug=False,
     )
     priors = HMMPriors.create(nig, K)
-    pg = phase_graph.PhaseGraphs(1, priors, ting.ranked, ting.prefix,
-                                 torch.arange(K).reshape(K, 1), nr_params=K,
-                                 use_self_transitions=True, cell_bits=ting.cell_bits)
+    pg = phase_graph.PhaseGraphs(phase_graph.OneDeviceSweep(
+        1, priors, ting.ranked, ting.prefix, torch.arange(K).reshape(K, 1), nr_params=K,
+        use_self_transitions=True, cell_bits=ting.cell_bits))
     buf = sweep.RecordBuffers.create(T, K)
     got = pg.run_chunk(1, convert.hmm_state(SimpleNamespace(**model)), buf, tpos, trank,
                        float(thr), method=method, n_iters=n, thinning=thin, record=True,

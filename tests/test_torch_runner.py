@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from _torch_helpers import assert_bitwise, synth_segments, to_np
+from _torch_helpers import assert_bitwise, synth_segments, to_np, cpu_requested  # noqa: F401
 from hammlet_tpu import runner as jrun
 from hammlet_tpu.golden.parity import read_marginals, tv_aligned
 from hammlet_tpu.io.records import Records as JRecords
@@ -102,8 +102,9 @@ def test_ingest_device_matches_jax(dim):
 
 def test_ingest_default_device_is_resolve_device():
     """With no device, both ingests land where ``resolve_device(None)``
-    points (the card when one is present, here the CPU), as the JAX
-    package's run on its default device."""
+    points (the card, or the device HAMMLET_TORCH_DEVICE names: here the
+    CPU these tests ask for), as the JAX package's run on its default
+    device."""
     from hammlet_tpu_torch.device import resolve_device
 
     data = np.random.default_rng(5).normal(0, 1, size=3000).astype(np.float32)
@@ -317,3 +318,33 @@ def test_slice_end_to_end_vs_jax(tmp_path):
     rows = [list(map(int, x.split("\t"))) for x in (tmp_path / "torch1-marginals.csv").read_text().splitlines()]
     assert sum(r[0] for r in rows) == 20000
     assert all(sum(r[1:]) == 30 for r in rows)
+
+
+@pytest.mark.parametrize("call", ["resolve_device", "process_device", "ingest", "ingest_device",
+                                  "make_engine", "make_sharded_engine"])
+def test_no_card_without_the_cpu_request_raises(monkeypatch, call):
+    """Without a card (torch.cuda.is_available() made False) and without
+    HAMMLET_TORCH_DEVICE, every way of taking the default device raises
+    and names the request; with HAMMLET_TORCH_DEVICE=cpu, or device="cpu"
+    passed, it is the CPU. The port never falls back to the CPU on its
+    own."""
+    from hammlet_tpu_torch.device import DEVICE_VAR, resolve_device
+    from hammlet_tpu_torch.parallel import distributed, sharded
+
+    data = np.random.default_rng(6).normal(0, 1, size=2000).astype(np.float32)
+    calls = {
+        "resolve_device": lambda **k: resolve_device(k.get("device")),
+        "process_device": lambda **k: distributed.process_device(),
+        "ingest": lambda **k: trun.ingest(data, **k).weights.device,
+        "ingest_device": lambda **k: trun.ingest_device(data, **k).weights.device,
+        "make_engine": lambda **k: trun.make_engine(data, **k).device,
+        "make_sharded_engine": lambda **k: sharded.make_sharded_engine(data, n_devices=2, **k).device,
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv(DEVICE_VAR)
+    with pytest.raises(RuntimeError, match=f"{DEVICE_VAR}=cpu"):
+        calls[call]()
+    if call != "process_device":
+        assert calls[call](device="cpu") == torch.device("cpu")
+    monkeypatch.setenv(DEVICE_VAR, "cpu")
+    assert calls[call]() == torch.device("cpu")

@@ -18,7 +18,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from _torch_helpers import synth_segments, to_np, to_torch, toy_problem
+from _torch_helpers import synth_segments, to_np, to_torch, toy_problem, cpu_requested  # noqa: F401
 from hammlet_tpu import runner as jrun
 from hammlet_tpu.models import distributions as jd
 from hammlet_tpu.ops import blocks as jb

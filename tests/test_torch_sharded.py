@@ -8,13 +8,14 @@ import os
 import subprocess
 import sys
 from itertools import permutations
+from types import SimpleNamespace
 
 import jax
 import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import assert_bitwise, synth_segments, to_np
+from _torch_helpers import assert_bitwise, synth_segments, to_np, cpu_requested  # noqa: F401
 from hammlet_tpu import checkpoint as jckpt
 from hammlet_tpu import runner as jrun
 from hammlet_tpu.io.records import Records as JRecords
@@ -28,7 +29,7 @@ from hammlet_tpu_torch.ops.blocks import build_prefix_stats
 from hammlet_tpu_torch.parallel import sharded as tsh
 from hammlet_tpu_torch.parallel.ingest import sharded_ingest
 from hammlet_tpu_torch.parallel.mesh import position_mesh
-from hammlet_tpu_torch.samplers.sweep import make_generator
+from hammlet_tpu_torch.samplers.phase_graph import graph_key, run_pieces
 
 torch.set_num_threads(1)
 
@@ -266,18 +267,17 @@ def test_sweep_given_jax_draws(jax_run, method):
                 axis=2,
             )),
         )
-    mesh = e.mesh
-    q2c = torch.stack([e.q2_hi.permute(1, 2, 0), e.q2_lo.permute(1, 2, 0)])
-    got = tsh._sharded_sweep_body(
-        mesh, make_generator(CPU, 0, 0), None, e.model, e.priors, e.negw, pos, rank,
-        e.r_t, q2c, e.buffers, None,
-        layout=tsh._layout(mesh, cap, e.T_local, CPU), method=method, T=e.T,
-        T_local=e.T_local, cell_bits=e.cell_bits, mapping=e._mapping, nr_params=3,
-        use_self_transitions=True, record=True, noise=noise,
-    )
+    # one sweep of the port's pieces (those the engine's graphs capture),
+    # run eagerly on the engine's buffers
+    program = e.phase_graphs.program
+    key = graph_key(cap, method, True, False, False, True)
+    slots = program.create_slots(e.model, e.buffers, 1, rank, False)
+    program.seed_sweep(0, 0)  # the model update's stream (not compared)
+    got = SimpleNamespace()
+    run_pieces(program.pieces(key, pos, rank, write_row=False, noise=noise), slots, got)
     np.testing.assert_array_equal(to_np(got.nb_all), j_nb)
     np.testing.assert_array_equal(to_np(got.sizes), j_sizes.reshape(P, cap))
-    np.testing.assert_array_equal(to_np(got.states), j_z.reshape(P, cap))
+    np.testing.assert_array_equal(to_np(got.z), j_z.reshape(P, cap))
     np.testing.assert_array_equal(to_np(e.buffers.counts).reshape(-1), j_counts)
     np.testing.assert_array_equal(to_np(e.buffers.everb[:, : e.T_local]).reshape(-1), j_everb)
     assert (int(e.buffers.n_rec), int(e.buffers.n_bound)) == (int(j_nrec), int(j_nbound))

@@ -16,6 +16,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from _torch_helpers import cpu_requested  # noqa: F401
+
 from hammlet_tpu import pyhammlet as jph
 from hammlet_tpu.tools import avg as javg
 from hammlet_tpu.tools import genome as jgen
