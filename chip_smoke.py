@@ -7,8 +7,8 @@ Run from the repository root on a machine with a card:
 
 Phases, one line each (a failed phase exits non-zero and prints no result):
 1. card: nvidia-smi name and power limit, torch's device name;
-2. build: nvcc builds csrc/maxlet.cu for sm_90a into hammlet_tpu_torch/build/
-   (ptxas registers and spills of each kernel);
+2. build: nvcc builds csrc/maxlet.cu and csrc/fbscan.cu for sm_90a into
+   hammlet_tpu_torch/build/ (ptxas registers and spills of each kernel);
 3. kernel: each Hopper maxlet kernel (chunk, cross-chunk) against its own
    plain torch version and the whole transform against
    wavelet.maxlet_transform, on the card and on the CPU, bit for bit, at
@@ -20,6 +20,19 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    TIMED_SHAPES entry: CUDA-event times (L2 flushed; warm, device only;
    warm with the host launch) of each kernel, the transform and their plain
    versions, beside the bound;
+3b. fbscan: each FB scan kernel (csrc/fbscan.cu, through samplers/fb_cuda.py)
+   against its plain version on the card at FB_SIZES x FB_KS x FB_ROWS (the
+   prefix within FB_RTOL / FB_ATOL, counting the cases that are bitwise; the
+   suffix bitwise), each row of a 4-row call against a one-row call, a
+   permuted and a transposed view, NaN propagation; after phase 9, the
+   sweep's own cross-shard views (taken from the eager [sharded] engine)
+   against the plain versions of their contiguous copies, then for each
+   timed input both kernels checked against their plain versions on it and
+   CUDA-event times of both (L2 flushed; warm, device only) and of their
+   plain versions, beside the bound: the sweep's own matrices and maps at
+   P = 1 and P = 4 (taken from the eager [graph] and [sharded] engines),
+   uniform inputs at the same shapes, at the T = 250M per-shard shape, at a
+   flat FB_FLAT and at K = 10;
 4. main path: make_engine -> run_scheme("M 64 0 F 512 4") -> finalize at
    T = 4,000,000 positions, 3 states (the repo benchmark's configuration),
    checking that ingest launched both kernels, that every marginal row
@@ -98,15 +111,16 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    9's graphed and eager engines, the CUDA
    runtime's launch calls (cudaLaunchKernel, cudaGraphLaunch), device
    kernels, device ms and busy share, and the ten costliest kernels inside
-   the graphed sweep; the eager sweep's device ms by the stage of the sweep
-   that launched each kernel; last, because a process that has
+   the graphed sweep, and every FB scan kernel in the graphed P = 1 and
+   P = 4 sweeps (both must be there); the eager sweep's device ms by the
+   stage of the sweep that launched each kernel; last, because a process that has
    run the profiler launches more slowly;
 then the kernels JSON line, the nvidia-smi line, and the result line.
 
 ``python3 chip_smoke.py --sharded-cards N [PAIRS [T]]`` runs phase [cards]
 alone; it needs N cards: (a) on each card both maxlet kernels bitwise
 against their plain versions and the golden transform (T = 4,000,000, dim 1
-and 3); (b) the main path's data and scheme through bin/hammlet-torch -f
+and 3), and both FB scan kernels bitwise against their plain versions; (b) the main path's data and scheme through bin/hammlet-torch -f
 -D N with -C, which spawns N processes, one per card, over NCCL, against
 the same command under CUDA_VISIBLE_DEVICES=0 (one process, N shards on one
 card), byte for byte, and a third N-process run killed after its first
@@ -160,7 +174,8 @@ from hammlet_tpu_torch.ops import wavelet, wavelet_cuda
 from hammlet_tpu_torch.parallel import distributed, launch, sharded
 from hammlet_tpu_torch.parallel.ingest import sharded_ingest
 from hammlet_tpu_torch.parallel.mesh import PositionMesh, position_mesh
-from hammlet_tpu_torch.samplers import sweep
+from hammlet_tpu_torch.samplers import fb_cuda, sweep
+from hammlet_tpu_torch.samplers import forward_backward as fb
 from hammlet_tpu_torch.samplers.forward_backward import fb_sample_states
 
 T_MAIN = 4_000_000
@@ -206,12 +221,31 @@ GROUP_VARS = ("HAMMLET_NUM_PROCESSES", "HAMMLET_COORDINATOR", "HAMMLET_PROCESS_I
               "HAMMLET_LOCAL_DEVICES", "CUDA_VISIBLE_DEVICES")
 FB_DRAWS = 3000  # [main]: draws of the FB sampler and of the golden one
 COUNTED = (wavelet_cuda.maxlet_transform_cuda, wavelet_cuda.maxlet_chunks_cuda,
-           wavelet_cuda.maxlet_cross_cuda)
-COUNT_NAMES = ("transforms", "maxlet_chunk_kernel", "maxlet_cross_kernel")
-KERNEL_ROWS = (  # name, the TPU code it replaces, key in phase_kernel's results
-    ("maxlet_chunk_kernel", "hammlet_tpu/ops/wavelet_pallas.py:41", "chunk"),
-    ("maxlet_cross_kernel", "hammlet_tpu/ops/wavelet_pallas.py:130", "cross"),
+           wavelet_cuda.maxlet_cross_cuda, fb_cuda.prefix_matmul_scan_cuda,
+           fb_cuda.suffix_compose_scan_cuda)
+COUNT_NAMES = ("transforms", "maxlet_chunk_kernel", "maxlet_cross_kernel",
+               "prefix_matmul_scan_kernel", "suffix_compose_scan_kernel")
+MAXLET_NAMES = COUNT_NAMES[:3]  # launched once per ingest
+FB_NAMES = COUNT_NAMES[3:]  # launched by every eager sweep and every capture
+KERNEL_ROWS = (  # name (the kernels a call runs on the main path), source, the TPU code it
+    # replaces, key in the timing results, key in COUNT_NAMES
+    ("maxlet_chunk_kernel", "hammlet_tpu_torch/csrc/maxlet.cu",
+     "hammlet_tpu/ops/wavelet_pallas.py:41", "chunk", "maxlet_chunk_kernel"),
+    ("maxlet_cross_kernel", "hammlet_tpu_torch/csrc/maxlet.cu",
+     "hammlet_tpu/ops/wavelet_pallas.py:130", "cross", "maxlet_cross_kernel"),
+    ("fbscan_prefix_group_kernel+fbscan_prefix_rows_smem_kernel+fbscan_prefix_combine_kernel",
+     "hammlet_tpu_torch/csrc/fbscan.cu", "hammlet_tpu/samplers/forward_backward.py:94", "prefix",
+     "prefix_matmul_scan_kernel"),
+    ("fbscan_suffix_group_smem_kernel+fbscan_suffix_rows_smem_kernel+fbscan_suffix_combine_kernel",
+     "hammlet_tpu_torch/csrc/fbscan.cu", "hammlet_tpu/samplers/forward_backward.py:154", "suffix",
+     "suffix_compose_scan_kernel"),
 )
+FB_SIZES = [8, 130, 256, 384, 29_696, 433_920, 500_000]  # [fbscan]: block counts B
+FB_BIG = 433_920  # [cards] (d)'s capacity per shard at T = 250M: 3,390 group totals
+FB_KS = [1, 2, 3, 5, 10]  # [fbscan]: states K
+FB_ROWS = [1, 4]  # [fbscan]: batch rows R (the sharded engine's local shards)
+FB_RTOL, FB_ATOL = 1e-6, 1e-30  # [fbscan]: prefix kernel against its plain version
+FB_FLAT = 500_000  # [fbscan]: a flat B (not a multiple of 128) too long for one CTA
 
 
 class SmokeFailure(Exception):
@@ -495,6 +529,204 @@ def phase_kernel() -> dict:
     n_kernels, names = transform_kernel_count()
     check(n_kernels == 2, f"one maxlet_transform_cuda call ran {n_kernels} CUDA kernels: {names}")
     return {"worst": worst, "timed": timed, "profiled": n_kernels}
+
+
+def fb_inputs(B: int, K: int, R: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(K, K, R, B) float32 block matrices with entries in [0.05, 1) and
+    (K, R, B) int64 maps into [0, K), made on the card from ``seed``, padded
+    as the sweep pads them: with R > 1 the second half of row 1 and all of
+    the last row are identity matrices and identity maps."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    M = torch.rand((K, K, R, B), generator=gen, device="cuda").mul_(0.95).add_(0.05)
+    maps = torch.randint(0, K, (K, R, B), generator=gen, device="cuda")
+    if R > 1:
+        eye = torch.eye(K, device="cuda")[:, :, None]
+        ident = torch.arange(K, device="cuda")[:, None]
+        M[:, :, 1, B // 2:] = eye
+        M[:, :, R - 1] = eye
+        maps[:, 1, B // 2:] = ident
+        maps[:, R - 1] = ident
+    return M, maps
+
+
+class ScanInputs:
+    """While entered, keeps a copy of the input of every FB scan kernel
+    call (through fb_cuda._scan, which both wrappers call; strides kept, so
+    the sharded engine's cross-shard views stay views), the last one of
+    each kind, shape and stride: ``seen[kind]`` maps (shape, stride) to the
+    tensor. Run an eager engine inside it to take the sweep's own matrices
+    and maps."""
+
+    def __init__(self):
+        self.seen: dict = {"prefix": {}, "suffix": {}}
+        self.real = fb_cuda._scan
+
+    def __enter__(self):
+        def keep(kind, x, lead, what):
+            self.seen[kind][(tuple(x.shape), x.stride())] = x.clone()
+            return self.real(kind, x, lead, what)
+
+        fb_cuda._scan = keep
+        return self
+
+    def __exit__(self, *exc):
+        fb_cuda._scan = self.real
+
+    def main_and_others(self) -> tuple:
+        """((M, maps) of the largest call of each kind, [(kind, x), ...] of
+        every other call: the sharded engine's cross-shard scans, on the
+        tensors the sweep passed, strides kept)."""
+        main = [max(self.seen[k].values(), key=lambda x: x.numel()) for k in ("prefix", "suffix")]
+        others = [(k, x) for k, m in zip(("prefix", "suffix"), main)
+                  for x in self.seen[k].values() if x is not m]
+        return tuple(main), others
+
+
+def check_scans(M: torch.Tensor, maps: torch.Tensor, where: str) -> bool:
+    """Each FB scan kernel against its plain version on the contiguous copy
+    of its input: the prefix within FB_RTOL / FB_ATOL (NaN where the plain
+    version has NaN), the suffix bitwise. Returns whether the prefix was
+    bitwise too."""
+    got = fb_cuda.prefix_matmul_scan_cuda(M)
+    want = fb.prefix_matmul_scan_reference(M.contiguous())
+    check(got.shape == M.shape and torch.allclose(got, want, rtol=FB_RTOL, atol=FB_ATOL,
+                                                  equal_nan=True),
+          f"[fbscan] prefix kernel != plain beyond rtol {FB_RTOL} ({where})")
+    check(torch.equal(fb_cuda.suffix_compose_scan_cuda(maps),
+                      fb.suffix_compose_scan_reference(maps.contiguous())),
+          f"[fbscan] suffix kernel != plain ({where})")
+    return bits_equal(got, want)
+
+
+def check_cross_shard(calls: list) -> int:
+    """Each (kind, x) of ``calls`` (the sweep's cross-shard scans, strides
+    as the sweep passed them) through its kernel against the plain version
+    of its contiguous copy: the prefix within FB_RTOL / FB_ATOL, the suffix
+    bitwise. Returns how many were bitwise."""
+    bitwise = 0
+    for kind, x in calls:
+        if kind == "prefix":
+            got = fb_cuda.prefix_matmul_scan_cuda(x)
+            want = fb.prefix_matmul_scan_reference(x.contiguous())
+            ok = torch.allclose(got, want, rtol=FB_RTOL, atol=FB_ATOL)
+        else:
+            got = fb_cuda.suffix_compose_scan_cuda(x)
+            want = fb.suffix_compose_scan_reference(x.contiguous())
+            ok = torch.equal(got, want)
+        check(ok, f"[fbscan] {kind} kernel != plain on the sweep's cross-shard call "
+              f"{tuple(x.shape)} strides {x.stride()}")
+        bitwise += bits_equal(got, want)
+    return bitwise
+
+
+def phase_fbscan() -> dict:
+    """[fbscan]: each FB scan kernel against its plain version on the card
+    at FB_SIZES x FB_KS x FB_ROWS (the prefix within FB_RTOL / FB_ATOL, also
+    counting the cases that are bitwise; the suffix bitwise), each row of a
+    4-row call bitwise equal to a one-row call on that row, a permuted and a
+    transposed view (the shape of the sharded engine's cross-shard calls)
+    against the plain versions of their contiguous copies, and NaN
+    propagating as in the plain version. Not
+    counted: callers reset the counters before the run they count."""
+    res = {"cases": 0, "bitwise": 0, "prefix_err": 0.0, "suffix_err": 0.0, "worst_rel": 0.0}
+    for B in FB_SIZES:
+        for K in FB_KS:
+            for R in FB_ROWS:
+                M, maps = fb_inputs(B, K, R, B * 100 + K * 10 + R)
+                where = f"B={B} K={K} R={R}"
+                got = fb_cuda.prefix_matmul_scan_cuda(M)
+                want = fb.prefix_matmul_scan_reference(M)
+                check(got.shape == M.shape and bool(torch.isfinite(got).all()),
+                      f"[fbscan] prefix kernel: shape or non-finite values ({where})")
+                close = torch.allclose(got, want, rtol=FB_RTOL, atol=FB_ATOL)
+                rel = float(((got - want).abs() / (FB_ATOL + want.abs())).max())
+                check(close, f"[fbscan] prefix kernel != plain beyond rtol {FB_RTOL} ({where}, "
+                      f"largest relative error {rel:.3g})")
+                res["bitwise"] += bits_equal(got, want)
+                res["cases"] += 1
+                res["prefix_err"] = max(res["prefix_err"], max_abs_err(got, want))
+                res["worst_rel"] = max(res["worst_rel"], rel)
+                sgot = fb_cuda.suffix_compose_scan_cuda(maps)
+                check(torch.equal(sgot, fb.suffix_compose_scan_reference(maps)),
+                      f"[fbscan] suffix kernel != plain ({where})")
+                if R > 1:
+                    for r in range(R):
+                        check(bits_equal(got[:, :, r], fb_cuda.prefix_matmul_scan_cuda(
+                            M[:, :, r:r + 1].contiguous())[:, :, 0]),
+                              f"[fbscan] prefix row {r} of {R} != its one-row call ({where})")
+                        check(torch.equal(sgot[:, r], fb_cuda.suffix_compose_scan_cuda(
+                            maps[:, r:r + 1].contiguous())[:, 0]),
+                              f"[fbscan] suffix row {r} of {R} != its one-row call ({where})")
+                del M, maps, got, want, sgot
+    # the sweep's matrices: many exact zeros (underflowed emission weights), some subnormal
+    for B, K in ((384, 3), (29_696, 3), (29_696, 10)):
+        M, _ = fb_inputs(B, K, 2, 99 + K)
+        u = torch.rand(M.shape, generator=torch.Generator(device="cuda").manual_seed(B), device="cuda")
+        M = torch.where(u < 0.4, 0.0, torch.where(u < 0.45, M * 1e-39, M))
+        got, want = fb_cuda.prefix_matmul_scan_cuda(M), fb.prefix_matmul_scan_reference(M)
+        check(torch.allclose(got, want, rtol=FB_RTOL, atol=FB_ATOL),
+              f"[fbscan] prefix kernel != plain with zeros and subnormals (B={B} K={K})")
+        res["bitwise"] += bits_equal(got, want)
+        res["cases"] += 1
+    # the sharded engine's cross-shard calls: a (P, K, K) permuted, a (P, K) transposed
+    tots = torch.rand((P_SHARDED, 3, 3), device="cuda") + 0.05
+    tmaps = torch.randint(0, 3, (P_SHARDED, 3), device="cuda")
+    res["bitwise"] += check_scans(tots.permute(1, 2, 0), tmaps.T, "permuted and transposed views")
+    res["cases"] += 1
+    # NaN: a NaN entry turns every later product of its row into NaN, as in torch
+    for B in (200, 29_696):
+        M, _ = fb_inputs(B, 3, 2, 77)
+        M[1, 2, 0, B // 3] = float("nan")
+        got, want = fb_cuda.prefix_matmul_scan_cuda(M), fb.prefix_matmul_scan_reference(M)
+        check(torch.equal(torch.isnan(got), torch.isnan(want)) and bool(torch.isnan(got).any())
+              and torch.allclose(got, want, rtol=FB_RTOL, atol=FB_ATOL, equal_nan=True),
+              f"[fbscan] NaN propagation (B={B})")
+    torch.cuda.synchronize()
+    return res
+
+
+def fb_work(B: int, K: int, R: int) -> dict:
+    """(bytes, float32 operations) of one call of each scan: the input read
+    once and the output written once; a combine of the prefix is K^2 (2K -
+    1) multiplies and adds, K^2 maxes and K^2 divides, taken B log2(B)
+    times flat, else 8 B + G log2(G) times (7 in-group levels, the totals,
+    one broadcast combine); the suffix does no arithmetic."""
+    G = B // 128
+    grouped = B > 256 and B % 128 == 0
+    combines = (8 * B + G * max(G - 1, 0).bit_length()) if grouped else B * max(B - 1, 0).bit_length()
+    return {
+        "prefix": (8 * K * K * R * B, R * combines * K * K * (2 * K + 1)),
+        "suffix": (16 * K * R * B, 0),
+    }
+
+
+def time_fbscan(inputs: dict) -> dict:
+    """For each tag -> (M, maps) of ``inputs``: each FB scan kernel checked
+    against its plain version on those inputs (check_scans), then CUDA-event
+    times (L2 flushed, and warm) of both and of their plain versions,
+    beside the least time on the card."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    timed = {}
+    for tag, (M, maps) in inputs.items():
+        K, B = M.shape[0], M.shape[-1]
+        R = M.numel() // (K * K * B)
+        row = {"shape": (B, K, R), "bitwise": check_scans(M, maps, tag)}
+        fns = {
+            "prefix": lambda: fb_cuda.prefix_matmul_scan_cuda(M),
+            "suffix": lambda: fb_cuda.suffix_compose_scan_cuda(maps),
+            "prefix_plain": lambda: fb.prefix_matmul_scan_reference(M),
+            "suffix_plain": lambda: fb.suffix_compose_scan_reference(maps),
+        }
+        for name, fn in fns.items():
+            row[name] = time_ms(fn, flush.zero_)
+            row[name + "_warm"] = time_ms(fn, lambda: torch.cuda._sleep(SLEEP_CYCLES))
+        for name, (nbytes, ops) in fb_work(B, K, R).items():
+            row[name + "_bound"], row[name + "_bound_by"] = bound_ms(nbytes, ops)
+        timed[tag] = row
+        del fns
+    del flush
+    torch.cuda.empty_cache()
+    return timed
 
 
 def large_input(T: int, dim: int) -> torch.Tensor:
@@ -807,6 +1039,10 @@ def phase_graph(pairs: int = GRAPH_PAIRS) -> dict:
             rates[tag].append(SETTLED_ITERS / eng.phase_log[-1][2])
         res["settled"] = rates
         res["capacity"] = engines["graph"].capacity
+        engines["eager"].records = None
+        with ScanInputs() as scans:  # the sweep's own matrices and maps, for [fbscan]'s times
+            engines["eager"].run("F", 4, 4)
+        res["scans"] = scans
     del engines, eng
     torch.cuda.empty_cache()
     res["one_card"] = one_card_big()
@@ -858,7 +1094,8 @@ def profile_launches(eng, iters: int = 64) -> dict:
     runs independent nodes at once, so the sum can exceed the time the
     device was busy), wall ms (the profiler's overhead included, so the
     busy share under it is a lower bound), and the ten costliest kernels
-    by device time (name, launches per sweep, device ms per sweep)."""
+    by device time (name, launches per sweep, device ms per sweep), and
+    the same for every FB scan kernel (csrc/fbscan.cu)."""
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
     ])
@@ -883,6 +1120,8 @@ def profile_launches(eng, iters: int = 64) -> dict:
         union_us += max(0.0, hi - max(lo, end))
         end = max(end, hi)
     top = sorted(by.items(), key=lambda kv: -kv[1][1])[:10]
+    fbscan = {name: (n / iters, round(us / iters / 1e3, 5))
+              for name, (n, us) in sorted(by.items()) if "fbscan_" in name}
     return {
         "launch_calls": {k: v / iters for k, v in sorted(calls.items())},
         "kernels": len(kernels) / iters,
@@ -891,6 +1130,7 @@ def profile_launches(eng, iters: int = 64) -> dict:
         "wall_ms": wall_ms,
         "busy": union_us / iters / 1e3 / wall_ms,
         "top": [(name[:120], n / iters, round(us / iters / 1e3, 5)) for name, (n, us) in top],
+        "fbscan": fbscan,
     }
 
 
@@ -898,7 +1138,6 @@ def split_stages() -> tuple:
     """(module, function name) of each stage of the sweep that
     device_split_by_stage labels, looked up where the sweep calls it."""
     from hammlet_tpu_torch.models import distributions
-    from hammlet_tpu_torch.samplers import forward_backward as fb
 
     return ((sweep, "sweep_step"), (sweep, "make_blocks_bucketed"),
             (sweep, "block_sufficient_stats_t"), (fb, "emission_log_weights_t"),
@@ -914,8 +1153,11 @@ def device_split_by_stage(eng, iters: int = 16) -> dict:
     torch.profiler.record_function range: the device ms per sweep of the
     kernels each stage launched outside the stages it calls (the innermost
     range among the ancestors of the operator that launched them), largest
-    first, and their total. A graph replays the same kernels, so this is
-    the graphed sweep's split too."""
+    first, and their total. The FB scan kernels, launched through ctypes
+    outside any torch operator, are credited to their stage by name; device
+    time that no CPU event carries (the trace's device kernels less what
+    was credited) is its own entry. A graph replays the same kernels, so
+    this is the graphed sweep's split too."""
     def labelled(name, fn):
         def run(*args, **kwargs):
             with torch.profiler.record_function("stage:" + name):
@@ -937,7 +1179,8 @@ def device_split_by_stage(eng, iters: int = 16) -> dict:
             setattr(mod, name, fn)
     by: dict = {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+        us = sum(k.duration for k in e.kernels if "fbscan_" not in k.name)
+        if e.device_type != torch.autograd.DeviceType.CPU or not us:
             continue
         where, node = "(outside the stages)", e.cpu_parent
         while node is not None:
@@ -945,7 +1188,15 @@ def device_split_by_stage(eng, iters: int = 16) -> dict:
                 where = node.name[len("stage:"):]
                 break
             node = node.cpu_parent
-        by[where] = by.get(where, 0.0) + sum(k.duration for k in e.kernels)
+        by[where] = by.get(where, 0.0) + us
+    for k in device_kernels(prof):  # launched through ctypes: no CPU operator owns them
+        for kind, stage in (("fbscan_prefix", "prefix_matmul_scan_t"),
+                            ("fbscan_suffix", "suffix_compose_scan_t")):
+            if kind in k.name:
+                by[stage] = by.get(stage, 0.0) + k.time_range.elapsed_us()
+    missing = sum(k.time_range.elapsed_us() for k in device_kernels(prof)) - sum(by.values())
+    if missing > 0:  # kernels that no CPU event of the trace lists as its own
+        by["(credited to no CPU event)"] = missing
     return {"stages": [(w, round(us / iters / 1e3, 5)) for w, us in sorted(by.items(), key=lambda kv: -kv[1])],
             "total_ms": sum(by.values()) / iters / 1e3}
 
@@ -980,6 +1231,10 @@ def phase_profile(main_eng, sharded_eng, sharded_eager) -> dict:
     calls = res["sharded_graph"]["launch_calls"]
     check(calls.get("cudaGraphLaunch", 0) >= 1 and sum(calls.values()) <= 8 + 2 * P_SHARDED,
           f"the graphed P = {P_SHARDED} sweep made {calls} launch calls per sweep")
+    for tag in ("graph", "sharded_graph"):
+        names = " ".join(res[tag]["fbscan"])
+        check("fbscan_prefix" in names and "fbscan_suffix" in names,
+              f"the {tag} sweep ran no FB prefix or suffix scan kernel: {res[tag]['fbscan']}")
     res["sharded_eager"] = profile_launches(sharded_eager)
     eager_engine(main_eng)  # its chunks run the eager gibbs_phase from here on
     res["eager"] = profile_launches(main_eng)
@@ -1156,7 +1411,7 @@ def phase_sharded(main_eng, pairs: int = SHARDED_PAIRS) -> dict:
     weights = torch.empty_like(ing.negw).scatter_(1, ing.rank, -ing.negw).reshape(-1)[:T_MAIN]
     before = read_counts()
     ref = runner.ingest_device(data, device="cuda")
-    check(all(read_counts()[k] == before[k] + 1 for k in COUNT_NAMES),
+    check(all(read_counts()[k] == before[k] + 1 for k in MAXLET_NAMES),
           "ingest_device did not launch each maxlet kernel once")
     check(bits_equal(weights, ref.weights), "sharded ingest weights != ingest_device's (kernel)")
     del ing, ref, weights
@@ -1235,6 +1490,9 @@ def phase_sharded(main_eng, pairs: int = SHARDED_PAIRS) -> dict:
             e.records.close()
             rates[tag].append(512 / e.phase_log[-1][2])
     eng.records = eager.records = None
+    with ScanInputs() as scans:  # the sweep's own matrices and maps, for [fbscan]'s times
+        eager.run("F", 4, 4)
+    res["scans"] = scans
     res["settled"] = rates
     res["settled_ratio"] = float(np.median(rates["sharded"]) / np.median(rates["one"]))
     res["graph_ratio"] = float(np.median(rates["sharded"]) / np.median(rates["eager"]))
@@ -1391,8 +1649,12 @@ def phase_chains(tmp: str, devices: list[torch.device] | None = None,
             res[tag + "_s"].append(time.perf_counter() - t0)
             counts = read_counts()
             check(rc == 0, f"-M ({tag}) returned {rc}")
-            for name, c in counts.items():
-                check(c == n, f"-M ({tag}) launched {name} {c} times, not once per chain")
+            for name in MAXLET_NAMES:
+                check(counts[name] == n, f"-M ({tag}) launched {name} {counts[name]} times, "
+                      "not once per chain")
+            for name in FB_NAMES:
+                check(counts[name] >= n, f"-M ({tag}) launched {name} {counts[name]} times, "
+                      f"fewer than the {n} chains")
             if tag != "sequential":
                 check(len({t for t, _ in seen}) == n
                       and sorted(d for _, d in seen) == sorted(map(str, devices)),
@@ -1505,7 +1767,8 @@ def live_workers(launcher_pid: int) -> list[int]:
 def cards_kernels(n: int) -> dict:
     """[cards] (a): on each of n cards, both maxlet kernels against their
     plain versions and the golden transform at T_MAIN, dim 1 (the main
-    path's data) and dim 3, bit for bit."""
+    path's data) and dim 3, bit for bit; both FB scan kernels against their
+    plain versions at B = 29,696, K = 3, one and four rows, bit for bit."""
     worst = {"chunk": 0.0, "cross": 0.0, "transform": 0.0, "golden": 0.0}
     for data in (synth(T_MAIN, SEED)[0][:, None],
                  np.random.default_rng(T_MAIN * 7 + 3).normal(1, 2, (T_MAIN, 3)).astype(np.float32)):
@@ -1516,6 +1779,14 @@ def cards_kernels(n: int) -> dict:
                 x = torch.from_numpy(data).to(torch.device("cuda", i))
                 check_kernels(x, None, worst)
                 check_golden(x, want, worst)
+    for i in range(n):  # the FB scan kernels at the main path's shape, 1 and 4 rows
+        with torch.cuda.device(i):
+            for R in (1, 4):
+                M, maps = fb_inputs(29_696, 3, R, SEED + i)
+                check(bits_equal(fb_cuda.prefix_matmul_scan_cuda(M), fb.prefix_matmul_scan_reference(M))
+                      and torch.equal(fb_cuda.suffix_compose_scan_cuda(maps),
+                                      fb.suffix_compose_scan_reference(maps)),
+                      f"[cards] (a) an FB scan kernel != its plain version on cuda:{i} (R={R})")
     return worst
 
 
@@ -1614,6 +1885,8 @@ def profile_nccl(eng, iters: int = 64) -> dict:
         "nccl_names": sorted({e.name for e in nccl}),
         "collective_calls_per_sweep": len(calls) / iters,
         "collective_host_ms_per_sweep": sum(e.time_range.elapsed_us() for e in calls) / iters / 1e3,
+        "fbscan_per_sweep": {name: sum(e.name == name for e in kernels) / iters
+                             for name in sorted({e.name for e in kernels if "fbscan_" in e.name})},
     }
 
 
@@ -1739,7 +2012,9 @@ def sharded_cards(n: int, pairs: int = CARDS_PAIRS, t_big: int = T_BIG) -> int:
     worst = cards_kernels(n)
     print(f"[cards] (a) maxlet_chunk_kernel and maxlet_cross_kernel bitwise equal to their plain "
           f"versions and to golden.reference.maxlet_transform on each of cuda:0-{n - 1}, T={T_MAIN} "
-          f"dim 1 and 3 (max abs errors {worst})", flush=True)
+          f"dim 1 and 3 (max abs errors {worst}); prefix_matmul_scan_kernel and "
+          "suffix_compose_scan_kernel bitwise equal to their plain versions on each card at "
+          "B=29696 K=3, R 1 and 4", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         b = cards_cli(n, tmp)
     print(f"[cards] (b) T={T_MAIN} '{SCHEME}' marginals+parameters+compression, bin/hammlet-torch "
@@ -1766,7 +2041,8 @@ def sharded_cards(n: int, pairs: int = CARDS_PAIRS, t_big: int = T_BIG) -> int:
               f"NCCL device ms/sweep, one NCCL kernel's us min / median / 90th percentile "
               f"{pr['nccl_kernel_us']} ({pr['nccl_names']}); on the host "
               f"{pr['collective_calls_per_sweep']} collective calls and "
-              f"{pr['collective_host_ms_per_sweep']:.4f} ms per sweep inside them", flush=True)
+              f"{pr['collective_host_ms_per_sweep']:.4f} ms per sweep inside them; FB scan kernels "
+              f"per sweep {pr['fbscan_per_sweep']}", flush=True)
     rc, d = launch.run_on_cards("chip_smoke:cards_big", n, (n, t_big))
     check(rc == 0 and d is not None, f"[cards] (d) exited {rc}")
     print(f"[cards] (d) T={d['T']} (chr1 at 1 bp, made in each process) '{BIG_SCHEME}' -D {n} on "
@@ -1929,6 +2205,11 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
         print(f"[build] maxlet {built.path.name} in {built.seconds:.2f} s; "
               + " | ".join(ptxas), flush=True)
+        built = fb_cuda.build()
+        ptxas = [ln.strip() for ln in built.log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"[build] fbscan {built.path.name} in {built.seconds:.2f} s; "
+              + " | ".join(ptxas), flush=True)
 
         k = phase_kernel()
         print(f"[kernel] maxlet_chunk_kernel and maxlet_cross_kernel bitwise equal to "
@@ -1951,6 +2232,17 @@ def main() -> int:
                       for key in ("chunk", "cross", "transform"))
                   + (f"; chunk through the scalar-load instance {row['chunk_scalar']:.4f} "
                      "flushed" if "chunk_scalar" in row else ""), flush=True)
+
+        fbk = phase_fbscan()
+        print(f"[fbscan] prefix_matmul_scan_kernel within rtol {FB_RTOL} / atol {FB_ATOL} of "
+              f"its plain version in all {fbk['cases']} cases (B in {FB_SIZES} x K in {FB_KS} x R "
+              f"in {FB_ROWS}, 3 with 40 % zeros and 5 % subnormals, and the views; {fbk['bitwise']} of "
+              "them bitwise; largest absolute error "
+              f"{fbk['prefix_err']}, relative {fbk['worst_rel']:.3g}); suffix_compose_scan_kernel "
+              "bitwise equal to its plain version in all of them; each row of a 4-row call "
+              "bitwise equal to its one-row call; permuted and transposed views against the plain "
+              "versions of their contiguous copies (one of the cases); NaN propagates as in the "
+              "plain version", flush=True)
 
         m = phase_main_path()
         print(f"[main] T={T_MAIN} K=3 '{SCHEME}': setup {m['setup_s']:.3f} s, "
@@ -2004,6 +2296,39 @@ def main() -> int:
         sh = phase_sharded(main_eng)
         print_sharded(sh, m["f_sweeps_per_s"])
 
+        sweep_p1, views_p1 = g["scans"].main_and_others()
+        sweep_p4, views_p4 = sh.pop("scans").main_and_others()
+        check(sorted((k, v.shape[-1]) for k, v in views_p4)
+              == [("prefix", P_SHARDED), ("suffix", P_SHARDED)],
+              f"[fbscan] the eager P={P_SHARDED} sweep's scan calls besides the local ones "
+              f"were {[(k, tuple(v.shape)) for k, v in views_p4]}, not the two cross-shard ones")
+        bitwise_views = check_cross_shard(views_p1 + views_p4)
+        fbt = time_fbscan({
+            "P=1 sweep data": sweep_p1,
+            f"P={P_SHARDED} sweep data": sweep_p4,
+            "P=1 uniform": fb_inputs(m["capacity"], 3, 1, SEED),
+            f"P={P_SHARDED} uniform": fb_inputs(sh["cap_local"], 3, P_SHARDED, SEED),
+            "T=250M per shard uniform": fb_inputs(FB_BIG, 3, 1, SEED),
+            "flat uniform": fb_inputs(FB_FLAT, 3, 1, SEED),
+            "K=10 uniform": fb_inputs(m["capacity"], 10, 1, SEED),
+        })
+        print(f"[fbscan] the sweep's own cross-shard calls ({len(views_p4)} of the eager "
+              f"P={P_SHARDED} sweep, (kind, shape, strides) "
+              f"{[(k, tuple(v.shape), v.stride()) for k, v in views_p4]}) against the plain "
+              f"versions of their contiguous copies: {bitwise_views} of "
+              f"{len(views_p1 + views_p4)} bitwise", flush=True)
+        for tag, row in fbt.items():
+            B, K, R = row["shape"]
+            print(f"[fbscan] {tag} B={B} K={K} R={R}: kernels against their plain versions on "
+                  f"these inputs (prefix bitwise {row['bitwise']}, suffix bitwise); ms with L2 "
+                  "flushed / warm, device only (least time on the card, its share of the flushed "
+                  "time): " + "; ".join(
+                      f"{key} kernels {row[key]:.4f} / {row[key + '_warm']:.4f} (bound "
+                      f"{row[key + '_bound']:.4g} by {row[key + '_bound_by']}, "
+                      f"{row[key + '_bound'] / row[key]:.1%}), plain {row[key + '_plain']:.4f} / "
+                      f"{row[key + '_plain_warm']:.4f}, PyTorch call: none"
+                      for key in ("prefix", "suffix")), flush=True)
+
         with tempfile.TemporaryDirectory() as tmp:
             ch = phase_chains(tmp)
             print(f"[chains] -M with two chromosomes of T={T_CHAIN} '{CHAIN_SCHEME}' in the order "
@@ -2034,7 +2359,8 @@ def main() -> int:
                   f"{p['launch_calls']}, {p['kernels']} device kernels, {p['device_ms']:.4f} device "
                   f"ms summed, {p['busy_ms']:.4f} as the union of their intervals, "
                   f"{p['wall_ms']:.4f} wall ms under the profiler (busy {p['busy']:.1%}); "
-                  f"costliest kernels (name, per sweep, device ms per sweep) {p['top']}", flush=True)
+                  f"costliest kernels (name, per sweep, device ms per sweep) {p['top']}; FB scan "
+                  f"kernels (per sweep, device ms per sweep) {p['fbscan']}", flush=True)
         walls = {t: 1e3 / float(np.median(g["settled"][t])) for t in ("graph", "eager")}
         print(f"[profile] wall ms per sweep without the profiler ([graph] settled medians) "
               f"against the union of the kernels' intervals under it: graphed "
@@ -2048,20 +2374,29 @@ def main() -> int:
         print(f"chip_smoke FAILED: {exc}", flush=True)
         return 1
 
-    main_row = k["timed"][(T_MAIN, 1)]  # the main path's shape
+    main_row = dict(k["timed"][(T_MAIN, 1)], **fbt["P=1 sweep data"])  # the main path's inputs
+    worst = {"chunk": max(k["worst"]["chunk"], k["worst"]["golden"], ch["worst"]["chunk"]),
+             "cross": max(k["worst"]["cross"], k["worst"]["golden"], ch["worst"]["cross"]),
+             "prefix": fbk["prefix_err"], "suffix": fbk["suffix_err"]}
     print(json.dumps({"kernels": [{
         "name": kernel,
         "route": "cuda",
-        "source": "hammlet_tpu_torch/csrc/maxlet.cu",
+        "source": source,
         "replaces": replaces,
-        "launches": m["launches"][kernel] + c["launches"][kernel] + ch["threads_launches"][kernel],
-        "max_abs_err": max(k["worst"][key], k["worst"]["golden"], ch["worst"][key]),
+        "launches": m["launches"][count] + c["launches"][count] + ch["threads_launches"][count],
+        # the CUDA kernels per settled graphed P = 1 sweep ([profile]); the maxlet
+        # kernels run once per ingest, in no sweep
+        "device_launches_per_sweep": (
+            sum(n for name, (n, _) in pr["graph"]["fbscan"].items() if "fbscan_" + key in name)
+            if key in ("prefix", "suffix") else None),
+        "max_abs_err": worst[key],
         "ms": main_row[key],
         "plain_ms": main_row[key + "_plain"],
         "bound_ms": main_row[key + "_bound"],
         "bound_by": main_row[key + "_bound_by"],
-        "library_ms": None,  # no single PyTorch call computes the maxlet transform
-    } for kernel, replaces, key in KERNEL_ROWS]}), flush=True)
+        # no single PyTorch call computes the maxlet transform or either scan
+        "library_ms": None,
+    } for kernel, source, replaces, key, count in KERNEL_ROWS]}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

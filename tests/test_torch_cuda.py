@@ -828,3 +828,131 @@ def test_graph_inputs_outlive_the_capture_on_card(cuda_device, P):
     for name in ("counts", "everb", "n_rec", "n_bound"):
         assert torch.equal(getattr(g.buffers, name), getattr(e.buffers, name)), name
     assert all(torch.equal(a, b) for a, b in zip(g.model, e.model))
+
+
+def _fb_inputs(B, K, R, seed, device):
+    """(K, K, R, B) float32 matrices in [0.05, 1) and (K, R, B) int64 maps,
+    from numpy; the last of R > 1 rows is all identities (padding)."""
+    rng = np.random.default_rng(seed)
+    M = rng.uniform(0.05, 1.0, size=(K, K, R, B)).astype(np.float32)
+    maps = rng.integers(0, K, size=(K, R, B))
+    if R > 1:
+        M[:, :, -1] = np.eye(K, dtype=np.float32)[:, :, None]
+        maps[:, -1] = np.arange(K)[:, None]
+    return torch.from_numpy(M).to(device), torch.from_numpy(maps).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [8, 130, 256, 384, 29_696])
+@pytest.mark.parametrize("K", [1, 3, 10])
+@pytest.mark.parametrize("R", [1, 4])
+def test_fbscan_kernels_match_plain_on_card(cuda_device, B, K, R):
+    """The FB scan kernels (csrc/fbscan.cu) against their plain versions on
+    the card and on the CPU. Tolerance: prefix rtol 1e-6, atol 1e-30 (the
+    kernel repeats the plain version's arithmetic in its order; bitwise on
+    the H100 at every shape chip_smoke.py checks); suffix exact. Each call
+    counts one launch of its wrapper."""
+    from hammlet_tpu_torch.samplers import fb_cuda
+    from hammlet_tpu_torch.samplers import forward_backward as fb
+
+    M, maps = _fb_inputs(B, K, R, B * 10 + K + R, cuda_device)
+    before = (fb_cuda.prefix_matmul_scan_cuda.launches, fb_cuda.suffix_compose_scan_cuda.launches)
+    got = fb.prefix_matmul_scan_t(M)
+    sgot = fb.suffix_compose_scan_t(maps)
+    torch.cuda.synchronize()
+    assert (fb_cuda.prefix_matmul_scan_cuda.launches, fb_cuda.suffix_compose_scan_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    for dev in (cuda_device, torch.device("cpu")):
+        want = fb.prefix_matmul_scan_reference(M.to(dev))
+        torch.testing.assert_close(got.cpu(), want.cpu(), rtol=1e-6, atol=1e-30)
+        assert torch.equal(sgot.cpu(), fb.suffix_compose_scan_reference(maps.to(dev)).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [100_000, 433_920])
+@pytest.mark.parametrize("K", [3, 10])
+def test_fbscan_grid_wide_rows_scan_on_card(cuda_device, B, K):
+    """The rows scan too long for one CTA's shared memory runs over the
+    whole card (a cooperative launch): a flat B (100,000, not a multiple of
+    128) and the group totals of B = 433,920 (3,390 of them, the T = 250M
+    per-shard capacity), against the plain versions on the card, also when
+    the call is captured into a CUDA graph and replayed. Tolerance as
+    above."""
+    from hammlet_tpu_torch.samplers import fb_cuda
+    from hammlet_tpu_torch.samplers import forward_backward as fb
+
+    M, maps = _fb_inputs(B, K, 1, B + K, cuda_device)
+    want = fb.prefix_matmul_scan_reference(M)
+    swant = fb.suffix_compose_scan_reference(maps)
+    torch.testing.assert_close(fb_cuda.prefix_matmul_scan_cuda(M), want, rtol=1e-6, atol=1e-30)
+    assert torch.equal(fb_cuda.suffix_compose_scan_cuda(maps), swant)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fb_cuda.prefix_matmul_scan_cuda(M)
+        sgot = fb_cuda.suffix_compose_scan_cuda(maps)
+    got.zero_()
+    sgot.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-30)
+    assert torch.equal(sgot, swant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [130, 29_696])
+def test_fbscan_rows_independent_on_card(cuda_device, B):
+    """Exact on the card: four rows in one kernel call equal four one-row
+    calls, bit for bit, and a permuted / transposed view (the sharded
+    engine's cross-shard calls) equals its contiguous copy."""
+    from hammlet_tpu_torch.samplers import fb_cuda
+
+    M, maps = _fb_inputs(B, 3, 4, B, cuda_device)
+    got = fb_cuda.prefix_matmul_scan_cuda(M)
+    sgot = fb_cuda.suffix_compose_scan_cuda(maps)
+    for r in range(4):
+        assert_bitwise(got[:, :, r], fb_cuda.prefix_matmul_scan_cuda(M[:, :, r:r + 1].contiguous())[:, :, 0])
+        assert torch.equal(sgot[:, r], fb_cuda.suffix_compose_scan_cuda(maps[:, r:r + 1].contiguous())[:, 0])
+    view = M[:, :, :, 0].permute(2, 0, 1).contiguous().permute(1, 2, 0)  # (K, K, R), not contiguous
+    assert not view.is_contiguous()
+    assert_bitwise(fb_cuda.prefix_matmul_scan_cuda(view), fb_cuda.prefix_matmul_scan_cuda(view.contiguous()))
+    tview = maps[:, :, 0].T.contiguous().T
+    assert torch.equal(fb_cuda.suffix_compose_scan_cuda(tview), fb_cuda.suffix_compose_scan_cuda(tview.contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 4])
+def test_graphed_engines_through_fbscan_kernels_on_card(cuda_device, P):
+    """Exact on the card at T = 100,000: a graphed Engine (P = 1) and a
+    graphed sharded engine (P = 4 shards) write the bytes of the same
+    engine run through its eager plain version; both run their scans
+    through the FB kernels (the wrappers count the eager sweeps' calls and
+    the captures')."""
+    from _torch_helpers import eager_sharded_engine
+    from hammlet_tpu_torch.samplers import fb_cuda
+
+    data = synth_segments(100_000, 41)[0]
+    engines = []
+    for eager in (False, True):
+        before = fb_cuda.prefix_matmul_scan_cuda.launches, fb_cuda.suffix_compose_scan_cuda.launches
+        if P == 1:
+            eng = runner.make_engine(data, nr_params=3, seed=5, device=cuda_device)
+            if eager:
+                eager_engine(eng)
+        else:
+            eng = _sharded(data, cuda_device, 5, P=P)
+            if eager:
+                eager_sharded_engine(eng)
+        eng.run("M", 8, 0)
+        eng.run("F", 32, 2)
+        torch.cuda.synchronize()
+        assert fb_cuda.prefix_matmul_scan_cuda.launches > before[0]
+        assert fb_cuda.suffix_compose_scan_cuda.launches > before[1]
+        engines.append(eng)
+    g, e = engines
+    assert _graphed(g) and e.phase_graphs.replays == 0
+    names = [n for n in ("counts", "ever_boundary", "n_records", "everb", "n_rec")
+             if hasattr(g.buffers, n)]
+    assert len(names) == 3
+    for name in names:
+        assert torch.equal(getattr(g.buffers, name), getattr(e.buffers, name)), name
+    assert all(torch.equal(a, b) for a, b in zip(g.model, e.model))
