@@ -8,7 +8,8 @@ Run from the repository root on a machine with a card:
 Phases, one line each (a failed phase exits non-zero and prints no result):
 1. card: nvidia-smi name and power limit, torch's device name;
 2. build: nvcc builds csrc/maxlet.cu and csrc/fbscan.cu for sm_90a into
-   hammlet_tpu_torch/build/ (ptxas registers and spills of each kernel);
+   hammlet_tpu_torch/build/, both started together (ptxas registers and
+   spills of each kernel);
 3. kernel: each Hopper maxlet kernel (chunk, cross-chunk) against its own
    plain torch version and the whole transform against
    wavelet.maxlet_transform, on the card and on the CPU, bit for bit, at
@@ -27,12 +28,14 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    permuted and a transposed view, NaN propagation; after phase 9, the
    sweep's own cross-shard views (taken from the eager [sharded] engine)
    against the plain versions of their contiguous copies, then for each
-   timed input both kernels checked against their plain versions on it and
-   CUDA-event times of both (L2 flushed; warm, device only) and of their
-   plain versions, beside the bound: the sweep's own matrices and maps at
-   P = 1 and P = 4 (taken from the eager [graph] and [sharded] engines),
-   uniform inputs at the same shapes, at the T = 250M per-shard shape, at a
-   flat FB_FLAT and at K = 10;
+   timed input both kernels checked against their plain versions on it,
+   the CUDA kernels one call of each launches (torch.profiler; one at the
+   FB_ONE_LAUNCH inputs, the main path's shapes) and CUDA-event times of
+   both (L2 flushed; warm, device only) and of their plain versions, beside
+   the bound: the sweep's own matrices and maps at P = 1 and P = 4 (taken
+   from the eager [graph] and [sharded] engines), uniform inputs at the
+   same shapes, at the T = 250M per-shard shape, at a flat FB_FLAT and at
+   K = 10; then the sweep's own and the uniform times side by side;
 4. main path: make_engine -> run_scheme("M 64 0 F 512 4") -> finalize at
    T = 4,000,000 positions, 3 states (the repo benchmark's configuration),
    checking that ingest launched both kernels, that every marginal row
@@ -160,6 +163,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from itertools import permutations
 
 import numpy as np
@@ -233,12 +237,10 @@ KERNEL_ROWS = (  # name (the kernels a call runs on the main path), source, the 
      "hammlet_tpu/ops/wavelet_pallas.py:41", "chunk", "maxlet_chunk_kernel"),
     ("maxlet_cross_kernel", "hammlet_tpu_torch/csrc/maxlet.cu",
      "hammlet_tpu/ops/wavelet_pallas.py:130", "cross", "maxlet_cross_kernel"),
-    ("fbscan_prefix_group_kernel+fbscan_prefix_rows_smem_kernel+fbscan_prefix_combine_kernel",
-     "hammlet_tpu_torch/csrc/fbscan.cu", "hammlet_tpu/samplers/forward_backward.py:94", "prefix",
-     "prefix_matmul_scan_kernel"),
-    ("fbscan_suffix_group_smem_kernel+fbscan_suffix_rows_smem_kernel+fbscan_suffix_combine_kernel",
-     "hammlet_tpu_torch/csrc/fbscan.cu", "hammlet_tpu/samplers/forward_backward.py:154", "suffix",
-     "suffix_compose_scan_kernel"),
+    ("fbscan_prefix_one_kernel", "hammlet_tpu_torch/csrc/fbscan.cu",
+     "hammlet_tpu/samplers/forward_backward.py:94", "prefix", "prefix_matmul_scan_kernel"),
+    ("fbscan_suffix_one_kernel", "hammlet_tpu_torch/csrc/fbscan.cu",
+     "hammlet_tpu/samplers/forward_backward.py:154", "suffix", "suffix_compose_scan_kernel"),
 )
 FB_SIZES = [8, 130, 256, 384, 29_696, 433_920, 500_000]  # [fbscan]: block counts B
 FB_BIG = 433_920  # [cards] (d)'s capacity per shard at T = 250M: 3,390 group totals
@@ -246,6 +248,12 @@ FB_KS = [1, 2, 3, 5, 10]  # [fbscan]: states K
 FB_ROWS = [1, 4]  # [fbscan]: batch rows R (the sharded engine's local shards)
 FB_RTOL, FB_ATOL = 1e-6, 1e-30  # [fbscan]: prefix kernel against its plain version
 FB_FLAT = 500_000  # [fbscan]: a flat B (not a multiple of 128) too long for one CTA
+# [fbscan] timed inputs whose scan calls must each be one CUDA kernel (the main path's shapes)
+FB_ONE_LAUNCH = ("P=1 sweep data", f"P={P_SHARDED} sweep data", "P=1 uniform",
+                 f"P={P_SHARDED} uniform")
+# the three-launch prefix kernels (group, totals, combine; __fdiv_rn) on the P = 1 sweep's
+# matrices, ms with L2 flushed (NVIDIA H100 80GB HBM3, 700.00 W)
+FB_THREE_LAUNCH_PREFIX_MS = 0.0745
 
 
 class SmokeFailure(Exception):
@@ -700,11 +708,48 @@ def fb_work(B: int, K: int, R: int) -> dict:
     }
 
 
+def scan_kernels(fn, calls: int = 4, tries: int = 3) -> list[tuple[str, float]]:
+    """(name, device microseconds) of each CUDA kernel one call of ``fn``
+    launches: torch.profiler over ``calls`` calls after a warm-up call, the
+    kernels of one call with their median durations (inputs warm in L2). A
+    trace whose kernels do not divide evenly among the calls (the profiler
+    now and then loses a whole trace) is taken again, up to ``tries``
+    times."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kern = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
+        if kern and len(kern) % calls == 0:
+            break
+    check(bool(kern) and len(kern) % calls == 0,
+          f"torch.profiler traced {len(kern)} kernels over {calls} scan calls")
+    per = len(kern) // calls
+    return [(kern[i].name, round(float(np.median([kern[i + c * per].time_range.elapsed_us()
+                                                  for c in range(calls)])), 3))
+            for i in range(per)]
+
+
+def flushed(flush: torch.Tensor):
+    """A ``before`` for time_ms: write ``flush`` (no input left in L2), then
+    sleep on the card while the host queues the timed call, so that a call
+    whose host side outlasts the flush still times device work only."""
+    def before():
+        flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES // 20)
+    return before
+
+
 def time_fbscan(inputs: dict) -> dict:
     """For each tag -> (M, maps) of ``inputs``: each FB scan kernel checked
-    against its plain version on those inputs (check_scans), then CUDA-event
-    times (L2 flushed, and warm) of both and of their plain versions,
-    beside the least time on the card."""
+    against its plain version on those inputs (check_scans), the CUDA
+    kernels one call of each launches, then CUDA-event times (L2 flushed,
+    and warm) of both and of their plain versions, beside the least time on
+    the card."""
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     timed = {}
     for tag, (M, maps) in inputs.items():
@@ -717,8 +762,10 @@ def time_fbscan(inputs: dict) -> dict:
             "prefix_plain": lambda: fb.prefix_matmul_scan_reference(M),
             "suffix_plain": lambda: fb.suffix_compose_scan_reference(maps),
         }
+        for key in ("prefix", "suffix"):
+            row[key + "_kernels"] = scan_kernels(fns[key])
         for name, fn in fns.items():
-            row[name] = time_ms(fn, flush.zero_)
+            row[name] = time_ms(fn, flushed(flush))
             row[name + "_warm"] = time_ms(fn, lambda: torch.cuda._sleep(SLEEP_CYCLES))
         for name, (nbytes, ops) in fb_work(B, K, R).items():
             row[name + "_bound"], row[name + "_bound_by"] = bound_ms(nbytes, ops)
@@ -2200,16 +2247,13 @@ def main() -> int:
           f"{name} x{torch.cuda.device_count()}", flush=True)
 
     try:
-        built = wavelet_cuda.build()
-        ptxas = [ln.strip() for ln in built.log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"[build] maxlet {built.path.name} in {built.seconds:.2f} s; "
-              + " | ".join(ptxas), flush=True)
-        built = fb_cuda.build()
-        ptxas = [ln.strip() for ln in built.log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"[build] fbscan {built.path.name} in {built.seconds:.2f} s; "
-              + " | ".join(ptxas), flush=True)
+        with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+            builds = list(pool.map(lambda module: module.build(), (wavelet_cuda, fb_cuda)))
+        for tag, built in zip(("maxlet", "fbscan"), builds):
+            ptxas = [ln.strip() for ln in built.log.splitlines()
+                     if "registers" in ln or "spill" in ln]
+            print(f"[build] {tag} {built.path.name} in {built.seconds:.2f} s; "
+                  + " | ".join(ptxas), flush=True)
 
         k = phase_kernel()
         print(f"[kernel] maxlet_chunk_kernel and maxlet_cross_kernel bitwise equal to "
@@ -2320,14 +2364,30 @@ def main() -> int:
         for tag, row in fbt.items():
             B, K, R = row["shape"]
             print(f"[fbscan] {tag} B={B} K={K} R={R}: kernels against their plain versions on "
-                  f"these inputs (prefix bitwise {row['bitwise']}, suffix bitwise); ms with L2 "
-                  "flushed / warm, device only (least time on the card, its share of the flushed "
-                  "time): " + "; ".join(
+                  f"these inputs (prefix bitwise {row['bitwise']}, suffix bitwise); CUDA kernels "
+                  f"per call: prefix {row['prefix_kernels']}, suffix {row['suffix_kernels']}; ms "
+                  "with L2 flushed / warm, device only (least time on the card, its share of the "
+                  "flushed time): " + "; ".join(
                       f"{key} kernels {row[key]:.4f} / {row[key + '_warm']:.4f} (bound "
                       f"{row[key + '_bound']:.4g} by {row[key + '_bound_by']}, "
                       f"{row[key + '_bound'] / row[key]:.1%}), plain {row[key + '_plain']:.4f} / "
                       f"{row[key + '_plain_warm']:.4f}, PyTorch call: none"
                       for key in ("prefix", "suffix")), flush=True)
+        for tag in FB_ONE_LAUNCH:
+            for key in ("prefix", "suffix"):
+                check(len(fbt[tag][key + "_kernels"]) == 1,
+                      f"[fbscan] one {key} scan call on the {tag} inputs ran "
+                      f"{fbt[tag][key + '_kernels']}, not one CUDA kernel")
+        for P in (1, P_SHARDED):
+            own, uni = fbt[f"P={P} sweep data"], fbt[f"P={P} uniform"]
+            print(f"[fbscan] P={P}, ms with L2 flushed on the sweep's own inputs / on uniform "
+                  f"inputs of the same shape (ratio): prefix {own['prefix']:.4f} / "
+                  f"{uni['prefix']:.4f} ({own['prefix'] / uni['prefix']:.3f}x), suffix "
+                  f"{own['suffix']:.4f} / {uni['suffix']:.4f} "
+                  f"({own['suffix'] / uni['suffix']:.3f}x)"
+                  + (f"; the three-launch prefix kernels took {FB_THREE_LAUNCH_PREFIX_MS} on the "
+                     f"sweep's own, the bound is {own['prefix_bound']:.4g} ms" if P == 1 else ""),
+                  flush=True)
 
         with tempfile.TemporaryDirectory() as tmp:
             ch = phase_chains(tmp)

@@ -11,13 +11,20 @@
         trees, copy this file into the root of each (e.g. the parent
         unpacked with ``git archive``) and run it there in turns.
 
-    python3 fbscan_probes.py one-cta OLD_FBSCAN_CU
-        An older fbscan.cu built beside the current one; both scans of each
-        at a flat B = 500,000 and at B = 433,920 (K = 3, one row), checked
-        bitwise against the plain versions and timed with L2 flushed (old,
-        current, old).
+    python3 fbscan_probes.py turns OLD_FBSCAN_CU [OTHER_CU ...]
+        The parent's fbscan.cu (e.g. ``git show HEAD~1:hammlet_tpu_torch/
+        csrc/fbscan.cu`` written to a git-ignored file) built beside the
+        current one, and any further sources beside them, at every timed
+        input of chip_smoke.py's [fbscan]: the sweep's own matrices and maps
+        at P = 1 and P = 4 (taken from eager engines at T = 4M), uniform
+        inputs at those shapes, B = 433,920, a flat B = 500,000 and K = 10.
+        On each input each library is checked against the plain versions
+        (prefix bitwise, suffix equal), its CUDA kernels per call are
+        counted, and both scans are timed with L2 flushed, the libraries in
+        turns (old, current, others, others reversed, current, old). Prints
+        one line "TURNS <json>" per input.
 
-Needs one card (one-cta) or N (t250); imports no JAX.
+Needs one card (turns) or N (t250); imports no JAX.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 import chip_smoke as cs
@@ -81,30 +89,100 @@ def big(n: int, T: int, settled: int, turns: int) -> dict:
             "top": [(k[:80], round(v / 16 / 1e3, 4)) for k, v in top]}
 
 
-def one_cta(old_source: str) -> None:
+def sweep_inputs() -> dict:
+    """The sweep's own (M, maps) at P = 1 and P = P_SHARDED: the largest
+    scan call of each kind of an eager engine's settled F sweeps at T_MAIN
+    (chip_smoke.py's configuration)."""
+    from hammlet_tpu_torch import runner
+
+    data = cs.synth(cs.T_MAIN, cs.SEED)[0]
+    got = {}
+    for P in (1, cs.P_SHARDED):
+        if P == 1:
+            eng = runner.make_engine(data, nr_params=3, seed=cs.SEED, device="cuda")
+            cs.eager_engine(eng)
+        else:
+            eng = sharded.make_sharded_engine(data, n_devices=P, nr_params=3, seed=cs.SEED,
+                                              device="cuda")
+            cs.eager_sharded_engine(eng)
+        eng.run_scheme(["M", "64", "0", "F", "64", "4"])
+        with cs.ScanInputs() as scans:
+            eng.run("F", 4, 4)
+        got[P] = scans.main_and_others()[0]
+        del eng
+    torch.cuda.empty_cache()
+    return got
+
+
+def sweep_like(B: int, lowest: float, zeros: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(K, K, 1, B) matrices like the sweep's, K = 3: A * exp(E - max E)
+    with E down to ``lowest`` (below about -87.3 an entry is subnormal,
+    below about -103.9 zero) and a share ``zeros`` of the entries under
+    each column's max set to zero (tests/_torch_helpers.sweep_like_matrices
+    with -110 and 0.75); uniform maps of the same shape."""
+    rng = np.random.default_rng(B)
+    A = rng.dirichlet(np.ones(3), size=3).astype(np.float32)
+    E = rng.uniform(lowest, 0.0, size=(3, 1, B)).astype(np.float32)
+    e = np.exp(E - E.max(axis=0, keepdims=True))
+    e[(rng.random(e.shape) < zeros) & (e < 1.0)] = 0.0
+    M = torch.from_numpy(A[:, :, None, None] * e[None]).cuda()
+    return M, cs.fb_inputs(B, 3, 1, cs.SEED)[1]
+
+
+def parent_turns(sources: list[str]) -> None:
+    """Each of ``sources`` (the parent's fbscan.cu first) against the
+    current fbscan.cu, in turns, at every [fbscan] timed input."""
     # imported here: a tree from before the kernels has no fb_cuda, and t250 runs there too
     from hammlet_tpu_torch.samplers import fb_cuda
     from hammlet_tpu_torch.samplers import forward_backward as fb
 
-    old = fb_cuda._bind(ctypes.CDLL(str(_build.build("fbscan_old", [Path(old_source)]).path)))
-    new = fb_cuda._library()
+    current = fb_cuda._library()
+    libs = {"old": fb_cuda._bind(ctypes.CDLL(str(
+        _build.build("fbscan_old", [Path(sources[0])]).path)))}
+    libs["current"] = current
+    for i, src in enumerate(sources[1:]):
+        libs[Path(src).stem] = fb_cuda._bind(ctypes.CDLL(str(
+            _build.build(f"fbscan_other{i}", [Path(src)]).path)))
+    order = list(libs) + list(libs)[::-1]
+    own = sweep_inputs()
+    B1 = own[1][0].shape[-1]
+    inputs = {
+        "P=1 sweep data": own[1],
+        f"P={cs.P_SHARDED} sweep data": own[cs.P_SHARDED],
+        "P=1 uniform": cs.fb_inputs(B1, 3, 1, cs.SEED),
+        f"P={cs.P_SHARDED} uniform": cs.fb_inputs(own[cs.P_SHARDED][0].shape[-1], 3,
+                                                  cs.P_SHARDED, cs.SEED),
+        "T=250M per shard uniform": cs.fb_inputs(cs.FB_BIG, 3, 1, cs.SEED),
+        "flat uniform": cs.fb_inputs(cs.FB_FLAT, 3, 1, cs.SEED),
+        "K=10 uniform": cs.fb_inputs(B1, 10, 1, cs.SEED),
+        # which entries of the sweep's matrices slow a division: zeros, subnormals, both
+        "P=1 sweep-like, zeros, no subnormals": sweep_like(B1, -80.0, 0.75),
+        "P=1 sweep-like, subnormals, no zeros": sweep_like(B1, -103.0, 0.0),
+        "P=1 sweep-like": sweep_like(B1, -110.0, 0.75),
+    }
     flush = torch.empty(cs.FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     print(cs.nvidia_smi_line(), flush=True)
     try:
-        for B in (cs.FB_FLAT, cs.FB_BIG):
-            M, maps = cs.fb_inputs(B, 3, 1, cs.SEED)
-            want, swant = fb.prefix_matmul_scan_reference(M), fb.suffix_compose_scan_reference(maps)
-            row = {}
-            for tag, lib in (("old", old), ("current", new), ("old again", old)):
-                fb_cuda._lib = lib
-                ok = (cs.bits_equal(fb_cuda.prefix_matmul_scan_cuda(M), want)
-                      and torch.equal(fb_cuda.suffix_compose_scan_cuda(maps), swant))
-                row[tag] = (ok, cs.time_ms(lambda: fb_cuda.prefix_matmul_scan_cuda(M), flush.zero_),
-                            cs.time_ms(lambda: fb_cuda.suffix_compose_scan_cuda(maps), flush.zero_))
-            print(f"[one-cta] B={B} K=3 R=1 (bitwise, prefix ms, suffix ms, L2 flushed): {row}",
-                  flush=True)
+        for tag, (M, maps) in inputs.items():
+            want = fb.prefix_matmul_scan_reference(M.contiguous())
+            swant = fb.suffix_compose_scan_reference(maps.contiguous())
+            row: dict = {"shape": tuple(M.shape), "order": order}
+            for name in order:
+                fb_cuda._lib = libs[name]
+                prefix = lambda: fb_cuda.prefix_matmul_scan_cuda(M)  # noqa: E731
+                suffix = lambda: fb_cuda.suffix_compose_scan_cuda(maps)  # noqa: E731
+                if name not in row:  # its first turn: bits and kernels per call
+                    row[name] = {
+                        "bitwise": cs.bits_equal(prefix(), want) and torch.equal(suffix(), swant),
+                        "prefix_kernels": cs.scan_kernels(prefix),
+                        "suffix_kernels": cs.scan_kernels(suffix),
+                        "prefix_ms": [], "suffix_ms": []}
+                entry = row[name]
+                entry["prefix_ms"].append(cs.time_ms(prefix, cs.flushed(flush)))
+                entry["suffix_ms"].append(cs.time_ms(suffix, cs.flushed(flush)))
+            print("TURNS", tag, json.dumps(row), flush=True)
     finally:
-        fb_cuda._lib = new
+        fb_cuda._lib = current
 
 
 def main() -> int:
@@ -116,8 +194,8 @@ def main() -> int:
         rc, res = launch.run_on_cards("fbscan_probes:big", n, (n, T, settled, turns))
         print("T250", rc, json.dumps(res), flush=True)
         return rc
-    if sys.argv[1:2] == ["one-cta"]:
-        one_cta(sys.argv[2])
+    if sys.argv[1:2] == ["turns"] and len(sys.argv) > 2:
+        parent_turns(sys.argv[2:])
         return 0
     print(__doc__, file=sys.stderr)
     return 2

@@ -5,8 +5,9 @@ nvcc compiles ``csrc/*.cu`` by hand for Hopper (``sm_90a``) into
 and flags, so a fresh checkout builds itself. The libraries are loaded with
 ctypes: no PyTorch headers are compiled, which keeps a build to seconds.
 A missing nvcc or a failed build raises; nothing falls back to a plain
-version. Builds and library loads of one process take ``LOCK`` (chains of
-``-M`` run in threads and may reach a kernel's first use together).
+version. Library loads of one process take ``LOCK`` (chains of ``-M`` run
+in threads and may reach a kernel's first use together); builds of one
+library take that library's own lock, so two libraries build side by side.
 """
 
 from __future__ import annotations
@@ -24,9 +25,13 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 
-#: held around every build and first library load in this process; reentrant
-#: so that a loader can build under it
+#: held around every first library load in this process; reentrant so that
+#: a loader can build under it
 LOCK = threading.RLock()
+
+#: one lock per library name, held around its build
+_BUILD_LOCKS: dict[str, threading.Lock] = {}
+_BUILD_LOCKS_LOCK = threading.Lock()
 
 #: ``-Xptxas=-v`` only prints each kernel's registers, shared memory and
 #: spills into the build log
@@ -63,9 +68,12 @@ class BuildResult(NamedTuple):
 def build(name: str, sources: list[Path]) -> BuildResult:
     """Compile ``sources`` into ``build/lib{name}-{hash}.so`` unless a
     library of the same sources and flags is already there. Threads of one
-    process build one at a time; processes write their own temporary file
-    and rename it into place."""
-    with LOCK:
+    process build one library one at a time, and different libraries at
+    once; processes write their own temporary file and rename it into
+    place."""
+    with _BUILD_LOCKS_LOCK:
+        lock = _BUILD_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         return _build_locked(name, sources)
 
 

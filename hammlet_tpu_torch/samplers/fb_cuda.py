@@ -5,7 +5,8 @@ Port of the JAX package's grouped scans
 (hammlet_tpu/samplers/forward_backward.py:94-130 and :154-186).
 ``prefix_matmul_scan_cuda`` takes a float32 (K, K, *batch, B) stack of
 block matrices, ``suffix_compose_scan_cuda`` an int64 (K, *batch, B) stack
-of index maps; each launches at most three kernels on the current stream
+of index maps; each launches one kernel on the current stream where all of
+a call's groups fit the card at once (the main path's shapes), else three,
 and returns what the plain versions in samplers/forward_backward.py
 (``prefix_matmul_scan_reference``, ``suffix_compose_scan_reference``)
 return. A non-contiguous input is made contiguous first (the sharded
@@ -120,6 +121,7 @@ def suffix_compose_scan_cuda(maps_t: torch.Tensor) -> torch.Tensor:
 
 
 #: calls that launched the kernels since the last reset (each call launches
-#: three kernels on a grouped B, one on a flat B)
+#: one kernel on a flat B or a grouped B whose groups fit the card at once,
+#: three on a longer grouped B)
 prefix_matmul_scan_cuda.launches = 0
 suffix_compose_scan_cuda.launches = 0

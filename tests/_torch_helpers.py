@@ -94,6 +94,20 @@ def toy_problem(B=12, K=3, dim=1, seed=0, pad=5):
     )
 
 
+def sweep_like_matrices(K: int, R: int, B: int, seed: int) -> np.ndarray:
+    """(K, K, R, B) float32 block matrices shaped like the sweep's
+    M = A * exp(E - max E) (samplers/forward_backward.py:forward_columns_t):
+    log weights E down to -110 below each column's max, so that about 1 %
+    of the entries are subnormal, and about half of them exactly zero (the
+    sweep's own: 52 % zeros, ~1 % subnormal)."""
+    rng = np.random.default_rng(seed)
+    A = rng.dirichlet(np.ones(K), size=K).astype(np.float32)
+    E = rng.uniform(-110.0, 0.0, size=(K, R, B)).astype(np.float32)
+    e = np.exp(E - E.max(axis=0, keepdims=True))
+    e[(rng.random(e.shape) < 0.75) & (e < 1.0)] = 0.0
+    return A[:, :, None, None] * e[None]
+
+
 def synth_segments(T: int, seed: int, seglen: int = 500, scale: float = 1.0):
     """bench.py's data recipe: segments of ``seglen`` positions in one of
     three states with means {0, 2, -2} * scale, unit noise.

@@ -15,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import assert_bitwise, cuda_device, eager_engine, synth_segments  # noqa: F401
+from _torch_helpers import (  # noqa: F401
+    assert_bitwise, cuda_device, eager_engine, sweep_like_matrices, synth_segments,
+)
 from hammlet_tpu_torch import cli, runner
 from hammlet_tpu_torch.io.records import Records
 from hammlet_tpu_torch.ops import wavelet, wavelet_cuda
@@ -917,6 +919,84 @@ def test_fbscan_rows_independent_on_card(cuda_device, B):
     assert_bitwise(fb_cuda.prefix_matmul_scan_cuda(view), fb_cuda.prefix_matmul_scan_cuda(view.contiguous()))
     tview = maps[:, :, 0].T.contiguous().T
     assert torch.equal(fb_cuda.suffix_compose_scan_cuda(tview), fb_cuda.suffix_compose_scan_cuda(tview.contiguous()))
+
+
+def _scan_kernels(fn, calls=4):
+    """Names of the CUDA kernels one call of ``fn`` launches: torch.profiler
+    over ``calls`` calls after a warm-up call, taken again (up to three
+    times) where the kernels do not divide evenly among the calls (the
+    profiler now and then loses a whole trace)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kern = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
+        if kern and len(kern) % calls == 0:
+            break
+    assert kern and len(kern) % calls == 0, [e.name for e in kern]
+    return [e.name for e in kern[:len(kern) // calls]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 4])
+def test_fbscan_one_kernel_per_call_on_card(cuda_device, R):
+    """At the main path's shape (B = 29,696, K = 3; R = 1 at P = 1, four
+    local rows at P = 4 on one card) each scan call is one CUDA kernel,
+    the cooperative one-launch form (torch.profiler)."""
+    from hammlet_tpu_torch.samplers import fb_cuda
+
+    M, maps = _fb_inputs(29_696, 3, R, 7 + R, cuda_device)
+    prefix = _scan_kernels(lambda: fb_cuda.prefix_matmul_scan_cuda(M))
+    suffix = _scan_kernels(lambda: fb_cuda.suffix_compose_scan_cuda(maps))
+    assert len(prefix) == 1 and "fbscan_prefix_one_kernel" in prefix[0], prefix
+    assert len(suffix) == 1 and "fbscan_suffix_one_kernel" in suffix[0], suffix
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, R", [(29_696, 1), (29_696, 4), (9_600, 4), (433_920, 1)])
+def test_fbscan_sweep_like_subnormals_bitwise_on_card(cuda_device, B, R):
+    """Exact on the card: on matrices shaped like the sweep's (half zeros,
+    ~1 % subnormal) the prefix kernels equal their plain version bit for
+    bit, in the one-launch form (B = 29,696 and 9,600 per row) and beyond
+    one resident wave (B = 433,920, 3,390 groups: three launches); the
+    suffix kernels equal theirs on maps of the same shape."""
+    from hammlet_tpu_torch.samplers import fb_cuda
+    from hammlet_tpu_torch.samplers import forward_backward as fb
+
+    M = torch.from_numpy(sweep_like_matrices(3, R, B, B + R)).to(cuda_device)
+    maps = _fb_inputs(B, 3, R, B, cuda_device)[1]
+    assert_bitwise(fb_cuda.prefix_matmul_scan_cuda(M), fb.prefix_matmul_scan_reference(M))
+    assert torch.equal(fb_cuda.suffix_compose_scan_cuda(maps), fb.suffix_compose_scan_reference(maps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 4])
+def test_fbscan_one_launch_in_cuda_graph_on_card(cuda_device, R):
+    """Exact on the card: the one-launch scans (B = 29,696, K = 3, on the
+    sweep-like matrices) captured into a CUDA graph and replayed twice give
+    the bits of the eager calls."""
+    from hammlet_tpu_torch.samplers import fb_cuda
+
+    M = torch.from_numpy(sweep_like_matrices(3, R, 29_696, 5 + R)).to(cuda_device)
+    maps = _fb_inputs(29_696, 3, R, 3 + R, cuda_device)[1]
+    want = fb_cuda.prefix_matmul_scan_cuda(M)
+    swant = fb_cuda.suffix_compose_scan_cuda(maps)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fb_cuda.prefix_matmul_scan_cuda(M)
+        sgot = fb_cuda.suffix_compose_scan_cuda(maps)
+    for _ in range(2):
+        got.zero_()
+        sgot.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert_bitwise(got, want)
+        assert torch.equal(sgot, swant)
 
 
 @pytest.mark.cuda

@@ -5,13 +5,15 @@ front of the kernels (samplers/fb_cuda.py). The kernels themselves are
 held against these plain versions on the card (tests/test_torch_cuda.py,
 chip_smoke.py [fbscan])."""
 
+from fractions import Fraction
+
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
-from _torch_helpers import to_np, to_torch, toy_problem
+from _torch_helpers import sweep_like_matrices, to_np, to_torch, toy_problem
 from hammlet_tpu.models import distributions as jd
 from hammlet_tpu.samplers import forward_backward as jfb
 from hammlet_tpu_torch import _build
@@ -67,6 +69,112 @@ def test_suffix_scan_matches_jax(B, K):
     got = tfb.suffix_compose_scan_t(to_torch(maps, torch.int64))
     assert got.dtype == torch.int64
     np.testing.assert_array_equal(to_np(got), np.asarray(jfb.suffix_compose_scan_t(jnp.asarray(maps))))
+
+
+def _division_cases(case):
+    """(z, m) float32 pairs: random rows z in [0, m] with m the row max
+    (clamped at 1e-35 as the combine clamps it), every subnormal magnitude
+    class, quotients that fall exactly on a float32 midpoint in the
+    subnormal range, or NaN and inf."""
+    rng = np.random.default_rng(11)
+    tiny = 2.0 ** -149
+    if case == "rows":
+        z = (rng.uniform(0, 1, (50_000, 9)) * 2.0 ** rng.integers(-170, 8, (50_000, 9)))
+        z = z.astype(np.float32)
+        m = np.maximum(z.max(axis=1, keepdims=True), np.float32(1e-35))
+        return z.ravel(), np.broadcast_to(m, z.shape).ravel()
+    if case == "subnormal_classes":
+        # every binade of the subnormals (2^e .. 2^(e+1) - 1 ulps, e = 0..22) over many m
+        e = np.repeat(np.arange(23), 4000)
+        z = ((2.0 ** e + rng.integers(0, 2 ** 22, e.size) % 2.0 ** e) * tiny).astype(np.float32)
+        m = rng.uniform(1, 2, e.size) * 2.0 ** rng.integers(-117, 4, e.size)
+        m = np.where(rng.random(e.size) < 0.5, m, rng.integers(1, 200, e.size)).astype(np.float32)
+        return z, m
+    if case == "midpoints":
+        # z = (2j + 1) k ulps, m = 2k: the quotient is (j + 1/2) ulps, a tie
+        k, j = np.meshgrid(np.arange(1, 3000), np.arange(0, 200))
+        num = ((2 * j + 1) * k).ravel()
+        keep = num < 2 ** 24
+        z = (num[keep] * tiny).astype(np.float32)
+        assert np.array_equal(z.astype(np.float64), num[keep] * tiny)  # exact
+        return z, (2 * k.ravel()[keep]).astype(np.float32)
+    special = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1.0, tiny, 3e38], np.float32)
+    return tuple(a.ravel() for a in np.meshgrid(special, special))
+
+
+def _assert_same_bits(got, want, z, m):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    keep = ~np.isnan(want)
+    bad = np.flatnonzero(got[keep].view(np.int32) != want[keep].view(np.int32))
+    assert bad.size == 0, (z[keep][bad[:5]], m[keep][bad[:5]])
+
+
+def _float32_quotient(z, m):
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore", under="ignore"):
+        return z / m
+
+
+@pytest.mark.parametrize("case", ["rows", "subnormal_classes", "midpoints", "nan_inf"])
+def test_float64_quotient_is_the_float32_quotient(case):
+    """Exact: the float64 quotient rounded to float32,
+    np.float32(np.float64(z) / np.float64(m)), has the bits of the float32
+    division __fdiv_rn (and torch's ``/``) gives, subnormal results
+    included; numpy rounds as IEEE does. The midpoints also show why the
+    kernels do not take z * (1 / m) alone: at 147 ulps / 98 it rounds the
+    other way."""
+    z, m = _division_cases(case)
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        got = (z.astype(np.float64) / m.astype(np.float64)).astype(np.float32)
+    _assert_same_bits(got, _float32_quotient(z, m), z, m)
+    if case == "midpoints":
+        tiny = np.float64(2.0 ** -149)
+        short = np.float32(147 * tiny * (1.0 / np.float64(98.0)))
+        assert short.view(np.int32) != (np.float32(147 * tiny) / np.float32(98)).view(np.int32)
+
+
+def _kernel_quotient(z: float, m: float) -> float:
+    """csrc/fbscan.cu's wide_quotient in exact arithmetic: y = RN(1 / m),
+    t = RN(z y), r = RN(z - m t), q = RN32(RN(t + r y)), each FMA rounded
+    once (Fractions, then one rounding to float64); a zero z stays z, and an
+    inf or NaN operand takes the float32 division, as rescale does."""
+    if not (np.isfinite(z) and np.isfinite(m)):
+        return _float32_quotient(np.float32(z), np.float32(m))
+    if z == 0:
+        return np.float32(z)
+    y = float(Fraction(1) / Fraction(m))
+    t = z * y
+    r = float(Fraction(z) - Fraction(m) * Fraction(t))
+    return np.float32(float(Fraction(r) * Fraction(y) + Fraction(t)))
+
+
+@pytest.mark.parametrize("case", ["rows", "subnormal_classes", "midpoints", "nan_inf"])
+def test_kernel_division_is_the_float32_quotient(case):
+    """Exact: the kernels' division (one reciprocal per combine and
+    Markstein's correction in float64, then rounded to float32) gives the
+    bits of the float32 division on the same pairs, every 16th of them,
+    with m clamped at 1e-35 as the combine clamps it (NaN stays NaN)."""
+    z, m = (a[::16] if a.size > 1000 else a for a in _division_cases(case))
+    with np.errstate(invalid="ignore"):
+        m = np.where(m < np.float32(1e-35), np.float32(1e-35), m)
+    got = [_kernel_quotient(float(a), float(b)) for a, b in zip(z, m)]
+    _assert_same_bits(got, _float32_quotient(z, m), z, m)
+
+
+@pytest.mark.parametrize("B", [384, 29_696])
+@pytest.mark.parametrize("K", [3, 5])
+def test_prefix_scan_on_sweep_like_matrices_matches_jax(B, K):
+    """The prefix scan on matrices shaped like the sweep's (about half
+    zeros, ~1 % subnormal entries, from exp(E - max E) with E down to -110)
+    against the JAX function. Tolerance: rtol 1e-5, atol 1e-30, as above
+    (XLA on the CPU flushes subnormals, torch keeps them; they sit far
+    below atol)."""
+    M = sweep_like_matrices(K, 1, B, B + K)[:, :, 0]
+    assert (M == 0).mean() > 0.4 and ((M > 0) & (M < np.finfo(np.float32).tiny)).any()
+    np.testing.assert_allclose(
+        to_np(tfb.prefix_matmul_scan_t(to_torch(M))),
+        np.asarray(jfb.prefix_matmul_scan_t(jnp.asarray(M))), rtol=1e-5, atol=1e-30,
+    )
 
 
 @pytest.mark.parametrize("B", [130, 384, 1024])

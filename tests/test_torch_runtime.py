@@ -434,6 +434,40 @@ def test_cold_build_from_two_threads_builds_once(tmp_path, monkeypatch):
     assert len(built) == 1 and built[0].read_text() == "built\n"  # no .tmp left
 
 
+def test_two_libraries_build_side_by_side(tmp_path, monkeypatch):
+    """Builds of two different libraries from two threads run their nvcc
+    at the same time (chip_smoke.py starts them together); each build
+    still takes its own library's lock. The stub nvcc (on PATH) notes when
+    it starts and ends."""
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    log = tmp_path / "nvcc.log"
+    stub = bin_dir / "nvcc"
+    stub.write_text(
+        "#!/bin/sh\n"
+        f"echo start >> {log}\n"
+        "sleep 0.5\n"
+        f"echo end >> {log}\n"
+        'while [ "$1" != "-o" ]; do shift; done\n'
+        'echo built > "$2"\n'
+    )
+    stub.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{bin_dir}{os.pathsep}{os.environ['PATH']}")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    sources = []
+    for name in ("one", "two"):
+        src = tmp_path / f"{name}.cu"
+        src.write_text(name)
+        sources.append(src)
+    threads = [threading.Thread(target=_build.build, args=(src.stem, [src])) for src in sources]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert log.read_text().splitlines() == ["start", "start", "end", "end"]
+    assert sorted(p.name.split("-")[0] for p in (tmp_path / "build").iterdir()) == ["libone", "libtwo"]
+
+
 def test_launch_counter_loses_no_update_across_threads():
     """Stress: 16 threads add 2000 launches each to one wrapper's counter
     (wavelet_cuda._count, as -M chains do) with the switch interval
