@@ -7,9 +7,9 @@ Run from the repository root on a machine with a card:
 
 Phases, one line each (a failed phase exits non-zero and prints no result):
 1. card: nvidia-smi name and power limit, torch's device name;
-2. build: nvcc builds csrc/maxlet.cu and csrc/fbscan.cu for sm_90a into
-   hammlet_tpu_torch/build/, both started together (ptxas registers and
-   spills of each kernel);
+2. build: nvcc builds csrc/maxlet.cu, csrc/fbscan.cu and
+   csrc/modelupdate.cu for sm_90a into hammlet_tpu_torch/build/, all three
+   started together (ptxas registers and spills of each kernel);
 3. kernel: each Hopper maxlet kernel (chunk, cross-chunk) against its own
    plain torch version and the whole transform against
    wavelet.maxlet_transform, on the card and on the CPU, bit for bit, at
@@ -36,6 +36,20 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    from the eager [graph] and [sharded] engines), uniform inputs at the
    same shapes, at the T = 250M per-shard shape, at a flat FB_FLAT and at
    K = 10; then the sweep's own and the uniform times side by side;
+3c. model: the sweep statistics kernels (csrc/modelupdate.cu, through
+   models/model_cuda.py) bitwise against their plain version on the card at
+   MODEL_ROWS x MODEL_KS x MODEL_DIMS (a masked tail and an overflowing
+   count at B = 29,696), each row of a 4-row call against its one-row call;
+   the resample kernel bitwise against its plain version over MODEL_DRAWS
+   draws at each K, Gamma shapes 0.5-1e7; NaN statistics; after phase 9,
+   for each timed input both kernels checked against their plain versions
+   on it, the CUDA kernels one call of each launches (torch.profiler; at
+   most two and exactly one) and CUDA-event times (L2 flushed; warm, device
+   only) of both and of their plain versions, beside the bound: the sweep's
+   own statistics inputs, statistics and noise at P = 1 and P = 4 (taken
+   from the eager [graph] and [sharded] engines), uniform inputs at T = 4M's
+   burn-in capacity, at T = 250M's per-shard capacity in four rows and at
+   K = 10, dim 3;
 4. main path: make_engine -> run_scheme("M 64 0 F 512 4") -> finalize at
    T = 4,000,000 positions, 3 states (the repo benchmark's configuration),
    checking that ingest launched both kernels, that every marginal row
@@ -115,15 +129,18 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    runtime's launch calls (cudaLaunchKernel, cudaGraphLaunch), device
    kernels, device ms and busy share, and the ten costliest kernels inside
    the graphed sweep, and every FB scan kernel in the graphed P = 1 and
-   P = 4 sweeps (both must be there); the eager sweep's device ms by the
-   stage of the sweep that launched each kernel; last, because a process that has
+   P = 4 sweeps (both must be there), and both model-update kernels there
+   too; the eager sweep's device ms by the stage of the sweep that launched
+   each kernel, and the kernels of the model update's two stages (only its
+   kernels and the resample's draws); last, because a process that has
    run the profiler launches more slowly;
 then the kernels JSON line, the nvidia-smi line, and the result line.
 
 ``python3 chip_smoke.py --sharded-cards N [PAIRS [T]]`` runs phase [cards]
 alone; it needs N cards: (a) on each card both maxlet kernels bitwise
 against their plain versions and the golden transform (T = 4,000,000, dim 1
-and 3), and both FB scan kernels bitwise against their plain versions; (b) the main path's data and scheme through bin/hammlet-torch -f
+and 3), and both FB scan and both model-update kernels bitwise against
+their plain versions; (b) the main path's data and scheme through bin/hammlet-torch -f
 -D N with -C, which spawns N processes, one per card, over NCCL, against
 the same command under CUDA_VISIBLE_DEVICES=0 (one process, N shards on one
 card), byte for byte, and a third N-process run killed after its first
@@ -174,6 +191,7 @@ from hammlet_tpu_torch.device import synchronize
 from hammlet_tpu_torch.golden import reference as golden
 from hammlet_tpu_torch.io.input import read_values
 from hammlet_tpu_torch.io.records import Records
+from hammlet_tpu_torch.models import hmm, model_cuda
 from hammlet_tpu_torch.ops import wavelet, wavelet_cuda
 from hammlet_tpu_torch.parallel import distributed, launch, sharded
 from hammlet_tpu_torch.parallel.ingest import sharded_ingest
@@ -226,11 +244,13 @@ GROUP_VARS = ("HAMMLET_NUM_PROCESSES", "HAMMLET_COORDINATOR", "HAMMLET_PROCESS_I
 FB_DRAWS = 3000  # [main]: draws of the FB sampler and of the golden one
 COUNTED = (wavelet_cuda.maxlet_transform_cuda, wavelet_cuda.maxlet_chunks_cuda,
            wavelet_cuda.maxlet_cross_cuda, fb_cuda.prefix_matmul_scan_cuda,
-           fb_cuda.suffix_compose_scan_cuda)
+           fb_cuda.suffix_compose_scan_cuda, model_cuda.sweep_stats_cuda,
+           model_cuda.resample_model_cuda)
 COUNT_NAMES = ("transforms", "maxlet_chunk_kernel", "maxlet_cross_kernel",
-               "prefix_matmul_scan_kernel", "suffix_compose_scan_kernel")
+               "prefix_matmul_scan_kernel", "suffix_compose_scan_kernel", "sweep_stats_kernels",
+               "resample_model_kernel")
 MAXLET_NAMES = COUNT_NAMES[:3]  # launched once per ingest
-FB_NAMES = COUNT_NAMES[3:]  # launched by every eager sweep and every capture
+SWEEP_NAMES = COUNT_NAMES[3:]  # launched by every eager sweep and every capture
 KERNEL_ROWS = (  # name (the kernels a call runs on the main path), source, the TPU code it
     # replaces, key in the timing results, key in COUNT_NAMES
     ("maxlet_chunk_kernel", "hammlet_tpu_torch/csrc/maxlet.cu",
@@ -241,6 +261,11 @@ KERNEL_ROWS = (  # name (the kernels a call runs on the main path), source, the 
      "hammlet_tpu/samplers/forward_backward.py:94", "prefix", "prefix_matmul_scan_kernel"),
     ("fbscan_suffix_one_kernel", "hammlet_tpu_torch/csrc/fbscan.cu",
      "hammlet_tpu/samplers/forward_backward.py:154", "suffix", "suffix_compose_scan_kernel"),
+    ("modelupdate_stats_tile_kernel+modelupdate_stats_total_kernel",
+     "hammlet_tpu_torch/csrc/modelupdate.cu", "hammlet_tpu/samplers/sweep.py:100", "stats",
+     "sweep_stats_kernels"),
+    ("modelupdate_resample_kernel", "hammlet_tpu_torch/csrc/modelupdate.cu",
+     "hammlet_tpu/models/hmm.py:128", "resample", "resample_model_kernel"),
 )
 FB_SIZES = [8, 130, 256, 384, 29_696, 433_920, 500_000]  # [fbscan]: block counts B
 FB_BIG = 433_920  # [cards] (d)'s capacity per shard at T = 250M: 3,390 group totals
@@ -254,6 +279,12 @@ FB_ONE_LAUNCH = ("P=1 sweep data", f"P={P_SHARDED} sweep data", "P=1 uniform",
 # the three-launch prefix kernels (group, totals, combine; __fdiv_rn) on the P = 1 sweep's
 # matrices, ms with L2 flushed (NVIDIA H100 80GB HBM3, 700.00 W)
 FB_THREE_LAUNCH_PREFIX_MS = 0.0745
+# [model]: (R, B) rows of the statistics kernels' checks: the settled P = 1 capacity, T = 250M's
+# per-shard capacity in four rows, T = 4M's M burn-in capacity, a short row
+MODEL_ROWS = [(1, 30), (1, 29_696), (4, 433_920), (1, 4_000_000)]
+MODEL_KS = [3, 10]  # [model]: states K
+MODEL_DIMS = [1, 3]  # [model]: data dimensions (P = K at dim 1, 2 above)
+MODEL_DRAWS = 50  # [model]: resample draws checked per K
 
 
 class SmokeFailure(Exception):
@@ -776,6 +807,198 @@ def time_fbscan(inputs: dict) -> dict:
     return timed
 
 
+def model_stats_inputs(R: int, B: int, K: int, dim: int, seed: int,
+                       tail: str = "full") -> tuple:
+    """One statistics call's inputs, made on the card from ``seed``: (R, B)
+    states and sizes, (R,) block counts (``tail``: B; "masked", about half,
+    one fewer in each later row; "overflow", an overflowing sweep's B + 1),
+    (dim, 2, R, B) signed block statistics and a (K, dim) mapping into P =
+    K parameters at dim 1, else 2. Returns the kernel's arguments, P last."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    P = K if dim == 1 else 2
+    states = torch.randint(0, K, (R, B), generator=gen, device="cuda")
+    sizes = torch.randint(1, 400, (R, B), generator=gen, device="cuda")
+    first = {"full": B, "masked": B // 2 + 1, "overflow": B + 1}[tail]
+    n_blocks = first - (tail == "masked") * torch.arange(R, device="cuda")
+    bstats = torch.randn((dim, 2, R, B), generator=gen, device="cuda").mul_(30)
+    bstats[:, 1].abs_()
+    mapping = torch.randint(0, P, (K, dim), generator=gen, device="cuda")
+    return states, sizes, n_blocks, bstats, mapping, P
+
+
+def model_resample_inputs(K: int, seed: int, nan: bool = False) -> tuple:
+    """One resample call's inputs, made on the card from ``seed``: priors,
+    statistics of P = K parameters whose Gamma shapes span 0.5 to 1e7 (a NaN
+    theta sum with ``nan``), and the noise drawn as the resample draws it.
+    Returns the 12 tensors the kernel takes: priors, statistics, noise."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    P, n = K, 2 * K + K * K
+    spread = torch.tensor([0.0, 1.0, 7.0, 120.0, 5e4, 1e7], device="cuda")
+    pick = lambda *shape: spread[torch.randint(0, 6, shape, generator=gen, device="cuda")]  # noqa: E731
+    counts = pick(P)
+    sums = torch.randn(P, generator=gen, device="cuda") * counts
+    if nan:
+        counts[0], sums[0] = 40.0, float("nan")
+    priors = hmm.HMMPriors.create(np.tile(np.array([2.0, 0.4, 0.1, 0.3], np.float32), (P, 1)),
+                                  K, device="cuda")
+    stats = (sums, counts * 1.7 + 1.0, counts, pick(K, K), pick(K))
+    noise = (torch.randn((model_cuda.TRIES, n), generator=gen, device="cuda"),
+             torch.rand((model_cuda.TRIES, n), generator=gen, device="cuda"),
+             torch.rand((n,), generator=gen, device="cuda"),
+             torch.randn((P,), generator=gen, device="cuda"))
+    return tuple(priors) + stats + noise
+
+
+class ModelInputs:
+    """While entered, keeps a copy of the inputs of every model-update
+    kernel call (through model_cuda._stats and _resample, which the
+    wrappers call after their checks), the last one of each kind and
+    shape. Run an eager engine inside it to take the sweep's own
+    statistics inputs and its resample's statistics and noise."""
+
+    def __init__(self):
+        self.seen: dict = {"stats": {}, "resample": {}}
+        self.real = (model_cuda._stats, model_cuda._resample)
+
+    def __enter__(self):
+        real_stats, real_resample = self.real
+
+        def stats(*args):
+            self.seen["stats"][tuple(args[0].shape)] = tuple(
+                a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+            return real_stats(*args)
+
+        def resample(*args):
+            self.seen["resample"][tuple(args[0].shape)] = tuple(a.clone() for a in args)
+            return real_resample(*args)
+
+        model_cuda._stats, model_cuda._resample = stats, resample
+        return self
+
+    def __exit__(self, *exc):
+        model_cuda._stats, model_cuda._resample = self.real
+
+    def main(self) -> tuple:
+        """(statistics arguments of the largest call, resample arguments)."""
+        return tuple(max(self.seen[k].values(), key=lambda a: a[0].numel())
+                     for k in ("stats", "resample"))
+
+
+def resample_parts(args: tuple) -> tuple:
+    """(HMMPriors, SweepStats, noise) of the resample kernel's 12 tensors."""
+    return hmm.HMMPriors(*args[:3]), hmm.SweepStats(*args[3:8]), tuple(args[8:])
+
+
+def check_model(stats_args: tuple, resample_args: tuple | None, where: str) -> dict:
+    """The statistics kernels (and the resample kernel, unless None) against
+    their plain versions on the card, bit for bit (NaN where the plain
+    version has NaN), each row of a many-row call against its one-row call;
+    returns the largest absolute errors where both sides are finite."""
+    got = model_cuda.sweep_stats_cuda(*stats_args)
+    want = sweep.sweep_stats_reference(*stats_args)
+    check(bits_equal(got, want), f"[model] statistics kernels != plain ({where})")
+    states, sizes, n_blocks, bstats, mapping, P = stats_args
+    for r in range(states.shape[0] if states.shape[0] > 1 else 0):
+        one = model_cuda.sweep_stats_cuda(states[r:r + 1], sizes[r:r + 1], n_blocks[r:r + 1],
+                                          bstats[:, :, r:r + 1].contiguous(), mapping, P)
+        check(bits_equal(got[r], one[0]), f"[model] statistics row {r} != its one-row call ({where})")
+    finite = bool(torch.isfinite(got).all())
+    err = {"stats": max_abs_err(got, want) if finite else 0.0, "resample": 0.0}
+    if resample_args is not None:
+        parts = resample_parts(resample_args)
+        rgot = model_cuda.resample_model_cuda(*parts)
+        rwant = hmm.resample_model_reference(*parts)
+        for name, a, b in zip(hmm.HMMState._fields, rgot, rwant):
+            check(bits_equal(a, b), f"[model] resample kernel != plain: {name} ({where})")
+            if bool(torch.isfinite(a).all()):
+                err["resample"] = max(err["resample"], max_abs_err(a, b))
+    return err
+
+
+def phase_model() -> dict:
+    """[model]: the statistics kernels against their plain version on the
+    card at MODEL_ROWS x MODEL_KS x MODEL_DIMS (at B = 29,696 also a masked
+    tail and an overflowing count), each row of a 4-row call against its
+    one-row call; the resample kernel against its plain version over
+    MODEL_DRAWS draws at each of MODEL_KS; both with NaN statistics; the
+    CUDA kernels of one call of each at the main path's shapes. Not
+    counted: callers reset the counters before the run they count."""
+    res = {"cases": 0, "draws": 0, "stats_err": 0.0, "resample_err": 0.0}
+    for R, B in MODEL_ROWS:
+        for K in MODEL_KS:
+            for dim in MODEL_DIMS:
+                for tail in ("full", "masked", "overflow") if B == 29_696 else ("full",):
+                    args = model_stats_inputs(R, B, K, dim, B + 10 * K + dim, tail)
+                    err = check_model(args, None, f"R={R} B={B} K={K} dim={dim} {tail}")
+                    res["stats_err"] = max(res["stats_err"], err["stats"])
+                    res["cases"] += 1
+                    del args
+    for K in MODEL_KS:
+        stats_args = model_stats_inputs(1, 29_696, K, 1, K)
+        for draw in range(MODEL_DRAWS):
+            err = check_model(stats_args, model_resample_inputs(K, 1000 * K + draw),
+                              f"K={K} draw {draw}")
+            res["resample_err"] = max(res["resample_err"], err["resample"])
+            res["draws"] += 1
+    # NaN: a NaN block statistic poisons its dimension's theta sums, a NaN
+    # theta sum its parameter's mean and variance, as in the plain versions
+    args = model_stats_inputs(2, 29_696, 3, 1, 5, "masked")
+    args[3][0, 0, 0, 100] = float("nan")
+    args[3][0, 1, 1, 29_000] = float("nan")  # past row 1's blocks
+    check_model(args, model_resample_inputs(3, 6, nan=True), "NaN")
+    check(bool(torch.isnan(model_cuda.sweep_stats_cuda(*args)).any()), "[model] NaN was dropped")
+    torch.cuda.synchronize()
+    return res
+
+
+def model_work(R: int, B: int, K: int, dim: int, P: int) -> dict:
+    """(bytes, float32 operations) of one call of each kernel: every input
+    read once and every output written once; the statistics' terms (2K +
+    K^2 + 3 P dim of them) take a multiply and an add per block, and a
+    Gamma shape's tries about 32 operations each (a transcendental counted
+    as one), for n = P + K^2 + K shapes."""
+    n, terms = P + K * K + K, 2 * K + K * K + 3 * P * dim
+    return {
+        "stats": (R * B * (16 + 8 * dim) + 8 * R + 8 * K * dim + 4 * R * (3 * P + K * K + K),
+                  2 * terms * R * B),
+        "resample": (4 * (7 * P + 2 * K * K + 2 * K + 2 * model_cuda.TRIES * n + n + P)
+                     + 4 * (2 * P + K * K + K), n * (model_cuda.TRIES * 32 + 8)),
+    }
+
+
+def time_model(inputs: dict) -> dict:
+    """For each tag -> (statistics arguments, resample arguments) of
+    ``inputs``: both kernels checked against their plain versions on those
+    inputs (check_model), the CUDA kernels one call of each launches, then
+    CUDA-event times (L2 flushed, and warm) of both and of their plain
+    versions, beside the least time on the card."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    timed = {}
+    for tag, (stats_args, resample_args) in inputs.items():
+        check_model(stats_args, resample_args, tag)
+        states, _, _, _, mapping, P = stats_args
+        (R, B), (K, dim) = states.shape, mapping.shape
+        parts = resample_parts(resample_args)
+        fns = {
+            "stats": lambda: model_cuda.sweep_stats_cuda(*stats_args),
+            "resample": lambda: model_cuda.resample_model_cuda(*parts),
+            "stats_plain": lambda: sweep.sweep_stats_reference(*stats_args),
+            "resample_plain": lambda: hmm.resample_model_reference(*parts),
+        }
+        row = {"model_shape": (R, B, K, dim), "stats_kernels": scan_kernels(fns["stats"]),
+               "resample_kernels": scan_kernels(fns["resample"])}
+        for name, fn in fns.items():
+            row[name] = time_ms(fn, flushed(flush))
+            row[name + "_warm"] = time_ms(fn, lambda: torch.cuda._sleep(SLEEP_CYCLES))
+        for name, (nbytes, ops) in model_work(R, B, K, dim, P).items():
+            row[name + "_bound"], row[name + "_bound_by"] = bound_ms(nbytes, ops)
+        timed[tag] = row
+        del fns
+    del flush
+    torch.cuda.empty_cache()
+    return timed
+
+
 def large_input(T: int, dim: int) -> torch.Tensor:
     """(T, dim) float32 N(1, 2) made on the card from SEED."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + T + dim)
@@ -1087,9 +1310,10 @@ def phase_graph(pairs: int = GRAPH_PAIRS) -> dict:
         res["settled"] = rates
         res["capacity"] = engines["graph"].capacity
         engines["eager"].records = None
-        with ScanInputs() as scans:  # the sweep's own matrices and maps, for [fbscan]'s times
+        # the sweep's own matrices and maps, statistics inputs and resample inputs
+        with ScanInputs() as scans, ModelInputs() as models:
             engines["eager"].run("F", 4, 4)
-        res["scans"] = scans
+        res["scans"], res["models"] = scans, models
     del engines, eng
     torch.cuda.empty_cache()
     res["one_card"] = one_card_big()
@@ -1142,7 +1366,8 @@ def profile_launches(eng, iters: int = 64) -> dict:
     device was busy), wall ms (the profiler's overhead included, so the
     busy share under it is a lower bound), and the ten costliest kernels
     by device time (name, launches per sweep, device ms per sweep), and
-    the same for every FB scan kernel (csrc/fbscan.cu)."""
+    the same for every FB scan kernel (csrc/fbscan.cu) and model-update
+    kernel (csrc/modelupdate.cu)."""
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
     ])
@@ -1167,8 +1392,9 @@ def profile_launches(eng, iters: int = 64) -> dict:
         union_us += max(0.0, hi - max(lo, end))
         end = max(end, hi)
     top = sorted(by.items(), key=lambda kv: -kv[1][1])[:10]
-    fbscan = {name: (n / iters, round(us / iters / 1e3, 5))
-              for name, (n, us) in sorted(by.items()) if "fbscan_" in name}
+    fbscan, model = ({name: (n / iters, round(us / iters / 1e3, 5))
+                      for name, (n, us) in sorted(by.items()) if prefix in name}
+                     for prefix in ("fbscan_", "modelupdate_"))
     return {
         "launch_calls": {k: v / iters for k, v in sorted(calls.items())},
         "kernels": len(kernels) / iters,
@@ -1178,20 +1404,18 @@ def profile_launches(eng, iters: int = 64) -> dict:
         "busy": union_us / iters / 1e3 / wall_ms,
         "top": [(name[:120], n / iters, round(us / iters / 1e3, 5)) for name, (n, us) in top],
         "fbscan": fbscan,
+        "model": model,
     }
 
 
 def split_stages() -> tuple:
     """(module, function name) of each stage of the sweep that
     device_split_by_stage labels, looked up where the sweep calls it."""
-    from hammlet_tpu_torch.models import distributions
-
     return ((sweep, "sweep_step"), (sweep, "make_blocks_bucketed"),
             (sweep, "block_sufficient_stats_t"), (fb, "emission_log_weights_t"),
             (fb, "forward_columns_t"), (fb, "prefix_matmul_scan_t"), (fb, "backward_sample_t"),
             (fb, "gumbel"), (fb, "suffix_compose_scan_t"), (sweep, "accumulate_sweep_stats"),
-            (sweep, "resample_model"), (distributions, "gamma_fixed_tries"),
-            (sweep, "record_sweep"))
+            (sweep, "resample_model"), (sweep, "record_sweep"))
 
 
 def device_split_by_stage(eng, iters: int = 16) -> dict:
@@ -1200,11 +1424,12 @@ def device_split_by_stage(eng, iters: int = 16) -> dict:
     torch.profiler.record_function range: the device ms per sweep of the
     kernels each stage launched outside the stages it calls (the innermost
     range among the ancestors of the operator that launched them), largest
-    first, and their total. The FB scan kernels, launched through ctypes
-    outside any torch operator, are credited to their stage by name; device
-    time that no CPU event carries (the trace's device kernels less what
-    was credited) is its own entry. A graph replays the same kernels, so
-    this is the graphed sweep's split too."""
+    first, and their total. The FB scan and model-update kernels, launched
+    through ctypes outside any torch operator, are credited to their stage
+    by name; device time that no CPU event carries (the trace's device
+    kernels less what was credited) is its own entry. Also the CUDA kernels
+    per sweep, by name, of the two stages of the model update. A graph
+    replays the same kernels, so this is the graphed sweep's split too."""
     def labelled(name, fn):
         def run(*args, **kwargs):
             with torch.profiler.record_function("stage:" + name):
@@ -1225,8 +1450,14 @@ def device_split_by_stage(eng, iters: int = 16) -> dict:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
     by: dict = {}
+    model_stages = ("accumulate_sweep_stats", "resample_model")
+    names: dict = {stage: {} for stage in model_stages}
+    by_name = (("fbscan_prefix", "prefix_matmul_scan_t"), ("fbscan_suffix", "suffix_compose_scan_t"),
+               ("modelupdate_stats", "accumulate_sweep_stats"),
+               ("modelupdate_resample", "resample_model"))
     for e in prof.events():
-        us = sum(k.duration for k in e.kernels if "fbscan_" not in k.name)
+        own = [k for k in e.kernels if not any(kind in k.name for kind, _ in by_name)]
+        us = sum(k.duration for k in own)
         if e.device_type != torch.autograd.DeviceType.CPU or not us:
             continue
         where, node = "(outside the stages)", e.cpu_parent
@@ -1236,16 +1467,21 @@ def device_split_by_stage(eng, iters: int = 16) -> dict:
                 break
             node = node.cpu_parent
         by[where] = by.get(where, 0.0) + us
+        for k in own if where in names else ():
+            names[where][k.name] = names[where].get(k.name, 0) + 1
     for k in device_kernels(prof):  # launched through ctypes: no CPU operator owns them
-        for kind, stage in (("fbscan_prefix", "prefix_matmul_scan_t"),
-                            ("fbscan_suffix", "suffix_compose_scan_t")):
+        for kind, stage in by_name:
             if kind in k.name:
                 by[stage] = by.get(stage, 0.0) + k.time_range.elapsed_us()
+                if stage in names:
+                    names[stage][k.name] = names[stage].get(k.name, 0) + 1
     missing = sum(k.time_range.elapsed_us() for k in device_kernels(prof)) - sum(by.values())
     if missing > 0:  # kernels that no CPU event of the trace lists as its own
         by["(credited to no CPU event)"] = missing
     return {"stages": [(w, round(us / iters / 1e3, 5)) for w, us in sorted(by.items(), key=lambda kv: -kv[1])],
-            "total_ms": sum(by.values()) / iters / 1e3}
+            "total_ms": sum(by.values()) / iters / 1e3,
+            "model_stages": {stage: {n: c / iters for n, c in sorted(kern.items())}
+                             for stage, kern in names.items()}}
 
 
 def phase_profile(main_eng, sharded_eng, sharded_eager) -> dict:
@@ -1282,10 +1518,20 @@ def phase_profile(main_eng, sharded_eng, sharded_eager) -> dict:
         names = " ".join(res[tag]["fbscan"])
         check("fbscan_prefix" in names and "fbscan_suffix" in names,
               f"the {tag} sweep ran no FB prefix or suffix scan kernel: {res[tag]['fbscan']}")
+        names = " ".join(res[tag]["model"])
+        check("modelupdate_stats" in names and "modelupdate_resample" in names,
+              f"the {tag} sweep ran no sweep statistics or resample kernel: {res[tag]['model']}")
     res["sharded_eager"] = profile_launches(sharded_eager)
     eager_engine(main_eng)  # its chunks run the eager gibbs_phase from here on
     res["eager"] = profile_launches(main_eng)
     res["split"] = device_split_by_stage(main_eng)
+    # the model update's stages launch its kernels and the resample's draws, and
+    # nothing of the one-hot matmuls and elementwise Gamma sampler they replace
+    for stage, allowed in (("accumulate_sweep_stats", ("modelupdate_stats",)),
+                           ("resample_model", ("modelupdate_resample_kernel", "distribution"))):
+        names = res["split"]["model_stages"].get(stage, {})
+        check(bool(names) and all(any(a in n for a in allowed) for n in names),
+              f"the eager sweep's {stage} stage launched {names}")
     return res
 
 
@@ -1537,9 +1783,10 @@ def phase_sharded(main_eng, pairs: int = SHARDED_PAIRS) -> dict:
             e.records.close()
             rates[tag].append(512 / e.phase_log[-1][2])
     eng.records = eager.records = None
-    with ScanInputs() as scans:  # the sweep's own matrices and maps, for [fbscan]'s times
+    # the sweep's own matrices and maps, statistics inputs and resample inputs
+    with ScanInputs() as scans, ModelInputs() as models:
         eager.run("F", 4, 4)
-    res["scans"] = scans
+    res["scans"], res["models"] = scans, models
     res["settled"] = rates
     res["settled_ratio"] = float(np.median(rates["sharded"]) / np.median(rates["one"]))
     res["graph_ratio"] = float(np.median(rates["sharded"]) / np.median(rates["eager"]))
@@ -1699,7 +1946,7 @@ def phase_chains(tmp: str, devices: list[torch.device] | None = None,
             for name in MAXLET_NAMES:
                 check(counts[name] == n, f"-M ({tag}) launched {name} {counts[name]} times, "
                       "not once per chain")
-            for name in FB_NAMES:
+            for name in SWEEP_NAMES:
                 check(counts[name] >= n, f"-M ({tag}) launched {name} {counts[name]} times, "
                       f"fewer than the {n} chains")
             if tag != "sequential":
@@ -1814,8 +2061,9 @@ def live_workers(launcher_pid: int) -> list[int]:
 def cards_kernels(n: int) -> dict:
     """[cards] (a): on each of n cards, both maxlet kernels against their
     plain versions and the golden transform at T_MAIN, dim 1 (the main
-    path's data) and dim 3, bit for bit; both FB scan kernels against their
-    plain versions at B = 29,696, K = 3, one and four rows, bit for bit."""
+    path's data) and dim 3, bit for bit; both FB scan kernels and both
+    model-update kernels against their plain versions at B = 29,696, K = 3,
+    one and four rows, bit for bit."""
     worst = {"chunk": 0.0, "cross": 0.0, "transform": 0.0, "golden": 0.0}
     for data in (synth(T_MAIN, SEED)[0][:, None],
                  np.random.default_rng(T_MAIN * 7 + 3).normal(1, 2, (T_MAIN, 3)).astype(np.float32)):
@@ -1834,6 +2082,8 @@ def cards_kernels(n: int) -> dict:
                       and torch.equal(fb_cuda.suffix_compose_scan_cuda(maps),
                                       fb.suffix_compose_scan_reference(maps)),
                       f"[cards] (a) an FB scan kernel != its plain version on cuda:{i} (R={R})")
+                check_model(model_stats_inputs(R, 29_696, 3, 1, SEED + i),
+                            model_resample_inputs(3, SEED + i), f"[cards] (a) cuda:{i}, R={R}")
     return worst
 
 
@@ -2060,8 +2310,8 @@ def sharded_cards(n: int, pairs: int = CARDS_PAIRS, t_big: int = T_BIG) -> int:
     print(f"[cards] (a) maxlet_chunk_kernel and maxlet_cross_kernel bitwise equal to their plain "
           f"versions and to golden.reference.maxlet_transform on each of cuda:0-{n - 1}, T={T_MAIN} "
           f"dim 1 and 3 (max abs errors {worst}); prefix_matmul_scan_kernel and "
-          "suffix_compose_scan_kernel bitwise equal to their plain versions on each card at "
-          "B=29696 K=3, R 1 and 4", flush=True)
+          "suffix_compose_scan_kernel, and the sweep statistics and resample kernels, bitwise "
+          "equal to their plain versions on each card at B=29696 K=3, R 1 and 4", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         b = cards_cli(n, tmp)
     print(f"[cards] (b) T={T_MAIN} '{SCHEME}' marginals+parameters+compression, bin/hammlet-torch "
@@ -2247,9 +2497,9 @@ def main() -> int:
           f"{name} x{torch.cuda.device_count()}", flush=True)
 
     try:
-        with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-            builds = list(pool.map(lambda module: module.build(), (wavelet_cuda, fb_cuda)))
-        for tag, built in zip(("maxlet", "fbscan"), builds):
+        with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
+            builds = list(pool.map(lambda module: module.build(), (wavelet_cuda, fb_cuda, model_cuda)))
+        for tag, built in zip(("maxlet", "fbscan", "modelupdate"), builds):
             ptxas = [ln.strip() for ln in built.log.splitlines()
                      if "registers" in ln or "spill" in ln]
             print(f"[build] {tag} {built.path.name} in {built.seconds:.2f} s; "
@@ -2287,6 +2537,17 @@ def main() -> int:
               "bitwise equal to its one-row call; permuted and transposed views against the plain "
               "versions of their contiguous copies (one of the cases); NaN propagates as in the "
               "plain version", flush=True)
+
+        mdk = phase_model()
+        print(f"[model] the statistics kernels (modelupdate_stats_tile_kernel, "
+              f"modelupdate_stats_total_kernel) bitwise equal to their plain version in all "
+              f"{mdk['cases']} cases ((R, B) in {MODEL_ROWS} x K in {MODEL_KS} x dim in "
+              f"{MODEL_DIMS}, at B=29696 also a masked tail and B+1 blocks; largest absolute "
+              f"error {mdk['stats_err']}), each row of a 4-row call bitwise equal to its one-row "
+              f"call; modelupdate_resample_kernel bitwise equal to its plain version in "
+              f"{mdk['draws']} draws at K in {MODEL_KS} with Gamma shapes 0.5-1e7 (largest "
+              f"absolute error {mdk['resample_err']}); NaN statistics propagate as in the plain "
+              "versions", flush=True)
 
         m = phase_main_path()
         print(f"[main] T={T_MAIN} K=3 '{SCHEME}': setup {m['setup_s']:.3f} s, "
@@ -2389,6 +2650,34 @@ def main() -> int:
                      f"sweep's own, the bound is {own['prefix_bound']:.4g} ms" if P == 1 else ""),
                   flush=True)
 
+        own_p1, own_p4 = g["models"].main(), sh.pop("models").main()
+        mdt = time_model({
+            "P=1 sweep data": own_p1,
+            f"P={P_SHARDED} sweep data": own_p4,
+            "T=4M burn-in uniform": (model_stats_inputs(1, T_MAIN, 3, 1, SEED), own_p1[1]),
+            "T=250M per shard uniform": (model_stats_inputs(4, FB_BIG, 3, 1, SEED), own_p4[1]),
+            "K=10 dim=3 uniform": (model_stats_inputs(1, m["capacity"], 10, 3, SEED),
+                                   model_resample_inputs(10, SEED)),
+        })
+        for tag, row in mdt.items():
+            R, B, K, dim = row["model_shape"]
+            print(f"[model] {tag} R={R} B={B} K={K} dim={dim}: both kernels bitwise equal to their "
+                  f"plain versions on these inputs; CUDA kernels per call: statistics "
+                  f"{row['stats_kernels']}, resample {row['resample_kernels']}; ms with L2 flushed / "
+                  "warm, device only (least time on the card, its share of the flushed time): "
+                  + "; ".join(
+                      f"{key} kernels {row[key]:.4f} / {row[key + '_warm']:.4f} (bound "
+                      f"{row[key + '_bound']:.4g} by {row[key + '_bound_by']}, "
+                      f"{row[key + '_bound'] / row[key]:.1%}), plain {row[key + '_plain']:.4f} / "
+                      f"{row[key + '_plain_warm']:.4f}, PyTorch call: none"
+                      for key in ("stats", "resample")), flush=True)
+            check(len(row["stats_kernels"]) <= 2
+                  and all("modelupdate_stats" in n for n, _ in row["stats_kernels"]),
+                  f"[model] one statistics call on the {tag} inputs ran {row['stats_kernels']}")
+            check(len(row["resample_kernels"]) == 1
+                  and "modelupdate_resample_kernel" in row["resample_kernels"][0][0],
+                  f"[model] one resample call on the {tag} inputs ran {row['resample_kernels']}")
+
         with tempfile.TemporaryDirectory() as tmp:
             ch = phase_chains(tmp)
             print(f"[chains] -M with two chromosomes of T={T_CHAIN} '{CHAIN_SCHEME}' in the order "
@@ -2420,7 +2709,8 @@ def main() -> int:
                   f"ms summed, {p['busy_ms']:.4f} as the union of their intervals, "
                   f"{p['wall_ms']:.4f} wall ms under the profiler (busy {p['busy']:.1%}); "
                   f"costliest kernels (name, per sweep, device ms per sweep) {p['top']}; FB scan "
-                  f"kernels (per sweep, device ms per sweep) {p['fbscan']}", flush=True)
+                  f"kernels (per sweep, device ms per sweep) {p['fbscan']}; model-update kernels "
+                  f"{p['model']}", flush=True)
         walls = {t: 1e3 / float(np.median(g["settled"][t])) for t in ("graph", "eager")}
         print(f"[profile] wall ms per sweep without the profiler ([graph] settled medians) "
               f"against the union of the kernels' intervals under it: graphed "
@@ -2429,15 +2719,20 @@ def main() -> int:
               f"lengthens the kernels), eager {walls['eager']:.4f} vs {pr['eager']['busy_ms']:.4f} "
               f"ms ({pr['eager']['busy_ms'] / walls['eager']:.1%}); "
               f"eager sweep's device ms per sweep by the stage that launched it (record_function "
-              f"ranges, {pr['split']['total_ms']:.4f} ms in all): {pr['split']['stages']}", flush=True)
+              f"ranges, {pr['split']['total_ms']:.4f} ms in all): {pr['split']['stages']}; CUDA "
+              f"kernels per sweep of the model update's stages {pr['split']['model_stages']}",
+              flush=True)
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", flush=True)
         return 1
 
-    main_row = dict(k["timed"][(T_MAIN, 1)], **fbt["P=1 sweep data"])  # the main path's inputs
+    # the main path's inputs
+    main_row = {**k["timed"][(T_MAIN, 1)], **fbt["P=1 sweep data"], **mdt["P=1 sweep data"]}
     worst = {"chunk": max(k["worst"]["chunk"], k["worst"]["golden"], ch["worst"]["chunk"]),
              "cross": max(k["worst"]["cross"], k["worst"]["golden"], ch["worst"]["cross"]),
-             "prefix": fbk["prefix_err"], "suffix": fbk["suffix_err"]}
+             "prefix": fbk["prefix_err"], "suffix": fbk["suffix_err"],
+             "stats": mdk["stats_err"], "resample": mdk["resample_err"]}
+    per_sweep = {**pr["graph"]["fbscan"], **pr["graph"]["model"]}
     print(json.dumps({"kernels": [{
         "name": kernel,
         "route": "cuda",
@@ -2447,14 +2742,16 @@ def main() -> int:
         # the CUDA kernels per settled graphed P = 1 sweep ([profile]); the maxlet
         # kernels run once per ingest, in no sweep
         "device_launches_per_sweep": (
-            sum(n for name, (n, _) in pr["graph"]["fbscan"].items() if "fbscan_" + key in name)
-            if key in ("prefix", "suffix") else None),
+            sum(n for name, (n, _) in per_sweep.items()
+                if ("fbscan_" if key in ("prefix", "suffix") else "modelupdate_") + key in name)
+            if key in ("prefix", "suffix", "stats", "resample") else None),
         "max_abs_err": worst[key],
         "ms": main_row[key],
         "plain_ms": main_row[key + "_plain"],
         "bound_ms": main_row[key + "_bound"],
         "bound_by": main_row[key + "_bound_by"],
-        # no single PyTorch call computes the maxlet transform or either scan
+        # no single PyTorch call computes the maxlet transform, either scan, the sweep
+        # statistics or the resample
         "library_ms": None,
     } for kernel, source, replaces, key, count in KERNEL_ROWS]}), flush=True)
     print(nvidia_smi_line(), flush=True)

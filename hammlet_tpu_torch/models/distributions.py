@@ -85,7 +85,7 @@ def gamma_fixed_tries(
 
     ``noise`` = (normal (tries, *shape), uniform (tries, *shape), uniform
     (*shape)) — the proposal normals, acceptance uniforms and boost
-    uniforms."""
+    uniforms; the uniforms are floored at 1e-38 here, as drawn ones are."""
     a = alphas.to(torch.float32)
     shape = tuple(a.shape)
     boost_needed = a < 1.0
@@ -94,10 +94,11 @@ def gamma_fixed_tries(
     c = 1.0 / torch.sqrt(9.0 * d)
     if noise is None:
         x = torch.randn((tries,) + shape, generator=generator, device=a.device)
-        u = _uniform(generator, (tries,) + shape, a.device)
-        ub = _uniform(generator, shape, a.device)
+        u = torch.rand((tries,) + shape, generator=generator, device=a.device)
+        ub = torch.rand(shape, generator=generator, device=a.device)
     else:
         x, u, ub = noise
+    u, ub = torch.clamp(u, min=_U_MIN), torch.clamp(ub, min=_U_MIN)
     t = c * x
     v = (1.0 + t) ** 3
     # acceptance statistic 0.5 x^2 + d (1 - v + log v), expanded in t = c x

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from hammlet_tpu_torch.models import distributions as dist
+from hammlet_tpu_torch.models import model_cuda
 from hammlet_tpu_torch.models.mapping import combinations_mapping
 
 
@@ -119,12 +120,58 @@ class SweepStats(NamedTuple):
 
 
 def resample_model(
-    generator: torch.Generator | None, priors: HMMPriors, stats: SweepStats
+    generator: torch.Generator | None,
+    priors: HMMPriors,
+    stats: SweepStats,
+    noise: tuple[torch.Tensor, ...] | None = None,
 ) -> HMMState:
     """Conjugate posterior draws for theta, A, pi given sweep statistics
     (HMM.hpp:111-115: theta.sample, pi.sample, A.sample with posterior
     reset). All Gamma variates (InvGamma for theta variances, Dirichlet rows
-    for A and pi) come from one fixed-depth gamma_fixed_tries call."""
+    for A and pi) come from one fixed-depth Marsaglia-Tsang draw
+    (dist.gamma_fixed_tries).
+
+    The noise is drawn from ``generator`` in one order: the proposal
+    normals (TRIES, n), the acceptance uniforms (TRIES, n), the boost
+    uniforms (n,), then the mean normals (P,), n = P + K*K + K; ``noise``
+    hands them in pre-drawn instead (a test feeds the JAX package's). On a
+    card the resample is one kernel (model_cuda.resample_model_cuda), or
+    raises; on the CPU its plain version, resample_model_reference."""
+    P, K = priors.nig.shape[0], priors.pi_alphas.shape[0]
+    dev = priors.nig.device
+    if noise is None:
+        n = P + K * K + K
+        noise = (
+            torch.randn((model_cuda.TRIES, n), generator=generator, device=dev),
+            torch.rand((model_cuda.TRIES, n), generator=generator, device=dev),
+            torch.rand((n,), generator=generator, device=dev),
+            torch.randn((P,), generator=generator, device=dev),
+        )
+    if dev.type == "cuda":
+        return HMMState(*model_cuda.resample_model_cuda(priors, stats, noise))
+    if dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return resample_model_reference(priors, stats, noise)
+
+
+def _sum_columns(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis left to right, one add per column: the same
+    order on every device (a torch reduction's is not pinned on the card)."""
+    total = x[..., 0]
+    for j in range(1, x.shape[-1]):
+        total = total + x[..., j]
+    return total
+
+
+def resample_model_reference(
+    priors: HMMPriors, stats: SweepStats, noise: tuple[torch.Tensor, ...]
+) -> HMMState:
+    """Plain torch version of the resample kernel (csrc/modelupdate.cu),
+    given ``noise`` = (proposal normals (TRIES, n), acceptance uniforms
+    (TRIES, n), boost uniforms (n,), mean normals (P,)): the NIG and
+    Dirichlet posteriors, the Gamma draws, var = beta' / g, A's rows and pi
+    each over its sum taken left to right, mean = mu0' + sqrt(var / nu') z."""
+    x, u, ub, z = noise
     nig_post = dist.nig_update(
         priors.nig, stats.theta_sums, stats.theta_sumsqs, stats.theta_counts
     )
@@ -133,12 +180,11 @@ def resample_model(
     a_post = priors.a_alphas + stats.trans_counts
     pi_post = priors.pi_alphas + stats.state_counts
     alphas = torch.cat([nig_post[:, 0], a_post.reshape(-1), pi_post])
-    g = dist.gamma_fixed_tries(generator, alphas)
+    g = dist.gamma_fixed_tries(None, alphas, model_cuda.TRIES, noise=(x, u, ub))
     var = nig_post[:, 1] / g[:P]
     A_g = g[P : P + K * K].reshape(K, K)
-    A = A_g / torch.sum(A_g, dim=1, keepdim=True)
+    A = A_g / _sum_columns(A_g)[:, None]
     pi_g = g[P + K * K :]
-    pi = pi_g / torch.sum(pi_g)
-    z = torch.randn((P,), generator=generator, device=nig_post.device)
+    pi = pi_g / _sum_columns(pi_g)
     mean = nig_post[:, 2] + torch.sqrt(var / nig_post[:, 3]) * z
     return HMMState(mean, var, A, pi)

@@ -98,19 +98,6 @@ from hammlet_tpu_torch.samplers.sweep import (
     stream_seed,
 )
 
-def _local_sweep_stats(z, sizes, nb_l, bstats, mapping, nr_params) -> SweepStats:
-    """accumulate_sweep_stats of each local shard on its own (states, sizes,
-    block counts on the leading shard axis, block stats (dim, 2, S, cap)),
-    stacked on a leading shard axis. One call per shard, never one batched
-    call: a batched matmul sums its floats in an order that depends on the
-    batch, so S = 4 shards in one process would sum differently from one
-    shard in each of four, and the bytes would depend on W."""
-    per = [
-        accumulate_sweep_stats(z[s], sizes[s], nb_l[s], bstats[:, :, s], mapping, nr_params)
-        for s in range(z.shape[0])
-    ]
-    return SweepStats(*(torch.stack(field) for field in zip(*per)))
-
 
 @dataclass
 class ShardedBuffers:
@@ -481,7 +468,9 @@ class ShardedSweep:
                 torch.where(lay.earlier & (st.nb_all[None, :] > 0), lay.ids[None, :], -1), dim=1
             )
             st.carry = torch.where(jbest >= 0, st.last_all[torch.clamp(jbest, min=0)], 0)[rows]
-            loc = _local_sweep_stats(st.z, st.sizes, st.nb_l, st.bstats, mapping, self.nr_params)
+            # one call over the S local rows: each row is summed on its own,
+            # in one fixed order, so the bytes do not depend on S (or W)
+            loc = accumulate_sweep_stats(st.z, st.sizes, st.nb_l, st.bstats, mapping, self.nr_params)
             # accumulate_sweep_stats took state 0 as the previous state of a
             # shard's first block; replace it with the carried state
             # (one-hot arithmetic on integer-valued counts: exact, no indexed add)

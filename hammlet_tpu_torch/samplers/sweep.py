@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from hammlet_tpu_torch import debug as _debug
+from hammlet_tpu_torch.models import model_cuda
 from hammlet_tpu_torch.models.hmm import (
     HMMPriors,
     HMMState,
@@ -189,37 +190,94 @@ def accumulate_sweep_stats(
     nr_params: int,
 ) -> SweepStats:
     """Segment-reduce the sampled path into conjugate-update statistics
-    (reference pass 3, ForwardBackward.hpp:170-212) as one-hot matrix
-    products over the block axis (deterministic, no float atomics).
-    ``block_stats_t`` is (dim, 2, B)."""
-    B = states.shape[0]
-    K = mapping.shape[0]
-    dev = states.device
-    validf = (torch.arange(B, device=dev) < n_blocks).to(torch.float32)
-    sizes_f = sizes.to(torch.float32) * validf
-    kk = torch.arange(K, device=dev)[:, None]
-    oh = (states[None, :] == kk).to(torch.float32)  # (K, B)
+    (reference pass 3, ForwardBackward.hpp:170-212). ``block_stats_t`` is
+    (dim, 2, B) for states and sizes (B,) and a () block count; (dim, 2, R,
+    B) for (R, B) rows and (R,) counts (the sharded engine's local shards),
+    each row summed on its own, so a row's bytes do not depend on R. Every
+    sum has one fixed order (sweep_stats_reference), no float atomics. A
+    CUDA tensor goes through the Hopper kernels
+    (model_cuda.sweep_stats_cuda) or raises, a CPU tensor through their
+    plain version."""
+    rows = states.dim() == 2
+    if not rows:
+        states, sizes = states[None], sizes[None]
+        n_blocks, block_stats_t = n_blocks.reshape(1), block_stats_t[:, :, None]
+    if states.device.type == "cuda":
+        flat = model_cuda.sweep_stats_cuda(states, sizes, n_blocks, block_stats_t, mapping, nr_params)
+    elif states.device.type == "cpu":
+        flat = sweep_stats_reference(states, sizes, n_blocks, block_stats_t, mapping, nr_params)
+    else:
+        raise ValueError(f"unsupported device {states.device}")
+    if not rows:
+        flat = flat[0]
+    K, P = mapping.shape[0], nr_params
+    lead = tuple(flat.shape[:-1])
+    return SweepStats(
+        theta_sums=flat[..., :P],
+        theta_sumsqs=flat[..., P : 2 * P],
+        theta_counts=flat[..., 2 * P : 3 * P],
+        trans_counts=flat[..., 3 * P : 3 * P + K * K].reshape(lead + (K, K)),
+        state_counts=flat[..., 3 * P + K * K :],
+    )
 
-    state_counts = oh @ sizes_f
-    # transitions: N-1 self-transitions per block plus one prev->cur count
-    # per block, prev of the first block being state 0
-    diag = oh @ ((sizes.to(torch.float32) - 1.0) * validf)
-    prev = torch.cat([states.new_zeros(1), states[:-1]])
-    oh_prev = (prev[None, :] == kk).to(torch.float32)
-    trans_counts = (oh_prev * validf[None, :]) @ oh.T + torch.diag(diag)
 
-    # theta statistics: route each (block, dim) stat to its emission param
-    pm = mapping[states]  # (B, dim)
-    pp = torch.arange(nr_params, device=dev)[:, None]
-    theta_sums = torch.zeros((nr_params,), dtype=torch.float32, device=dev)
-    theta_sumsqs = torch.zeros_like(theta_sums)
-    theta_counts = torch.zeros_like(theta_sums)
-    for d in range(mapping.shape[1]):
-        ohp = (pm[:, d][None, :] == pp).to(torch.float32) * validf[None, :]  # (P, B)
-        theta_sums = theta_sums + ohp @ block_stats_t[d, 0]
-        theta_sumsqs = theta_sumsqs + ohp @ block_stats_t[d, 1]
-        theta_counts = theta_counts + ohp @ sizes_f
-    return SweepStats(theta_sums, theta_sumsqs, theta_counts, trans_counts, state_counts)
+def _pairwise_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis by a pairwise tree: zero-padded to the next
+    power of two, then (2i, 2i + 1) added at each level."""
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    x = torch.nn.functional.pad(x, (0, width - n))
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def sweep_stats_reference(
+    states: torch.Tensor,
+    sizes: torch.Tensor,
+    n_blocks: torch.Tensor,
+    block_stats_t: torch.Tensor,
+    mapping: torch.Tensor,
+    nr_params: int,
+) -> torch.Tensor:
+    """Plain torch version of the statistics kernels (csrc/modelupdate.cu)
+    on (R, B) rows: returns (R, 3 P + K*K + K) float32 rows of theta sums,
+    sums of squares and counts (P each), the K x K transition counts and
+    the K state counts.
+
+    Each is a sum of per-block terms, mask * value with the mask 0 past
+    n_blocks: state k (s == k) * size; the diagonal's self-transitions
+    (s == k) * (size - 1); one transition (prev == i and s == j), the
+    previous state of the first block being 0; and per data dimension d
+    (mapping[s, d] == p) * (sum, sum of squares, size). Each term is summed
+    over the blocks by _pairwise_sum, then the transitions are pairs + diag
+    and the theta statistics are summed over d in order from 0."""
+    R, B = states.shape
+    K, dim = mapping.shape
+    P, dev, f32 = nr_params, states.device, torch.float32
+    valid = torch.arange(B, device=dev)[None, :] < n_blocks[:, None]  # (R, B)
+    size_f = sizes.to(f32)[:, None]
+    kk = torch.arange(K, device=dev)
+    at = ((states[:, None, :] == kk[None, :, None]) & valid[:, None, :]).to(f32)  # (R, K, B)
+    prev = torch.cat([states.new_zeros((R, 1)), states[:, :-1]], dim=1)
+    pairs = ((prev[:, None, None, :] == kk[None, :, None, None])
+             & (states[:, None, None, :] == kk[None, None, :, None])
+             & valid[:, None, None, :])  # (R, i, j, B)
+    pm = mapping[states]  # (R, B, dim)
+    pp = torch.arange(P, device=dev)
+    leaves = [at * size_f, at * (size_f - 1.0), pairs.reshape(R, K * K, B).to(f32)]
+    for d in range(dim):
+        routed = ((pm[:, None, :, d] == pp[None, :, None]) & valid[:, None, :]).to(f32)  # (R, P, B)
+        leaves += [routed * block_stats_t[d, 0][:, None], routed * block_stats_t[d, 1][:, None],
+                   routed * size_f]
+    terms = _pairwise_sum(torch.cat(leaves, dim=1))  # (R, n_terms)
+    state, diag = terms[:, :K], terms[:, K : 2 * K]
+    trans = terms[:, 2 * K : 2 * K + K * K].reshape(R, K, K) + torch.diag_embed(diag)
+    theta = torch.zeros((R, 3 * P), dtype=f32, device=dev)
+    for d in range(dim):
+        at_d = 2 * K + K * K + 3 * P * d
+        theta = theta + terms[:, at_d : at_d + 3 * P]
+    return torch.cat([theta, trans.reshape(R, K * K), state], dim=1)
 
 
 def position_states(

@@ -1036,3 +1036,197 @@ def test_graphed_engines_through_fbscan_kernels_on_card(cuda_device, P):
     for name in names:
         assert torch.equal(getattr(g.buffers, name), getattr(e.buffers, name)), name
     assert all(torch.equal(a, b) for a, b in zip(g.model, e.model))
+
+
+def _stats_inputs(R, B, K, dim, seed, device, tail="full"):
+    """One statistics call's inputs from numpy: (R, B) states and sizes,
+    (R,) block counts (B; a masked tail of about half; or B + 1, an
+    overflowing sweep's count before the clamp), (dim, 2, R, B) signed
+    block statistics and a (K, dim) mapping into P = K or 2 parameters."""
+    rng = np.random.default_rng(seed)
+    P = K if dim == 1 else 2
+    states = rng.integers(0, K, size=(R, B))
+    sizes = rng.integers(1, 400, size=(R, B))
+    nb = {"full": np.full(R, B), "masked": B // 2 + 3 * np.arange(R) + 1,
+          "overflow": np.full(R, B + 1)}[tail]
+    bstats = rng.normal(0, 30, size=(dim, 2, R, B)).astype(np.float32)
+    bstats[:, 1] = np.abs(bstats[:, 1])
+    mapping = rng.integers(0, P, size=(K, dim))
+    host = tuple(map(torch.from_numpy, (states, sizes, nb, bstats, mapping)))
+    return tuple(t.to(device) for t in host), host, P
+
+
+def _same_bits(got, want) -> bool:
+    """Equal float32 bits, NaN where the other has NaN."""
+    got, want = got.cpu(), want.cpu()
+    nan = torch.isnan(got)
+    return torch.equal(nan, torch.isnan(want)) and torch.equal(
+        got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R, B, K, dim", [(1, 30, 3, 1), (1, 29_696, 3, 1), (1, 29_696, 10, 3),
+                                          (4, 9_600, 3, 1), (4, 433_920, 3, 1)])
+@pytest.mark.parametrize("tail", ["full", "masked", "overflow"])
+def test_sweep_stats_kernels_match_plain_on_card(cuda_device, R, B, K, dim, tail):
+    """Exact on the card: the statistics kernels equal their plain version
+    (sweep.sweep_stats_reference) bit for bit, on the card and on the CPU,
+    with every block valid, a masked tail and an overflowing count; each
+    row of a 4-row call equals its one-row call."""
+    from hammlet_tpu_torch.models import model_cuda
+    from hammlet_tpu_torch.samplers import sweep
+
+    args, host, P = _stats_inputs(R, B, K, dim, B + K + dim, cuda_device, tail)
+    before = model_cuda.sweep_stats_cuda.launches
+    got = model_cuda.sweep_stats_cuda(*args, P)
+    torch.cuda.synchronize()
+    assert model_cuda.sweep_stats_cuda.launches == before + 1
+    assert got.shape == (R, 3 * P + K * K + K)
+    assert _same_bits(got, sweep.sweep_stats_reference(*args, P))
+    assert _same_bits(got, sweep.sweep_stats_reference(*host, P))
+    states, sizes, nb, bstats, mapping = args
+    for r in range(R if R > 1 else 0):
+        one = model_cuda.sweep_stats_cuda(states[r:r + 1], sizes[r:r + 1], nb[r:r + 1],
+                                          bstats[:, :, r:r + 1].contiguous(), mapping, P)
+        assert torch.equal(got[r].view(torch.int32), one[0].view(torch.int32)), r
+
+
+@pytest.mark.cuda
+def test_sweep_stats_nan_on_card(cuda_device):
+    """Exact on the card: a NaN block statistic (valid or masked) turns
+    every theta sum of its dimension NaN, as the plain version's mask *
+    value does, and the kernels' NaNs sit where the plain version's do."""
+    from hammlet_tpu_torch.models import model_cuda
+    from hammlet_tpu_torch.samplers import sweep
+
+    args, _, P = _stats_inputs(2, 29_696, 3, 1, 17, cuda_device, "masked")
+    args[3][0, 0, 0, 100] = float("nan")
+    args[3][0, 1, 1, 29_000] = float("nan")  # past row 1's blocks
+    got = model_cuda.sweep_stats_cuda(*args, P)
+    want = sweep.sweep_stats_reference(*args, P)
+    assert bool(torch.isnan(got).any()) and _same_bits(got, want)
+
+
+def _resample_inputs(K, seed, device, nan=False):
+    """Priors, statistics whose Gamma shapes run from 0.5 to 1e7 and noise
+    drawn on the card, as the resample draws it."""
+    from hammlet_tpu_torch.models.hmm import HMMPriors, SweepStats
+
+    rng = np.random.default_rng(seed)
+    P = K
+    spread = np.array([0.0, 1.0, 7.0, 120.0, 5e4, 1e7], np.float32)
+    counts = rng.choice(spread, size=P).astype(np.float32)
+    sums = (rng.normal(0.3, 1.0, size=P) * counts).astype(np.float32)
+    if nan:
+        counts[0], sums[0] = 40.0, np.nan
+    stats = SweepStats(*(torch.from_numpy(a).to(device) for a in (
+        sums, (counts * 1.7 + np.nan_to_num(sums) ** 2 / np.maximum(counts, 1)).astype(np.float32),
+        counts, rng.choice(spread, size=(K, K)).astype(np.float32),
+        rng.choice(spread, size=K).astype(np.float32))))
+    priors = HMMPriors.create(np.tile(np.array([2.0, 0.4, 0.1, 0.3], np.float32), (P, 1)), K,
+                              device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = P + K * K + K
+    noise = (torch.randn((8, n), generator=gen, device=device),
+             torch.rand((8, n), generator=gen, device=device),
+             torch.rand((n,), generator=gen, device=device),
+             torch.randn((P,), generator=gen, device=device))
+    return priors, stats, noise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [3, 10])
+@pytest.mark.parametrize("nan", [False, True])
+def test_resample_kernel_matches_plain_on_card(cuda_device, K, nan):
+    """Exact on the card: the resample kernel equals its plain version
+    (hmm.resample_model_reference) bit for bit at Gamma shapes from 0.5 to
+    1e7, over many draws, and with a NaN theta sum (NaN where the plain
+    version has it)."""
+    from hammlet_tpu_torch.models import hmm, model_cuda
+
+    for seed in range(20):
+        priors, stats, noise = _resample_inputs(K, seed + 100 * nan, cuda_device, nan)
+        got = model_cuda.resample_model_cuda(priors, stats, noise)
+        want = hmm.resample_model_reference(priors, stats, noise)
+        for name, a, b in zip(hmm.HMMState._fields, got, want):
+            assert _same_bits(a, b), (seed, name)
+        assert bool(torch.isnan(got[0]).any()) == nan
+
+
+@pytest.mark.cuda
+def test_model_update_kernels_per_call_on_card(cuda_device):
+    """One CUDA kernel per resample call and two per statistics call (the
+    tile sums and the rows' totals), at the main path's shape (B = 29,696,
+    K = 3; one row, and four rows at P = 4) (torch.profiler)."""
+    from hammlet_tpu_torch.models import model_cuda
+
+    for R in (1, 4):
+        args, _, P = _stats_inputs(R, 29_696, 3, 1, 5, cuda_device)
+        names = _scan_kernels(lambda: model_cuda.sweep_stats_cuda(*args, P))
+        assert len(names) <= 2 and all("modelupdate_stats" in n for n in names), names
+    priors, stats, noise = _resample_inputs(3, 1, cuda_device)
+    names = _scan_kernels(lambda: model_cuda.resample_model_cuda(priors, stats, noise))
+    assert len(names) == 1 and "modelupdate_resample_kernel" in names[0], names
+
+
+@pytest.mark.cuda
+def test_model_update_in_cuda_graph_on_card(cuda_device):
+    """Exact on the card: both kernels captured into a CUDA graph and
+    replayed twice give the bits of the eager calls."""
+    from hammlet_tpu_torch.models import model_cuda
+
+    args, _, P = _stats_inputs(4, 9_600, 3, 1, 8, cuda_device, "masked")
+    priors, stats, noise = _resample_inputs(3, 2, cuda_device)
+    want = model_cuda.sweep_stats_cuda(*args, P)
+    rwant = model_cuda.resample_model_cuda(priors, stats, noise)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = model_cuda.sweep_stats_cuda(*args, P)
+        rgot = model_cuda.resample_model_cuda(priors, stats, noise)
+    for _ in range(2):
+        got.zero_()
+        for t in rgot:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(rgot, rwant))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 4])
+def test_graphed_engines_through_model_kernels_on_card(cuda_device, P):
+    """Exact on the card at T = 100,000: a graphed Engine (P = 1) and a
+    graphed sharded engine (P = 4 shards) write the model and buffers of
+    the same engine run eagerly, and both run their sweep statistics and
+    resample through the model-update kernels (the wrappers count the eager
+    sweeps' calls and the captures')."""
+    from _torch_helpers import eager_sharded_engine
+    from hammlet_tpu_torch.models import model_cuda
+
+    data = synth_segments(100_000, 43)[0]
+    engines = []
+    for eager in (False, True):
+        before = model_cuda.sweep_stats_cuda.launches, model_cuda.resample_model_cuda.launches
+        if P == 1:
+            eng = runner.make_engine(data, nr_params=3, seed=6, device=cuda_device)
+            if eager:
+                eager_engine(eng)
+        else:
+            eng = _sharded(data, cuda_device, 6, P=P)
+            if eager:
+                eager_sharded_engine(eng)
+        eng.run("M", 8, 0)
+        eng.run("F", 32, 2)
+        torch.cuda.synchronize()
+        assert model_cuda.sweep_stats_cuda.launches > before[0]
+        assert model_cuda.resample_model_cuda.launches > before[1]
+        engines.append(eng)
+    g, e = engines
+    assert _graphed(g) and e.phase_graphs.replays == 0
+    names = [n for n in ("counts", "ever_boundary", "n_records", "everb", "n_rec")
+             if hasattr(g.buffers, n)]
+    for name in names:
+        assert torch.equal(getattr(g.buffers, name), getattr(e.buffers, name)), name
+    assert all(torch.equal(a, b) for a, b in zip(g.model, e.model))

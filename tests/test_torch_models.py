@@ -176,3 +176,229 @@ def test_convert_carries_jax_state():
     np.testing.assert_array_equal(to_np(tr.pos_by_rank), to_np(tb.build_ranked_weights(w).pos_by_rank))
     # the port's threshold of a carried-over state matches the JAX one
     np.testing.assert_allclose(float(tm.threshold(500)), float(jm.threshold(500)), rtol=1e-6)
+
+
+def _resample_case(K: int, seed: int):
+    """Priors and sweep statistics whose Gamma shapes run from 0.5 to 1e7
+    (HMMPriors.create's alphas plus counts of 0 to 1e7), as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    P = K
+    nig = np.tile(np.array([2.0, 0.4, 0.1, 0.3], np.float32), (P, 1))
+    spread = np.array([0.0, 1.0, 7.0, 120.0, 5e4, 1e7], np.float32)
+    counts = rng.choice(spread, size=P).astype(np.float32)
+    counts[0] = 0.0  # a parameter without observations keeps its prior
+    sums = (rng.normal(0.3, 1.0, size=P) * counts).astype(np.float32)
+    sumsqs = (counts * 1.7 + sums**2 / np.maximum(counts, 1)).astype(np.float32)
+    trans = rng.choice(spread, size=(K, K)).astype(np.float32)
+    state = rng.choice(spread, size=K).astype(np.float32)
+    return nig, (sums, sumsqs, counts, trans, state)
+
+
+@pytest.mark.parametrize("K", [3, 10])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_resample_model_matches_jax_given_its_noise(K, seed):
+    """Tolerance: rtol 1e-5, the Gamma test's (the row sums of A and pi
+    are taken left to right here and by XLA's reduction in JAX). Fed the
+    JAX package's draws (resample_model's split into k_gamma, k_normal,
+    then gamma_fixed_tries' split of k_gamma into 3: hammlet_tpu/models/
+    hmm.py:146, distributions.py:77-81 and :106), the port's resample
+    returns the same model at Gamma shapes from 0.5 to 1e7."""
+    nig, stats = _resample_case(K, seed)
+    P, n = K, 2 * K + K * K
+    key = jax.random.PRNGKey(11 + seed)
+    jp, tp = jhmm.HMMPriors.create(nig, K), thmm.HMMPriors.create(nig, K)
+    want = jhmm.resample_model(key, jp, jhmm.SweepStats(*(jnp.asarray(a) for a in stats)))
+    k_gamma, k_normal = jax.random.split(key)
+    k_n, k_u, k_b = jax.random.split(k_gamma, 3)
+    noise = (
+        jax.random.normal(k_n, (8, n), dtype=jnp.float32),
+        jax.random.uniform(k_u, (8, n), dtype=jnp.float32, minval=1e-38),
+        jax.random.uniform(k_b, (n,), dtype=jnp.float32, minval=1e-38),
+        jax.random.normal(k_normal, (P,)),
+    )
+    got = thmm.resample_model(
+        None, tp, thmm.SweepStats(*(torch.from_numpy(a) for a in stats)),
+        noise=tuple(to_torch(a) for a in noise),
+    )
+    for name in thmm.HMMState._fields:
+        np.testing.assert_allclose(
+            to_np(getattr(got, name)), np.asarray(getattr(want, name)), rtol=1e-5, err_msg=name
+        )
+
+
+def test_resample_model_draws_its_noise_in_one_order():
+    """Exact: without ``noise`` the resample draws, from its generator, the
+    proposal normals (8, n), the acceptance uniforms (8, n), the boost
+    uniforms (n,) and then the mean normals (P,), the order of the stream
+    before the kernel (gamma_fixed_tries' three draws, then the normals)."""
+    nig, stats = _resample_case(3, 4)
+    tp = thmm.HMMPriors.create(nig, 3)
+    st = thmm.SweepStats(*(torch.from_numpy(a) for a in stats))
+    n = 3 + 9 + 3
+    gen = torch.Generator().manual_seed(9)
+    drawn = (torch.randn((8, n), generator=gen), torch.rand((8, n), generator=gen),
+             torch.rand((n,), generator=gen), torch.randn((3,), generator=gen))
+    got = thmm.resample_model(torch.Generator().manual_seed(9), tp, st)
+    want = thmm.resample_model(None, tp, st, noise=drawn)
+    for a, b in zip(got, want):
+        assert_ulp(a, b, max_ulp=0)
+
+
+def test_resample_rows_sum_left_to_right():
+    """Exact: the plain resample normalises each row of A and pi by its sum
+    taken left to right over the K columns (one add per column, the order
+    the kernel repeats), and draws the Gammas with gamma_fixed_tries."""
+    nig, stats = _resample_case(10, 2)
+    tp = thmm.HMMPriors.create(nig, 10)
+    st = thmm.SweepStats(*(torch.from_numpy(a) for a in stats))
+    n = 10 + 100 + 10
+    gen = torch.Generator().manual_seed(3)
+    noise = (torch.randn((8, n), generator=gen), torch.rand((8, n), generator=gen),
+             torch.rand((n,), generator=gen), torch.randn((10,), generator=gen))
+    got = thmm.resample_model_reference(tp, st, noise)
+    post = td.nig_update(tp.nig, *st[:3])
+    alphas = torch.cat([post[:, 0], (tp.a_alphas + st.trans_counts).reshape(-1),
+                        tp.pi_alphas + st.state_counts])
+    g = to_np(td.gamma_fixed_tries(None, alphas, noise=noise[:3]))
+    rows = g[10:110].reshape(10, 10)
+    total = rows[:, 0].copy()
+    for j in range(1, 10):
+        total = (total + rows[:, j]).astype(np.float32)
+    assert_ulp(got.A, rows / total[:, None], max_ulp=0)
+    pis, s = g[110:], g[110]
+    for j in range(1, 10):
+        s = np.float32(s + pis[j])
+    assert_ulp(got.pi, pis / s, max_ulp=0)
+
+
+def test_nan_statistics_propagate_through_the_resample():
+    """A NaN theta sum poisons that parameter's mean and variance (and a
+    NaN transition count its row of A), as in the JAX package, which the
+    debug bitmask relies on; a NaN count keeps the prior (counts > 0 is
+    false), as there."""
+    nig, stats = _resample_case(3, 5)
+    sums, sumsqs, counts, trans, state = (a.copy() for a in stats)
+    counts[1] = 40.0
+    sums[1] = np.nan
+    trans[2, 0] = np.nan
+    counts[2] = np.nan
+    tp = thmm.HMMPriors.create(nig, 3)
+    got = thmm.resample_model(torch.Generator().manual_seed(1), tp, thmm.SweepStats(
+        *(torch.from_numpy(a) for a in (sums, sumsqs, counts, trans, state))))
+    mean, var, A = to_np(got.theta_mean), to_np(got.theta_var), to_np(got.A)
+    assert np.isnan(mean[1]) and np.isnan(var[1])
+    assert np.isfinite(var[2]) and var[2] > 0  # NaN count: the prior
+    assert np.isnan(A[2]).all() and np.isfinite(A[:2]).all()
+
+
+class _CardTensor:
+    """Stands in for a CUDA tensor on a machine without one: what the
+    dispatch and the wrappers read before they reach the kernel library."""
+
+    device = torch.device("cuda", 0)
+    is_cuda = True
+
+    def __init__(self, shape, dtype=torch.float32):
+        self.shape, self.dtype = torch.Size(shape), dtype
+
+    def dim(self):
+        return len(self.shape)
+
+    def contiguous(self):
+        return self
+
+
+def _card_inputs(K=3, P=3, B=64, R=2):
+    """Fake card tensors for one statistics call and one resample call."""
+    i64 = torch.int64
+    stats_args = (_CardTensor((R, B), i64), _CardTensor((R, B), i64), _CardTensor((R,), i64),
+                  _CardTensor((1, 2, R, B)), _CardTensor((K, 1), i64))
+    n = P + K * K + K
+    priors = thmm.HMMPriors(_CardTensor((P, 4)), _CardTensor((K, K)), _CardTensor((K,)))
+    stats = thmm.SweepStats(_CardTensor((P,)), _CardTensor((P,)), _CardTensor((P,)),
+                            _CardTensor((K, K)), _CardTensor((K,)))
+    noise = (_CardTensor((8, n)), _CardTensor((8, n)), _CardTensor((n,)), _CardTensor((P,)))
+    return stats_args, priors, stats, noise
+
+
+def test_cpu_tensors_never_reach_the_model_kernels(monkeypatch):
+    """CPU tensors take the plain versions: the kernel library is never
+    loaded and no wrapper counts a launch."""
+    from hammlet_tpu_torch.models import model_cuda
+    from hammlet_tpu_torch.samplers import sweep as tsw
+
+    def no_library():
+        raise AssertionError("the kernel library was loaded for a CPU tensor")
+
+    monkeypatch.setattr(model_cuda, "_library", no_library)
+    counters = (model_cuda.sweep_stats_cuda, model_cuda.resample_model_cuda)
+    before = [f.launches for f in counters]
+    nig, stats = _resample_case(3, 0)
+    st = tsw.accumulate_sweep_stats(
+        torch.zeros(16, dtype=torch.int64), torch.ones(16, dtype=torch.int64), torch.tensor(9),
+        torch.ones((1, 2, 16)), torch.arange(3).reshape(3, 1), 3,
+    )
+    assert float(st.state_counts.sum()) == 9.0
+    thmm.resample_model(torch.Generator().manual_seed(0), thmm.HMMPriors.create(nig, 3),
+                        thmm.SweepStats(*(torch.from_numpy(a) for a in stats)))
+    assert [f.launches for f in counters] == before
+
+
+@pytest.mark.parametrize("kind", ["stats", "resample"])
+def test_card_tensors_without_library_raise(kind, monkeypatch, tmp_path):
+    """Card tensors go to the kernels or raise: with no nvcc to build the
+    library the call raises, and the plain version is never run."""
+    from hammlet_tpu_torch import _build
+    from hammlet_tpu_torch.models import model_cuda
+    from hammlet_tpu_torch.samplers import sweep as tsw
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(model_cuda, "_lib", None)
+
+    def fell_back(*_):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(tsw, "sweep_stats_reference", fell_back)
+    monkeypatch.setattr(thmm, "resample_model_reference", fell_back)
+    stats_args, priors, stats, noise = _card_inputs()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        if kind == "stats":
+            tsw.accumulate_sweep_stats(*stats_args, 3)
+        else:
+            thmm.resample_model(None, priors, stats, noise=noise)
+
+
+def test_model_update_refuses_other_devices_and_types():
+    """Any device but the card and the CPU raises; the wrappers refuse host
+    tensors and the wrong dtype or shape."""
+    from hammlet_tpu_torch.models import model_cuda
+    from hammlet_tpu_torch.samplers import sweep as tsw
+
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tsw.accumulate_sweep_stats(
+            torch.zeros((2, 8), dtype=torch.int64, **meta), torch.zeros((2, 8), dtype=torch.int64, **meta),
+            torch.zeros(2, dtype=torch.int64, **meta), torch.zeros((1, 2, 2, 8), **meta),
+            torch.zeros((3, 1), dtype=torch.int64, **meta), 3,
+        )
+    nig, stats = _resample_case(3, 0)
+    to_meta = lambda a: torch.from_numpy(a).to("meta")  # noqa: E731
+    with pytest.raises(ValueError, match="unsupported device"):
+        thmm.resample_model(
+            None, thmm.HMMPriors(to_meta(nig), torch.zeros((3, 3), **meta), torch.zeros(3, **meta)),
+            thmm.SweepStats(*(to_meta(a) for a in stats)),
+            noise=(torch.zeros((8, 15), **meta), torch.zeros((8, 15), **meta),
+                   torch.zeros(15, **meta), torch.zeros(3, **meta)),
+        )
+    i64 = torch.int64
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        model_cuda.sweep_stats_cuda(torch.zeros((1, 8), dtype=i64), torch.zeros((1, 8), dtype=i64),
+                                    torch.zeros(1, dtype=i64), torch.zeros((1, 2, 1, 8)),
+                                    torch.zeros((3, 1), dtype=i64), 3)
+    stats_args, priors, stats, noise = _card_inputs()
+    with pytest.raises(ValueError, match="int64"):
+        model_cuda.sweep_stats_cuda(_CardTensor((2, 64), torch.int32), *stats_args[1:], 3)
+    with pytest.raises(ValueError, match="proposal normals"):
+        model_cuda.resample_model_cuda(priors, stats, (_CardTensor((7, 15)),) + noise[1:])

@@ -176,6 +176,94 @@ def test_accumulate_sweep_stats_matches_jax(integer_stats):
             np.testing.assert_allclose(to_np(getattr(got, f)), np.asarray(getattr(want, f)), rtol=1e-6)
 
 
+def _np_pairwise(v: np.ndarray) -> np.float32:
+    """float32 pairwise tree: zero-padded to a power of two, (2i, 2i + 1)
+    added at each level."""
+    width = 1
+    while width < len(v):
+        width *= 2
+    x = np.zeros(width, np.float32)
+    x[: len(v)] = v
+    while len(x) > 1:
+        x = x[0::2] + x[1::2]
+    return x[0]
+
+
+def _np_sweep_stats(states, sizes, nb, bstats, mapping, P):
+    """One row's statistics in the fixed order, written out in numpy
+    float32: each term's per-block values (mask * value, masked past nb),
+    a pairwise tree over the blocks, then trans = pairs + diag and the
+    theta statistics summed over d from 0."""
+    B, (K, dim) = len(states), mapping.shape
+    valid = np.arange(B) < nb
+    size = sizes.astype(np.float32)
+    prev = np.concatenate([[0], states[:-1]])
+    f = np.float32
+    state = [_np_pairwise(f(1) * ((states == k) & valid) * size) for k in range(K)]
+    diag = [_np_pairwise(f(1) * ((states == k) & valid) * (size - f(1))) for k in range(K)]
+    trans = np.zeros((K, K), np.float32)
+    for i in range(K):
+        for j in range(K):
+            pair = _np_pairwise(((prev == i) & (states == j) & valid).astype(np.float32))
+            trans[i, j] = pair + (diag[i] if i == j else f(0))
+    theta = np.zeros((3, P), np.float32)
+    for d in range(dim):
+        routed = [(mapping[states, d] == p) & valid for p in range(P)]
+        for q, x in enumerate((bstats[d, 0], bstats[d, 1], size)):
+            for p in range(P):
+                theta[q, p] = theta[q, p] + _np_pairwise(f(1) * routed[p] * x)
+    return np.concatenate([theta.reshape(-1), trans.reshape(-1), np.array(state, np.float32)])
+
+
+@pytest.mark.parametrize("B,n_blocks,K,dim", [
+    (1, 1, 3, 1), (7, 7, 3, 1), (40, 30, 3, 1), (300, 300, 2, 1), (300, 301, 3, 1),
+    (517, 260, 4, 2), (2100, 1999, 8, 3),
+])
+def test_sweep_stats_reference_is_the_pairwise_tree(B, n_blocks, K, dim):
+    """Exact: the plain statistics (the order the kernels repeat) equal, bit
+    for bit, a numpy float32 pairwise tree over each term written out here,
+    on signed block statistics (so masked terms are -0.0), a masked tail,
+    an overflowing count (n_blocks = B + 1) and mappings of 1-3 dims."""
+    rng = np.random.default_rng(B + K)
+    P = int(round(K ** (1 / dim)))
+    mapping = np.array(np.unravel_index(np.arange(K), (P,) * dim)).T.astype(np.int64)
+    states = rng.integers(0, K, size=B)
+    sizes = rng.integers(1, 500, size=B)
+    bstats = rng.normal(0, 40, size=(dim, 2, B)).astype(np.float32)
+    bstats[:, 1] = np.abs(bstats[:, 1])
+    want = _np_sweep_stats(states, sizes, n_blocks, bstats, mapping, P)
+    got = tsw.sweep_stats_reference(
+        torch.from_numpy(states)[None], torch.from_numpy(sizes)[None], torch.tensor([n_blocks]),
+        torch.from_numpy(bstats)[:, :, None], torch.from_numpy(mapping), P,
+    )[0]
+    np.testing.assert_array_equal(to_np(got).view(np.int32), want.view(np.int32))
+
+
+def test_batched_stats_equal_one_row_calls():
+    """Exact: one call over S = 4 rows (the sharded engine's local shards:
+    different block counts, an empty row, an overflowing one) equals four
+    one-row calls byte for byte, and the unbatched API's one row."""
+    S, B, K = 4, 700, 3
+    rng = np.random.default_rng(8)
+    states = torch.from_numpy(rng.integers(0, K, size=(S, B)))
+    sizes = torch.from_numpy(rng.integers(1, 900, size=(S, B)))
+    nb = torch.tensor([700, 333, 0, 701])
+    bstats = torch.from_numpy(rng.normal(0, 30, size=(1, 2, S, B)).astype(np.float32))
+    mapping = torch.arange(K).reshape(K, 1)
+    rows = tsw.accumulate_sweep_stats(states, sizes, nb, bstats, mapping, K)
+    for s in range(S):
+        one = tsw.accumulate_sweep_stats(
+            states[s : s + 1], sizes[s : s + 1], nb[s : s + 1], bstats[:, :, s : s + 1].clone(),
+            mapping, K,
+        )
+        flat = tsw.accumulate_sweep_stats(states[s], sizes[s], nb[s], bstats[:, :, s], mapping, K)
+        for field in tsw.SweepStats._fields:
+            got = to_np(getattr(rows, field)[s]).tobytes()
+            assert got == to_np(getattr(one, field)[0]).tobytes(), (s, field)
+            assert got == to_np(getattr(flat, field)).tobytes(), (s, field)
+    assert float(rows.state_counts[2].sum()) == 0.0
+
+
 def test_record_sweep_exact():
     """Tolerance: exact. A sequence of recorded sweeps (including a disabled
     one and padded blocks) leaves the same flat counts, boundary union and
