@@ -29,23 +29,28 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    sweep's own cross-shard views (taken from the eager [sharded] engine)
    against the plain versions of their contiguous copies, then for each
    timed input both kernels checked against their plain versions on it,
-   the CUDA kernels one call of each launches (torch.profiler; one at the
-   FB_ONE_LAUNCH inputs, the main path's shapes) and CUDA-event times of
+   the CUDA kernels one call of each launches (the kernel nodes of the
+   call captured into a CUDA graph, scan_kernels; one at the FB_ONE_LAUNCH
+   inputs, the main path's shapes) and CUDA-event times of
    both (L2 flushed; warm, device only) and of their plain versions, beside
    the bound: the sweep's own matrices and maps at P = 1 and P = 4 (taken
    from the eager [graph] and [sharded] engines), uniform inputs at the
    same shapes, at the T = 250M per-shard shape, at a flat FB_FLAT and at
    K = 10; then the sweep's own and the uniform times side by side;
-3c. model: the sweep statistics kernels (csrc/modelupdate.cu, through
-   models/model_cuda.py) bitwise against their plain version on the card at
+3c. model: the sweep statistics kernel (csrc/modelupdate.cu, through
+   models/model_cuda.py) bitwise against its plain version on the card at
    MODEL_ROWS x MODEL_KS x MODEL_DIMS (a masked tail and an overflowing
    count at B = 29,696), each row of a 4-row call against its one-row call;
    the resample kernel bitwise against its plain version over MODEL_DRAWS
    draws at each K, Gamma shapes 0.5-1e7; NaN statistics; after phase 9,
    for each timed input both kernels checked against their plain versions
-   on it, the CUDA kernels one call of each launches (torch.profiler; at
-   most two and exactly one) and CUDA-event times (L2 flushed; warm, device
-   only) of both and of their plain versions, beside the bound: the sweep's
+   on it, the CUDA kernels one call of each launches (scan_kernels;
+   exactly one each, as at every checked shape) and CUDA-event times (L2
+   flushed; warm, device only)
+   of both and of their plain versions, beside the bound and, on the P = 1
+   sweep's own inputs, the times of the two-launch statistics and the
+   one-thread-per-shape resample they replaced (MODEL_BEFORE_MS): the
+   sweep's
    own statistics inputs, statistics and noise at P = 1 and P = 4 (taken
    from the eager [graph] and [sharded] engines), uniform inputs at T = 4M's
    burn-in capacity, at T = 250M's per-shard capacity in four rows and at
@@ -171,6 +176,8 @@ Needs no network and imports nothing of JAX.
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
 import io
 import json
 import os
@@ -261,9 +268,8 @@ KERNEL_ROWS = (  # name (the kernels a call runs on the main path), source, the 
      "hammlet_tpu/samplers/forward_backward.py:94", "prefix", "prefix_matmul_scan_kernel"),
     ("fbscan_suffix_one_kernel", "hammlet_tpu_torch/csrc/fbscan.cu",
      "hammlet_tpu/samplers/forward_backward.py:154", "suffix", "suffix_compose_scan_kernel"),
-    ("modelupdate_stats_tile_kernel+modelupdate_stats_total_kernel",
-     "hammlet_tpu_torch/csrc/modelupdate.cu", "hammlet_tpu/samplers/sweep.py:100", "stats",
-     "sweep_stats_kernels"),
+    ("modelupdate_stats_kernel", "hammlet_tpu_torch/csrc/modelupdate.cu",
+     "hammlet_tpu/samplers/sweep.py:100", "stats", "sweep_stats_kernels"),
     ("modelupdate_resample_kernel", "hammlet_tpu_torch/csrc/modelupdate.cu",
      "hammlet_tpu/models/hmm.py:128", "resample", "resample_model_kernel"),
 )
@@ -279,7 +285,11 @@ FB_ONE_LAUNCH = ("P=1 sweep data", f"P={P_SHARDED} sweep data", "P=1 uniform",
 # the three-launch prefix kernels (group, totals, combine; __fdiv_rn) on the P = 1 sweep's
 # matrices, ms with L2 flushed (NVIDIA H100 80GB HBM3, 700.00 W)
 FB_THREE_LAUNCH_PREFIX_MS = 0.0745
-# [model]: (R, B) rows of the statistics kernels' checks: the settled P = 1 capacity, T = 250M's
+# the model-update kernels these replaced, on the P = 1 sweep's own inputs, ms with L2 flushed
+# (the statistics in two launches, tile sums then row totals; the resample with one thread per
+# Gamma shape; NVIDIA H100 80GB HBM3, 700.00 W)
+MODEL_BEFORE_MS = {"stats": 0.0178, "resample": 0.0151}
+# [model]: (R, B) rows of the statistics kernel's checks: the settled P = 1 capacity, T = 250M's
 # per-shard capacity in four rows, T = 4M's M burn-in capacity, a short row
 MODEL_ROWS = [(1, 30), (1, 29_696), (4, 433_920), (1, 4_000_000)]
 MODEL_KS = [3, 10]  # [model]: states K
@@ -739,30 +749,44 @@ def fb_work(B: int, K: int, R: int) -> dict:
     }
 
 
-def scan_kernels(fn, calls: int = 4, tries: int = 3) -> list[tuple[str, float]]:
-    """(name, device microseconds) of each CUDA kernel one call of ``fn``
-    launches: torch.profiler over ``calls`` calls after a warm-up call, the
-    kernels of one call with their median durations (inputs warm in L2). A
-    trace whose kernels do not divide evenly among the calls (the profiler
-    now and then loses a whole trace) is taken again, up to ``tries``
-    times."""
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of cuda.h."""
+
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3), ("block", ctypes.c_uint * 3),
+                ("shared_bytes", ctypes.c_uint), ("params", ctypes.c_void_p),
+                ("extra", ctypes.c_void_p), ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def scan_kernels(fn) -> list[tuple[str, int]]:
+    """(symbol, CTAs) of each CUDA kernel one call of ``fn`` launches: one
+    call, after a warm-up call, captured into a CUDA graph, whose kernel
+    nodes libcuda lists (cuGraphGetNodes, cuGraphKernelNodeGetParams,
+    cuFuncGetName). Copies and memsets are not kernels. Not torch.profiler:
+    on the H100 host it now and then drops kernels of a traced call."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        kern = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                      key=lambda e: e.time_range.start)
-        if kern and len(kern) % calls == 0:
-            break
-    check(bool(kern) and len(kern) % calls == 0,
-          f"torch.profiler traced {len(kern)} kernels over {calls} scan calls")
-    per = len(kern) // calls
-    return [(kern[i].name, round(float(np.median([kern[i + c * per].time_range.elapsed_us()
-                                                  for c in range(calls)])), 3))
-            for i in range(per)]
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    kernels = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params, name = _KernelNodeParams(), ctypes.c_char_p()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(params)) == 0
+              and cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params.func)) == 0,
+              "libcuda could not name a kernel node")
+        kernels.append((name.value.decode(), params.grid[0] * params.grid[1] * params.grid[2]))
+    del graph
+    return kernels
 
 
 def flushed(flush: torch.Tensor):
@@ -890,13 +914,13 @@ def resample_parts(args: tuple) -> tuple:
 
 
 def check_model(stats_args: tuple, resample_args: tuple | None, where: str) -> dict:
-    """The statistics kernels (and the resample kernel, unless None) against
+    """The statistics kernel (and the resample kernel, unless None) against
     their plain versions on the card, bit for bit (NaN where the plain
     version has NaN), each row of a many-row call against its one-row call;
     returns the largest absolute errors where both sides are finite."""
     got = model_cuda.sweep_stats_cuda(*stats_args)
     want = sweep.sweep_stats_reference(*stats_args)
-    check(bits_equal(got, want), f"[model] statistics kernels != plain ({where})")
+    check(bits_equal(got, want), f"[model] statistics kernel != plain ({where})")
     states, sizes, n_blocks, bstats, mapping, P = stats_args
     for r in range(states.shape[0] if states.shape[0] > 1 else 0):
         one = model_cuda.sweep_stats_cuda(states[r:r + 1], sizes[r:r + 1], n_blocks[r:r + 1],
@@ -916,12 +940,11 @@ def check_model(stats_args: tuple, resample_args: tuple | None, where: str) -> d
 
 
 def phase_model() -> dict:
-    """[model]: the statistics kernels against their plain version on the
+    """[model]: the statistics kernel against its plain version on the
     card at MODEL_ROWS x MODEL_KS x MODEL_DIMS (at B = 29,696 also a masked
     tail and an overflowing count), each row of a 4-row call against its
     one-row call; the resample kernel against its plain version over
-    MODEL_DRAWS draws at each of MODEL_KS; both with NaN statistics; the
-    CUDA kernels of one call of each at the main path's shapes. Not
+    MODEL_DRAWS draws at each of MODEL_KS; both with NaN statistics. Not
     counted: callers reset the counters before the run they count."""
     res = {"cases": 0, "draws": 0, "stats_err": 0.0, "resample_err": 0.0}
     for R, B in MODEL_ROWS:
@@ -949,6 +972,31 @@ def phase_model() -> dict:
     check(bool(torch.isnan(model_cuda.sweep_stats_cuda(*args)).any()), "[model] NaN was dropped")
     torch.cuda.synchronize()
     return res
+
+
+def model_kernels_per_call() -> dict:
+    """The CUDA kernels one call launches (scan_kernels), at every shape
+    phase_model checks: exactly one modelupdate_stats_kernel per
+    statistics call, one modelupdate_resample_kernel per resample call."""
+    cases = 0
+    for R, B in MODEL_ROWS:
+        for K in MODEL_KS:
+            for dim in MODEL_DIMS:
+                for tail in ("full", "masked", "overflow") if B == 29_696 else ("full",):
+                    args = model_stats_inputs(R, B, K, dim, B + 10 * K + dim, tail)
+                    kern = scan_kernels(lambda: model_cuda.sweep_stats_cuda(*args))
+                    check(len(kern) == 1 and "modelupdate_stats_kernel" in kern[0][0],
+                          f"[model] one statistics call at R={R} B={B} K={K} dim={dim} {tail} "
+                          f"ran {kern}, not one CUDA kernel")
+                    cases += 1
+                    del args
+    for K in MODEL_KS:
+        parts = resample_parts(model_resample_inputs(K, K))
+        kern = scan_kernels(lambda: model_cuda.resample_model_cuda(*parts))
+        check(len(kern) == 1 and "modelupdate_resample_kernel" in kern[0][0],
+              f"[model] one resample call at K={K} ran {kern}")
+    torch.cuda.empty_cache()
+    return {"cases": cases}
 
 
 def model_work(R: int, B: int, K: int, dim: int, P: int) -> dict:
@@ -1072,6 +1120,8 @@ def phase_main_path() -> dict:
         sizes, counts = read_marginals(prefix + "marginals.csv")
         n_params = len(open(prefix + "parameters.csv").read().splitlines())
         n_comp = len(open(prefix + "compression.csv").read().splitlines())
+        digests = {name: hashlib.sha256(open(prefix + name + ".csv", "rb").read()).hexdigest()
+                   for name in ("marginals", "parameters")}
 
     check(eng.device.type == "cuda", f"engine ran on {eng.device}")
     check_graphed(eng, "[main]")
@@ -1097,6 +1147,7 @@ def phase_main_path() -> dict:
         "map_agreement": agreement,
         "captures": eng.phase_graphs.captures,
         "capture_s": eng.phase_graphs.capture_seconds,
+        "sha256": digests,
         "engine": eng,
     }
 
@@ -1453,8 +1504,8 @@ def device_split_by_stage(eng, iters: int = 16) -> dict:
     model_stages = ("accumulate_sweep_stats", "resample_model")
     names: dict = {stage: {} for stage in model_stages}
     by_name = (("fbscan_prefix", "prefix_matmul_scan_t"), ("fbscan_suffix", "suffix_compose_scan_t"),
-               ("modelupdate_stats", "accumulate_sweep_stats"),
-               ("modelupdate_resample", "resample_model"))
+               ("modelupdate_stats_kernel", "accumulate_sweep_stats"),
+               ("modelupdate_resample_kernel", "resample_model"))
     for e in prof.events():
         own = [k for k in e.kernels if not any(kind in k.name for kind, _ in by_name)]
         us = sum(k.duration for k in own)
@@ -1519,7 +1570,7 @@ def phase_profile(main_eng, sharded_eng, sharded_eager) -> dict:
         check("fbscan_prefix" in names and "fbscan_suffix" in names,
               f"the {tag} sweep ran no FB prefix or suffix scan kernel: {res[tag]['fbscan']}")
         names = " ".join(res[tag]["model"])
-        check("modelupdate_stats" in names and "modelupdate_resample" in names,
+        check("modelupdate_stats_kernel" in names and "modelupdate_resample_kernel" in names,
               f"the {tag} sweep ran no sweep statistics or resample kernel: {res[tag]['model']}")
     res["sharded_eager"] = profile_launches(sharded_eager)
     eager_engine(main_eng)  # its chunks run the eager gibbs_phase from here on
@@ -1527,7 +1578,7 @@ def phase_profile(main_eng, sharded_eng, sharded_eager) -> dict:
     res["split"] = device_split_by_stage(main_eng)
     # the model update's stages launch its kernels and the resample's draws, and
     # nothing of the one-hot matmuls and elementwise Gamma sampler they replace
-    for stage, allowed in (("accumulate_sweep_stats", ("modelupdate_stats",)),
+    for stage, allowed in (("accumulate_sweep_stats", ("modelupdate_stats_kernel",)),
                            ("resample_model", ("modelupdate_resample_kernel", "distribution"))):
         names = res["split"]["model_stages"].get(stage, {})
         check(bool(names) and all(any(a in n for a in allowed) for n in names),
@@ -2398,6 +2449,8 @@ def measure_turns(pairs: int) -> int:
     print(f"[card] {nvidia_smi_line()} | {torch.cuda.get_device_name(0)}", flush=True)
     wavelet_cuda.build()
     m = phase_main_path()
+    print(f"[main] T={T_MAIN} '{SCHEME}': sha256 of the marginals and parameters files "
+          f"{m['sha256']}", flush=True)
     st = phase_settled(m["engine"], ("mpc",) + alternating("all", "inline", pairs))
     print(f"[settled] T={T_MAIN} F {SETTLED_ITERS} 4, capacity {st['capacity']}: all streams, "
           f"drain on its worker {st['all_sweeps_per_s']} vs inline {st['inline_sweeps_per_s']} "
@@ -2539,8 +2592,8 @@ def main() -> int:
               "plain version", flush=True)
 
         mdk = phase_model()
-        print(f"[model] the statistics kernels (modelupdate_stats_tile_kernel, "
-              f"modelupdate_stats_total_kernel) bitwise equal to their plain version in all "
+        print(f"[model] the statistics kernel (modelupdate_stats_kernel, one cooperative launch) "
+              f"bitwise equal to its plain version in all "
               f"{mdk['cases']} cases ((R, B) in {MODEL_ROWS} x K in {MODEL_KS} x dim in "
               f"{MODEL_DIMS}, at B=29696 also a masked tail and B+1 blocks; largest absolute "
               f"error {mdk['stats_err']}), each row of a 4-row call bitwise equal to its one-row "
@@ -2556,7 +2609,8 @@ def main() -> int:
               f"peak device memory {m['peak_mem_bytes'] / 2**20:.1f} MiB, "
               f"MAP agreement {m['map_agreement']:.4f}, maxlet launches "
               f"{m['launches']}, phases {m['phases']}; every sweep a CUDA graph replay "
-              f"({m['captures']} captures, {m['capture_s']:.3f} s)", flush=True)
+              f"({m['captures']} captures, {m['capture_s']:.3f} s); sha256 of the marginals and "
+              f"parameters files {m['sha256']}", flush=True)
 
         fb = fb_golden()
         print(f"[main] FB sampler on the card vs golden.reference.fb_gibbs_sweep: "
@@ -2666,17 +2720,23 @@ def main() -> int:
                   f"{row['stats_kernels']}, resample {row['resample_kernels']}; ms with L2 flushed / "
                   "warm, device only (least time on the card, its share of the flushed time): "
                   + "; ".join(
-                      f"{key} kernels {row[key]:.4f} / {row[key + '_warm']:.4f} (bound "
+                      f"{key} kernel {row[key]:.4f} / {row[key + '_warm']:.4f} (bound "
                       f"{row[key + '_bound']:.4g} by {row[key + '_bound_by']}, "
-                      f"{row[key + '_bound'] / row[key]:.1%}), plain {row[key + '_plain']:.4f} / "
-                      f"{row[key + '_plain_warm']:.4f}, PyTorch call: none"
-                      for key in ("stats", "resample")), flush=True)
-            check(len(row["stats_kernels"]) <= 2
-                  and all("modelupdate_stats" in n for n, _ in row["stats_kernels"]),
-                  f"[model] one statistics call on the {tag} inputs ran {row['stats_kernels']}")
+                      f"{row[key + '_bound'] / row[key]:.1%}"
+                      + (f"; the kernels it replaced {MODEL_BEFORE_MS[key]}, "
+                         f"{row[key] / MODEL_BEFORE_MS[key]:.3f}x" if tag == "P=1 sweep data" else "")
+                      + f"), plain {row[key + '_plain']:.4f} / {row[key + '_plain_warm']:.4f}, "
+                      "PyTorch call: none" for key in ("stats", "resample")), flush=True)
+            check(len(row["stats_kernels"]) == 1
+                  and "modelupdate_stats_kernel" in row["stats_kernels"][0][0],
+                  f"[model] one statistics call on the {tag} inputs ran {row['stats_kernels']}, "
+                  "not one CUDA kernel")
             check(len(row["resample_kernels"]) == 1
                   and "modelupdate_resample_kernel" in row["resample_kernels"][0][0],
                   f"[model] one resample call on the {tag} inputs ran {row['resample_kernels']}")
+        kpc = model_kernels_per_call()
+        print(f"[model] one CUDA kernel per statistics call (modelupdate_stats_kernel) at all "
+              f"{kpc['cases']} checked shapes, and per resample call at K in {MODEL_KS}", flush=True)
 
         with tempfile.TemporaryDirectory() as tmp:
             ch = phase_chains(tmp)

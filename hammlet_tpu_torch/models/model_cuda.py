@@ -4,10 +4,11 @@
 Port of the JAX package's sweep statistics and conjugate resample
 (hammlet_tpu/samplers/sweep.py:100 ``accumulate_sweep_stats``,
 hammlet_tpu/models/hmm.py:128 ``resample_model``). ``sweep_stats_cuda``
-launches two kernels (the tile sums, then each row's total and assembly) on
-(R, B) rows of a sweep's blocks; ``resample_model_cuda`` launches one, a
-single CTA, on the statistics and the pre-drawn noise. Each returns what
-its plain version returns, bit for bit:
+makes one cooperative launch of one kernel on (R, B) rows of a sweep's
+blocks (the tiles' trees, a grid-wide barrier, each row's tree over its
+run sums and the assembly); ``resample_model_cuda`` launches one, a single
+CTA with eight lanes per Gamma shape, on the statistics and the pre-drawn
+noise. Each returns what its plain version returns, bit for bit:
 ``samplers.sweep.sweep_stats_reference`` and
 ``models.hmm.resample_model_reference``. Outputs and workspace come from
 ``torch.empty``, so that under CUDA graph capture they land in the graph's
@@ -89,7 +90,7 @@ def sweep_stats_cuda(
     mapping: torch.Tensor,
     nr_params: int,
 ) -> torch.Tensor:
-    """Launch the statistics kernels on R rows: states and sizes (R, B)
+    """Launch the statistics kernel on R rows: states and sizes (R, B)
     int64, n_blocks (R,) int64, block_stats_t (dim, 2, R, B) float32,
     mapping (K, dim) int64, all on the card. Returns (R, 3 P + K*K + K)
     float32 rows of theta sums, sums of squares and counts (P each), the
@@ -108,7 +109,8 @@ def sweep_stats_cuda(
 
 
 def _stats(states, sizes, n_blocks, block_stats_t, mapping, nr_params: int) -> torch.Tensor:
-    """Launch the statistics kernels on checked, contiguous inputs."""
+    """Launch the statistics kernel on checked, contiguous inputs. The card
+    refusing the cooperative launch raises."""
     (R, B), (K, dim) = states.shape, mapping.shape
     lib = _library()
     out = torch.empty((R, 3 * nr_params + K * K + K), dtype=torch.float32, device=states.device)
@@ -119,7 +121,7 @@ def _stats(states, sizes, n_blocks, block_stats_t, mapping, nr_params: int) -> t
         mapping.data_ptr(), out.data_ptr(), work.data_ptr(), R, B, K, dim, nr_params,
         states.device.index or 0, torch.cuda.current_stream(states.device).cuda_stream,
     )
-    _check_launch(lib, err, "sweep statistics kernels")
+    _check_launch(lib, err, "sweep statistics kernel")
     return out
 
 
@@ -165,7 +167,7 @@ def _resample(*args: torch.Tensor) -> tuple[torch.Tensor, ...]:
     return out
 
 
-#: calls that launched the kernels since the last reset (two kernels per
+#: calls that launched the kernels since the last reset (one kernel per
 #: statistics call, one per resample call)
 sweep_stats_cuda.launches = 0
 resample_model_cuda.launches = 0

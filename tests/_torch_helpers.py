@@ -108,6 +108,33 @@ def sweep_like_matrices(K: int, R: int, B: int, seed: int) -> np.ndarray:
     return A[:, :, None, None] * e[None]
 
 
+#: constructed resample noise: the cases the first-accepted-try vote must get right
+VOTE_CASES = ("none", "only_last", "all", "nan_in_a_try")
+
+
+def vote_noise(case: str, P: int, n: int, seed: int) -> tuple[np.ndarray, ...]:
+    """Resample noise (proposal normals (8, n), acceptance uniforms (8, n),
+    boost uniforms (n,), mean normals (P,)) built so that, at every Gamma
+    shape, ``case`` decides which of the 8 tries are accepted: "none" (x =
+    0, u = 1: the statistic is 0 and log u = 0 is not below it, so the
+    draw is the mode); "only_last" (tries 0-6 as in "none", try 7 x in
+    (-2, 2) and u = 1e-30); "all" (u = 1e-30: try 0 wins); "nan_in_a_try"
+    (u = 1e-30, a NaN normal in try 0 of even shapes and a NaN uniform in
+    tries 0-1 of odd ones: the first try without NaN wins)."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-2.0, 2.0, size=(8, n)).astype(np.float32)
+    u = np.full((8, n), 1e-30, np.float32)
+    if case in ("none", "only_last"):
+        x[:7 if case == "only_last" else 8] = 0.0
+        u[:7 if case == "only_last" else 8] = 1.0
+    elif case == "nan_in_a_try":
+        x[0, 0::2] = np.nan
+        u[:2, 1::2] = np.nan
+    ub = rng.uniform(0.01, 1.0, size=n).astype(np.float32)
+    z = rng.normal(size=P).astype(np.float32)
+    return x, u, ub, z
+
+
 def synth_segments(T: int, seed: int, seglen: int = 500, scale: float = 1.0):
     """bench.py's data recipe: segments of ``seglen`` positions in one of
     three states with means {0, 2, -2} * scale, unit noise.

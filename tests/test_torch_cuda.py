@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from _torch_helpers import (  # noqa: F401
-    assert_bitwise, cuda_device, eager_engine, sweep_like_matrices, synth_segments,
+    VOTE_CASES, assert_bitwise, cuda_device, eager_engine, sweep_like_matrices, synth_segments,
+    vote_noise,
 )
 from hammlet_tpu_torch import cli, runner
 from hammlet_tpu_torch.io.records import Records
@@ -1155,18 +1156,119 @@ def test_resample_kernel_matches_plain_on_card(cuda_device, K, nan):
 
 @pytest.mark.cuda
 def test_model_update_kernels_per_call_on_card(cuda_device):
-    """One CUDA kernel per resample call and two per statistics call (the
-    tile sums and the rows' totals), at the main path's shape (B = 29,696,
-    K = 3; one row, and four rows at P = 4) (torch.profiler)."""
+    """One CUDA kernel per resample call and one per statistics call (the
+    cooperative modelupdate_stats_kernel), at the main path's shape (B =
+    29,696, K = 3; one row, and four rows at P = 4) (torch.profiler)."""
     from hammlet_tpu_torch.models import model_cuda
 
     for R in (1, 4):
         args, _, P = _stats_inputs(R, 29_696, 3, 1, 5, cuda_device)
         names = _scan_kernels(lambda: model_cuda.sweep_stats_cuda(*args, P))
-        assert len(names) <= 2 and all("modelupdate_stats" in n for n in names), names
+        assert len(names) == 1 and "modelupdate_stats_kernel" in names[0], names
     priors, stats, noise = _resample_inputs(3, 1, cuda_device)
     names = _scan_kernels(lambda: model_cuda.resample_model_cuda(priors, stats, noise))
     assert len(names) == 1 and "modelupdate_resample_kernel" in names[0], names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R, B", [(1, 4_000_000), (4, 433_920), (4, 1_000_000), (1, 100_003)])
+def test_sweep_stats_one_kernel_at_large_b_on_card(cuda_device, R, B):
+    """Exact on the card at the large shapes (T = 4M's burn-in capacity,
+    T = 250M's four local rows, and beyond): the statistics call is one
+    CUDA kernel (torch.profiler) and equals its plain version bit for bit,
+    each row of a many-row call its one-row call."""
+    from hammlet_tpu_torch.models import model_cuda
+    from hammlet_tpu_torch.samplers import sweep
+
+    args, _, P = _stats_inputs(R, B, 3, 1, B + R, cuda_device, "masked")
+    names = _scan_kernels(lambda: model_cuda.sweep_stats_cuda(*args, P))
+    assert len(names) == 1 and "modelupdate_stats_kernel" in names[0], names
+    got = model_cuda.sweep_stats_cuda(*args, P)
+    assert _same_bits(got, sweep.sweep_stats_reference(*args, P))
+    states, sizes, nb, bstats, mapping = args
+    for r in range(R if R > 1 else 0):
+        one = model_cuda.sweep_stats_cuda(states[r:r + 1], sizes[r:r + 1], nb[r:r + 1],
+                                          bstats[:, :, r:r + 1].contiguous(), mapping, P)
+        assert torch.equal(got[r].view(torch.int32), one[0].view(torch.int32)), r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 4])
+def test_sweep_stats_after_100_graph_replays_on_card(cuda_device, R):
+    """Exact on the card: the cooperative statistics kernel captured into
+    one CUDA graph gives the eager call's bits on every one of 100 replays
+    (B = 29,696 per row, a masked tail)."""
+    from hammlet_tpu_torch.models import model_cuda
+
+    args, _, P = _stats_inputs(R, 29_696, 3, 1, 40 + R, cuda_device, "masked")
+    want = model_cuda.sweep_stats_cuda(*args, P)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = model_cuda.sweep_stats_cuda(*args, P)
+    for _ in range(100):
+        got.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_sweep_stats_from_two_threads_on_card(cuda_device):
+    """Exact on the card: two threads calling the statistics kernel at once
+    on one card, each on its own stream and inputs (as engines driven from
+    threads do), each get the bits of their calls made alone."""
+    import threading
+
+    from hammlet_tpu_torch.models import model_cuda
+
+    cases = [_stats_inputs(R, B, 3, 1, 60 + R, cuda_device, "masked")
+             for R, B in ((1, 29_696), (4, 433_920))]
+    want = [model_cuda.sweep_stats_cuda(*args, P) for args, _, P in cases]
+    torch.cuda.synchronize()
+    got: list = [[], []]
+    errors: list = []
+
+    def run(i):
+        try:
+            stream = torch.cuda.Stream(cuda_device)
+            with torch.cuda.stream(stream):
+                args, _, P = cases[i]
+                for _ in range(20):
+                    got[i].append(model_cuda.sweep_stats_cuda(*args, P))
+            stream.synchronize()
+        except Exception as exc:  # noqa: BLE001 - handed to the main thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for i in range(2):
+        assert len(got[i]) == 20
+        for out in got[i]:
+            assert torch.equal(out.view(torch.int32), want[i].view(torch.int32)), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [3, 10])
+@pytest.mark.parametrize("case", VOTE_CASES)
+def test_resample_kernel_vote_cases_on_card(cuda_device, K, case):
+    """Exact on the card: on noise built so that no try is accepted (the
+    mode), only try 7 is, all are, or a NaN sits in a try
+    (_torch_helpers.vote_noise), the resample kernel's first-accepted-try
+    vote gives the bits of its plain version."""
+    from hammlet_tpu_torch.models import hmm, model_cuda
+
+    priors, stats, _ = _resample_inputs(K, 5, cuda_device)
+    noise = tuple(torch.from_numpy(a).to(cuda_device)
+                  for a in vote_noise(case, K, 2 * K + K * K, 20 + K))
+    got = model_cuda.resample_model_cuda(priors, stats, noise)
+    want = hmm.resample_model_reference(priors, stats, noise)
+    for name, a, b in zip(hmm.HMMState._fields, got, want):
+        assert _same_bits(a, b), name
 
 
 @pytest.mark.cuda

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from _torch_helpers import assert_ulp, to_np, to_torch, toy_problem
+from _torch_helpers import VOTE_CASES, assert_ulp, to_np, to_torch, toy_problem, vote_noise
 from hammlet_tpu.models import autopriors as jap
 from hammlet_tpu.models import distributions as jd
 from hammlet_tpu.models import hmm as jhmm
@@ -224,6 +224,47 @@ def test_resample_model_matches_jax_given_its_noise(K, seed):
         np.testing.assert_allclose(
             to_np(getattr(got, name)), np.asarray(getattr(want, name)), rtol=1e-5, err_msg=name
         )
+
+
+@pytest.mark.parametrize("case", VOTE_CASES)
+@pytest.mark.parametrize("K", [3, 10])
+def test_resample_votes_match_jax_on_constructed_noise(case, K, monkeypatch):
+    """Tolerance: rtol 1e-5, as above. On noise built so that no try is
+    accepted (the mode), only try 7 is, all are, or a NaN sits in a try
+    (_torch_helpers.vote_noise), the plain resample returns JAX's
+    resample_model, which draws that noise here: its normal and uniform
+    draws are replaced, in the order it makes them, by the constructed
+    arrays. These are the cases the kernel's first-accepted-try vote
+    reproduces."""
+    nig, stats = _resample_case(K, 3)
+    P, n = K, 2 * K + K * K
+    noise = vote_noise(case, P, n, 20 + K)
+    queue = {"normal": [noise[0], noise[3]], "uniform": [noise[1], noise[2]]}
+
+    def drawn(kind):
+        def draw(key, shape, dtype=jnp.float32, **kw):
+            a = queue[kind].pop(0)
+            assert a.shape == tuple(shape), (kind, a.shape, shape)
+            return jnp.asarray(a, dtype)
+        return draw
+
+    monkeypatch.setattr(jax.random, "normal", drawn("normal"))
+    monkeypatch.setattr(jax.random, "uniform", drawn("uniform"))
+    jp, tp = jhmm.HMMPriors.create(nig, K), thmm.HMMPriors.create(nig, K)
+    want = jhmm.resample_model(jax.random.PRNGKey(0), jp,
+                               jhmm.SweepStats(*(jnp.asarray(a) for a in stats)))
+    assert not queue["normal"] and not queue["uniform"]
+    got = thmm.resample_model_reference(
+        tp, thmm.SweepStats(*(torch.from_numpy(a) for a in stats)),
+        tuple(torch.from_numpy(a) for a in noise))
+    for name in thmm.HMMState._fields:
+        np.testing.assert_allclose(
+            to_np(getattr(got, name)), np.asarray(getattr(want, name)), rtol=1e-5, err_msg=name
+        )
+    if case == "none":  # every shape took its mode: var = beta' / d, with the boost below 1
+        g = to_np(td.gamma_fixed_tries(None, torch.full((1,), 50.0), noise=tuple(
+            torch.from_numpy(a[..., :1]) for a in noise[:3])))
+        assert g[0] == np.float32(np.float32(50.0) - np.float32(1 / 3))
 
 
 def test_resample_model_draws_its_noise_in_one_order():

@@ -1,6 +1,8 @@
 """The port's FB-Gibbs, mixture and sweep-statistics/recording code against
 the JAX package (hammlet_tpu/samplers/) and the golden sequential model."""
 
+import re
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -262,6 +264,133 @@ def test_batched_stats_equal_one_row_calls():
             assert got == to_np(getattr(one, field)[0]).tobytes(), (s, field)
             assert got == to_np(getattr(flat, field)).tobytes(), (s, field)
     assert float(rows.state_counts[2].sum()) == 0.0
+
+
+def _kernel_constants() -> dict:
+    """The statistics kernel's tiling, read from csrc/modelupdate.cu so that
+    the emulation below follows the source."""
+    from hammlet_tpu_torch import _build
+
+    text = (_build.CSRC_DIR / "modelupdate.cu").read_text()
+    names = ("STATS_THREADS", "PER_THREAD", "TERM_GROUP", "MAX_RUNS")
+    return {n: int(re.search(rf"^#define {n} (\d+)", text, re.M).group(1)) for n in names}
+
+
+def _np_combine(left, right, size, Bp):
+    """One level of the kernel's tree: the left node takes the sum while
+    the combined node (size ``size``) is at most Bp."""
+    return left + right if size <= Bp else left
+
+
+def _np_kernel_stats(states, sizes, nb, bstats, mapping, P, resident):
+    """The statistics kernel's decomposition in numpy float32, row by row:
+    for the float terms (state, diag, theta) each thread's in-register
+    levels over its PER_THREAD blocks and the cross-thread levels of a tile
+    (terms in groups of TERM_GROUP); for the pair terms the tile's count
+    (an integer histogram); each CTA's run of RUN tiles summed on a stack
+    (the binary counter of the tile's position in the run), then the tree
+    over the row's run sums, zero-padded to a power of two, and the
+    assembly. RUN is the least power of two with rows x runs at most
+    ``resident`` (the CTAs the card holds at once) and runs at most
+    MAX_RUNS, as the host picks it."""
+    c = _kernel_constants()
+    threads, per, group, max_runs = (c[n] for n in ("STATS_THREADS", "PER_THREAD", "TERM_GROUP",
+                                                    "MAX_RUNS"))
+    tile = threads * per
+    R, B = states.shape
+    K, dim = mapping.shape
+    f = np.float32
+    Bp = 1 << max(B - 1, 0).bit_length()
+    tiles = -(-B // tile)
+    run_log = 0
+    runs = tiles
+    while (1 << run_log) < tiles and (runs > max_runs or R * runs > resident):
+        run_log += 1
+        runs = -(-tiles // (1 << run_log))
+    RUN, runs_p = 1 << run_log, 1 << max(runs - 1, 0).bit_length()
+    rows = []
+    for r in range(R):
+        s, size = states[r], sizes[r].astype(f)
+        valid = np.arange(B) < nb[r]
+        prev = np.concatenate([[0], s[:-1]])
+        leaves = [f(1) * ((s == k) & valid) * size for k in range(K)]
+        leaves += [f(1) * ((s == k) & valid) * (size - f(1)) for k in range(K)]
+        leaves += [((prev == i) & (s == j) & valid).astype(f) for i in range(K) for j in range(K)]
+        for d in range(dim):
+            for q, x in enumerate((bstats[d, 0, r], bstats[d, 1, r], size)):
+                leaves += [f(1) * ((mapping[s, d] == p) & valid) * x for p in range(P)]
+        leaves = np.stack(leaves).astype(f)
+        n_terms = leaves.shape[0]
+        padded = np.zeros((n_terms, tiles * tile), f)
+        padded[:, :B] = leaves
+        floats = [j for j in range(n_terms) if not 2 * K <= j < 2 * K + K * K]
+        tile_sums = np.zeros((n_terms, tiles), f)
+        pair_leaves = padded[2 * K:2 * K + K * K].reshape(K * K, tiles, tile)
+        tile_sums[2 * K:2 * K + K * K] = (pair_leaves > 0).sum(axis=2)  # exact counts
+        for g0 in range(0, len(floats), group):  # the tile trees of one group of float terms
+            x = padded[floats[g0:g0 + group]].reshape(-1, tiles, threads, per)
+            size_l = 1
+            while x.shape[-1] > 1:  # in-thread levels
+                size_l *= 2
+                x = _np_combine(x[..., 0::2], x[..., 1::2], size_l, Bp)
+            x = x[..., 0]
+            while x.shape[-1] > 1:  # cross-thread levels
+                size_l *= 2
+                x = _np_combine(x[..., 0::2], x[..., 1::2], size_l, Bp)
+            tile_sums[floats[g0:g0 + group]] = x[..., 0]
+        in_runs = np.zeros((n_terms, runs * RUN), f)
+        in_runs[:, :tiles] = tile_sums
+        in_runs = in_runs.reshape(n_terms, runs, RUN)
+        stack = np.zeros((n_terms, runs, run_log + 1), f)
+        for pos in range(RUN):  # each CTA's run, one tile after another
+            node, level = in_runs[:, :, pos], 0
+            cc = pos
+            while cc & 1:
+                node = stack[:, :, level] + node
+                level += 1
+                cc >>= 1
+            stack[:, :, level] = node
+        run_sums = np.zeros((n_terms, runs_p), f)
+        run_sums[:, :runs] = stack[:, :, run_log]
+        while run_sums.shape[-1] > 1:
+            run_sums = run_sums[:, 0::2] + run_sums[:, 1::2]
+        term = run_sums[:, 0]
+        theta = np.zeros(3 * P, f)
+        for d in range(dim):
+            at = 2 * K + K * K + 3 * P * d
+            theta = theta + term[at:at + 3 * P]
+        diag = np.diag(term[K:2 * K]).astype(f)
+        trans = term[2 * K:2 * K + K * K].reshape(K, K) + diag
+        rows.append(np.concatenate([theta, trans.reshape(-1), term[:K]]).astype(f))
+    return np.stack(rows)
+
+
+@pytest.mark.parametrize("B", [1, 30, 255, 256, 257, 2049, 29_696, 100_000])
+@pytest.mark.parametrize("K,dim,resident", [(3, 1, 1056), (3, 1, 7), (5, 2, 132)])
+def test_kernel_decomposition_is_the_pairwise_tree(B, K, dim, resident):
+    """Exact: the statistics kernel's decomposition (in-thread levels,
+    cross-thread levels per term group, pair counts per tile, runs of tiles
+    on a stack, the tree over run sums; tile sizes from
+    csrc/modelupdate.cu) equals
+    sweep_stats_reference bit for bit, on signed block statistics past a
+    masked tail (-0.0 leaves), rows shorter than a tile, an overflowing
+    count and an empty row (whose theta leaves are all -0.0), with RUN = 1 (a card-sized grid), long runs (a
+    grid of 7 CTAs), and 22 float terms (two term groups: K = 5, dim 2)."""
+    R = 3
+    rng = np.random.default_rng(B + 31 * K + resident)
+    P = 2 if dim > 1 else K
+    mapping = rng.integers(0, P, size=(K, dim))
+    states = rng.integers(0, K, size=(R, B))
+    sizes = rng.integers(1, 500, size=(R, B))
+    nb = np.array([B, B // 2 + 1, 0]) if B > 1 else np.array([1, 2, 0])
+    bstats = rng.normal(0, 40, size=(dim, 2, R, B)).astype(np.float32)
+    bstats[:, 1] = np.abs(bstats[:, 1])
+    bstats[:, 0, 2] = -np.abs(bstats[:, 0, 2])  # the empty row's theta leaves: -0.0 only
+    want = _np_kernel_stats(states, sizes, nb, bstats, mapping, P, resident)
+    got = tsw.sweep_stats_reference(*map(torch.from_numpy, (states, sizes, nb, bstats, mapping)), P)
+    if K == 5:  # the case that needs term groups
+        assert 2 * K + 3 * P * dim > _kernel_constants()["TERM_GROUP"]
+    np.testing.assert_array_equal(to_np(got).view(np.int32), want.view(np.int32))
 
 
 def test_record_sweep_exact():
