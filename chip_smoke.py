@@ -34,9 +34,13 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    inputs, the main path's shapes) and CUDA-event times of
    both (L2 flushed; warm, device only) and of their plain versions, beside
    the bound: the sweep's own matrices and maps at P = 1 and P = 4 (taken
-   from the eager [graph] and [sharded] engines), uniform inputs at the
-   same shapes, at the T = 250M per-shard shape, at a flat FB_FLAT and at
-   K = 10; then the sweep's own and the uniform times side by side;
+   from the eager [graph] and [sharded] engines) and the K = 9 sweep's
+   (from the eager [states9] engine), uniform inputs at the same shapes,
+   at the T = 250M per-shard shape, at a flat FB_FLAT and at K = 9, 10, 16
+   and 27 (27: the generic kernels); no call of K <= 16 may reach the
+   generic kernels (FB_GENERIC); then the sweep's own and the uniform
+   times side by side, and K = 10 against the generic kernels' times
+   (FB_GENERIC_K10_MS);
 3c. model: the sweep statistics kernel (csrc/modelupdate.cu, through
    models/model_cuda.py) bitwise against its plain version on the card at
    MODEL_ROWS x MODEL_KS x MODEL_DIMS (a masked tail and an overflowing
@@ -115,6 +119,19 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    captures, the settled rates of P = 1 (phase 4's engine) first and last
    and of P = 4 graphed and eager in SHARDED_PAIRS alternating pairs, and
    peak memory;
+9b. states9: configuration 4 of benchmarks/run_configs.py (two tracks, 3
+   emission parameters per track, K = 9 states, -s C 3 2; config4_steps)
+   at T = 4,000,000 positions x 2 through device ingest: make_engine ->
+   SCHEME -> finalize with graphs and through the eager gibbs_phase, same
+   seed, checking that ingest launched both maxlet kernels and the sweep
+   every kernel, that every marginal row sums to the 128 recorded sweeps,
+   MAP agreement >= 0.95, every sweep a graph replay, and the same bytes;
+   settled F rates (median of STATES9_SETTLED and the spread), settled
+   capacity, peak memory, the maxlet kernels at dim 2 on this data; the
+   configuration at its own T (400,000 x 2, host ingest) through
+   bin/hammlet-torch -s C 3 2 -a in a subprocess (rows, MAP agreement);
+   [profile] adds its graphed sweep (FB scan kernels must be the team
+   instances) and its eager sweep's device ms by stage;
 10. chains: two chromosomes of T = 2,500,000 positions (100-bp bins) as
    text files; first each maxlet kernel against its plain version on each
    chromosome's data as the CLI reads it, bit for bit, on the card and on
@@ -188,7 +205,6 @@ import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from itertools import permutations
 
 import numpy as np
 import torch
@@ -275,13 +291,21 @@ KERNEL_ROWS = (  # name (the kernels a call runs on the main path), source, the 
 )
 FB_SIZES = [8, 130, 256, 384, 29_696, 433_920, 500_000]  # [fbscan]: block counts B
 FB_BIG = 433_920  # [cards] (d)'s capacity per shard at T = 250M: 3,390 group totals
-FB_KS = [1, 2, 3, 5, 10]  # [fbscan]: states K
+FB_KS = [1, 2, 3, 5, 9, 10, 12, 16]  # [fbscan]: states K (9-16: the team instances)
 FB_ROWS = [1, 4]  # [fbscan]: batch rows R (the sharded engine's local shards)
 FB_RTOL, FB_ATOL = 1e-6, 1e-30  # [fbscan]: prefix kernel against its plain version
 FB_FLAT = 500_000  # [fbscan]: a flat B (not a multiple of 128) too long for one CTA
-# [fbscan] timed inputs whose scan calls must each be one CUDA kernel (the main path's shapes)
+# [fbscan] timed inputs whose scan calls must each be one CUDA kernel (the main path's shapes,
+# and K = 9 and 10 at its P = 1 capacity: the one-launch team instances)
 FB_ONE_LAUNCH = ("P=1 sweep data", f"P={P_SHARDED} sweep data", "P=1 uniform",
-                 f"P={P_SHARDED} uniform")
+                 f"P={P_SHARDED} uniform", "K=9 uniform", "K=10 uniform")
+# the generic kernels (K > 16), mangled and as torch.profiler names them; no scan call of
+# K <= 16 may reach them
+FB_GENERIC = ("fbscan_prefix_group_any_kernel", "fbscan_prefix_combine_any_kernel",
+              "fbscan_prefix_rows_grid_kernelILi0E", "fbscan_prefix_rows_grid_kernel<0>")
+# the FB scans at K = 10, B = 29,696, on the generic kernels they replaced (three launches each),
+# ms with L2 flushed (NVIDIA H100 80GB HBM3, 700.00 W)
+FB_GENERIC_K10_MS = {"prefix": 1.2159, "suffix": 0.0241}
 # the three-launch prefix kernels (group, totals, combine; __fdiv_rn) on the P = 1 sweep's
 # matrices, ms with L2 flushed (NVIDIA H100 80GB HBM3, 700.00 W)
 FB_THREE_LAUNCH_PREFIX_MS = 0.0745
@@ -295,6 +319,14 @@ MODEL_ROWS = [(1, 30), (1, 29_696), (4, 433_920), (1, 4_000_000)]
 MODEL_KS = [3, 10]  # [model]: states K
 MODEL_DIMS = [1, 3]  # [model]: data dimensions (P = K at dim 1, 2 above)
 MODEL_DRAWS = 50  # [model]: resample draws checked per K
+# [states9]: configuration 4 of benchmarks/run_configs.py (:160-172), "multi-track multivariate
+# emissions: 2 tracks x 3 params = 9 states" (-s C 3 2): its means (:165-167), segments, noise, seed
+CONFIG4_MEANS = ((0.0, 0.0), (0.0, 3.0), (3.0, 0.0), (3.0, 3.0), (-3.0, 0.0), (0.0, -3.0),
+                 (-3.0, -3.0), (3.0, -3.0), (-3.0, 3.0))
+CONFIG4_SEGLEN, CONFIG4_NOISE, CONFIG4_SEED = 800, 1.0, 4
+CONFIG4_T = 400_000  # the configuration's own T: bin/hammlet-torch -s C 3 2, host ingest
+STATES9_K = 9
+STATES9_SETTLED = 3  # [states9]: settled F SETTLED_ITERS 4 phases on the graphed engine
 
 
 class SmokeFailure(Exception):
@@ -318,6 +350,22 @@ def synth(T: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
     reps[-1] = T - SEGLEN * (n_seg - 1)
     data = np.repeat(means[state], reps) + rng.normal(0, 1, size=T)
     return data.astype(np.float32), np.repeat(state, reps)
+
+
+def config4_steps(T: int, seed: int = CONFIG4_SEED) -> tuple[np.ndarray, np.ndarray]:
+    """benchmarks/run_configs.py's _steps (:85-92) with configuration 4's
+    means, segments of CONFIG4_SEGLEN positions, noise CONFIG4_NOISE, two
+    tracks: the same draws. Returns ((T, 2) float32 data, true state per
+    position)."""
+    rng = np.random.default_rng(seed)
+    means = np.asarray(CONFIG4_MEANS)
+    n_seg = max(1, T // CONFIG4_SEGLEN)
+    state = rng.integers(0, len(means), size=n_seg)
+    reps = np.full(n_seg, CONFIG4_SEGLEN)
+    reps[-1] = T - CONFIG4_SEGLEN * (n_seg - 1)
+    mu = np.repeat(means[state], reps, axis=0)
+    data = (mu + rng.normal(0, CONFIG4_NOISE, size=mu.shape)).astype(np.float32)
+    return data, np.repeat(state, reps)
 
 
 def nvidia_smi_line() -> str:
@@ -708,7 +756,7 @@ def phase_fbscan() -> dict:
                               f"[fbscan] suffix row {r} of {R} != its one-row call ({where})")
                 del M, maps, got, want, sgot
     # the sweep's matrices: many exact zeros (underflowed emission weights), some subnormal
-    for B, K in ((384, 3), (29_696, 3), (29_696, 10)):
+    for B, K in ((384, 3), (29_696, 3), (29_696, 9), (29_696, 10), (29_696, 16)):
         M, _ = fb_inputs(B, K, 2, 99 + K)
         u = torch.rand(M.shape, generator=torch.Generator(device="cuda").manual_seed(B), device="cuda")
         M = torch.where(u < 0.4, 0.0, torch.where(u < 0.45, M * 1e-39, M))
@@ -723,13 +771,13 @@ def phase_fbscan() -> dict:
     res["bitwise"] += check_scans(tots.permute(1, 2, 0), tmaps.T, "permuted and transposed views")
     res["cases"] += 1
     # NaN: a NaN entry turns every later product of its row into NaN, as in torch
-    for B in (200, 29_696):
-        M, _ = fb_inputs(B, 3, 2, 77)
+    for B, K in ((200, 3), (29_696, 3), (200, 9), (29_696, 9)):
+        M, _ = fb_inputs(B, K, 2, 77)
         M[1, 2, 0, B // 3] = float("nan")
         got, want = fb_cuda.prefix_matmul_scan_cuda(M), fb.prefix_matmul_scan_reference(M)
         check(torch.equal(torch.isnan(got), torch.isnan(want)) and bool(torch.isnan(got).any())
               and torch.allclose(got, want, rtol=FB_RTOL, atol=FB_ATOL, equal_nan=True),
-              f"[fbscan] NaN propagation (B={B})")
+              f"[fbscan] NaN propagation (B={B} K={K})")
     torch.cuda.synchronize()
     return res
 
@@ -1198,12 +1246,22 @@ def fb_golden() -> dict:
 
 def map_agreement(sizes: np.ndarray, counts: np.ndarray, truth: np.ndarray) -> float:
     """Share of positions whose MAP state is the true state, under the best
-    relabelling (int8 per position, so that T = 250M fits the host)."""
+    relabelling: the matching of MAP states to true states with the most
+    positions (scipy.optimize.linear_sum_assignment on the confusion counts;
+    at K = 3 the best of the 3! permutations). The MAP state is int8 per
+    position and the counts are taken in slices, so that T = 250M fits the
+    host."""
+    from scipy.optimize import linear_sum_assignment
+
     map_state = np.repeat(counts.argmax(axis=1).astype(np.int8), sizes)
-    return max(
-        float((np.asarray(perm, dtype=np.int8)[map_state] == truth).mean())
-        for perm in permutations(range(3))
-    )
+    k_map, k_true = counts.shape[1], int(truth.max()) + 1
+    conf = np.zeros(k_map * k_true, dtype=np.int64)
+    for lo in range(0, len(truth), 1 << 24):
+        conf += np.bincount(map_state[lo:lo + (1 << 24)].astype(np.int64) * k_true
+                            + truth[lo:lo + (1 << 24)], minlength=k_map * k_true)
+    conf = conf.reshape(k_map, k_true)
+    rows, cols = linear_sum_assignment(conf, maximize=True)
+    return float(conf[rows, cols].sum()) / len(truth)
 
 
 def device_kernels(prof) -> list:
@@ -1409,6 +1467,129 @@ def one_card_big() -> dict:
     return res
 
 
+def phase_states9(tmp: str) -> dict:
+    """[states9]: configuration 4 (config4_steps; K = 9 = 3^2, two tracks)
+    at T_MAIN positions through device ingest: make_engine -> SCHEME ->
+    finalize through a graphed engine and through one whose chunks run the
+    eager gibbs_phase, same seed. Checks that ingest took the device path
+    and launched both maxlet kernels, that every kernel of the sweep
+    launched, that every marginal row sums to the recorded sweeps, MAP
+    agreement >= MAP_AGREEMENT_MIN, that every sweep of the graphed engine
+    was a graph replay and that both engines wrote the same bytes. Then
+    settled F rates (STATES9_SETTLED phases of SETTLED_ITERS), the maxlet
+    kernels' times at dim 2 on this data, the sweep's own scan and
+    model-update inputs (recorded from the eager engine), and the same
+    configuration at its own T (CONFIG4_T) through bin/hammlet-torch -s C
+    3 2 -a in a subprocess (host ingest). Returns the engines too, for
+    [profile]."""
+    data, truth = config4_steps(T_MAIN)
+    streams = ("marginals", "parameters", "compression")
+    res: dict = {}
+    engines, outs = {}, {}
+    for tag in ("graph", "eager"):
+        prefix = os.path.join(tmp, f"states9-{tag}-")
+        rec = Records(T_MAIN, prefix, ".csv", STATES9_K, outputs=set(streams), overwrite=True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        eng = runner.make_engine(data, nr_params=3, nr_data_dim=2, seed=SEED, records=rec)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        if tag == "eager":
+            eager_engine(eng)
+        log = log_captures(eng)
+        eng.run_scheme(SCHEME.split())
+        eng.finalize()
+        torch.cuda.synchronize()
+        res[tag] = {"setup_s": setup_s, "total_s": time.perf_counter() - t0,
+                    "peak_mem_bytes": torch.cuda.max_memory_allocated() - base,
+                    "launches": read_counts(), "captures": list(log),
+                    "phases": [(m, n, round(t, 4)) for m, n, t in eng.phase_log],
+                    "capacity": eng.capacity}
+        outs[tag] = {name: open(prefix + name + ".csv", "rb").read() for name in streams}
+        if tag == "graph":
+            sizes, counts = read_marginals(prefix + "marginals.csv")
+        engines[tag] = eng
+    g, e = engines["graph"], engines["eager"]
+    check(g.device.type == "cuda" and g.spec.nr_states == STATES9_K,
+          f"[states9] engine on {g.device} with {g.spec.nr_states} states")
+    check_graphed(g, "[states9]")
+    check(e.phase_graphs.replays == 0, "[states9] the eager engine replayed graphs")
+    check(g.ing.weights_host is None, "[states9] ingest did not take the device path")
+    for name, n in res["graph"]["launches"].items():
+        check(n >= 1, f"[states9] the path never launched {name}")
+    check(counts.shape[1] == STATES9_K and int(sizes.sum()) == T_MAIN,
+          f"[states9] marginal rows of {counts.shape[1]} states cover {sizes.sum()} positions")
+    check(bool((counts.sum(axis=1) == N_RECORDED).all()),
+          f"[states9] marginal row sums != {N_RECORDED}")
+    res["map_agreement"] = map_agreement(sizes, counts, truth)
+    check(res["map_agreement"] >= MAP_AGREEMENT_MIN,
+          f"[states9] MAP agreement {res['map_agreement']:.4f}")
+    for name in streams:
+        check(outs["graph"][name] == outs["eager"][name],
+              f"[states9] {name}: the graphed engine's bytes differ from the eager engine's")
+    res["sha256"] = {name: hashlib.sha256(outs["graph"][name]).hexdigest()[:16]
+                     for name in ("marginals", "parameters")}
+    g.records = e.records = None
+    rates = []
+    for _ in range(STATES9_SETTLED):
+        g.run("F", SETTLED_ITERS, 4)
+        rates.append(SETTLED_ITERS / g.phase_log[-1][2])
+    res["settled"], res["settled_capacity"] = rates, g.capacity
+    # the maxlet kernels at dim 2 on this data, L2 flushed
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    x = torch.from_numpy(data).cuda()
+    kc, kt = wavelet_cuda.maxlet_chunks_cuda(x)
+    buf = kc.clone()
+    res["maxlet"] = {
+        "chunk": time_ms(lambda: wavelet_cuda.maxlet_chunks_cuda(x), flush.zero_),
+        "cross": time_ms(lambda: wavelet_cuda.maxlet_cross_cuda(buf, kt), flush.zero_),
+        "chunk_plain": time_ms(lambda: wavelet_cuda.maxlet_chunks_reference(x), flush.zero_),
+        "cross_plain": time_ms(lambda: wavelet_cuda.maxlet_cross_reference(buf, kt), flush.zero_),
+    }
+    for name, (nbytes, ops) in transform_work(T_MAIN, 2).items():
+        res["maxlet"][name + "_bound"], res["maxlet"][name + "_bound_by"] = bound_ms(nbytes, ops)
+    del flush, x, kc, kt, buf
+    torch.cuda.empty_cache()
+    with ScanInputs() as scans, ModelInputs() as models:
+        e.run("F", 4, 4)
+    res["scans"], res["models"] = scans, models
+    res["cli"] = states9_cli(tmp)
+    res["engines"] = engines
+    return res
+
+
+def states9_cli(tmp: str) -> dict:
+    """Configuration 4 at its own T (CONFIG4_T x 2, below ingest_device's
+    threshold: host ingest) through bin/hammlet-torch -s C 3 2 -a SCHEME in
+    a subprocess, marginals and parameters: the run is on the card, every
+    marginal row sums to the recorded sweeps and MAP agreement >=
+    MAP_AGREEMENT_MIN."""
+    data, truth = config4_steps(CONFIG4_T)
+    path = os.path.join(tmp, "config4.csv")
+    np.savetxt(path, data, fmt="%.5f")  # benchmarks/run_configs.py's _data_file format
+    prefix = os.path.join(tmp, "config4-")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(here, "bin", "hammlet-torch"), "-f", path, "-s", "C", "3", "2",
+         "-a", "-R", str(SEED), "-i", *SCHEME.split(), "-O", "marginals", "parameters", "-o", prefix, ".csv", "-w",
+         "-v"], capture_output=True, text=True, timeout=600, cwd=here)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"[states9] bin/hammlet-torch -s C 3 2 failed: {proc.stderr[-2000:]}")
+    check("Device: cuda" in proc.stdout + proc.stderr,
+          f"[states9] bin/hammlet-torch did not run on the card: {proc.stdout[-1000:]}")
+    sizes, counts = read_marginals(prefix + "marginals.csv")
+    check(counts.shape[1] == STATES9_K and int(sizes.sum()) == CONFIG4_T
+          and bool((counts.sum(axis=1) == N_RECORDED).all()),
+          "[states9] bin/hammlet-torch: marginal rows do not cover T or count the recorded sweeps")
+    agreement = map_agreement(sizes, counts, truth)
+    check(agreement >= MAP_AGREEMENT_MIN, f"[states9] bin/hammlet-torch MAP agreement {agreement:.4f}")
+    return {"seconds": seconds, "map_agreement": agreement, "rows": len(sizes)}
+
+
 def profile_launches(eng, iters: int = 64) -> dict:
     """torch.profiler over ``F iters 4`` on a warm engine: per sweep, the
     CUDA runtime's launch calls by name (LAUNCH_CALLS), device kernels,
@@ -1535,11 +1716,14 @@ def device_split_by_stage(eng, iters: int = 16) -> dict:
                              for stage, kern in names.items()}}
 
 
-def phase_profile(main_eng, sharded_eng, sharded_eager) -> dict:
+def phase_profile(main_eng, sharded_eng, sharded_eager, states9: dict) -> dict:
     """torch.profiler over F 64 4: CUDA kernels and device ms per settled
     sweep of the [main] engine with the debug bitmask off and on, and of the
     [sharded] engine; launch calls, kernels and device ms per sweep of the
-    graphed and the eager [main] and [sharded] engines. It runs last: once
+    graphed and the eager [main] and [sharded] engines and of the graphed
+    [states9] engine (``states9``: tag -> engine), whose FB scan kernels
+    must be the team instances (no generic kernel), and the eager [states9]
+    sweep's device ms by stage. It runs last: once
     the profiler has traced the card, every later launch of the process pays
     more host time, which would lower any rate measured after it."""
     old = os.environ.get("HAMMLET_DEBUG")
@@ -1573,6 +1757,15 @@ def phase_profile(main_eng, sharded_eng, sharded_eager) -> dict:
         check("modelupdate_stats_kernel" in names and "modelupdate_resample_kernel" in names,
               f"the {tag} sweep ran no sweep statistics or resample kernel: {res[tag]['model']}")
     res["sharded_eager"] = profile_launches(sharded_eager)
+    res["states9"] = profile_launches(states9["graph"])
+    names = " ".join(res["states9"]["fbscan"])
+    check("fbscan_prefix_team" in names and "fbscan_suffix" in names
+          and not any(gen in names for gen in FB_GENERIC),
+          f"[states9] the graphed K = 9 sweep's FB scan kernels were {res['states9']['fbscan']}")
+    names = " ".join(res["states9"]["model"])
+    check("modelupdate_stats_kernel" in names and "modelupdate_resample_kernel" in names,
+          f"[states9] the graphed K = 9 sweep ran no model-update kernel: {res['states9']['model']}")
+    res["states9_split"] = device_split_by_stage(states9["eager"])
     eager_engine(main_eng)  # its chunks run the eager gibbs_phase from here on
     res["eager"] = profile_launches(main_eng)
     res["split"] = device_split_by_stage(main_eng)
@@ -2521,6 +2714,44 @@ def print_sharded(sh: dict, main_rate: float) -> None:
           f"torch count {sh['cards']} cards)", flush=True)
 
 
+def print_states9(s9: dict) -> None:
+    """The [states9] lines."""
+    g = s9["graph"]
+    rates = s9["settled"]
+    print(f"[states9] T={T_MAIN} x 2 tracks K={STATES9_K} (configuration 4, -s C 3 2) '{SCHEME}', "
+          f"device ingest: setup {g['setup_s']:.3f} s, total {g['total_s']:.3f} s, capacity "
+          f"{g['capacity']}, peak device memory {g['peak_mem_bytes'] / 2**20:.1f} MiB (eager "
+          f"{s9['eager']['peak_mem_bytes'] / 2**20:.1f} MiB), MAP agreement "
+          f"{s9['map_agreement']:.4f}, rows sum to {N_RECORDED}, launches {g['launches']}, phases "
+          f"{g['phases']}, captures per phase {g['captures']}; every sweep a CUDA graph replay; "
+          f"graphed and eager engines byte-identical (marginals, parameters, compression; sha256 "
+          f"{s9['sha256']}); settled F {SETTLED_ITERS} 4 {rates} sweeps/s (median "
+          f"{np.median(rates):.2f}, spread {min(rates):.2f}-{max(rates):.2f}), settled capacity "
+          f"{s9['settled_capacity']}", flush=True)
+    mx = s9["maxlet"]
+    print(f"[states9] maxlet kernels at T={T_MAIN} dim=2 on this data, ms with L2 flushed (bound): "
+          + "; ".join(f"{k} {mx[k]:.4f} ({mx[k + '_bound']:.4g} by {mx[k + '_bound_by']}, "
+                      f"{mx[k + '_bound'] / mx[k]:.1%}), plain {mx[k + '_plain']:.4f}"
+                      for k in ("chunk", "cross")), flush=True)
+    c = s9["cli"]
+    print(f"[states9] bin/hammlet-torch -s C 3 2 -a at T={CONFIG4_T} x 2 (host ingest) '{SCHEME}' "
+          f"on the card: {c['seconds']:.2f} s, {c['rows']} marginal rows, MAP agreement "
+          f"{c['map_agreement']:.4f}", flush=True)
+
+
+def kernel_label(mangled: str) -> str:
+    """A kernel's name and template argument from its mangled symbol:
+    _Z29fbscan_prefix_team_one_kernelILi9EEv... -> fbscan_prefix_team_one_kernel<9>."""
+    import re
+
+    m = re.match(r"_Z(\d+)", mangled)
+    if not m:
+        return mangled
+    end = m.end() + int(m.group(1))
+    name, arg = mangled[m.end():end], re.match(r"ILi(\d+)E", mangled[end:])
+    return name + (f"<{arg.group(1)}>" if arg else "")
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -2583,7 +2814,7 @@ def main() -> int:
         fbk = phase_fbscan()
         print(f"[fbscan] prefix_matmul_scan_kernel within rtol {FB_RTOL} / atol {FB_ATOL} of "
               f"its plain version in all {fbk['cases']} cases (B in {FB_SIZES} x K in {FB_KS} x R "
-              f"in {FB_ROWS}, 3 with 40 % zeros and 5 % subnormals, and the views; {fbk['bitwise']} of "
+              f"in {FB_ROWS}, 5 with 40 % zeros and 5 % subnormals, and the views; {fbk['bitwise']} of "
               "them bitwise; largest absolute error "
               f"{fbk['prefix_err']}, relative {fbk['worst_rel']:.3g}); suffix_compose_scan_kernel "
               "bitwise equal to its plain version in all of them; each row of a 4-row call "
@@ -2655,6 +2886,10 @@ def main() -> int:
         sh = phase_sharded(main_eng)
         print_sharded(sh, m["f_sweeps_per_s"])
 
+        with tempfile.TemporaryDirectory() as tmp:
+            s9 = phase_states9(tmp)
+        print_states9(s9)
+
         sweep_p1, views_p1 = g["scans"].main_and_others()
         sweep_p4, views_p4 = sh.pop("scans").main_and_others()
         check(sorted((k, v.shape[-1]) for k, v in views_p4)
@@ -2669,7 +2904,11 @@ def main() -> int:
             f"P={P_SHARDED} uniform": fb_inputs(sh["cap_local"], 3, P_SHARDED, SEED),
             "T=250M per shard uniform": fb_inputs(FB_BIG, 3, 1, SEED),
             "flat uniform": fb_inputs(FB_FLAT, 3, 1, SEED),
+            "K=9 sweep data": s9["scans"].main_and_others()[0],
+            "K=9 uniform": fb_inputs(m["capacity"], 9, 1, SEED),
             "K=10 uniform": fb_inputs(m["capacity"], 10, 1, SEED),
+            "K=16 uniform": fb_inputs(m["capacity"], 16, 1, SEED),
+            "K=27 uniform (generic kernels)": fb_inputs(m["capacity"], 27, 1, SEED),
         })
         print(f"[fbscan] the sweep's own cross-shard calls ({len(views_p4)} of the eager "
               f"P={P_SHARDED} sweep, (kind, shape, strides) "
@@ -2693,6 +2932,18 @@ def main() -> int:
                 check(len(fbt[tag][key + "_kernels"]) == 1,
                       f"[fbscan] one {key} scan call on the {tag} inputs ran "
                       f"{fbt[tag][key + '_kernels']}, not one CUDA kernel")
+        for tag, row in fbt.items():
+            if row["shape"][1] <= 16:
+                names = " ".join(n for n, _ in row["prefix_kernels"] + row["suffix_kernels"])
+                check(not any(gen in names for gen in FB_GENERIC),
+                      f"[fbscan] a K <= 16 scan call on the {tag} inputs reached the generic "
+                      f"kernels: {names}")
+        print(f"[fbscan] K=10 B={m['capacity']}, ms with L2 flushed: prefix "
+              f"{fbt['K=10 uniform']['prefix']:.4f}, suffix {fbt['K=10 uniform']['suffix']:.4f}; "
+              f"the generic kernels they replaced took {FB_GENERIC_K10_MS['prefix']} and "
+              f"{FB_GENERIC_K10_MS['suffix']} "
+              f"({FB_GENERIC_K10_MS['prefix'] / fbt['K=10 uniform']['prefix']:.1f}x and "
+              f"{FB_GENERIC_K10_MS['suffix'] / fbt['K=10 uniform']['suffix']:.2f}x)", flush=True)
         for P in (1, P_SHARDED):
             own, uni = fbt[f"P={P} sweep data"], fbt[f"P={P} uniform"]
             print(f"[fbscan] P={P}, ms with L2 flushed on the sweep's own inputs / on uniform "
@@ -2712,6 +2963,7 @@ def main() -> int:
             "T=250M per shard uniform": (model_stats_inputs(4, FB_BIG, 3, 1, SEED), own_p4[1]),
             "K=10 dim=3 uniform": (model_stats_inputs(1, m["capacity"], 10, 3, SEED),
                                    model_resample_inputs(10, SEED)),
+            "K=9 dim=2 sweep data": s9["models"].main(),
         })
         for tag, row in mdt.items():
             R, B, K, dim = row["model_shape"]
@@ -2754,7 +3006,8 @@ def main() -> int:
                   f"covers T, = in-process) and bin/hammlet-torch-sort-states ({tl['means']}) "
                   f"on chain 1 in subprocesses without JAX; seconds {tl['seconds']}", flush=True)
 
-        pr = phase_profile(main_eng, sh.pop("engine"), sh.pop("eager_engine"))
+        pr = phase_profile(main_eng, sh.pop("engine"), sh.pop("eager_engine"),
+                           s9.pop("engines"))
         print(f"[profile] torch.profiler F 64 4 at T={T_MAIN}: [main] engine HAMMLET_DEBUG "
               f"off {pr['0'][0]} kernels/sweep, {pr['0'][1]:.4f} device ms/sweep; on "
               f"{pr['1'][0]} kernels/sweep, {pr['1'][1]:.4f} device ms/sweep; [sharded] "
@@ -2771,6 +3024,15 @@ def main() -> int:
                   f"costliest kernels (name, per sweep, device ms per sweep) {p['top']}; FB scan "
                   f"kernels (per sweep, device ms per sweep) {p['fbscan']}; model-update kernels "
                   f"{p['model']}", flush=True)
+        p = pr["states9"]
+        print(f"[profile] graphed [states9] engine (K={STATES9_K}, dim 2), per settled sweep of F 64 "
+              f"4: launch calls {p['launch_calls']}, {p['kernels']} device kernels, "
+              f"{p['device_ms']:.4f} device ms summed, {p['busy_ms']:.4f} as the union of their "
+              f"intervals (busy {p['busy']:.1%} under the profiler); costliest kernels {p['top']}; "
+              f"FB scan kernels (per sweep, device ms per sweep) {p['fbscan']} (team instances, no "
+              f"generic kernel); model-update kernels {p['model']}; eager [states9] sweep's device "
+              f"ms per sweep by stage ({pr['states9_split']['total_ms']:.4f} ms in all): "
+              f"{pr['states9_split']['stages']}", flush=True)
         walls = {t: 1e3 / float(np.median(g["settled"][t])) for t in ("graph", "eager")}
         print(f"[profile] wall ms per sweep without the profiler ([graph] settled medians) "
               f"against the union of the kernels' intervals under it: graphed "
@@ -2813,7 +3075,22 @@ def main() -> int:
         # no single PyTorch call computes the maxlet transform, either scan, the sweep
         # statistics or the resample
         "library_ms": None,
-    } for kernel, source, replaces, key, count in KERNEL_ROWS]}), flush=True)
+    } for kernel, source, replaces, key, count in KERNEL_ROWS] + [{
+        # [states9]'s K = 9 scan kernels, timed on that sweep's own matrices and maps
+        "name": " + ".join(kernel_label(n) for n, _ in fbt["K=9 sweep data"][key + "_kernels"]),
+        "route": "cuda",
+        "source": "hammlet_tpu_torch/csrc/fbscan.cu",
+        "replaces": replaces,
+        "launches": s9["graph"]["launches"][count],
+        "device_launches_per_sweep": sum(n for kname, (n, _) in pr["states9"]["fbscan"].items()
+                                         if "fbscan_" + key in kname),
+        "max_abs_err": worst[key],
+        "ms": fbt["K=9 sweep data"][key],
+        "plain_ms": fbt["K=9 sweep data"][key + "_plain"],
+        "bound_ms": fbt["K=9 sweep data"][key + "_bound"],
+        "bound_by": fbt["K=9 sweep data"][key + "_bound_by"],
+        "library_ms": None,
+    } for _, _, replaces, key, count in KERNEL_ROWS if key in ("prefix", "suffix")]}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -35,6 +35,31 @@ kernels (csrc/modelupdate.cu) beyond chip_smoke.py.
         counted per call, and both are timed with L2 flushed in the same
         turns. Prints one line "MODEL_TURNS <json>" per input.
 
+    python3 fbscan_probes.py teams OLD_FBSCAN_CU
+        The team instances (K = 9..16) of the current fbscan.cu against the
+        parent's source (which ran K > 8 on its generic kernels), in turns
+        (old, current, current, old), on uniform inputs: K in TEAM_KS at B =
+        29,696, B = 9,600 in four rows, B = 16,384 at K = 16 (128 groups),
+        T = 250M's per-shard B = 433,920 and a flat B = 100,000 at K = 9 and
+        16, sweep-like matrices (40 % zeros, 5 % subnormal) at K = 9, and
+        K = 27 (generic in both). Prints the ptxas lines of the team kernels,
+        then one line "TEAMS <json>" per input: each library checked
+        against the plain versions (prefix bitwise, suffix equal), its CUDA
+        kernels per call (symbol, CTAs), and both scans' times with L2
+        flushed, beside the bound (chip_smoke.fb_work).
+
+    python3 fbscan_probes.py team_stamps [SOURCE ...]
+        Where the one-launch team kernel's time goes: a copy of each
+        fbscan.cu (the current one when none is given), instantiated for K
+        = 9 and 10 only, with globaltimer stamps in
+        fbscan_prefix_team_one_kernel (TEAM_STAMP_AT: entry, group loaded,
+        in-group levels done, total written, the totals' grid-wide levels
+        done, their scan at the CTA's position done, final combine done,
+        stored), built beside it, at B =
+        29,696 on uniform inputs, L2 flushed. Prints "TEAM_STAMPS <json>"
+        per source and K: the call's time and, per stamp, microseconds
+        after the first CTA's entry, [min, median, max] over the CTAs.
+
     python3 fbscan_probes.py stamps
         Where the statistics kernel's time goes: a copy of the current
         modelupdate.cu with globaltimer stamps at its phases (STAMP_AT:
@@ -265,6 +290,65 @@ def model_turns(sources: list[str]) -> None:
         model_cuda._lib = current
 
 
+#: [teams]: states of the uniform inputs at B = 29,696
+TEAM_KS = [9, 10, 12, 16]
+
+
+def team_turns(old: str) -> None:
+    """`teams`: the team instances against the parent's fbscan.cu (see the
+    module's docstring)."""
+    from hammlet_tpu_torch.samplers import fb_cuda
+    from hammlet_tpu_torch.samplers import forward_backward as fb
+
+    log = fb_cuda.build().log.splitlines()
+    for i, line in enumerate(log):
+        if "Compiling entry function" in line and ("team" in line or "suffix_one" in line):
+            print("PTXAS", line.strip(), "|", " | ".join(x.strip() for x in log[i + 1:i + 4]
+                                                        if "ptxas info" in x or "spill" in x),
+                  flush=True)
+    libs = libraries(fb_cuda, "fbscan", [old])
+    current = libs["current"]
+    order = ["old", "current", "current", "old"]
+    inputs = {f"K={K} B=29696": (29_696, K, 1) for K in TEAM_KS}
+    inputs.update({"K=9 B=9600 R=4": (9_600, 9, 4), "K=16 B=16384": (16_384, 16, 1),
+                   "K=9 B=433920": (cs.FB_BIG, 9, 1), "K=16 B=433920": (cs.FB_BIG, 16, 1),
+                   "K=9 flat B=100000": (100_000, 9, 1), "K=16 flat B=100000": (100_000, 16, 1),
+                   "K=9 B=29696 sweep-like": (29_696, 9, 1), "K=27 B=29696": (29_696, 27, 1)})
+    flush = torch.empty(cs.FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    print(cs.nvidia_smi_line(), flush=True)
+    try:
+        for tag, (B, K, R) in inputs.items():
+            M, maps = cs.fb_inputs(B, K, R, cs.SEED + K)
+            if "sweep-like" in tag:
+                u = torch.rand(M.shape, generator=torch.Generator(device="cuda").manual_seed(B),
+                               device="cuda")
+                M = torch.where(u < 0.4, 0.0, torch.where(u < 0.45, M * 1e-39, M))
+            want = fb.prefix_matmul_scan_reference(M)
+            swant = fb.suffix_compose_scan_reference(maps)
+            row: dict = {"shape": (B, K, R), "order": order}
+            for name, (nbytes, ops) in cs.fb_work(B, K, R).items():
+                row[name + "_bound"] = cs.bound_ms(nbytes, ops)
+            for name in order:
+                fb_cuda._lib = libs[name]
+                prefix = lambda: fb_cuda.prefix_matmul_scan_cuda(M)  # noqa: E731
+                suffix = lambda: fb_cuda.suffix_compose_scan_cuda(maps)  # noqa: E731
+                if name not in row:
+                    row[name] = {
+                        "prefix_bitwise": cs.bits_equal(prefix(), want),
+                        "suffix_equal": torch.equal(suffix(), swant),
+                        "prefix_kernels": cs.scan_kernels(prefix),
+                        "suffix_kernels": cs.scan_kernels(suffix),
+                        "prefix_ms": [], "suffix_ms": []}
+                reps = 5 if name == "old" and K > 8 and B > 29_696 else cs.TIMING_REPS
+                row[name]["prefix_ms"].append(cs.time_ms(prefix, cs.flushed(flush), reps))
+                row[name]["suffix_ms"].append(cs.time_ms(suffix, cs.flushed(flush), reps))
+            print("TEAMS", tag, json.dumps(row), flush=True)
+            del M, maps, want, swant
+            torch.cuda.empty_cache()
+    finally:
+        fb_cuda._lib = current
+
+
 #: (text of csrc/modelupdate.cu, the same with a stamp) for `stamps`, in order
 STAMP_AT = [
     ("  extern __shared__ float smem[];\n  const bool staged",
@@ -317,6 +401,96 @@ extern "C" int launch_empty(int cooperative, int grid, void* stream) {
 """
 
 
+#: (text of fbscan.cu's one-launch team kernel, the same with a stamp) for `team_stamps`
+TEAM_STAMP_AT = [
+    ("  const TeamSmem<K> sm(smem_team, team_room(G));",
+     "  STAMP(0);\n  const TeamSmem<K> sm(smem_team, team_room(G));"),
+    ("  team_load<K>(in, sm.s, plane, base);\n  __syncthreads();\n  Cols<K> x[Team<K>::ITEMS];\n"
+     "  team_group_levels<K>(sm, x);\n",
+     "  team_load<K>(in, sm.s, plane, base);\n  __syncthreads();\n  STAMP(1);\n"
+     "  Cols<K> x[Team<K>::ITEMS];\n  team_group_levels<K>(sm, x);\n  STAMP(2);\n"),
+    ("  team_total<K>(x, row, q);\n", "  team_total<K>(x, row, q);\n  STAMP(3);\n"),
+    ("  cg::this_grid().sync();\n  const float* pre = sm.eye;",
+     "  cg::this_grid().sync();\n  STAMP(4);\n  const float* pre = sm.eye;"),
+    ("  team_combine<K>([=](int) { return pre; }, sm.s, sm.red, x);\n  team_store<K>(sm.s, out, plane, base);\n}",
+     "  STAMP(5);\n  team_combine<K>([=](int) { return pre; }, sm.s, sm.red, x);\n  STAMP(6);\n"
+     "  team_store<K>(sm.s, out, plane, base);\n  __syncthreads();\n  STAMP(7);\n}"),
+]
+
+
+def stamped_call(lib, call, before, stamps: int) -> dict:
+    """One call of ``call`` after ``before`` with the stamps of a library
+    built with STAMP_CODE cleared first: the CTAs that stamped, and per
+    stamp k < ``stamps`` the microseconds after the first CTA's entry,
+    [min, median, max] over the CTAs."""
+    lib.stamps_clear()
+    before()
+    call()
+    torch.cuda.synchronize()
+    raw = np.zeros(4096 * 10, np.uint64)
+    lib.stamps_read(raw.ctypes.data)
+    t = raw.reshape(4096, 10).astype(np.int64)
+    t = t[t[:, 0] > 0]
+    row = {"ctas": len(t)}
+    for k in range(stamps):
+        col = t[:, k][t[:, k] > 0]
+        us = (col - t[:, 0].min()) / 1e3
+        row[f"s{k}"] = ([round(float(f(us)), 2) for f in (np.min, np.median, np.max)]
+                        if col.size else None)
+    return row
+
+
+def ptxas_lines(log: str, symbol: str) -> str:
+    """ptxas's registers and spills of the kernel whose mangled name holds
+    ``symbol``, from a build log (-Xptxas=-v)."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and symbol in line:
+            return " | ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                              if "spill" in x or "Used" in x)
+    return ""
+
+
+def team_stamps(sources: list[str]) -> None:
+    """`team_stamps`: the one-launch team kernel with globaltimer stamps
+    (see the module's docstring)."""
+    import re
+
+    from hammlet_tpu_torch.samplers import fb_cuda
+
+    flush = torch.empty(cs.FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    print(cs.nvidia_smi_line(), flush=True)
+    current = fb_cuda._library()
+    for i, source in enumerate(sources or [str(fb_cuda.SOURCES[0])]):
+        src = Path(source).read_text()
+        for at, stamped in TEAM_STAMP_AT:
+            if at not in src:
+                raise SystemExit(f"team_stamps: {source} no longer has {at!r}")
+            src = src.replace(at, stamped, 1)
+        src = src.replace("namespace cg = cooperative_groups;\n",
+                          "namespace cg = cooperative_groups;\n" + STAMP_CODE, 1)
+        # K = 9 and 10 only (and the generic instances), to build in seconds
+        src = re.sub(r"\n    case (?!9:|10:)\d+: [^\n]*", "", src)
+        path = _build.BUILD_DIR / "probe" / f"fbscan_stamps{i}.cu"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(src)
+        built = _build.build(f"fbscan_stamps{i}", [path])
+        lib = fb_cuda._bind(ctypes.CDLL(str(built.path)))
+        lib.stamps_read.argtypes = [ctypes.c_void_p]
+        fb_cuda._lib = lib
+        try:
+            for K in (9, 10):
+                M = cs.fb_inputs(29_696, K, 1, cs.SEED)[0]
+                call = lambda: fb_cuda.prefix_matmul_scan_cuda(M)  # noqa: E731
+                ms = cs.time_ms(call, cs.flushed(flush))
+                row = {"source": source, "K": K, "ms": ms, "build_s": round(built.seconds, 1),
+                       "ptxas": ptxas_lines(built.log, f"team_one_kernelILi{K}E"),
+                       **stamped_call(lib, call, cs.flushed(flush), 8)}
+                print("TEAM_STAMPS", json.dumps(row), flush=True)
+        finally:
+            fb_cuda._lib = current
+
+
 def stamps() -> None:
     """`stamps`: the statistics kernel with globaltimer stamps, and the
     timing floor (see the module's docstring)."""
@@ -350,20 +524,8 @@ def stamps() -> None:
             call = lambda: model_cuda.sweep_stats_cuda(*args)  # noqa: E731
             for mode, before in modes.items():
                 ms = cs.time_ms(call, before)
-                lib.stamps_clear()
-                before()
-                call()
-                torch.cuda.synchronize()
-                raw = np.zeros(4096 * 10, np.uint64)
-                lib.stamps_read(raw.ctypes.data)
-                t = raw.reshape(4096, 10).astype(np.int64)
-                t = t[t[:, 0] > 0]
-                row = {"input": tag, "mode": mode, "ms": ms, "ctas": len(t)}
-                for k in range(10):
-                    col = t[:, k][t[:, k] > 0]
-                    us = (col - t[:, 0].min()) / 1e3
-                    row[f"s{k}"] = ([round(float(f(us)), 2) for f in (np.min, np.median, np.max)]
-                                    if col.size else None)
+                row = {"input": tag, "mode": mode, "ms": ms,
+                       **stamped_call(lib, call, before, 10)}
                 print("STAMPS", json.dumps(row), flush=True)
     finally:
         model_cuda._lib = current
@@ -378,6 +540,12 @@ def main() -> int:
         rc, res = launch.run_on_cards("fbscan_probes:big", n, (n, T, settled, turns))
         print("T250", rc, json.dumps(res), flush=True)
         return rc
+    if sys.argv[1:2] == ["teams"] and len(sys.argv) == 3:
+        team_turns(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["team_stamps"]:
+        team_stamps(sys.argv[2:])
+        return 0
     if sys.argv[1:] == ["stamps"]:
         stamps()
         return 0

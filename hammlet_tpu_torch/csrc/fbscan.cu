@@ -32,35 +32,52 @@
 // division also keeps the 9 of a combine from overlapping. The sweep's
 // matrices are half zeros and ~1 % subnormal, so nearly every warp took the
 // slow path (3x the time on uniform inputs, measured on an H100).
+// At K = 9-16 the combines' K^3 multiply-adds set the bound (at K = 10,
+// B = 29,696: 7.5 us by float32 operations, 1.9 us by bytes), and what
+// stands between a call and it is the in-group levels' reads of the
+// earlier operand from shared memory (every thread of a team reads the
+// whole matrix; the team instances give a thread 3 or 2 columns at K = 9
+// and 10 to share those reads) and the totals' scan, a chain of grid-wide
+// barriers and dependent passes through shared memory.
 //
 // Grouped form (n > 256 and n % 128 == 0, G = n / 128 groups per row):
-//   *_one_kernel (K <= MAX_REG_K, when the (G, R) grid of 128-thread CTAs
-//   fits the card at once; the host decides by occupancy, with the dynamic
-//   shared memory the launch really takes, before the launch): one
-//   cooperative launch. Each CTA takes its group into registers, one block
-//   per thread, and runs the 7 in-group Hillis-Steele levels there: at
-//   d < 32 a thread's operand comes from its own warp by shuffle, and the
-//   first d lanes of a warp take theirs from the last 16 lanes of the warp
-//   before, which publish them in shared memory (one barrier per level); at
-//   d = 32 and 64 every operand goes through shared memory. The group's
-//   total goes to device memory, the in-group result stays in registers.
-//   A grid-wide barrier; then each CTA computes the scan of its row's
-//   totals at the one position it needs (before its group for the prefix,
-//   after it for the suffix) in shared memory: level l of the row's scan
-//   touches that position's value only through the values 2^l apart, so
-//   each level halves the values kept, with the same combines as the full
-//   scan (and all of its levels); no second barrier. Last, each block is
-//   combined with its group's exclusive prefix (composition of the groups
-//   after it) and written once.
+//   *_one_kernel (K <= MAX_REG_K; the prefix's team instances for K =
+//   MAX_REG_K + 1 .. MAX_TEAM_K, fbscan_prefix_team_one_kernel; the suffix
+//   for every K <= MAX_TEAM_K), when the (G, R) grid of CTAs fits the card
+//   at once (the host decides by occupancy, with the dynamic shared memory
+//   the launch really takes, before the launch): one cooperative launch.
+//   Each CTA takes its group into registers, one block per thread (K <=
+//   MAX_REG_K; the team instances: a team of threads per matrix, columns in
+//   registers, the group in shared memory, see "prefix, K = 9..16"), and
+//   runs the 7 in-group Hillis-Steele levels there: at d < 32 a thread's
+//   operand comes from its own warp by shuffle, and the first d lanes of a
+//   warp take theirs from the last 16 lanes of the warp before, which
+//   publish them in shared memory (one barrier per level); at d = 32 and
+//   64 every operand goes through shared memory. The group's total goes to
+//   device memory, the in-group result stays in registers. A grid-wide
+//   barrier; then each CTA computes the scan of its row's totals at the one
+//   position it needs (before its group for the prefix, after it for the
+//   suffix) in shared memory: level l of the row's scan touches that
+//   position's value only through the values 2^l apart, so each level
+//   halves the values kept, with the same combines as the full scan (and
+//   all of its levels); no second barrier (the team instances take the
+//   scan's first TEAM_GRID_LEVELS levels over the whole grid, one value per
+//   CTA and a grid-wide barrier each, which leaves each CTA a quarter of
+//   the values to halve). Last, each block is combined
+//   with its group's exclusive prefix (composition of the groups after it)
+//   and written once.
 //   Three launches otherwise (a row beyond one resident wave: 3,390 groups
-//   at T = 250M per shard; K > 8):
-//   *_group_kernel: the in-group levels as above (the prefix; the suffix's
-//     group kernel keeps the maps in shared memory as int32, K <= 48), the
-//     in-group scan and each group's total to device memory;
+//   at T = 250M per shard; the prefix at K = 13-16, whose group takes a
+//   whole SM, beyond 132 groups):
+//   *_group_kernel: the in-group levels as above (the prefix's team group
+//     kernel for K = 9..16; the suffix's group kernel keeps the maps in
+//     shared memory as int32, K <= 48), the in-group scan and each group's
+//     total to device memory;
 //   rows scan of the totals: one CTA of 1024 threads per row where two
-//     copies of a row fit in 48 KB of shared memory, else one cooperative
-//     launch spread over the whole card, a grid-wide barrier between
-//     levels, ping-ponging through device scratch;
+//     copies of a row fit in 48 KB of shared memory (K <= 8), else one
+//     cooperative launch spread over the whole card, a grid-wide barrier
+//     between levels, ping-ponging through device scratch (the prefix at K
+//     = 9..16: fbscan_prefix_team_rows_kernel, a thread per column);
 //   *_combine_kernel: each block's in-group scan with its group's
 //     exclusive prefix.
 // Flat form (n <= 256 or n % 128 != 0, where the JAX package is flat too):
@@ -68,7 +85,9 @@
 // card as above (a flat n reaches T when the capacity is clipped to it).
 // A suffix whose group does not fit in shared memory (K > 48) takes the
 // flat form over the whole card: composition is exact, so its association
-// does not change the result.
+// does not change the result. The prefix above MAX_TEAM_K (K > 16, e.g.
+// -s C 3 3) keeps the generic kernels: the in-group levels and the combine
+// in device memory (*_any_kernel) and the grid-wide rows kernel <0>.
 //
 // Exactness: a combine is z[i,k] = sum_j e[i,j] * x[j,k] summed over j in
 // order, with the _rn intrinsics (never contracted into an FMA), then
@@ -567,6 +586,469 @@ fbscan_prefix_combine_any_kernel(const float* inner, const float* incl, float* o
   }
 }
 
+// ------------------------------------------------- prefix, K = 9..16: teams
+
+// A K x K matrix per thread does not fit in registers above MAX_REG_K (x,
+// p and z alone are 3 K^2 floats), so the team instances (K = MAX_REG_K + 1
+// .. MAX_TEAM_K) give each matrix a team of TPM = K / C threads, thread u
+// of a team owning the C columns u, u + TPM, ...: z[:, c] = e @ x[:, c],
+// the columns x[:, c] of the later operand in the thread's registers, the
+// earlier operand e read from shared memory as 16-byte rows, each row once
+// for the C columns (shared memory's bandwidth bounds the levels: every
+// thread of a team reads all of e). The matrix's max goes through shared
+// memory (each thread writes the max of its columns, a barrier, each reads
+// the TPM of its matrix: a max is exact in any order, NaN stays NaN, and
+// clamp_scale removes the sign of a zero max), then each thread divides
+// its own columns. A CTA holds one group: Team<K>::THREADS = GROUP * TPM /
+// ITEMS threads, thread tid in team u = tid % TPM of the matrices tid / TPM
+// + (GROUP / ITEMS) n, n < ITEMS. The group's matrices sit in shared memory
+// row-major with rows padded to a multiple of four floats, so the earlier
+// operand's rows load as float4; a thread keeps its columns in registers
+// across a level, and writes them back after the barrier that ends the
+// level's reads (one buffer). An identity matrix in shared memory is the
+// earlier operand where the scan pads with one, so every lane runs the
+// same code and the same arithmetic as the plain version's identity.
+#define MAX_TEAM_K 16
+
+template <int K>
+struct Team {
+  // columns per thread and matrices per thread: K = 9 and 10 (two CTAs of
+  // a call's 232 groups per SM) read e once for 3 and 2 columns; above, one
+  // column of four matrices per thread keeps the group in the registers
+  static constexpr int C = K == 9 ? 3 : K == 10 ? 2 : 1;
+  static constexpr int ITEMS = C == 1 ? 4 : 2;
+  static constexpr int TPM = K / C;              // threads per matrix
+  static constexpr int THREADS = GROUP * TPM / ITEMS;
+  static constexpr int SPAN = GROUP / ITEMS;     // matrices between a thread's items
+  static constexpr int MIN_BLOCKS = K <= 12 ? 2 : 1;
+  static constexpr int KP = (K + 3) / 4 * 4;     // padded row, floats
+  static constexpr int MS = K * KP;              // floats per matrix
+  // dynamic shared memory of a group kernel, floats: the group, the column
+  // maxima, the identity
+  static constexpr int GROUP_FLOATS = GROUP * MS + GROUP * TPM + MS;
+  static_assert(K % C == 0 && THREADS % WARP == 0, "a team owns whole columns, whole warps");
+};
+
+// The columns of one thread: C columns of K floats.
+template <int K>
+using Cols = float[Team<K>::C][K];
+
+// z[:, c] = e @ x[:, c] for the thread's C columns, e a K x K matrix whose
+// row i starts at e + i * KP, 16-byte aligned (shared memory or the padded
+// totals); each z[i] summed over j in order with the _rn intrinsics.
+// Returns the max of the thread's entries (max_nan).
+template <int K, int C>
+__device__ __forceinline__ float columns_product(const float* e, const float (&x)[C][K],
+                                                 float (&z)[C][K]) {
+  constexpr int KP = Team<K>::KP;
+  float m = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    float row[KP];
+#pragma unroll
+    for (int q = 0; q < KP / 4; ++q) {
+      const float4 v = reinterpret_cast<const float4*>(e + i * KP)[q];
+      row[4 * q] = v.x;
+      row[4 * q + 1] = v.y;
+      row[4 * q + 2] = v.z;
+      row[4 * q + 3] = v.w;
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      float acc = __fmul_rn(row[0], x[c][0]);
+#pragma unroll
+      for (int j = 1; j < K; ++j) acc = __fadd_rn(acc, __fmul_rn(row[j], x[c][j]));
+      z[c][i] = acc;
+      m = max_nan(m, acc);
+    }
+  }
+  return m;
+}
+
+// The same for one column with e(i, j) a functor (scalar loads from any
+// layout).
+template <int K, class E>
+__device__ __forceinline__ float column_product_at(E e, const float* x, float* z) {
+  float m = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    float acc = __fmul_rn(e(i, 0), x[0]);
+#pragma unroll
+    for (int j = 1; j < K; ++j) acc = __fadd_rn(acc, __fmul_rn(e(i, j), x[j]));
+    z[i] = acc;
+    m = max_nan(m, acc);
+  }
+  return m;
+}
+
+// z / clamp_scale(max of the matrix) for N entries of the matrix, the max
+// taken over the T partial maxima at red[0..T-1]; as rescale<N, kWide>:
+// each quotient the correctly rounded float32 one, by wide_quotient, or by
+// __fdiv_rn where an entry or the max is not finite.
+template <int N, int T>
+__device__ __forceinline__ void rescale_part(float* z, const float* red) {
+  float m = red[0];
+#pragma unroll
+  for (int c = 1; c < T; ++c) m = max_nan(m, red[c]);
+  m = clamp_scale(m);
+  bool special = !isfinite(m);
+#pragma unroll
+  for (int i = 0; i < N; ++i) special |= !isfinite(z[i]);
+  if (special) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) z[i] = __fdiv_rn(z[i], m);
+    return;
+  }
+  const double md = m, y = __drcp_rn(md);
+#pragma unroll
+  for (int i = 0; i < N; ++i) z[i] = wide_quotient(z[i], md, y);
+}
+
+// Shared memory of a group kernel: room for `room` >= GROUP matrices (the
+// group), the partial maxima (GROUP * TPM floats), the identity (one
+// matrix), which the constructor writes.
+template <int K>
+struct TeamSmem {
+  float* s;
+  float* red;
+  float* eye;
+  __device__ TeamSmem(float* base, long long room)
+      : s(base), red(base + room * Team<K>::MS), eye(red + GROUP * Team<K>::TPM) {
+    for (int e = threadIdx.x; e < Team<K>::MS; e += Team<K>::THREADS)
+      eye[e] = e / Team<K>::KP == e % Team<K>::KP ? 1.0f : 0.0f;
+  }
+};
+
+// Group (r, q) of a (K, K, R, n) tensor, element (e, t) at src[e * plane +
+// base + t], into shared memory (thread-consecutive t: coalesced), and back.
+template <int K>
+__device__ __forceinline__ void team_load(const float* src, float* s, long long plane,
+                                          long long base) {
+#pragma unroll 8
+  for (int idx = threadIdx.x; idx < K * K * GROUP; idx += Team<K>::THREADS) {
+    const int e = idx / GROUP, t = idx % GROUP;
+    s[t * Team<K>::MS + (e / K) * Team<K>::KP + e % K] = src[e * plane + base + t];
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void team_store(const float* s, float* dst, long long plane,
+                                           long long base) {
+#pragma unroll 8
+  for (int idx = threadIdx.x; idx < K * K * GROUP; idx += Team<K>::THREADS) {
+    const int e = idx / GROUP, t = idx % GROUP;
+    dst[e * plane + base + t] = s[t * Team<K>::MS + (e / K) * Team<K>::KP + e % K];
+  }
+}
+
+// The thread's matrix n, column slot c: matrix and column index.
+template <int K>
+__device__ __forceinline__ int team_matrix(int n) {
+  return threadIdx.x / Team<K>::TPM + Team<K>::SPAN * n;
+}
+template <int K>
+__device__ __forceinline__ int team_column(int c) {
+  return threadIdx.x % Team<K>::TPM + Team<K>::TPM * c;
+}
+
+// The thread's columns of the group in shared memory into registers.
+template <int K>
+__device__ __forceinline__ void team_columns(const float* s, Cols<K> (&x)[Team<K>::ITEMS]) {
+#pragma unroll
+  for (int n = 0; n < Team<K>::ITEMS; ++n) {
+#pragma unroll
+    for (int c = 0; c < Team<K>::C; ++c) {
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        x[n][c][j] = s[team_matrix<K>(n) * Team<K>::MS + j * Team<K>::KP + team_column<K>(c)];
+    }
+  }
+}
+
+// x_t = normalize(e_t @ x_t) for the thread's matrices t, e_t = earlier(t)
+// (a pointer into shared memory); then the columns are written back to s.
+// Two barriers: after the products (every read of s done, the maxima
+// written) and after the write-back.
+template <int K, class Earlier>
+__device__ __forceinline__ void team_combine(Earlier earlier, float* s, float* red,
+                                             Cols<K> (&x)[Team<K>::ITEMS]) {
+  constexpr int MS = Team<K>::MS, KP = Team<K>::KP, TPM = Team<K>::TPM, C = Team<K>::C;
+  const int u = threadIdx.x % TPM;
+#pragma unroll
+  for (int n = 0; n < Team<K>::ITEMS; ++n) {
+    const int t = team_matrix<K>(n);
+    Cols<K> z;
+    red[t * TPM + u] = columns_product<K, C>(earlier(t), x[n], z);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+#pragma unroll
+      for (int i = 0; i < K; ++i) x[n][c][i] = z[c][i];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < Team<K>::ITEMS; ++n) {
+    const int t = team_matrix<K>(n);
+    rescale_part<C * K, TPM>(&x[n][0][0], red + t * TPM);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+#pragma unroll
+      for (int i = 0; i < K; ++i) s[t * MS + i * KP + team_column<K>(c)] = x[n][c][i];
+    }
+  }
+  __syncthreads();
+}
+
+// The 7 in-group Hillis-Steele levels on the group in sm.s (loaded, and a
+// barrier passed), the thread's columns in x on return too.
+template <int K>
+__device__ __forceinline__ void team_group_levels(const TeamSmem<K>& sm,
+                                                  Cols<K> (&x)[Team<K>::ITEMS]) {
+  team_columns<K>(sm.s, x);
+#pragma unroll 1
+  for (int level = 0; level < GROUP_LEVELS; ++level) {
+    const int d = 1 << level;
+    const float* s = sm.s;
+    const float* eye = sm.eye;
+    team_combine<K>([=](int t) { return t >= d ? s + (t - d) * Team<K>::MS : eye; }, sm.s,
+                    sm.red, x);
+  }
+}
+
+// The group's total (its last matrix, t = GROUP - 1) from the registers of
+// its team into tot (matrix-major, padded rows) at matrix index g.
+template <int K>
+__device__ __forceinline__ void team_total(const Cols<K> (&x)[Team<K>::ITEMS], float* tot,
+                                           long long g) {
+  constexpr int N = Team<K>::ITEMS - 1;
+  if (team_matrix<K>(N) == GROUP - 1) {
+#pragma unroll
+    for (int c = 0; c < Team<K>::C; ++c) {
+#pragma unroll
+      for (int i = 0; i < K; ++i)
+        tot[g * Team<K>::MS + i * Team<K>::KP + team_column<K>(c)] = x[N][c][i];
+    }
+  }
+}
+
+// The first TEAM_GRID_LEVELS levels of the row's totals' scan are taken
+// over the whole grid (CTA q computes the level's value at position q, a
+// grid-wide barrier between levels); the rest at the one position each CTA
+// needs, as prefix_totals_at does.
+#define TEAM_GRID_LEVELS 2
+
+// Matrices of shared memory the one-launch kernel's group buffer holds:
+// the group, or the totals' entries left after the grid-wide levels.
+__host__ __device__ constexpr long long team_room(long long G) {
+  return (G + (1 << TEAM_GRID_LEVELS) - 1) >> TEAM_GRID_LEVELS > GROUP
+             ? (G + (1 << TEAM_GRID_LEVELS) - 1) >> TEAM_GRID_LEVELS
+             : GROUP;
+}
+
+// One Hillis-Steele level of a row's totals (padded matrices) at this
+// CTA's position g: dst[g] = normalize(src[g - d] @ src[g]) (the identity
+// before the row), one column per thread of the first K threads.
+template <int K>
+__device__ __forceinline__ void team_totals_level(const float* src, float* dst, long long g,
+                                                  long long d, float* red, const float* eye) {
+  constexpr int MS = Team<K>::MS, KP = Team<K>::KP;
+  const int c = threadIdx.x;
+  float z[1][K];
+  if (c < K) {
+    float x[1][K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) x[0][j] = src[g * MS + j * KP + c];
+    red[c] = columns_product<K, 1>(g >= d ? src + (g - d) * MS : eye, x, z);
+  }
+  __syncthreads();
+  if (c < K) {
+    rescale_part<K, K>(z[0], red);
+#pragma unroll
+    for (int i = 0; i < K; ++i) dst[g * MS + i * KP + c] = z[0][i];
+  }
+}
+
+// prefix_totals_at for a team, from level `first`: the inclusive scan of a
+// row's totals at position p, whose level-`first` values (row base `row`,
+// padded matrices) the grid has computed at every position. The n =
+// ceil((p + 1) / 2^first) values at p, p - 2^first, ... are copied into
+// `scratch` (coalesced), then the levels first .. levels - 1 run there in
+// place with the same combines, THREADS / K combines per pass, one column
+// per thread (a pass writes entries below those any later pass of its
+// level reads; its reads end at the barrier before its writes). Returns
+// scratch, whose entry 0 is the result.
+template <int K>
+__device__ __forceinline__ const float* team_totals_at(const float* row, long long p, int first,
+                                                       float* scratch, float* red,
+                                                       const float* eye, int levels) {
+  constexpr int MS = Team<K>::MS, KP = Team<K>::KP;
+  constexpr int PASS = Team<K>::THREADS / K;  // combines per pass
+  const int c = threadIdx.x % K, t0 = threadIdx.x / K;
+  long long n = (p >> first) + 1;
+  for (long long idx = threadIdx.x; idx < n * (MS / 4); idx += Team<K>::THREADS) {
+    const long long e = idx / (MS / 4), f = idx % (MS / 4);
+    reinterpret_cast<float4*>(scratch)[idx] =
+        reinterpret_cast<const float4*>(row + (p - (e << first)) * MS)[f];
+  }
+  __syncthreads();
+  for (int level = first; level < levels; ++level) {
+    const long long half = (n + 1) / 2;
+    for (long long base = 0; base < half; base += PASS) {
+      const long long k = base + t0;
+      const bool busy = t0 < PASS && k < half;
+      float z[1][K];
+      if (busy) {
+        float x[1][K];
+#pragma unroll
+        for (int j = 0; j < K; ++j) x[0][j] = scratch[2 * k * MS + j * KP + c];
+        red[t0 * K + c] =
+            columns_product<K, 1>(2 * k + 1 < n ? scratch + (2 * k + 1) * MS : eye, x, z);
+      }
+      __syncthreads();
+      if (busy) {
+        rescale_part<K, K>(z[0], red + t0 * K);
+#pragma unroll
+        for (int i = 0; i < K; ++i) scratch[k * MS + i * KP + c] = z[0][i];
+      }
+      __syncthreads();
+    }
+    n = half;
+  }
+  return scratch;
+}
+
+// The whole grouped prefix scan in one cooperative launch, K = 9..16: grid
+// (G, R) of Team<K>::THREADS threads, every CTA resident; work holds 3 R G
+// padded matrices (the totals and their first grid-wide levels); dynamic
+// shared memory Team<K>::GROUP_FLOATS floats, or more where the totals'
+// entries need more than the group's room (team_room). The in-group scan
+// stays in registers while the totals' scan uses the group's shared
+// memory.
+template <int K>
+__global__ void __launch_bounds__(Team<K>::THREADS, Team<K>::MIN_BLOCKS)
+fbscan_prefix_team_one_kernel(const float* __restrict__ in, float* __restrict__ out, float* work,
+                              int R, long long n, int levels) {
+  extern __shared__ __align__(16) float smem_team[];
+  const long long q = blockIdx.x, r = blockIdx.y, G = n / GROUP;
+  const long long plane = (long long)R * n, base = r * n + q * GROUP;
+  const TeamSmem<K> sm(smem_team, team_room(G));
+  team_load<K>(in, sm.s, plane, base);
+  __syncthreads();
+  Cols<K> x[Team<K>::ITEMS];
+  team_group_levels<K>(sm, x);
+  float* row = work + r * G * Team<K>::MS;  // level l of the totals at row + l R G MS
+  const long long level_stride = (long long)R * G * Team<K>::MS;
+  team_total<K>(x, row, q);
+  const int grid_levels = levels < TEAM_GRID_LEVELS ? levels : TEAM_GRID_LEVELS;
+  for (int level = 0; level < grid_levels; ++level) {
+    cg::this_grid().sync();
+    team_totals_level<K>(row + level * level_stride, row + (level + 1) * level_stride, q,
+                         1LL << level, sm.red, sm.eye);
+  }
+  cg::this_grid().sync();
+  const float* pre = sm.eye;
+  if (q > 0)
+    pre = team_totals_at<K>(row + grid_levels * level_stride, q - 1, grid_levels, sm.s, sm.red,
+                            sm.eye, levels);
+  team_combine<K>([=](int) { return pre; }, sm.s, sm.red, x);
+  team_store<K>(sm.s, out, plane, base);
+}
+
+// In-group levels alone, K = 9..16, beyond one resident wave: grid (G, R);
+// writes the in-group scan to inner ((K, K, R, n)) and each group's total
+// to tot (padded matrices).
+template <int K>
+__global__ void __launch_bounds__(Team<K>::THREADS, Team<K>::MIN_BLOCKS)
+fbscan_prefix_team_group_kernel(const float* __restrict__ in, float* __restrict__ inner,
+                                float* __restrict__ tot, int R, long long n) {
+  extern __shared__ __align__(16) float smem_team[];
+  const long long q = blockIdx.x, r = blockIdx.y, G = n / GROUP;
+  const long long plane = (long long)R * n, base = r * n + q * GROUP;
+  const TeamSmem<K> sm(smem_team, GROUP);
+  team_load<K>(in, sm.s, plane, base);
+  __syncthreads();
+  Cols<K> x[Team<K>::ITEMS];
+  team_group_levels<K>(sm, x);
+  team_total<K>(x, tot, r * G + q);
+  team_store<K>(sm.s, inner, plane, base);
+}
+
+// out_b = normalize(pre_q @ inner_b), pre_q the inclusive scan of the
+// totals at q - 1 (padded matrices in incl; the identity for q = 0), K =
+// 9..16: grid (G, R).
+template <int K>
+__global__ void __launch_bounds__(Team<K>::THREADS, Team<K>::MIN_BLOCKS)
+fbscan_prefix_team_combine_kernel(const float* __restrict__ inner, const float* __restrict__ incl,
+                                  float* __restrict__ out, int R, long long n) {
+  extern __shared__ __align__(16) float smem_team[];
+  const long long q = blockIdx.x, r = blockIdx.y, G = n / GROUP;
+  const long long plane = (long long)R * n, base = r * n + q * GROUP;
+  const TeamSmem<K> sm(smem_team, GROUP);
+  team_load<K>(inner, sm.s, plane, base);
+  __syncthreads();
+  Cols<K> x[Team<K>::ITEMS];
+  team_columns<K>(sm.s, x);
+  const float* pre = q > 0 ? incl + (r * G + q - 1) * Team<K>::MS : sm.eye;
+  team_combine<K>([=](int) { return pre; }, sm.s, sm.red, x);
+  team_store<K>(sm.s, out, plane, base);
+}
+
+// Hillis-Steele over each of R rows of n matrices, K = 9..16, spread over
+// the card: a cooperative launch of CTAs of ROWS_THREADS(K) threads, each
+// pass of a CTA combining 32 consecutive matrices (a thread per column), a
+// grid-wide barrier between levels; level l writes out when levels - 1 - l
+// is even, spare otherwise, so the last writes out. Element (i, j) of
+// matrix g of row r lies at (i * rs + j * cs) + (r * n + g) * ms, in all
+// three buffers: the (K, K, R, n) layout for a flat call, padded matrices
+// for the group totals.
+#define ROWS_THREADS(K) (WARP * (K))
+template <int K>
+__global__ void __launch_bounds__(ROWS_THREADS(K))
+fbscan_prefix_team_rows_kernel(const float* in, float* out, float* spare, int R, long long n,
+                               int levels, long long rs, long long cs, long long ms) {
+  __shared__ float red[WARP * K];
+  cg::grid_group grid = cg::this_grid();
+  const int c = threadIdx.x % K, t0 = threadIdx.x / K;
+  const long long total = (long long)R * n;
+  if (levels == 0) {
+    for (long long g = (long long)blockIdx.x * WARP + t0; g < total; g += (long long)gridDim.x * WARP)
+      for (int i = 0; i < K; ++i) out[i * rs + c * cs + g * ms] = in[i * rs + c * cs + g * ms];
+    return;
+  }
+  const float* src = in;
+  for (int level = 0; level < levels; ++level) {
+    const long long d = 1LL << level;
+    float* dst = (levels - 1 - level) % 2 == 0 ? out : spare;
+    for (long long first = (long long)blockIdx.x * WARP; first < total;
+         first += (long long)gridDim.x * WARP) {
+      const long long g = first + t0;
+      float z[K];
+      if (g < total) {
+        float x[K];
+#pragma unroll
+        for (int j = 0; j < K; ++j) x[j] = src[j * rs + c * cs + g * ms];
+        if (g % n >= d) {
+          const float* e = src + (g - d) * ms;
+          red[t0 * K + c] =
+              column_product_at<K>([=](int i, int j) { return e[i * rs + j * cs]; }, x, z);
+        } else {
+          red[t0 * K + c] =
+              column_product_at<K>([](int i, int j) { return i == j ? 1.0f : 0.0f; }, x, z);
+        }
+      }
+      __syncthreads();
+      if (g < total) {
+        rescale_part<K, K>(z, red + t0 * K);
+#pragma unroll
+        for (int i = 0; i < K; ++i) dst[i * rs + c * cs + g * ms] = z[i];
+      }
+      __syncthreads();
+    }
+    grid.sync();
+    src = dst;
+  }
+}
+
 // ---------------------------------------------------------------- suffix
 
 // x[i] for a run-time i in [0, K) without indexing a register array (which
@@ -672,7 +1154,29 @@ __device__ __forceinline__ int* suffix_totals_at(int* src, int* dst, int K, int 
   return src;
 }
 
-// The whole grouped suffix scan in one cooperative launch, K <= MAX_REG_K:
+// suffix_totals_at for a compile-time K (the team range): the K reads of
+// an entry are issued together, not one after another.
+template <int K>
+__device__ __forceinline__ int* suffix_totals_at_k(int* src, int* dst, int n, int stride) {
+  while (n > 1) {
+    const int half = (n + 1) / 2;
+    for (int k = threadIdx.x; k < half; k += GROUP) {
+      int idx[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) idx[j] = 2 * k + 1 < n ? src[j * stride + 2 * k + 1] : j;
+#pragma unroll
+      for (int j = 0; j < K; ++j) dst[j * stride + k] = src[idx[j] * stride + 2 * k];
+    }
+    __syncthreads();
+    int* done = dst;
+    dst = src;
+    src = done;
+    n = half;
+  }
+  return src;
+}
+
+// The whole grouped suffix scan in one cooperative launch, K <= MAX_TEAM_K:
 // grid (G, R) of GROUP threads, every CTA resident; tot holds (K, R, G)
 // int64; dynamic shared memory max(K * GROUP, 2 * K * G) ints.
 template <int K>
@@ -701,7 +1205,12 @@ fbscan_suffix_one_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ o
       for (int j = 0; j < K; ++j) smem_i[j * stride + k] = (int)next[j * tplane + k];
     }
     __syncthreads();
-    const int* at = suffix_totals_at(smem_i, smem_i + K * stride, K, n_after, stride);
+    const int* at;
+    if constexpr (K > MAX_REG_K) {
+      at = suffix_totals_at_k<K>(smem_i, smem_i + K * stride, n_after, stride);
+    } else {
+      at = suffix_totals_at(smem_i, smem_i + K * stride, K, n_after, stride);
+    }
 #pragma unroll
     for (int j = 0; j < K; ++j) after[j] = at[j * stride];
   } else {
@@ -813,40 +1322,58 @@ bool bad_shape(int K, int R, long long n) {
   return K < 1 || R < 1 || R > 65535 || n < 1 || (long long)K * K > (1LL << 30);
 }
 
+// floats of one group total in the workspace: K * K, padded rows for the
+// team instances
+long long total_floats(int K) {
+  return K > MAX_REG_K && K <= MAX_TEAM_K ? (long long)K * ((K + 3) / 4 * 4) : (long long)K * K;
+}
+
 template <class T>
 struct as_is {  // keeps a parameter out of template argument deduction
   using type = T;
 };
 
-// A cooperative launch of a grid-wide rows scan over `work` elements per
-// plane: as many CTAs of GRID_THREADS as the work needs, at most as many
-// as the card holds at once (a grid-wide barrier needs every CTA
-// resident). The arguments are converted to the kernel's parameter types.
+// Raise a kernel's dynamic shared-memory limit to the card's where `smem`
+// bytes need more than the default (the same value from every thread, so
+// concurrent callers agree); cudaErrorInvalidValue where the card has less.
+template <class F>
+cudaError_t allow_smem(F kernel, long long smem) {
+  if (smem <= SMEM_BYTES) return cudaSuccess;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (smem > optin) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              optin);
+}
+
+// A cooperative launch of a grid-wide rows scan that wants `want` CTAs of
+// `threads`: at most as many as the card holds at once (a grid-wide
+// barrier needs every CTA resident). The arguments are converted to the
+// kernel's parameter types.
 template <class... A>
-cudaError_t launch_grid(void (*kernel)(A...), long long work, cudaStream_t s,
+cudaError_t launch_grid(void (*kernel)(A...), long long want, int threads, cudaStream_t s,
                         typename as_is<A>::type... args) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, GRID_THREADS, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
   if (err != cudaSuccess) return err;
-  const long long want = (work + GRID_THREADS - 1) / GRID_THREADS;
   const long long most = (long long)per_sm * sms;
   const unsigned blocks = (unsigned)(want < most ? want : most);
   void* argv[] = {&args...};
-  return cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(GRID_THREADS), argv,
-                                     0, s);
+  return cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(threads), argv, 0, s);
 }
 
-// One cooperative launch of a one-launch kernel on its (G, R) grid of GROUP
-// threads with `smem` bytes of dynamic shared memory, if every CTA can be
+// One cooperative launch of a one-launch kernel on its (G, R) grid of
+// `threads` with `smem` bytes of dynamic shared memory, if every CTA can be
 // resident at once on this card (by occupancy, for that shared memory);
-// *launched says whether it was made. Above 48 KB the kernel's dynamic
-// shared-memory limit is raised to the card's (the same value from every
-// thread, so concurrent callers agree).
+// *launched says whether it was made.
 template <class... A>
-cudaError_t launch_one_wave(void (*kernel)(A...), long long G, int R, long long smem,
+cudaError_t launch_one_wave(void (*kernel)(A...), long long G, int R, int threads, long long smem,
                             cudaStream_t s, bool* launched, typename as_is<A>::type... args) {
   *launched = false;
   int dev = 0, sms = 0, optin = 0, coop = 0, per_sm = 0;
@@ -856,71 +1383,118 @@ cudaError_t launch_one_wave(void (*kernel)(A...), long long G, int R, long long 
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err != cudaSuccess || !coop || smem > optin || G * R > (long long)sms * 32) return err;
-  if (smem > SMEM_BYTES)
-    err = cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin);
+  err = allow_smem(kernel, smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, GROUP, (size_t)smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, (size_t)smem);
   if (err != cudaSuccess || (long long)per_sm * sms < G * R) return err;
   *launched = true;
   void* argv[] = {&args...};
   return cudaLaunchCooperativeKernel((const void*)kernel, dim3((unsigned)G, (unsigned)R),
-                                     dim3(GROUP), argv, (size_t)smem, s);
+                                     dim3(threads), argv, (size_t)smem, s);
 }
 
-// Hillis-Steele over the n matrices of each of R rows, in -> out; spare is
-// the grid-wide kernel's second buffer. KT = 0: any K.
+// Hillis-Steele over the n matrices of each of R rows, in -> out, in the
+// (K, K, R, n) layout; spare is the grid-wide kernel's second buffer. KT =
+// 0: any K.
 template <int KT>
 cudaError_t prefix_scan_rows(const float* in, float* out, float* spare, int K, int R,
                              long long n, cudaStream_t s) {
-  const long long bytes = 2LL * K * K * n * (long long)sizeof(float);
-  if constexpr (KT > 0) {
-    if (bytes <= SMEM_BYTES) {
-      fbscan_prefix_rows_smem_kernel<KT><<<R, TOTALS_THREADS, bytes, s>>>(in, out, R, n,
-                                                                          levels_of(n));
-      return cudaGetLastError();
+  if constexpr (KT > MAX_REG_K) {
+    const long long plane = (long long)R * n;
+    return launch_grid(fbscan_prefix_team_rows_kernel<KT>, (plane + WARP - 1) / WARP,
+                       ROWS_THREADS(KT), s, in, out, spare, R, n, levels_of(n), KT * plane,
+                       plane, 1);
+  } else {
+    const long long bytes = 2LL * K * K * n * (long long)sizeof(float);
+    if constexpr (KT > 0) {
+      if (bytes <= SMEM_BYTES) {
+        fbscan_prefix_rows_smem_kernel<KT><<<R, TOTALS_THREADS, bytes, s>>>(in, out, R, n,
+                                                                            levels_of(n));
+        return cudaGetLastError();
+      }
     }
+    return launch_grid(fbscan_prefix_rows_grid_kernel<KT>,
+                       ((long long)R * n + GRID_THREADS - 1) / GRID_THREADS, GRID_THREADS, s, in,
+                       out, spare, K, R, n, levels_of(n));
   }
-  return launch_grid(fbscan_prefix_rows_grid_kernel<KT>, (long long)R * n, s, in, out, spare, K,
-                     R, n, levels_of(n));
+}
+
+// The grouped prefix scan for K = 9..16 (teams): one launch where every
+// group's CTA fits the card at once, else the team group kernel, the rows
+// scan of the (padded) totals over the card, and the team combine kernel.
+template <int KT>
+cudaError_t prefix_team(const float* in, float* out, float* work, int R, long long n,
+                        cudaStream_t s) {
+  using T = Team<KT>;
+  const long long G = n / GROUP;
+  const long long one_smem =
+      (team_room(G) * T::MS + GROUP * T::TPM + T::MS) * (long long)sizeof(float);
+  bool launched = false;
+  cudaError_t err =
+      launch_one_wave(fbscan_prefix_team_one_kernel<KT>, G, R, T::THREADS, one_smem, s,
+                      &launched, in, out, work, R, n, levels_of(G));
+  if (err != cudaSuccess || launched) return err;
+  float* inner = work;
+  float* tot = inner + (long long)KT * KT * R * n;
+  float* incl = tot + R * G * T::MS;
+  const long long smem = T::GROUP_FLOATS * (long long)sizeof(float);
+  err = allow_smem(fbscan_prefix_team_group_kernel<KT>, smem);
+  if (err == cudaSuccess) err = allow_smem(fbscan_prefix_team_combine_kernel<KT>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)G, (unsigned)R);
+  fbscan_prefix_team_group_kernel<KT><<<grid, T::THREADS, smem, s>>>(in, inner, tot, R, n);
+  err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = launch_grid(fbscan_prefix_team_rows_kernel<KT>, (R * G + WARP - 1) / WARP,
+                      ROWS_THREADS(KT), s, tot, incl, incl + R * G * T::MS, R, G, levels_of(G),
+                      T::KP, 1, T::MS);
+  if (err != cudaSuccess) return err;
+  fbscan_prefix_team_combine_kernel<KT><<<grid, T::THREADS, smem, s>>>(inner, incl, out, R,
+                                                                             n);
+  return cudaGetLastError();
 }
 
 // Workspace layout of a grouped prefix call: the in-group scan (K, K, R, n)
-// then three (K, K, R, G) buffers: totals, their inclusive scan, spare (the
-// one-launch form takes the first (K, K, R, G) for its totals).
-// KT = K <= MAX_REG_K, in registers, or 0: any K, in device memory.
+// then three buffers of R * G totals: totals, their inclusive scan, spare
+// (the one-launch forms take the first buffer for their totals).
+// KT = K <= MAX_REG_K, in registers; MAX_REG_K < K <= MAX_TEAM_K, teams; 0:
+// any K, in device memory.
 template <int KT>
 cudaError_t prefix(const float* in, float* out, float* work, int K, int R, long long n,
                    cudaStream_t s) {
   if (!grouped(n)) return prefix_scan_rows<KT>(in, out, work, K, R, n, s);
-  const long long G = n / GROUP, m = (long long)K * K * R;
-  if constexpr (KT > 0) {
-    const long long floats = KT * KT * (2 * G > GROUP ? 2 * G : GROUP);
-    bool launched = false;
-    const cudaError_t err =
-        launch_one_wave(fbscan_prefix_one_kernel<KT>, G, R, floats * (long long)sizeof(float), s,
-                        &launched, in, out, work, R, n, levels_of(G));
-    if (err != cudaSuccess || launched) return err;
-  }
-  float* inner = work;
-  float* tot = inner + m * n;
-  float* incl = tot + m * G;
-  const dim3 grid((unsigned)G, (unsigned)R);
-  if constexpr (KT > 0) {
-    fbscan_prefix_group_kernel<KT><<<grid, GROUP, 0, s>>>(in, inner, tot, R, n);
+  if constexpr (KT > MAX_REG_K) {
+    return prefix_team<KT>(in, out, work, R, n, s);
   } else {
-    // `out` is the odd levels' buffer until the combine overwrites it
-    fbscan_prefix_group_any_kernel<<<grid, GROUP, 0, s>>>(in, inner, out, tot, K, R, n);
+    const long long G = n / GROUP, m = (long long)K * K * R;
+    if constexpr (KT > 0) {
+      const long long floats = KT * KT * (2 * G > GROUP ? 2 * G : GROUP);
+      bool launched = false;
+      const cudaError_t err = launch_one_wave(fbscan_prefix_one_kernel<KT>, G, R, GROUP,
+                                              floats * (long long)sizeof(float), s, &launched,
+                                              in, out, work, R, n, levels_of(G));
+      if (err != cudaSuccess || launched) return err;
+    }
+    float* inner = work;
+    float* tot = inner + m * n;
+    float* incl = tot + m * G;
+    const dim3 grid((unsigned)G, (unsigned)R);
+    if constexpr (KT > 0) {
+      fbscan_prefix_group_kernel<KT><<<grid, GROUP, 0, s>>>(in, inner, tot, R, n);
+    } else {
+      // `out` is the odd levels' buffer until the combine overwrites it
+      fbscan_prefix_group_any_kernel<<<grid, GROUP, 0, s>>>(in, inner, out, tot, K, R, n);
+    }
+    cudaError_t err = cudaGetLastError();
+    if (err == cudaSuccess) err = prefix_scan_rows<KT>(tot, incl, incl + m * G, K, R, G, s);
+    if (err != cudaSuccess) return err;
+    if constexpr (KT > 0) {
+      fbscan_prefix_combine_kernel<KT><<<grid, GROUP, 0, s>>>(inner, incl, out, R, n);
+    } else {
+      fbscan_prefix_combine_any_kernel<<<grid, GROUP, 0, s>>>(inner, incl, out, K, R, n);
+    }
+    return cudaGetLastError();
   }
-  cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess) err = prefix_scan_rows<KT>(tot, incl, incl + m * G, K, R, G, s);
-  if (err != cudaSuccess) return err;
-  if constexpr (KT > 0) {
-    fbscan_prefix_combine_kernel<KT><<<grid, GROUP, 0, s>>>(inner, incl, out, R, n);
-  } else {
-    fbscan_prefix_combine_any_kernel<<<grid, GROUP, 0, s>>>(inner, incl, out, K, R, n);
-  }
-  return cudaGetLastError();
 }
 
 // Reverse Hillis-Steele over the n maps of each of R rows, in -> out.
@@ -931,27 +1505,28 @@ cudaError_t suffix_scan_rows(const int64_t* in, int64_t* out, int64_t* spare, in
     fbscan_suffix_rows_smem_kernel<<<R, TOTALS_THREADS, bytes, s>>>(in, out, K, R, n);
     return cudaGetLastError();
   }
-  return launch_grid(fbscan_suffix_rows_grid_kernel, (long long)R * n, s, in, out, spare, K, R, n,
-                     levels_of(n));
+  return launch_grid(fbscan_suffix_rows_grid_kernel,
+                     ((long long)R * n + GRID_THREADS - 1) / GRID_THREADS, GRID_THREADS, s, in,
+                     out, spare, K, R, n, levels_of(n));
 }
 
-// The one-launch suffix for K <= MAX_REG_K where it fits the card.
+// The one-launch suffix for K <= MAX_TEAM_K where it fits the card.
 template <int KT>
 cudaError_t suffix_one(const int64_t* in, int64_t* out, int64_t* work, int R, long long n,
                        cudaStream_t s, bool* launched) {
   const long long G = n / GROUP, ints = 2 * G > GROUP ? 2 * G : GROUP;
-  return launch_one_wave(fbscan_suffix_one_kernel<KT>, G, R, KT * ints * (long long)sizeof(int),
-                         s, launched, in, out, work, R, n);
+  return launch_one_wave(fbscan_suffix_one_kernel<KT>, G, R, GROUP,
+                         KT * ints * (long long)sizeof(int), s, launched, in, out, work, R, n);
 }
 
 }  // namespace
 
 // Elements of float32 workspace a prefix call needs: grouped, the in-group
-// scan (K * K * R * n) and three (K, K, R, G) buffers; flat, one (K, K, R,
-// n) ping-pong buffer.
+// scan (K * K * R * n) and three buffers of R * G totals (padded matrices
+// for K = 9..16); flat, one (K, K, R, n) ping-pong buffer.
 extern "C" long long hammlet_fbscan_prefix_workspace(int K, int R, long long n) {
   const long long m = (long long)K * K * R;
-  return grouped(n) ? m * n + 3 * m * (n / GROUP) : m * n;
+  return grouped(n) ? m * n + 3 * total_floats(K) * R * (n / GROUP) : m * n;
 }
 
 extern "C" int hammlet_fbscan_prefix(const float* in, float* out, float* work, int K, int R,
@@ -960,7 +1535,8 @@ extern "C" int hammlet_fbscan_prefix(const float* in, float* out, float* work, i
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
-  static_assert(MAX_REG_K == 8, "the switch below instantiates K = 1..MAX_REG_K");
+  static_assert(MAX_REG_K == 8 && MAX_TEAM_K == 16,
+                "the switch below instantiates K = 1..MAX_TEAM_K");
   switch (K) {
     case 1: return (int)prefix<1>(in, out, work, K, R, n, s);
     case 2: return (int)prefix<2>(in, out, work, K, R, n, s);
@@ -970,6 +1546,14 @@ extern "C" int hammlet_fbscan_prefix(const float* in, float* out, float* work, i
     case 6: return (int)prefix<6>(in, out, work, K, R, n, s);
     case 7: return (int)prefix<7>(in, out, work, K, R, n, s);
     case 8: return (int)prefix<8>(in, out, work, K, R, n, s);
+    case 9: return (int)prefix<9>(in, out, work, K, R, n, s);
+    case 10: return (int)prefix<10>(in, out, work, K, R, n, s);
+    case 11: return (int)prefix<11>(in, out, work, K, R, n, s);
+    case 12: return (int)prefix<12>(in, out, work, K, R, n, s);
+    case 13: return (int)prefix<13>(in, out, work, K, R, n, s);
+    case 14: return (int)prefix<14>(in, out, work, K, R, n, s);
+    case 15: return (int)prefix<15>(in, out, work, K, R, n, s);
+    case 16: return (int)prefix<16>(in, out, work, K, R, n, s);
     default: return (int)prefix<0>(in, out, work, K, R, n, s);
   }
 }
@@ -992,7 +1576,7 @@ extern "C" int hammlet_fbscan_suffix(const int64_t* in, int64_t* out, int64_t* w
   // whole input (exact, so the same maps as the grouped form)
   if (!grouped(n) || group_bytes > SMEM_BYTES) return (int)suffix_scan_rows(in, out, work, K, R, n, s);
   bool launched = false;
-  static_assert(MAX_REG_K == 8, "the switch below instantiates K = 1..MAX_REG_K");
+  static_assert(MAX_TEAM_K == 16, "the switch below instantiates K = 1..MAX_TEAM_K");
   switch (K) {
     case 1: err = suffix_one<1>(in, out, work, R, n, s, &launched); break;
     case 2: err = suffix_one<2>(in, out, work, R, n, s, &launched); break;
@@ -1002,6 +1586,14 @@ extern "C" int hammlet_fbscan_suffix(const int64_t* in, int64_t* out, int64_t* w
     case 6: err = suffix_one<6>(in, out, work, R, n, s, &launched); break;
     case 7: err = suffix_one<7>(in, out, work, R, n, s, &launched); break;
     case 8: err = suffix_one<8>(in, out, work, R, n, s, &launched); break;
+    case 9: err = suffix_one<9>(in, out, work, R, n, s, &launched); break;
+    case 10: err = suffix_one<10>(in, out, work, R, n, s, &launched); break;
+    case 11: err = suffix_one<11>(in, out, work, R, n, s, &launched); break;
+    case 12: err = suffix_one<12>(in, out, work, R, n, s, &launched); break;
+    case 13: err = suffix_one<13>(in, out, work, R, n, s, &launched); break;
+    case 14: err = suffix_one<14>(in, out, work, R, n, s, &launched); break;
+    case 15: err = suffix_one<15>(in, out, work, R, n, s, &launched); break;
+    case 16: err = suffix_one<16>(in, out, work, R, n, s, &launched); break;
     default: break;
   }
   if (err != cudaSuccess || launched) return (int)err;

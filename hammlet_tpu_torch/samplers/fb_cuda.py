@@ -6,10 +6,12 @@ Port of the JAX package's grouped scans
 ``prefix_matmul_scan_cuda`` takes a float32 (K, K, *batch, B) stack of
 block matrices, ``suffix_compose_scan_cuda`` an int64 (K, *batch, B) stack
 of index maps; each launches one kernel on the current stream where all of
-a call's groups fit the card at once (the main path's shapes), else three,
-and returns what the plain versions in samplers/forward_backward.py
-(``prefix_matmul_scan_reference``, ``suffix_compose_scan_reference``)
-return. A non-contiguous input is made contiguous first (the sharded
+a call's groups fit the card at once (the main path's shapes, K = 3, and
+configuration 4's K = 9), else three, and returns what the plain versions
+in samplers/forward_backward.py (``prefix_matmul_scan_reference``,
+``suffix_compose_scan_reference``) return. The prefix has instances for
+K = 1-8 (a matrix per thread), 9-16 (a team of threads per matrix) and a
+generic form above 16; the suffix one instance per K up to 16. A non-contiguous input is made contiguous first (the sharded
 engine's cross-shard scans pass a permuted and a transposed view, which
 come out contiguous from the gathers they read). Outputs and the
 kernels' workspace come from ``torch.empty``, so that under CUDA graph
@@ -122,6 +124,6 @@ def suffix_compose_scan_cuda(maps_t: torch.Tensor) -> torch.Tensor:
 
 #: calls that launched the kernels since the last reset (each call launches
 #: one kernel on a flat B or a grouped B whose groups fit the card at once,
-#: three on a longer grouped B)
+#: K <= 16; three on a longer grouped B, or at K > 16)
 prefix_matmul_scan_cuda.launches = 0
 suffix_compose_scan_cuda.launches = 0

@@ -11,6 +11,9 @@ bitwise against the JAX package and the golden model by the CPU tests
 (tests/test_torch_wavelet.py).
 """
 
+import os
+import tempfile
+
 import numpy as np
 import pytest
 import torch
@@ -847,14 +850,15 @@ def _fb_inputs(B, K, R, seed, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [8, 130, 256, 384, 29_696])
-@pytest.mark.parametrize("K", [1, 3, 10])
+@pytest.mark.parametrize("K", [1, 3, 9, 10, 12, 16])
 @pytest.mark.parametrize("R", [1, 4])
 def test_fbscan_kernels_match_plain_on_card(cuda_device, B, K, R):
     """The FB scan kernels (csrc/fbscan.cu) against their plain versions on
     the card and on the CPU. Tolerance: prefix rtol 1e-6, atol 1e-30 (the
     kernel repeats the plain version's arithmetic in its order; bitwise on
-    the H100 at every shape chip_smoke.py checks); suffix exact. Each call
-    counts one launch of its wrapper."""
+    the H100 at every shape chip_smoke.py checks), and bitwise for the team
+    instances (K = 9-16); suffix exact. Each call counts one launch of its
+    wrapper."""
     from hammlet_tpu_torch.samplers import fb_cuda
     from hammlet_tpu_torch.samplers import forward_backward as fb
 
@@ -868,19 +872,21 @@ def test_fbscan_kernels_match_plain_on_card(cuda_device, B, K, R):
     for dev in (cuda_device, torch.device("cpu")):
         want = fb.prefix_matmul_scan_reference(M.to(dev))
         torch.testing.assert_close(got.cpu(), want.cpu(), rtol=1e-6, atol=1e-30)
+        if K > 8:
+            assert_bitwise(got, want)
         assert torch.equal(sgot.cpu(), fb.suffix_compose_scan_reference(maps.to(dev)).cpu())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [100_000, 433_920])
-@pytest.mark.parametrize("K", [3, 10])
+@pytest.mark.parametrize("K", [3, 9, 10, 12, 16])
 def test_fbscan_grid_wide_rows_scan_on_card(cuda_device, B, K):
     """The rows scan too long for one CTA's shared memory runs over the
     whole card (a cooperative launch): a flat B (100,000, not a multiple of
     128) and the group totals of B = 433,920 (3,390 of them, the T = 250M
     per-shard capacity), against the plain versions on the card, also when
     the call is captured into a CUDA graph and replayed. Tolerance as
-    above."""
+    above (bitwise for K = 9-16, which take the team rows kernel)."""
     from hammlet_tpu_torch.samplers import fb_cuda
     from hammlet_tpu_torch.samplers import forward_backward as fb
 
@@ -898,6 +904,8 @@ def test_fbscan_grid_wide_rows_scan_on_card(cuda_device, B, K):
     graph.replay()
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-30)
+    if K > 8:
+        assert_bitwise(got, want)
     assert torch.equal(sgot, swant)
 
 
@@ -975,17 +983,30 @@ def test_fbscan_sweep_like_subnormals_bitwise_on_card(cuda_device, B, R):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R", [1, 4])
-def test_fbscan_one_launch_in_cuda_graph_on_card(cuda_device, R):
-    """Exact on the card: the one-launch scans (B = 29,696, K = 3, on the
-    sweep-like matrices) captured into a CUDA graph and replayed twice give
-    the bits of the eager calls."""
+@pytest.mark.parametrize("R, K, B", [(1, 3, 29_696), (4, 3, 29_696), (1, 9, 29_696),
+                                     (1, 10, 29_696), (1, 16, 16_384)])
+def test_fbscan_one_launch_in_cuda_graph_on_card(cuda_device, R, K, B):
+    """Exact on the card: the one-launch scans (on the sweep-like
+    matrices; K = 9, 10 and 16 the team instances, at 232 groups for K = 9
+    and 10 and at 128 for K = 16, which takes a whole SM per group) are one
+    CUDA kernel per call (the kernel nodes of a captured call), equal their
+    plain versions bit for bit, and captured into a CUDA graph and replayed
+    twice give the bits of the eager calls."""
+    from chip_smoke import scan_kernels
     from hammlet_tpu_torch.samplers import fb_cuda
+    from hammlet_tpu_torch.samplers import forward_backward as fb
 
-    M = torch.from_numpy(sweep_like_matrices(3, R, 29_696, 5 + R)).to(cuda_device)
-    maps = _fb_inputs(29_696, 3, R, 3 + R, cuda_device)[1]
+    M = torch.from_numpy(sweep_like_matrices(K, R, B, 5 + R)).to(cuda_device)
+    maps = _fb_inputs(B, K, R, 3 + R, cuda_device)[1]
     want = fb_cuda.prefix_matmul_scan_cuda(M)
     swant = fb_cuda.suffix_compose_scan_cuda(maps)
+    assert_bitwise(want, fb.prefix_matmul_scan_reference(M))
+    assert torch.equal(swant, fb.suffix_compose_scan_reference(maps))
+    prefix = scan_kernels(lambda: fb_cuda.prefix_matmul_scan_cuda(M))
+    suffix = scan_kernels(lambda: fb_cuda.suffix_compose_scan_cuda(maps))
+    team = "fbscan_prefix_team_one_kernel" if K > 8 else "fbscan_prefix_one_kernel"
+    assert len(prefix) == 1 and team in prefix[0][0], prefix
+    assert len(suffix) == 1 and "fbscan_suffix_one_kernel" in suffix[0][0], suffix
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -1037,6 +1058,39 @@ def test_graphed_engines_through_fbscan_kernels_on_card(cuda_device, P):
     for name in names:
         assert torch.equal(getattr(g.buffers, name), getattr(e.buffers, name)), name
     assert all(torch.equal(a, b) for a, b in zip(g.model, e.model))
+
+
+@pytest.mark.cuda
+def test_graphed_states9_engine_matches_eager_on_card(cuda_device):
+    """Exact on the card: configuration 4 (two tracks, K = 9; chip_smoke.
+    config4_steps) at T = 100,000 x 2, M 16 0 F 64 4 with marginals and
+    parameters, through a graphed engine and through its eager plain
+    version: the same bytes; the graphed sweeps are replays and both run
+    their scans through the K = 9 kernels (the wrappers count them)."""
+    from chip_smoke import config4_steps
+    from hammlet_tpu_torch.samplers import fb_cuda
+
+    data = config4_steps(100_000)[0]
+    outs = []
+    for eager in (False, True):
+        with tempfile.TemporaryDirectory() as tmp:
+            prefix = os.path.join(tmp, "s9-")
+            rec = Records(100_000, prefix, ".csv", 9, outputs={"marginals", "parameters"},
+                          overwrite=True)
+            before = fb_cuda.prefix_matmul_scan_cuda.launches
+            eng = runner.make_engine(data, nr_params=3, nr_data_dim=2, seed=0, records=rec,
+                                     device=cuda_device)
+            if eager:
+                eager_engine(eng)
+            eng.run_scheme("M 16 0 F 64 4".split())
+            eng.finalize()
+            torch.cuda.synchronize()
+            assert eng.spec.nr_states == 9
+            assert fb_cuda.prefix_matmul_scan_cuda.launches > before
+            assert _graphed(eng) != eager and (eng.phase_graphs.replays == 0) == eager
+            outs.append({name: open(prefix + name + ".csv", "rb").read()
+                         for name in ("marginals", "parameters")})
+    assert outs[0] == outs[1]
 
 
 def _stats_inputs(R, B, K, dim, seed, device, tail="full"):

@@ -24,6 +24,9 @@ torch.set_num_threads(1)
 
 SIZES = [8, 130, 256, 384, 1024, 29_696]
 KS = [1, 2, 3, 5]
+# the team instances of csrc/fbscan.cu (K = 9-16): flat (130) and grouped (3 and 8 groups)
+TEAM_SIZES = [130, 384, 1024]
+TEAM_KS = [9, 10, 16]
 
 
 def _matrices(shape, seed):
@@ -69,6 +72,46 @@ def test_suffix_scan_matches_jax(B, K):
     got = tfb.suffix_compose_scan_t(to_torch(maps, torch.int64))
     assert got.dtype == torch.int64
     np.testing.assert_array_equal(to_np(got), np.asarray(jfb.suffix_compose_scan_t(jnp.asarray(maps))))
+
+
+@pytest.mark.parametrize("B", TEAM_SIZES)
+@pytest.mark.parametrize("K", TEAM_KS)
+def test_prefix_scan_matches_jax_at_team_k(B, K):
+    """The K = 9-16 shapes (configuration 4's K = 9, the -s up to 16).
+    Tolerance as test_prefix_scan_matches_jax: rtol 1e-5, atol 1e-30."""
+    M = _matrices((K, K, B), B * 10 + K)
+    np.testing.assert_allclose(
+        to_np(tfb.prefix_matmul_scan_t(to_torch(M))),
+        np.asarray(jfb.prefix_matmul_scan_t(jnp.asarray(M))), rtol=1e-5, atol=1e-30,
+    )
+
+
+@pytest.mark.parametrize("B", TEAM_SIZES)
+@pytest.mark.parametrize("K", TEAM_KS)
+def test_suffix_scan_matches_jax_at_team_k(B, K):
+    """The K = 9-16 shapes. Tolerance: exact."""
+    maps = _maps(K, (B,), B * 10 + K)
+    np.testing.assert_array_equal(
+        to_np(tfb.suffix_compose_scan_t(to_torch(maps, torch.int64))),
+        np.asarray(jfb.suffix_compose_scan_t(jnp.asarray(maps))),
+    )
+
+
+@pytest.mark.parametrize("K", [9, 16])
+def test_four_rows_match_per_row_jax_at_team_k(K):
+    """Four rows in one call (the sweep's padding: the second half of row 1
+    and all of the last row identities) at B = 1024, each row against the
+    JAX function on that row. Tolerance: prefix rtol 1e-5, atol 1e-30;
+    suffix exact."""
+    M, maps = _padded(K, 4, 1024, 70 + K)
+    got = tfb.prefix_matmul_scan_t(to_torch(M))
+    sgot = tfb.suffix_compose_scan_t(to_torch(maps, torch.int64))
+    for r in range(4):
+        np.testing.assert_allclose(
+            to_np(got[:, :, r]), np.asarray(jfb.prefix_matmul_scan_t(jnp.asarray(M[:, :, r]))),
+            rtol=1e-5, atol=1e-30)
+        np.testing.assert_array_equal(
+            to_np(sgot[:, r]), np.asarray(jfb.suffix_compose_scan_t(jnp.asarray(maps[:, r]))))
 
 
 def _division_cases(case):
