@@ -22,7 +22,8 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    warm with the host launch) of each kernel, the transform and their plain
    versions, beside the bound;
 3b. fbscan: each FB scan kernel (csrc/fbscan.cu, through samplers/fb_cuda.py)
-   against its plain version on the card at FB_SIZES x FB_KS x FB_ROWS (the
+   against its plain version on the card at FB_SIZES x FB_KS x FB_ROWS (K >
+   16 at FB_WIDE_SHAPES alone; the
    prefix within FB_RTOL / FB_ATOL, counting the cases that are bitwise; the
    suffix bitwise), each row of a 4-row call against a one-row call, a
    permuted and a transposed view, NaN propagation; after phase 9, the
@@ -34,13 +35,16 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    inputs, the main path's shapes) and CUDA-event times of
    both (L2 flushed; warm, device only) and of their plain versions, beside
    the bound: the sweep's own matrices and maps at P = 1 and P = 4 (taken
-   from the eager [graph] and [sharded] engines) and the K = 9 sweep's
-   (from the eager [states9] engine), uniform inputs at the same shapes,
-   at the T = 250M per-shard shape, at a flat FB_FLAT and at K = 9, 10, 16
-   and 27 (27: the generic kernels); no call of K <= 16 may reach the
-   generic kernels (FB_GENERIC); then the sweep's own and the uniform
-   times side by side, and K = 10 against the generic kernels' times
-   (FB_GENERIC_K10_MS);
+   from the eager [graph] and [sharded] engines) and the K = 9 and K = 27
+   sweeps' (from the eager [states9] and [states27] engines), uniform
+   inputs at the same shapes, at the T = 250M per-shard shape, at a flat
+   FB_FLAT and at K = 9, 10, 16, 17, 27, 32 and 33 (33: the generic
+   kernels); no call of K <= 32 may reach the generic kernels (FB_GENERIC),
+   every K = 17-32 prefix call is the three wide kernels (FB_WIDE) and its
+   suffix call one kernel, and K = 33 runs the generic ones; then the
+   sweep's own and the uniform times side by side, and K = 10 and K = 27
+   against the generic kernels' times (FB_GENERIC_K10_MS,
+   FB_GENERIC_K27_MS);
 3c. model: the sweep statistics kernel (csrc/modelupdate.cu, through
    models/model_cuda.py) bitwise against its plain version on the card at
    MODEL_ROWS x MODEL_KS x MODEL_DIMS (a masked tail and an overflowing
@@ -58,7 +62,8 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    own statistics inputs, statistics and noise at P = 1 and P = 4 (taken
    from the eager [graph] and [sharded] engines), uniform inputs at T = 4M's
    burn-in capacity, at T = 250M's per-shard capacity in four rows and at
-   K = 10, dim 3;
+   K = 10, dim 3, and the [states9] and [states27] sweeps' own (K = 9 dim
+   2, K = 27 dim 3);
 4. main path: make_engine -> run_scheme("M 64 0 F 512 4") -> finalize at
    T = 4,000,000 positions, 3 states (the repo benchmark's configuration),
    checking that ingest launched both kernels, that every marginal row
@@ -126,12 +131,21 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    seed, checking that ingest launched both maxlet kernels and the sweep
    every kernel, that every marginal row sums to the 128 recorded sweeps,
    MAP agreement >= 0.95, every sweep a graph replay, and the same bytes;
-   settled F rates (median of STATES9_SETTLED and the spread), settled
-   capacity, peak memory, the maxlet kernels at dim 2 on this data; the
+   settled F rates (median of TRACKS_SETTLED and the spread), settled
+   capacity, peak memory (of setup and of each phase, with the capacity it
+   ended at), the maxlet kernels at dim 2 on this data; the
    configuration at its own T (400,000 x 2, host ingest) through
    bin/hammlet-torch -s C 3 2 -a in a subprocess (rows, MAP agreement);
    [profile] adds its graphed sweep (FB scan kernels must be the team
    instances) and its eager sweep's device ms by stage;
+9c. states27: the same for three tracks, K = 27 = 3^3 states (-s C 3 3;
+   states27_steps: the 27 means (a, b, c), a, b, c in {-3, 0, 3}, segments
+   of 800, noise 1.0, seed 6) at T = 4,000,000 x 3 (the maxlet kernels at
+   dim 3), and at T = 400,000 x 3 through bin/hammlet-torch -s C 3 3 -a;
+   its FB prefix runs the wide instances (a thread block cluster per
+   group), which [profile] requires in its graphed sweep; [fbscan] and
+   [model] check and time the kernels on its sweep's own inputs (K = 27,
+   dim 3), and the kernels line lists its two scans;
 10. chains: two chromosomes of T = 2,500,000 positions (100-bp bins) as
    text files; first each maxlet kernel against its plain version on each
    chromosome's data as the CLI reads it, bit for bit, on the card and on
@@ -291,18 +305,28 @@ KERNEL_ROWS = (  # name (the kernels a call runs on the main path), source, the 
 )
 FB_SIZES = [8, 130, 256, 384, 29_696, 433_920, 500_000]  # [fbscan]: block counts B
 FB_BIG = 433_920  # [cards] (d)'s capacity per shard at T = 250M: 3,390 group totals
-FB_KS = [1, 2, 3, 5, 9, 10, 12, 16]  # [fbscan]: states K (9-16: the team instances)
 FB_ROWS = [1, 4]  # [fbscan]: batch rows R (the sharded engine's local shards)
+# [fbscan]: states K (9-16: the team instances; 17-32: the wide ones; 33: the generic kernels)
+FB_KS = [1, 2, 3, 5, 9, 10, 12, 16, 17, 20, 21, 27, 32, 33]
+# [fbscan]: (B, R) checked at K > 16, where the plain versions of (K, K, 4, 500,000) do not fit
+# the phase's time: FB_SIZES below 433,920 in both rows, 433,920 in one row
+FB_WIDE_SHAPES = [(B, R) for B in FB_SIZES if B < 433_920 for R in FB_ROWS] + [(433_920, 1)]
 FB_RTOL, FB_ATOL = 1e-6, 1e-30  # [fbscan]: prefix kernel against its plain version
 FB_FLAT = 500_000  # [fbscan]: a flat B (not a multiple of 128) too long for one CTA
 # [fbscan] timed inputs whose scan calls must each be one CUDA kernel (the main path's shapes,
 # and K = 9 and 10 at its P = 1 capacity: the one-launch team instances)
 FB_ONE_LAUNCH = ("P=1 sweep data", f"P={P_SHARDED} sweep data", "P=1 uniform",
                  f"P={P_SHARDED} uniform", "K=9 uniform", "K=10 uniform")
-# the generic kernels (K > 16), mangled and as torch.profiler names them; no scan call of
-# K <= 16 may reach them
+# the generic prefix kernels (K > 32), mangled and as torch.profiler names them; no scan call of
+# K <= 32 may reach them
 FB_GENERIC = ("fbscan_prefix_group_any_kernel", "fbscan_prefix_combine_any_kernel",
               "fbscan_prefix_rows_grid_kernelILi0E", "fbscan_prefix_rows_grid_kernel<0>")
+# the wide prefix instances (K = 17-32): group, totals and combine kernels, three per call
+FB_WIDE = ("fbscan_prefix_wide_group_kernel", "fbscan_prefix_team_rows_kernel",
+           "fbscan_prefix_team_combine_kernel")
+# the FB scans at K = 27, B = 29,696, on the generic kernels the wide instances replaced (three
+# launches each), ms with L2 flushed (NVIDIA H100 80GB HBM3, 700.00 W)
+FB_GENERIC_K27_MS = {"prefix": 49.1638, "suffix": 0.0843}
 # the FB scans at K = 10, B = 29,696, on the generic kernels they replaced (three launches each),
 # ms with L2 flushed (NVIDIA H100 80GB HBM3, 700.00 W)
 FB_GENERIC_K10_MS = {"prefix": 1.2159, "suffix": 0.0241}
@@ -326,7 +350,13 @@ CONFIG4_MEANS = ((0.0, 0.0), (0.0, 3.0), (3.0, 0.0), (3.0, 3.0), (-3.0, 0.0), (0
 CONFIG4_SEGLEN, CONFIG4_NOISE, CONFIG4_SEED = 800, 1.0, 4
 CONFIG4_T = 400_000  # the configuration's own T: bin/hammlet-torch -s C 3 2, host ingest
 STATES9_K = 9
-STATES9_SETTLED = 3  # [states9]: settled F SETTLED_ITERS 4 phases on the graphed engine
+TRACKS_SETTLED = 3  # [states9], [states27]: settled F SETTLED_ITERS 4 phases, graphed engine
+# [states27]: three tracks, three emission parameters per track, K = 27 = 3^3 states (-s C 3 3):
+# every mean (a, b, c) for a, b, c in {-3, 0, 3}, segments and noise as configuration 4's, seed 6
+STATES27_MEANS = tuple((a, b, c) for a in (-3.0, 0.0, 3.0) for b in (-3.0, 0.0, 3.0)
+                       for c in (-3.0, 0.0, 3.0))
+STATES27_K, STATES27_SEED = 27, 6
+STATES27_CLI_T = 400_000  # [states27] through bin/hammlet-torch -s C 3 3 (host ingest)
 
 
 class SmokeFailure(Exception):
@@ -352,13 +382,13 @@ def synth(T: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
     return data.astype(np.float32), np.repeat(state, reps)
 
 
-def config4_steps(T: int, seed: int = CONFIG4_SEED) -> tuple[np.ndarray, np.ndarray]:
-    """benchmarks/run_configs.py's _steps (:85-92) with configuration 4's
-    means, segments of CONFIG4_SEGLEN positions, noise CONFIG4_NOISE, two
-    tracks: the same draws. Returns ((T, 2) float32 data, true state per
-    position)."""
+def track_steps(means, T: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """benchmarks/run_configs.py's _steps (:85-92): segments of
+    CONFIG4_SEGLEN positions, each at one of ``means`` (a row per state, a
+    column per track) in a random order, noise CONFIG4_NOISE; the same
+    draws. Returns ((T, tracks) float32 data, true state per position)."""
     rng = np.random.default_rng(seed)
-    means = np.asarray(CONFIG4_MEANS)
+    means = np.asarray(means)
     n_seg = max(1, T // CONFIG4_SEGLEN)
     state = rng.integers(0, len(means), size=n_seg)
     reps = np.full(n_seg, CONFIG4_SEGLEN)
@@ -366,6 +396,18 @@ def config4_steps(T: int, seed: int = CONFIG4_SEED) -> tuple[np.ndarray, np.ndar
     mu = np.repeat(means[state], reps, axis=0)
     data = (mu + rng.normal(0, CONFIG4_NOISE, size=mu.shape)).astype(np.float32)
     return data, np.repeat(state, reps)
+
+
+def config4_steps(T: int, seed: int = CONFIG4_SEED) -> tuple[np.ndarray, np.ndarray]:
+    """Configuration 4's data (two tracks, its means, seed 4): track_steps
+    with CONFIG4_MEANS."""
+    return track_steps(CONFIG4_MEANS, T, seed)
+
+
+def states27_steps(T: int, seed: int = STATES27_SEED) -> tuple[np.ndarray, np.ndarray]:
+    """[states27]'s data (three tracks, -s C 3 3): track_steps with the 27
+    means STATES27_MEANS, seed 6."""
+    return track_steps(STATES27_MEANS, T, seed)
 
 
 def nvidia_smi_line() -> str:
@@ -377,23 +419,26 @@ def nvidia_smi_line() -> str:
 
 
 def bits_equal(a, b) -> bool:
-    """Bitwise equality of two float32 tensors (NaNs equal where both are
-    NaN: their payloads are not part of the contract)."""
-    a = a.cpu()
-    b = b.cpu()
+    """Bitwise equality of two tensors of one type (float NaNs equal where
+    both are NaN: their payloads are not part of the contract), on a's
+    device (the card's for the scans' gigabyte outputs; the host took
+    minutes)."""
+    b = b.to(a.device)
     nan_a, nan_b = torch.isnan(a), torch.isnan(b)
-    if not torch.equal(nan_a, nan_b):
+    if a.dtype != b.dtype or not torch.equal(nan_a, nan_b):
         return False
-    keep = ~nan_a
-    return torch.equal(a[keep].view(torch.int32), b[keep].view(torch.int32))
+    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return torch.equal(a.view(bits).masked_fill(nan_a, 0), b.view(bits).masked_fill(nan_b, 0))
 
 
 def max_abs_err(a, b) -> float:
-    a, b = a.cpu(), b.cpu()
-    both = torch.isfinite(a) & torch.isfinite(b)
-    if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
+    """Largest |a - b| where both are finite, on a's device; inf where
+    they are not finite at the same places."""
+    b = b.to(a.device)
+    finite_a, finite_b = torch.isfinite(a), torch.isfinite(b)
+    if not torch.equal(finite_a, finite_b):
         return float("inf")
-    return float((a[both] - b[both]).abs().max()) if both.any() else 0.0
+    return float((a - b).abs().masked_fill(~finite_a, 0).max()) if a.numel() else 0.0
 
 
 def time_ms(fn, before=None, reps: int = TIMING_REPS) -> float:
@@ -718,17 +763,21 @@ def check_cross_shard(calls: list) -> int:
 
 def phase_fbscan() -> dict:
     """[fbscan]: each FB scan kernel against its plain version on the card
-    at FB_SIZES x FB_KS x FB_ROWS (the prefix within FB_RTOL / FB_ATOL, also
+    at FB_SIZES x FB_KS x FB_ROWS, at K > 16 FB_WIDE_SHAPES alone (the
+    prefix within FB_RTOL / FB_ATOL, also
     counting the cases that are bitwise; the suffix bitwise), each row of a
     4-row call bitwise equal to a one-row call on that row, a permuted and a
     transposed view (the shape of the sharded engine's cross-shard calls)
     against the plain versions of their contiguous copies, and NaN
     propagating as in the plain version. Not
     counted: callers reset the counters before the run they count."""
-    res = {"cases": 0, "bitwise": 0, "prefix_err": 0.0, "suffix_err": 0.0, "worst_rel": 0.0}
+    res = {"cases": 0, "bitwise": 0, "prefix_err": 0.0, "suffix_err": 0.0, "worst_rel": 0.0,
+           "subnormal_cases": 0}
     for B in FB_SIZES:
         for K in FB_KS:
             for R in FB_ROWS:
+                if K > 16 and (B, R) not in FB_WIDE_SHAPES:
+                    continue
                 M, maps = fb_inputs(B, K, R, B * 100 + K * 10 + R)
                 where = f"B={B} K={K} R={R}"
                 got = fb_cuda.prefix_matmul_scan_cuda(M)
@@ -756,7 +805,8 @@ def phase_fbscan() -> dict:
                               f"[fbscan] suffix row {r} of {R} != its one-row call ({where})")
                 del M, maps, got, want, sgot
     # the sweep's matrices: many exact zeros (underflowed emission weights), some subnormal
-    for B, K in ((384, 3), (29_696, 3), (29_696, 9), (29_696, 10), (29_696, 16)):
+    for B, K in ((384, 3), (29_696, 3), (29_696, 9), (29_696, 10), (29_696, 16), (29_696, 17),
+                 (29_696, 27), (29_696, 32)):
         M, _ = fb_inputs(B, K, 2, 99 + K)
         u = torch.rand(M.shape, generator=torch.Generator(device="cuda").manual_seed(B), device="cuda")
         M = torch.where(u < 0.4, 0.0, torch.where(u < 0.45, M * 1e-39, M))
@@ -765,13 +815,14 @@ def phase_fbscan() -> dict:
               f"[fbscan] prefix kernel != plain with zeros and subnormals (B={B} K={K})")
         res["bitwise"] += bits_equal(got, want)
         res["cases"] += 1
+        res["subnormal_cases"] += 1
     # the sharded engine's cross-shard calls: a (P, K, K) permuted, a (P, K) transposed
     tots = torch.rand((P_SHARDED, 3, 3), device="cuda") + 0.05
     tmaps = torch.randint(0, 3, (P_SHARDED, 3), device="cuda")
     res["bitwise"] += check_scans(tots.permute(1, 2, 0), tmaps.T, "permuted and transposed views")
     res["cases"] += 1
     # NaN: a NaN entry turns every later product of its row into NaN, as in torch
-    for B, K in ((200, 3), (29_696, 3), (200, 9), (29_696, 9)):
+    for B, K in ((200, 3), (29_696, 3), (200, 9), (29_696, 9), (200, 27), (29_696, 27)):
         M, _ = fb_inputs(B, K, 2, 77)
         M[1, 2, 0, B // 3] = float("nan")
         got, want = fb_cuda.prefix_matmul_scan_cuda(M), fb.prefix_matmul_scan_reference(M)
@@ -1469,76 +1520,95 @@ def one_card_big() -> dict:
 
 def phase_states9(tmp: str) -> dict:
     """[states9]: configuration 4 (config4_steps; K = 9 = 3^2, two tracks)
-    at T_MAIN positions through device ingest: make_engine -> SCHEME ->
-    finalize through a graphed engine and through one whose chunks run the
-    eager gibbs_phase, same seed. Checks that ingest took the device path
-    and launched both maxlet kernels, that every kernel of the sweep
-    launched, that every marginal row sums to the recorded sweeps, MAP
-    agreement >= MAP_AGREEMENT_MIN, that every sweep of the graphed engine
-    was a graph replay and that both engines wrote the same bytes. Then
-    settled F rates (STATES9_SETTLED phases of SETTLED_ITERS), the maxlet
-    kernels' times at dim 2 on this data, the sweep's own scan and
-    model-update inputs (recorded from the eager engine), and the same
-    configuration at its own T (CONFIG4_T) through bin/hammlet-torch -s C
-    3 2 -a in a subprocess (host ingest). Returns the engines too, for
-    [profile]."""
-    data, truth = config4_steps(T_MAIN)
+    through phase_tracks, and at its own T (CONFIG4_T) through
+    bin/hammlet-torch -s C 3 2 -a."""
+    return phase_tracks(tmp, "states9", config4_steps, STATES9_K, CONFIG4_T, ["C", "3", "2"])
+
+
+def phase_states27(tmp: str) -> dict:
+    """[states27]: three tracks, K = 27 = 3^3 (states27_steps, -s C 3 3)
+    through phase_tracks, and at STATES27_CLI_T through bin/hammlet-torch -s
+    C 3 3 -a."""
+    return phase_tracks(tmp, "states27", states27_steps, STATES27_K, STATES27_CLI_T,
+                        ["C", "3", "3"])
+
+
+def phase_tracks(tmp: str, tag: str, steps, K: int, cli_T: int, states: list[str]) -> dict:
+    """[states9], [states27]: ``steps``' data (several tracks, K = 3^tracks
+    states) at T_MAIN positions through device ingest: make_engine ->
+    SCHEME -> finalize through a graphed engine and through one whose
+    chunks run the eager gibbs_phase, same seed. Checks that ingest took
+    the device path and launched both maxlet kernels, that every kernel of
+    the sweep launched, that every marginal row sums to the recorded
+    sweeps, MAP agreement >= MAP_AGREEMENT_MIN, that every sweep of the
+    graphed engine was a graph replay and that both engines wrote the same
+    bytes; the peak device memory of setup and of each phase, with the
+    capacity the phase ended at. Then settled F rates (TRACKS_SETTLED phases
+    of SETTLED_ITERS), the maxlet kernels' times at this dim on this data,
+    the sweep's own scan and model-update inputs (recorded from the eager
+    engine), and the same data at cli_T through bin/hammlet-torch -s
+    ``states`` -a in a subprocess (host ingest). Returns the engines too,
+    for [profile]."""
+    data, truth = steps(T_MAIN)
+    dim = data.shape[1]
     streams = ("marginals", "parameters", "compression")
-    res: dict = {}
+    res: dict = {"K": K, "dim": dim}
     engines, outs = {}, {}
-    for tag in ("graph", "eager"):
-        prefix = os.path.join(tmp, f"states9-{tag}-")
-        rec = Records(T_MAIN, prefix, ".csv", STATES9_K, outputs=set(streams), overwrite=True)
+    for kind in ("graph", "eager"):
+        prefix = os.path.join(tmp, f"{tag}-{kind}-")
+        rec = Records(T_MAIN, prefix, ".csv", K, outputs=set(streams), overwrite=True)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
-        eng = runner.make_engine(data, nr_params=3, nr_data_dim=2, seed=SEED, records=rec)
+        eng = runner.make_engine(data, nr_params=3, nr_data_dim=dim, seed=SEED, records=rec)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
-        if tag == "eager":
+        peaks = [("setup", 0, torch.cuda.max_memory_allocated() - base, eng.capacity)]
+        if kind == "eager":
             eager_engine(eng)
         log = log_captures(eng)
+        log_peaks(eng, base, peaks)
         eng.run_scheme(SCHEME.split())
         eng.finalize()
         torch.cuda.synchronize()
-        res[tag] = {"setup_s": setup_s, "total_s": time.perf_counter() - t0,
-                    "peak_mem_bytes": torch.cuda.max_memory_allocated() - base,
-                    "launches": read_counts(), "captures": list(log),
-                    "phases": [(m, n, round(t, 4)) for m, n, t in eng.phase_log],
-                    "capacity": eng.capacity}
-        outs[tag] = {name: open(prefix + name + ".csv", "rb").read() for name in streams}
-        if tag == "graph":
+        res[kind] = {"setup_s": setup_s, "total_s": time.perf_counter() - t0,
+                     "peak_mem_bytes": max(p for _, _, p, _ in peaks), "peaks": peaks,
+                     "launches": read_counts(), "captures": list(log),
+                     "phases": [(m, n, round(t, 4)) for m, n, t in eng.phase_log],
+                     "capacity": eng.capacity}
+        outs[kind] = {name: open(prefix + name + ".csv", "rb").read() for name in streams}
+        if kind == "graph":
             sizes, counts = read_marginals(prefix + "marginals.csv")
-        engines[tag] = eng
+        engines[kind] = eng
     g, e = engines["graph"], engines["eager"]
-    check(g.device.type == "cuda" and g.spec.nr_states == STATES9_K,
-          f"[states9] engine on {g.device} with {g.spec.nr_states} states")
-    check_graphed(g, "[states9]")
-    check(e.phase_graphs.replays == 0, "[states9] the eager engine replayed graphs")
-    check(g.ing.weights_host is None, "[states9] ingest did not take the device path")
+    where = f"[{tag}]"
+    check(g.device.type == "cuda" and g.spec.nr_states == K,
+          f"{where} engine on {g.device} with {g.spec.nr_states} states")
+    check_graphed(g, where)
+    check(e.phase_graphs.replays == 0, f"{where} the eager engine replayed graphs")
+    check(g.ing.weights_host is None, f"{where} ingest did not take the device path")
     for name, n in res["graph"]["launches"].items():
-        check(n >= 1, f"[states9] the path never launched {name}")
-    check(counts.shape[1] == STATES9_K and int(sizes.sum()) == T_MAIN,
-          f"[states9] marginal rows of {counts.shape[1]} states cover {sizes.sum()} positions")
-    check(bool((counts.sum(axis=1) == N_RECORDED).all()),
-          f"[states9] marginal row sums != {N_RECORDED}")
+        check(n >= 1, f"{where} the path never launched {name}")
+    check(counts.shape[1] == K and int(sizes.sum()) == T_MAIN,
+          f"{where} marginal rows of {counts.shape[1]} states cover {sizes.sum()} positions")
+    check(bool((counts.sum(axis=1) == N_RECORDED).all()), f"{where} marginal row sums != {N_RECORDED}")
     res["map_agreement"] = map_agreement(sizes, counts, truth)
     check(res["map_agreement"] >= MAP_AGREEMENT_MIN,
-          f"[states9] MAP agreement {res['map_agreement']:.4f}")
+          f"{where} MAP agreement {res['map_agreement']:.4f}")
     for name in streams:
         check(outs["graph"][name] == outs["eager"][name],
-              f"[states9] {name}: the graphed engine's bytes differ from the eager engine's")
+              f"{where} {name}: the graphed engine's bytes differ from the eager engine's")
     res["sha256"] = {name: hashlib.sha256(outs["graph"][name]).hexdigest()[:16]
                      for name in ("marginals", "parameters")}
     g.records = e.records = None
     rates = []
-    for _ in range(STATES9_SETTLED):
+    for _ in range(TRACKS_SETTLED):
         g.run("F", SETTLED_ITERS, 4)
         rates.append(SETTLED_ITERS / g.phase_log[-1][2])
     res["settled"], res["settled_capacity"] = rates, g.capacity
-    # the maxlet kernels at dim 2 on this data, L2 flushed
+    # the maxlet kernels at this dim on this data, L2 flushed
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     x = torch.from_numpy(data).cuda()
     kc, kt = wavelet_cuda.maxlet_chunks_cuda(x)
@@ -1549,44 +1619,60 @@ def phase_states9(tmp: str) -> dict:
         "chunk_plain": time_ms(lambda: wavelet_cuda.maxlet_chunks_reference(x), flush.zero_),
         "cross_plain": time_ms(lambda: wavelet_cuda.maxlet_cross_reference(buf, kt), flush.zero_),
     }
-    for name, (nbytes, ops) in transform_work(T_MAIN, 2).items():
+    for name, (nbytes, ops) in transform_work(T_MAIN, dim).items():
         res["maxlet"][name + "_bound"], res["maxlet"][name + "_bound_by"] = bound_ms(nbytes, ops)
     del flush, x, kc, kt, buf
     torch.cuda.empty_cache()
     with ScanInputs() as scans, ModelInputs() as models:
         e.run("F", 4, 4)
     res["scans"], res["models"] = scans, models
-    res["cli"] = states9_cli(tmp)
+    res["cli"] = tracks_cli(tmp, tag, steps, K, cli_T, states)
     res["engines"] = engines
     return res
 
 
-def states9_cli(tmp: str) -> dict:
-    """Configuration 4 at its own T (CONFIG4_T x 2, below ingest_device's
-    threshold: host ingest) through bin/hammlet-torch -s C 3 2 -a SCHEME in
-    a subprocess, marginals and parameters: the run is on the card, every
+def log_peaks(eng, base: int, peaks: list) -> None:
+    """Append (method, sweeps, peak device memory above ``base``, capacity
+    at the phase's end) to ``peaks`` for each phase of ``eng`` as it runs
+    (its ``run`` wrapped; the peak statistic is reset before each phase)."""
+    real = eng.run
+
+    def run(method, iterations, thinning, start=0):
+        torch.cuda.reset_peak_memory_stats()
+        real(method, iterations, thinning, start)
+        torch.cuda.synchronize()
+        peaks.append((method, iterations, torch.cuda.max_memory_allocated() - base, eng.capacity))
+
+    eng.run = run
+
+
+def tracks_cli(tmp: str, tag: str, steps, K: int, T: int, states: list[str]) -> dict:
+    """``steps``' data at T positions (below ingest_device's threshold:
+    host ingest) through bin/hammlet-torch -s ``states`` -a SCHEME in a
+    subprocess, marginals and parameters: the run is on the card, every
     marginal row sums to the recorded sweeps and MAP agreement >=
     MAP_AGREEMENT_MIN."""
-    data, truth = config4_steps(CONFIG4_T)
-    path = os.path.join(tmp, "config4.csv")
+    data, truth = steps(T)
+    path = os.path.join(tmp, f"{tag}.csv")
     np.savetxt(path, data, fmt="%.5f")  # benchmarks/run_configs.py's _data_file format
-    prefix = os.path.join(tmp, "config4-")
+    prefix = os.path.join(tmp, f"{tag}-cli-")
     here = os.path.dirname(os.path.abspath(__file__))
+    what = f"[{tag}] bin/hammlet-torch -s {' '.join(states)}"
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, os.path.join(here, "bin", "hammlet-torch"), "-f", path, "-s", "C", "3", "2",
+        [sys.executable, os.path.join(here, "bin", "hammlet-torch"), "-f", path, "-s", *states,
          "-a", "-R", str(SEED), "-i", *SCHEME.split(), "-O", "marginals", "parameters", "-o", prefix, ".csv", "-w",
          "-v"], capture_output=True, text=True, timeout=600, cwd=here)
     seconds = time.perf_counter() - t0
-    check(proc.returncode == 0, f"[states9] bin/hammlet-torch -s C 3 2 failed: {proc.stderr[-2000:]}")
+    check(proc.returncode == 0, f"{what} failed: {proc.stderr[-2000:]}")
     check("Device: cuda" in proc.stdout + proc.stderr,
-          f"[states9] bin/hammlet-torch did not run on the card: {proc.stdout[-1000:]}")
+          f"{what} did not run on the card: {proc.stdout[-1000:]}")
     sizes, counts = read_marginals(prefix + "marginals.csv")
-    check(counts.shape[1] == STATES9_K and int(sizes.sum()) == CONFIG4_T
+    check(counts.shape[1] == K and int(sizes.sum()) == T
           and bool((counts.sum(axis=1) == N_RECORDED).all()),
-          "[states9] bin/hammlet-torch: marginal rows do not cover T or count the recorded sweeps")
+          f"{what}: marginal rows do not cover T or count the recorded sweeps")
     agreement = map_agreement(sizes, counts, truth)
-    check(agreement >= MAP_AGREEMENT_MIN, f"[states9] bin/hammlet-torch MAP agreement {agreement:.4f}")
+    check(agreement >= MAP_AGREEMENT_MIN, f"{what} MAP agreement {agreement:.4f}")
     return {"seconds": seconds, "map_agreement": agreement, "rows": len(sizes)}
 
 
@@ -1716,14 +1802,15 @@ def device_split_by_stage(eng, iters: int = 16) -> dict:
                              for stage, kern in names.items()}}
 
 
-def phase_profile(main_eng, sharded_eng, sharded_eager, states9: dict) -> dict:
+def phase_profile(main_eng, sharded_eng, sharded_eager, tracks: dict) -> dict:
     """torch.profiler over F 64 4: CUDA kernels and device ms per settled
     sweep of the [main] engine with the debug bitmask off and on, and of the
     [sharded] engine; launch calls, kernels and device ms per sweep of the
     graphed and the eager [main] and [sharded] engines and of the graphed
-    [states9] engine (``states9``: tag -> engine), whose FB scan kernels
-    must be the team instances (no generic kernel), and the eager [states9]
-    sweep's device ms by stage. It runs last: once
+    [states9] and [states27] engines (``tracks``: phase -> kind -> engine),
+    whose FB scan kernels must be the team and the wide instances (no
+    generic kernel), and the eager [states9] and [states27] sweeps' device
+    ms by stage. It runs last: once
     the profiler has traced the card, every later launch of the process pays
     more host time, which would lower any rate measured after it."""
     old = os.environ.get("HAMMLET_DEBUG")
@@ -1757,15 +1844,16 @@ def phase_profile(main_eng, sharded_eng, sharded_eager, states9: dict) -> dict:
         check("modelupdate_stats_kernel" in names and "modelupdate_resample_kernel" in names,
               f"the {tag} sweep ran no sweep statistics or resample kernel: {res[tag]['model']}")
     res["sharded_eager"] = profile_launches(sharded_eager)
-    res["states9"] = profile_launches(states9["graph"])
-    names = " ".join(res["states9"]["fbscan"])
-    check("fbscan_prefix_team" in names and "fbscan_suffix" in names
-          and not any(gen in names for gen in FB_GENERIC),
-          f"[states9] the graphed K = 9 sweep's FB scan kernels were {res['states9']['fbscan']}")
-    names = " ".join(res["states9"]["model"])
-    check("modelupdate_stats_kernel" in names and "modelupdate_resample_kernel" in names,
-          f"[states9] the graphed K = 9 sweep ran no model-update kernel: {res['states9']['model']}")
-    res["states9_split"] = device_split_by_stage(states9["eager"])
+    for tag, prefix_kinds in (("states9", ("fbscan_prefix_team",)), ("states27", FB_WIDE)):
+        res[tag] = profile_launches(tracks[tag]["graph"])
+        names = " ".join(res[tag]["fbscan"])
+        check(all(kind in names for kind in prefix_kinds) and "fbscan_suffix_one" in names
+              and not any(gen in names for gen in FB_GENERIC),
+              f"[{tag}] the graphed sweep's FB scan kernels were {res[tag]['fbscan']}")
+        names = " ".join(res[tag]["model"])
+        check("modelupdate_stats_kernel" in names and "modelupdate_resample_kernel" in names,
+              f"[{tag}] the graphed sweep ran no model-update kernel: {res[tag]['model']}")
+        res[tag + "_split"] = device_split_by_stage(tracks[tag]["eager"])
     eager_engine(main_eng)  # its chunks run the eager gibbs_phase from here on
     res["eager"] = profile_launches(main_eng)
     res["split"] = device_split_by_stage(main_eng)
@@ -2714,28 +2802,30 @@ def print_sharded(sh: dict, main_rate: float) -> None:
           f"torch count {sh['cards']} cards)", flush=True)
 
 
-def print_states9(s9: dict) -> None:
-    """The [states9] lines."""
+def print_tracks(tag: str, s9: dict, what: str, states: str, cli_T: int) -> None:
+    """The [states9] or [states27] lines: ``what`` names the configuration,
+    ``states`` its -s arguments."""
     g = s9["graph"]
     rates = s9["settled"]
-    print(f"[states9] T={T_MAIN} x 2 tracks K={STATES9_K} (configuration 4, -s C 3 2) '{SCHEME}', "
+    print(f"[{tag}] T={T_MAIN} x {s9['dim']} tracks K={s9['K']} ({what}, -s {states}) '{SCHEME}', "
           f"device ingest: setup {g['setup_s']:.3f} s, total {g['total_s']:.3f} s, capacity "
           f"{g['capacity']}, peak device memory {g['peak_mem_bytes'] / 2**20:.1f} MiB (eager "
-          f"{s9['eager']['peak_mem_bytes'] / 2**20:.1f} MiB), MAP agreement "
-          f"{s9['map_agreement']:.4f}, rows sum to {N_RECORDED}, launches {g['launches']}, phases "
-          f"{g['phases']}, captures per phase {g['captures']}; every sweep a CUDA graph replay; "
-          f"graphed and eager engines byte-identical (marginals, parameters, compression; sha256 "
-          f"{s9['sha256']}); settled F {SETTLED_ITERS} 4 {rates} sweeps/s (median "
-          f"{np.median(rates):.2f}, spread {min(rates):.2f}-{max(rates):.2f}), settled capacity "
-          f"{s9['settled_capacity']}", flush=True)
+          f"{s9['eager']['peak_mem_bytes'] / 2**20:.1f} MiB; per phase (phase, sweeps, MiB, "
+          f"capacity at its end) {[(m, n, round(b / 2**20, 1), c) for m, n, b, c in g['peaks']]}), "
+          f"MAP agreement {s9['map_agreement']:.4f}, rows sum to {N_RECORDED}, launches "
+          f"{g['launches']}, phases {g['phases']}, captures per phase {g['captures']}; every sweep "
+          f"a CUDA graph replay; graphed and eager engines byte-identical (marginals, parameters, "
+          f"compression; sha256 {s9['sha256']}); settled F {SETTLED_ITERS} 4 {rates} sweeps/s "
+          f"(median {np.median(rates):.2f}, spread {min(rates):.2f}-{max(rates):.2f}), settled "
+          f"capacity {s9['settled_capacity']}", flush=True)
     mx = s9["maxlet"]
-    print(f"[states9] maxlet kernels at T={T_MAIN} dim=2 on this data, ms with L2 flushed (bound): "
-          + "; ".join(f"{k} {mx[k]:.4f} ({mx[k + '_bound']:.4g} by {mx[k + '_bound_by']}, "
-                      f"{mx[k + '_bound'] / mx[k]:.1%}), plain {mx[k + '_plain']:.4f}"
-                      for k in ("chunk", "cross")), flush=True)
+    print(f"[{tag}] maxlet kernels at T={T_MAIN} dim={s9['dim']} on this data, ms with L2 flushed "
+          "(bound): " + "; ".join(f"{k} {mx[k]:.4f} ({mx[k + '_bound']:.4g} by {mx[k + '_bound_by']}, "
+                                  f"{mx[k + '_bound'] / mx[k]:.1%}), plain {mx[k + '_plain']:.4f}"
+                                  for k in ("chunk", "cross")), flush=True)
     c = s9["cli"]
-    print(f"[states9] bin/hammlet-torch -s C 3 2 -a at T={CONFIG4_T} x 2 (host ingest) '{SCHEME}' "
-          f"on the card: {c['seconds']:.2f} s, {c['rows']} marginal rows, MAP agreement "
+    print(f"[{tag}] bin/hammlet-torch -s {states} -a at T={cli_T} x {s9['dim']} (host ingest) "
+          f"'{SCHEME}' on the card: {c['seconds']:.2f} s, {c['rows']} marginal rows, MAP agreement "
           f"{c['map_agreement']:.4f}", flush=True)
 
 
@@ -2777,6 +2867,14 @@ def main() -> int:
             return 1
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
+    seconds: dict = {}  # phase -> wall seconds, for the [time] line
+    last = [time.perf_counter()]
+
+    def took(phase: str) -> None:
+        now = time.perf_counter()
+        seconds[phase] = round(now - last[0], 1)
+        last[0] = now
+
     print(f"[card] {smi} | torch {torch.__version__} (cuda {torch.version.cuda}) | "
           f"{name} x{torch.cuda.device_count()}", flush=True)
 
@@ -2788,8 +2886,10 @@ def main() -> int:
                      if "registers" in ln or "spill" in ln]
             print(f"[build] {tag} {built.path.name} in {built.seconds:.2f} s; "
                   + " | ".join(ptxas), flush=True)
+        took("build")
 
         k = phase_kernel()
+        took("kernel")
         print(f"[kernel] maxlet_chunk_kernel and maxlet_cross_kernel bitwise equal to "
               f"their plain versions, and maxlet_transform_cuda to wavelet.maxlet_transform, "
               f"on the card and the CPU at T in {KERNEL_SIZES} x dim in {KERNEL_DIMS} and on "
@@ -2812,9 +2912,11 @@ def main() -> int:
                      "flushed" if "chunk_scalar" in row else ""), flush=True)
 
         fbk = phase_fbscan()
+        took("fbscan")
         print(f"[fbscan] prefix_matmul_scan_kernel within rtol {FB_RTOL} / atol {FB_ATOL} of "
               f"its plain version in all {fbk['cases']} cases (B in {FB_SIZES} x K in {FB_KS} x R "
-              f"in {FB_ROWS}, 5 with 40 % zeros and 5 % subnormals, and the views; {fbk['bitwise']} of "
+              f"in {FB_ROWS}, at K > 16 (B, R) in {FB_WIDE_SHAPES}; {fbk['subnormal_cases']} with 40 % "
+              f"zeros and 5 % subnormals, and the views; {fbk['bitwise']} of "
               "them bitwise; largest absolute error "
               f"{fbk['prefix_err']}, relative {fbk['worst_rel']:.3g}); suffix_compose_scan_kernel "
               "bitwise equal to its plain version in all of them; each row of a 4-row call "
@@ -2823,6 +2925,7 @@ def main() -> int:
               "plain version", flush=True)
 
         mdk = phase_model()
+        took("model")
         print(f"[model] the statistics kernel (modelupdate_stats_kernel, one cooperative launch) "
               f"bitwise equal to its plain version in all "
               f"{mdk['cases']} cases ((R, B) in {MODEL_ROWS} x K in {MODEL_KS} x dim in "
@@ -2834,6 +2937,7 @@ def main() -> int:
               "versions", flush=True)
 
         m = phase_main_path()
+        took("main")
         print(f"[main] T={T_MAIN} K=3 '{SCHEME}': setup {m['setup_s']:.3f} s, "
               f"total {m['total_s']:.3f} s, F-phase {m['f_sweeps_per_s']:.2f} sweeps/s, "
               f"capacity {m['capacity']}, last blocks {m['last_n_blocks']}, "
@@ -2844,6 +2948,7 @@ def main() -> int:
               f"parameters files {m['sha256']}", flush=True)
 
         fb = fb_golden()
+        took("golden")
         print(f"[main] FB sampler on the card vs golden.reference.fb_gibbs_sweep: "
               f"{fb['blocks']} blocks x {fb['draws']} draws each, per-block state frequencies "
               f"within the Monte-Carlo bound (largest share used {fb['share_of_bound']:.3f})",
@@ -2851,6 +2956,7 @@ def main() -> int:
 
         main_eng = m.pop("engine")
         st = phase_settled(main_eng)
+        took("settled")
         print(f"[settled] T={T_MAIN} F {SETTLED_ITERS} 4 on the [main] engine (capacity "
               f"{st['capacity']}, {st['chunks']} chunks per all-streams phase), order "
               f"{' '.join(t[0] for t in SETTLED_ORDER)}: marginals+parameters+compression "
@@ -2864,9 +2970,11 @@ def main() -> int:
               "per chunk)", flush=True)
 
         g = phase_graph()
+        took("graph")
         print_graph(g)
 
         c = phase_cli(m["f_sweeps_per_s"])
+        took("cli")
         print(f"[cli] T={T_MAIN} all 7 outputs '{SCHEME}': setup {c['setup_s']:.3f} s, "
               f"F-phase {c['f_sweeps_per_s']:.2f} sweeps/s all streams = "
               f"{c['ratio']:.3f}x the [main] rate (marginals+parameters+compression), "
@@ -2875,6 +2983,7 @@ def main() -> int:
               flush=True)
 
         phase_resume()
+        took("resume")
         print(f"[resume] T={T_RESUME}: M 32 0 -> checkpoint -> restore into a graphed engine "
               "-> F 64 4 bitwise equal to the uninterrupted run, graphed and eager (counts, "
               "emission means); every sweep a CUDA graph replay", flush=True)
@@ -2884,11 +2993,17 @@ def main() -> int:
               "mean raised FloatingPointError", flush=True)
 
         sh = phase_sharded(main_eng)
+        took("sharded")
         print_sharded(sh, m["f_sweeps_per_s"])
 
         with tempfile.TemporaryDirectory() as tmp:
             s9 = phase_states9(tmp)
-        print_states9(s9)
+            took("states9")
+        print_tracks("states9", s9, "configuration 4", "C 3 2", CONFIG4_T)
+        with tempfile.TemporaryDirectory() as tmp:
+            s27 = phase_states27(tmp)
+            took("states27")
+        print_tracks("states27", s27, "three tracks", "C 3 3", STATES27_CLI_T)
 
         sweep_p1, views_p1 = g["scans"].main_and_others()
         sweep_p4, views_p4 = sh.pop("scans").main_and_others()
@@ -2908,7 +3023,11 @@ def main() -> int:
             "K=9 uniform": fb_inputs(m["capacity"], 9, 1, SEED),
             "K=10 uniform": fb_inputs(m["capacity"], 10, 1, SEED),
             "K=16 uniform": fb_inputs(m["capacity"], 16, 1, SEED),
-            "K=27 uniform (generic kernels)": fb_inputs(m["capacity"], 27, 1, SEED),
+            "K=27 sweep data": s27["scans"].main_and_others()[0],
+            "K=17 uniform": fb_inputs(m["capacity"], 17, 1, SEED),
+            "K=27 uniform": fb_inputs(m["capacity"], 27, 1, SEED),
+            "K=32 uniform": fb_inputs(m["capacity"], 32, 1, SEED),
+            "K=33 uniform (generic kernels)": fb_inputs(m["capacity"], 33, 1, SEED),
         })
         print(f"[fbscan] the sweep's own cross-shard calls ({len(views_p4)} of the eager "
               f"P={P_SHARDED} sweep, (kind, shape, strides) "
@@ -2933,17 +3052,35 @@ def main() -> int:
                       f"[fbscan] one {key} scan call on the {tag} inputs ran "
                       f"{fbt[tag][key + '_kernels']}, not one CUDA kernel")
         for tag, row in fbt.items():
-            if row["shape"][1] <= 16:
-                names = " ".join(n for n, _ in row["prefix_kernels"] + row["suffix_kernels"])
-                check(not any(gen in names for gen in FB_GENERIC),
-                      f"[fbscan] a K <= 16 scan call on the {tag} inputs reached the generic "
-                      f"kernels: {names}")
+            B, K, R = row["shape"]
+            names = " ".join(n for n, _ in row["prefix_kernels"] + row["suffix_kernels"])
+            check((K <= 32) != any(gen in names for gen in FB_GENERIC),
+                  f"[fbscan] a K = {K} scan call on the {tag} inputs ran {names} (the generic "
+                  "kernels are for K > 32 alone)")
+            if 16 < K <= 32:
+                prefix = [n for n, _ in row["prefix_kernels"]]
+                check(len(prefix) == 3 and all(w in n for w, n in zip(FB_WIDE, prefix)),
+                      f"[fbscan] a K = {K} prefix call on the {tag} inputs ran {prefix}, not "
+                      "the wide instances")
+                check(len(row["suffix_kernels"]) == 1
+                      and "fbscan_suffix_one_kernel" in row["suffix_kernels"][0][0],
+                      f"[fbscan] a K = {K} suffix call on the {tag} inputs ran "
+                      f"{row['suffix_kernels']}, not one CUDA kernel")
         print(f"[fbscan] K=10 B={m['capacity']}, ms with L2 flushed: prefix "
               f"{fbt['K=10 uniform']['prefix']:.4f}, suffix {fbt['K=10 uniform']['suffix']:.4f}; "
               f"the generic kernels they replaced took {FB_GENERIC_K10_MS['prefix']} and "
               f"{FB_GENERIC_K10_MS['suffix']} "
               f"({FB_GENERIC_K10_MS['prefix'] / fbt['K=10 uniform']['prefix']:.1f}x and "
               f"{FB_GENERIC_K10_MS['suffix'] / fbt['K=10 uniform']['suffix']:.2f}x)", flush=True)
+        k27 = fbt["K=27 uniform"]
+        print(f"[fbscan] K=27 B={m['capacity']}, ms with L2 flushed: prefix {k27['prefix']:.4f} "
+              f"(the sweep's own {fbt['K=27 sweep data']['prefix']:.4f}), suffix "
+              f"{k27['suffix']:.4f}; the generic kernels they replaced took "
+              f"{FB_GENERIC_K27_MS['prefix']} and {FB_GENERIC_K27_MS['suffix']} "
+              f"({FB_GENERIC_K27_MS['prefix'] / k27['prefix']:.1f}x and "
+              f"{FB_GENERIC_K27_MS['suffix'] / k27['suffix']:.2f}x); K=17 prefix "
+              f"{fbt['K=17 uniform']['prefix']:.4f}, K=32 {fbt['K=32 uniform']['prefix']:.4f}, K=33 "
+              f"(generic) {fbt['K=33 uniform (generic kernels)']['prefix']:.4f}", flush=True)
         for P in (1, P_SHARDED):
             own, uni = fbt[f"P={P} sweep data"], fbt[f"P={P} uniform"]
             print(f"[fbscan] P={P}, ms with L2 flushed on the sweep's own inputs / on uniform "
@@ -2964,6 +3101,7 @@ def main() -> int:
             "K=10 dim=3 uniform": (model_stats_inputs(1, m["capacity"], 10, 3, SEED),
                                    model_resample_inputs(10, SEED)),
             "K=9 dim=2 sweep data": s9["models"].main(),
+            "K=27 dim=3 sweep data": s27["models"].main(),
         })
         for tag, row in mdt.items():
             R, B, K, dim = row["model_shape"]
@@ -2987,6 +3125,7 @@ def main() -> int:
                   and "modelupdate_resample_kernel" in row["resample_kernels"][0][0],
                   f"[model] one resample call on the {tag} inputs ran {row['resample_kernels']}")
         kpc = model_kernels_per_call()
+        took("timed fbscan and model")
         print(f"[model] one CUDA kernel per statistics call (modelupdate_stats_kernel) at all "
               f"{kpc['cases']} checked shapes, and per resample call at K in {MODEL_KS}", flush=True)
 
@@ -3002,12 +3141,14 @@ def main() -> int:
                   "both kernels bitwise equal to their plain versions on each chain's data, on "
                   "the card and the CPU", flush=True)
             tl = phase_tools(ch["prefix"])
+            took("chains and tools")
             print(f"[tools] bin/hammlet-torch-max-segmentation ({tl['segments']} segments, "
                   f"covers T, = in-process) and bin/hammlet-torch-sort-states ({tl['means']}) "
                   f"on chain 1 in subprocesses without JAX; seconds {tl['seconds']}", flush=True)
 
         pr = phase_profile(main_eng, sh.pop("engine"), sh.pop("eager_engine"),
-                           s9.pop("engines"))
+                           {"states9": s9.pop("engines"), "states27": s27.pop("engines")})
+        took("profile")
         print(f"[profile] torch.profiler F 64 4 at T={T_MAIN}: [main] engine HAMMLET_DEBUG "
               f"off {pr['0'][0]} kernels/sweep, {pr['0'][1]:.4f} device ms/sweep; on "
               f"{pr['1'][0]} kernels/sweep, {pr['1'][1]:.4f} device ms/sweep; [sharded] "
@@ -3024,15 +3165,18 @@ def main() -> int:
                   f"costliest kernels (name, per sweep, device ms per sweep) {p['top']}; FB scan "
                   f"kernels (per sweep, device ms per sweep) {p['fbscan']}; model-update kernels "
                   f"{p['model']}", flush=True)
-        p = pr["states9"]
-        print(f"[profile] graphed [states9] engine (K={STATES9_K}, dim 2), per settled sweep of F 64 "
-              f"4: launch calls {p['launch_calls']}, {p['kernels']} device kernels, "
-              f"{p['device_ms']:.4f} device ms summed, {p['busy_ms']:.4f} as the union of their "
-              f"intervals (busy {p['busy']:.1%} under the profiler); costliest kernels {p['top']}; "
-              f"FB scan kernels (per sweep, device ms per sweep) {p['fbscan']} (team instances, no "
-              f"generic kernel); model-update kernels {p['model']}; eager [states9] sweep's device "
-              f"ms per sweep by stage ({pr['states9_split']['total_ms']:.4f} ms in all): "
-              f"{pr['states9_split']['stages']}", flush=True)
+        for tag, K, dim, kind in (("states9", STATES9_K, 2, "team"),
+                                  ("states27", STATES27_K, 3, "wide")):
+            p = pr[tag]
+            print(f"[profile] graphed [{tag}] engine (K={K}, dim {dim}), per settled sweep of F 64 "
+                  f"4: launch calls {p['launch_calls']}, {p['kernels']} device kernels, "
+                  f"{p['device_ms']:.4f} device ms summed, {p['busy_ms']:.4f} as the union of their "
+                  f"intervals, {p['wall_ms']:.4f} wall ms (busy {p['busy']:.1%} under the "
+                  f"profiler); costliest kernels {p['top']}; FB scan kernels (per sweep, device ms "
+                  f"per sweep) {p['fbscan']} ({kind} instances, no generic kernel); model-update "
+                  f"kernels {p['model']}; eager [{tag}] sweep's device ms per sweep by stage "
+                  f"({pr[tag + '_split']['total_ms']:.4f} ms in all): {pr[tag + '_split']['stages']}",
+                  flush=True)
         walls = {t: 1e3 / float(np.median(g["settled"][t])) for t in ("graph", "eager")}
         print(f"[profile] wall ms per sweep without the profiler ([graph] settled medians) "
               f"against the union of the kernels' intervals under it: graphed "
@@ -3048,6 +3192,8 @@ def main() -> int:
         print(f"chip_smoke FAILED: {exc}", flush=True)
         return 1
 
+    print(f"[time] wall seconds per phase {seconds}, {sum(seconds.values()):.1f} in all",
+          flush=True)
     # the main path's inputs
     main_row = {**k["timed"][(T_MAIN, 1)], **fbt["P=1 sweep data"], **mdt["P=1 sweep data"]}
     worst = {"chunk": max(k["worst"]["chunk"], k["worst"]["golden"], ch["worst"]["chunk"]),
@@ -3089,6 +3235,22 @@ def main() -> int:
         "plain_ms": fbt["K=9 sweep data"][key + "_plain"],
         "bound_ms": fbt["K=9 sweep data"][key + "_bound"],
         "bound_by": fbt["K=9 sweep data"][key + "_bound_by"],
+        "library_ms": None,
+    } for _, _, replaces, key, count in KERNEL_ROWS if key in ("prefix", "suffix")] + [{
+        # [states27]'s K = 27 scan kernels (the wide prefix instances, the one-launch suffix),
+        # timed on that sweep's own matrices and maps
+        "name": " + ".join(kernel_label(n) for n, _ in fbt["K=27 sweep data"][key + "_kernels"]),
+        "route": "cuda",
+        "source": "hammlet_tpu_torch/csrc/fbscan.cu",
+        "replaces": replaces,
+        "launches": s27["graph"]["launches"][count],
+        "device_launches_per_sweep": sum(n for kname, (n, _) in pr["states27"]["fbscan"].items()
+                                         if "fbscan_" + key in kname),
+        "max_abs_err": worst[key],
+        "ms": fbt["K=27 sweep data"][key],
+        "plain_ms": fbt["K=27 sweep data"][key + "_plain"],
+        "bound_ms": fbt["K=27 sweep data"][key + "_bound"],
+        "bound_by": fbt["K=27 sweep data"][key + "_bound_by"],
         "library_ms": None,
     } for _, _, replaces, key, count in KERNEL_ROWS if key in ("prefix", "suffix")]}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -48,10 +48,35 @@ kernels (csrc/modelupdate.cu) beyond chip_smoke.py.
         kernels per call (symbol, CTAs), and both scans' times with L2
         flushed, beside the bound (chip_smoke.fb_work).
 
+    python3 fbscan_probes.py wide OLD_FBSCAN_CU
+        The wide instances (K = 17..32: a thread block cluster per group)
+        of the current fbscan.cu, as `teams`, against the parent's source
+        (which ran K > 16 on its generic kernels) in turns, on uniform
+        inputs: K in WIDE_KS at B = 29,696 (33: generic in both), K = 27 at
+        B = 9,600 in four rows, at a flat B = 100,000 and sweep-like, K =
+        17, 27 and 32 at B = 433,920. Prints the ptxas lines of the wide
+        group, team rows and combine and one-launch suffix kernels, one
+        line "TEAMS <json>" per input, then each K = 17..33 against the
+        plain versions at WIDE_BITS, at K = 27 also with zeros and
+        subnormals and with a NaN (one line "WIDE_BITS <json>": the cases,
+        and those not bitwise).
+
+    python3 fbscan_probes.py variants KS SUBSTITUTIONS
+        Copies of the current fbscan.cu, each with text substituted
+        (SUBSTITUTIONS: JSON {name: [[old, new], ...]}; an empty list is
+        the source as it is), instantiated for K >= min(KS) only and built
+        side by side; prints each copy's ptxas lines of the wide, team rows
+        and combine and one-launch suffix kernels and its build seconds,
+        then for each K of KS (comma-separated) at B = 29,696 and 433,920
+        one line "VARIANTS <json>": each copy checked against the plain
+        versions (prefix bitwise, suffix equal), its CUDA kernels per call
+        and both scans' times with L2 flushed, the copies in turns (in
+        order, then reversed).
+
     python3 fbscan_probes.py team_stamps [SOURCE ...]
         Where the one-launch team kernel's time goes: a copy of each
         fbscan.cu (the current one when none is given), instantiated for K
-        = 9 and 10 only, with globaltimer stamps in
+        <= 10 only, with globaltimer stamps in
         fbscan_prefix_team_one_kernel (TEAM_STAMP_AT: entry, group loaded,
         in-group levels done, total written, the totals' grid-wide levels
         done, their scan at the CTA's position done, final combine done,
@@ -292,28 +317,87 @@ def model_turns(sources: list[str]) -> None:
 
 #: [teams]: states of the uniform inputs at B = 29,696
 TEAM_KS = [9, 10, 12, 16]
+#: [wide]: states of the uniform inputs at B = 29,696 (33: the generic kernels in both)
+WIDE_KS = [17, 20, 21, 27, 32, 33]
+#: [wide]: (B, R) of the bitwise checks at every K of the wide instances
+WIDE_BITS = [(130, 1), (1_024, 1), (1_024, 4), (29_696, 1), (9_600, 4)]
 
 
-def team_turns(old: str) -> None:
-    """`teams`: the team instances against the parent's fbscan.cu (see the
-    module's docstring)."""
-    from hammlet_tpu_torch.samplers import fb_cuda
-    from hammlet_tpu_torch.samplers import forward_backward as fb
-
-    log = fb_cuda.build().log.splitlines()
-    for i, line in enumerate(log):
-        if "Compiling entry function" in line and ("team" in line or "suffix_one" in line):
-            print("PTXAS", line.strip(), "|", " | ".join(x.strip() for x in log[i + 1:i + 4]
-                                                        if "ptxas info" in x or "spill" in x),
-                  flush=True)
-    libs = libraries(fb_cuda, "fbscan", [old])
-    current = libs["current"]
-    order = ["old", "current", "current", "old"]
+def team_inputs() -> dict:
+    """`teams`' inputs: tag -> (B, K, R)."""
     inputs = {f"K={K} B=29696": (29_696, K, 1) for K in TEAM_KS}
     inputs.update({"K=9 B=9600 R=4": (9_600, 9, 4), "K=16 B=16384": (16_384, 16, 1),
                    "K=9 B=433920": (cs.FB_BIG, 9, 1), "K=16 B=433920": (cs.FB_BIG, 16, 1),
                    "K=9 flat B=100000": (100_000, 9, 1), "K=16 flat B=100000": (100_000, 16, 1),
                    "K=9 B=29696 sweep-like": (29_696, 9, 1), "K=27 B=29696": (29_696, 27, 1)})
+    return inputs
+
+
+def wide_inputs() -> dict:
+    """`wide`'s inputs: tag -> (B, K, R)."""
+    inputs = {f"K={K} B=29696": (29_696, K, 1) for K in WIDE_KS}
+    inputs.update({"K=27 B=9600 R=4": (9_600, 27, 4), "K=17 B=433920": (cs.FB_BIG, 17, 1),
+                   "K=27 B=433920": (cs.FB_BIG, 27, 1), "K=32 B=433920": (cs.FB_BIG, 32, 1),
+                   "K=27 flat B=100000": (100_000, 27, 1),
+                   "K=27 B=29696 sweep-like": (29_696, 27, 1)})
+    return inputs
+
+
+def print_ptxas(log: str, kinds: tuple, tag: str = "") -> None:
+    """ptxas's registers and spills of every kernel of a build log whose
+    name holds one of ``kinds`` (lines "PTXAS [tag] ...")."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and any(kind in line for kind in kinds):
+            print("PTXAS", *([tag] if tag else []), line.strip(), "|",
+                  " | ".join(x.strip() for x in lines[i + 1:i + 4]
+                             if "ptxas info" in x or "spill" in x), flush=True)
+
+
+def wide_bits() -> None:
+    """Each K of the wide instances (and 33) against the plain versions at
+    WIDE_BITS, with zeros and subnormals and with a NaN at K = 27: prints
+    "WIDE_BITS <json>" with the cases that were not bitwise (prefix) or
+    equal (suffix)."""
+    from hammlet_tpu_torch.samplers import fb_cuda
+    from hammlet_tpu_torch.samplers import forward_backward as fb
+
+    bad, cases = [], 0
+    for K in range(17, 34):
+        for B, R in WIDE_BITS:
+            M, maps = cs.fb_inputs(B, K, R, B + K + R)
+            variants = {"uniform": M}
+            if K == 27 and R == 1:
+                u = torch.rand(M.shape, generator=torch.Generator(device="cuda").manual_seed(B),
+                               device="cuda")
+                variants["zeros and subnormals"] = torch.where(
+                    u < 0.4, 0.0, torch.where(u < 0.45, M * 1e-39, M))
+                variants["NaN"] = M.clone()
+                variants["NaN"][1, 2, 0, B // 3] = float("nan")
+            for name, X in variants.items():
+                cases += 1
+                if not cs.bits_equal(fb_cuda.prefix_matmul_scan_cuda(X),
+                                     fb.prefix_matmul_scan_reference(X)):
+                    bad.append(("prefix", K, B, R, name))
+            cases += 1
+            if not torch.equal(fb_cuda.suffix_compose_scan_cuda(maps),
+                               fb.suffix_compose_scan_reference(maps)):
+                bad.append(("suffix", K, B, R))
+    torch.cuda.synchronize()
+    print("WIDE_BITS", json.dumps({"cases": cases, "not_bitwise": bad}), flush=True)
+
+
+def team_turns(old: str, inputs: dict, kinds: tuple) -> None:
+    """`teams` and `wide`: the current fbscan.cu against the parent's, in
+    turns, at ``inputs`` (see the module's docstring); first the ptxas
+    lines of the kernels whose names hold one of ``kinds``."""
+    from hammlet_tpu_torch.samplers import fb_cuda
+    from hammlet_tpu_torch.samplers import forward_backward as fb
+
+    print_ptxas(fb_cuda.build().log, kinds)
+    libs = libraries(fb_cuda, "fbscan", [old])
+    current = libs["current"]
+    order = ["old", "current", "current", "old"]
     flush = torch.empty(cs.FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     print(cs.nvidia_smi_line(), flush=True)
     try:
@@ -339,7 +423,8 @@ def team_turns(old: str) -> None:
                         "prefix_kernels": cs.scan_kernels(prefix),
                         "suffix_kernels": cs.scan_kernels(suffix),
                         "prefix_ms": [], "suffix_ms": []}
-                reps = 5 if name == "old" and K > 8 and B > 29_696 else cs.TIMING_REPS
+                slow = name == "old" and (K > 8 and B > 29_696 or K > 16)
+                reps = 5 if slow else cs.TIMING_REPS
                 row[name]["prefix_ms"].append(cs.time_ms(prefix, cs.flushed(flush), reps))
                 row[name]["suffix_ms"].append(cs.time_ms(suffix, cs.flushed(flush), reps))
             print("TEAMS", tag, json.dumps(row), flush=True)
@@ -440,6 +525,69 @@ def stamped_call(lib, call, before, stamps: int) -> dict:
     return row
 
 
+def variant_turns(ks: list[int], substitutions: dict) -> None:
+    """`variants`: copies of fbscan.cu with text substituted, timed in
+    turns (see the module's docstring)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hammlet_tpu_torch.samplers import fb_cuda
+    from hammlet_tpu_torch.samplers import forward_backward as fb
+
+    src = fb_cuda.SOURCES[0].read_text()
+    for call in ("prefix_at<1>(K,", "suffix_at<1>(K,"):  # K >= min(ks) only, to build in seconds
+        if call not in src:
+            raise SystemExit(f"variants: csrc/fbscan.cu no longer has {call!r}")
+        src = src.replace(call, call.replace("<1>", f"<{min(ks)}>"), 1)
+
+    def build(item):
+        name, subs = item
+        text = src
+        for old, new in subs:
+            if old not in text:
+                raise SystemExit(f"variants: {name}: csrc/fbscan.cu has no {old!r}")
+            text = text.replace(old, new)
+        path = _build.BUILD_DIR / "probe" / f"fbscan_variant_{name}.cu"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(text)
+        return name, _build.build(f"fbscan_variant_{name}", [path])
+
+    with ThreadPoolExecutor(len(substitutions)) as pool:
+        built = list(pool.map(build, substitutions.items()))
+    libs = {}
+    for name, b in built:
+        print_ptxas(b.log, ("wide", "team_rows", "team_combine", "suffix_one"), name)
+        print("BUILT", name, round(b.seconds, 1), flush=True)
+        libs[name] = fb_cuda._bind(ctypes.CDLL(str(b.path)))
+    current = fb_cuda._library()
+    order = list(libs) + list(libs)[::-1]
+    flush = torch.empty(cs.FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    print(cs.nvidia_smi_line(), flush=True)
+    try:
+        for K in ks:
+            for B in (29_696, cs.FB_BIG):
+                M, maps = cs.fb_inputs(B, K, 1, cs.SEED + K)
+                want = fb.prefix_matmul_scan_reference(M)
+                swant = fb.suffix_compose_scan_reference(maps)
+                row: dict = {"shape": (B, K, 1), "order": order}
+                for name in order:
+                    fb_cuda._lib = libs[name]
+                    prefix = lambda: fb_cuda.prefix_matmul_scan_cuda(M)  # noqa: E731
+                    suffix = lambda: fb_cuda.suffix_compose_scan_cuda(maps)  # noqa: E731
+                    if name not in row:
+                        row[name] = {
+                            "bitwise": cs.bits_equal(prefix(), want) and torch.equal(suffix(), swant),
+                            "prefix_kernels": [(cs.kernel_label(n), c)
+                                               for n, c in cs.scan_kernels(prefix)],
+                            "prefix_ms": [], "suffix_ms": []}
+                    row[name]["prefix_ms"].append(cs.time_ms(prefix, cs.flushed(flush), 10))
+                    row[name]["suffix_ms"].append(cs.time_ms(suffix, cs.flushed(flush), 10))
+                print("VARIANTS", json.dumps(row), flush=True)
+                del M, maps, want, swant
+                torch.cuda.empty_cache()
+    finally:
+        fb_cuda._lib = current
+
+
 def ptxas_lines(log: str, symbol: str) -> str:
     """ptxas's registers and spills of the kernel whose mangled name holds
     ``symbol``, from a build log (-Xptxas=-v)."""
@@ -469,8 +617,8 @@ def team_stamps(sources: list[str]) -> None:
             src = src.replace(at, stamped, 1)
         src = src.replace("namespace cg = cooperative_groups;\n",
                           "namespace cg = cooperative_groups;\n" + STAMP_CODE, 1)
-        # K = 9 and 10 only (and the generic instances), to build in seconds
-        src = re.sub(r"\n    case (?!9:|10:)\d+: [^\n]*", "", src)
+        # K <= 10 only (and the generic instances), to build in seconds
+        src = re.sub(r"#define MAX_WIDE_K \d+", "#define MAX_WIDE_K 10", src)
         path = _build.BUILD_DIR / "probe" / f"fbscan_stamps{i}.cu"
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(src)
@@ -541,7 +689,15 @@ def main() -> int:
         print("T250", rc, json.dumps(res), flush=True)
         return rc
     if sys.argv[1:2] == ["teams"] and len(sys.argv) == 3:
-        team_turns(sys.argv[2])
+        team_turns(sys.argv[2], team_inputs(), ("team", "suffix_one"))
+        return 0
+    if sys.argv[1:2] == ["wide"] and len(sys.argv) == 3:
+        # team_turns first: its build prints the ptxas lines (a built library has no log)
+        team_turns(sys.argv[2], wide_inputs(), ("wide", "team_rows", "team_combine", "suffix_one"))
+        wide_bits()
+        return 0
+    if sys.argv[1:2] == ["variants"] and len(sys.argv) == 4:
+        variant_turns([int(k) for k in sys.argv[2].split(",")], json.loads(sys.argv[3]))
         return 0
     if sys.argv[1:2] == ["team_stamps"]:
         team_stamps(sys.argv[2:])

@@ -34,10 +34,12 @@ _BUILD_LOCKS: dict[str, threading.Lock] = {}
 _BUILD_LOCKS_LOCK = threading.Lock()
 
 #: ``-Xptxas=-v`` only prints each kernel's registers, shared memory and
-#: spills into the build log
+#: spills into the build log; ``--split-compile=0`` optimizes a source's
+#: kernels in parallel on every core (csrc/fbscan.cu, ~130 instances: 50 s
+#: against 160-180 s on the H100 host, with the same registers per kernel)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "--split-compile=0",
 )
 
 

@@ -38,12 +38,15 @@
 // earlier operand from shared memory (every thread of a team reads the
 // whole matrix; the team instances give a thread 3 or 2 columns at K = 9
 // and 10 to share those reads) and the totals' scan, a chain of grid-wide
-// barriers and dependent passes through shared memory.
+// barriers and dependent passes through shared memory. At K = 17-32 the
+// same holds (at K = 27, B = 29,696: 0.14 ms by float32 operations, 0.052
+// by bytes), and a group of 128 matrices no longer fits one SM: it spreads
+// over a thread block cluster (see "prefix, K = 17..32").
 //
 // Grouped form (n > 256 and n % 128 == 0, G = n / 128 groups per row):
 //   *_one_kernel (K <= MAX_REG_K; the prefix's team instances for K =
 //   MAX_REG_K + 1 .. MAX_TEAM_K, fbscan_prefix_team_one_kernel; the suffix
-//   for every K <= MAX_TEAM_K), when the (G, R) grid of CTAs fits the card
+//   for every K <= MAX_WIDE_K), when the (G, R) grid of CTAs fits the card
 //   at once (the host decides by occupancy, with the dynamic shared memory
 //   the launch really takes, before the launch): one cooperative launch.
 //   Each CTA takes its group into registers, one block per thread (K <=
@@ -68,16 +71,18 @@
 //   and written once.
 //   Three launches otherwise (a row beyond one resident wave: 3,390 groups
 //   at T = 250M per shard; the prefix at K = 13-16, whose group takes a
-//   whole SM, beyond 132 groups):
+//   whole SM, beyond 132 groups; the prefix at K = MAX_TEAM_K + 1 ..
+//   MAX_WIDE_K at every grouped shape, a cluster of WIDE_CL CTAs per group):
 //   *_group_kernel: the in-group levels as above (the prefix's team group
-//     kernel for K = 9..16; the suffix's group kernel keeps the maps in
-//     shared memory as int32, K <= 48), the in-group scan and each group's
-//     total to device memory;
+//     kernel for K = 9..16, fbscan_prefix_wide_group_kernel for K =
+//     17..32; the suffix's group kernel keeps the maps in shared memory as
+//     int32, K <= 48), the in-group scan and each group's total to device
+//     memory;
 //   rows scan of the totals: one CTA of 1024 threads per row where two
 //     copies of a row fit in 48 KB of shared memory (K <= 8), else one
 //     cooperative launch spread over the whole card, a grid-wide barrier
 //     between levels, ping-ponging through device scratch (the prefix at K
-//     = 9..16: fbscan_prefix_team_rows_kernel, a thread per column);
+//     = 9..32: fbscan_prefix_team_rows_kernel, a thread per column);
 //   *_combine_kernel: each block's in-group scan with its group's
 //     exclusive prefix.
 // Flat form (n <= 256 or n % 128 != 0, where the JAX package is flat too):
@@ -85,9 +90,10 @@
 // card as above (a flat n reaches T when the capacity is clipped to it).
 // A suffix whose group does not fit in shared memory (K > 48) takes the
 // flat form over the whole card: composition is exact, so its association
-// does not change the result. The prefix above MAX_TEAM_K (K > 16, e.g.
-// -s C 3 3) keeps the generic kernels: the in-group levels and the combine
-// in device memory (*_any_kernel) and the grid-wide rows kernel <0>.
+// does not change the result. The prefix above MAX_WIDE_K (K > 32, e.g.
+// -s C 4 3) keeps the generic kernels: the in-group levels and the combine
+// in device memory (*_any_kernel) and the grid-wide rows kernel <0>; the
+// suffix above MAX_WIDE_K the group, rows and combine kernels.
 //
 // Exactness: a combine is z[i,k] = sum_j e[i,j] * x[j,k] summed over j in
 // order, with the _rn intrinsics (never contracted into an FMA), then
@@ -608,25 +614,38 @@ fbscan_prefix_combine_any_kernel(const float* inner, const float* incl, float* o
 // level's reads (one buffer). An identity matrix in shared memory is the
 // earlier operand where the scan pads with one, so every lane runs the
 // same code and the same arithmetic as the plain version's identity.
+// Above MAX_TEAM_K a group spreads over a thread block cluster of CL CTAs
+// (the wide instances, see "prefix, K = 17..32"); a CTA then holds M =
+// GROUP / CL of the group's matrices.
 #define MAX_TEAM_K 16
+#define MAX_WIDE_K 32
+#define WIDE_CL 8  // CTAs per group above MAX_TEAM_K (the portable cluster size)
 
 template <int K>
 struct Team {
+  static constexpr bool WIDE = K > MAX_TEAM_K;
+  static constexpr int CL = WIDE ? WIDE_CL : 1;  // CTAs per group
+  static constexpr int M = GROUP / CL;           // matrices per CTA
   // columns per thread and matrices per thread: K = 9 and 10 (two CTAs of
   // a call's 232 groups per SM) read e once for 3 and 2 columns; above, one
-  // column of four matrices per thread keeps the group in the registers
+  // column of four matrices per thread keeps the group in the registers;
+  // above MAX_TEAM_K one column of one matrix
   static constexpr int C = K == 9 ? 3 : K == 10 ? 2 : 1;
-  static constexpr int ITEMS = C == 1 ? 4 : 2;
+  static constexpr int ITEMS = WIDE ? 1 : C == 1 ? 4 : 2;
   static constexpr int TPM = K / C;              // threads per matrix
-  static constexpr int THREADS = GROUP * TPM / ITEMS;
-  static constexpr int SPAN = GROUP / ITEMS;     // matrices between a thread's items
-  static constexpr int MIN_BLOCKS = K <= 12 ? 2 : 1;
+  static constexpr int THREADS = M * TPM / ITEMS;
+  static constexpr int SPAN = M / ITEMS;         // matrices between a thread's items
+  // CTAs per SM the registers leave room for (the team and wide group and
+  // combine kernels; the wide group kernel's own up to K = 28, see WIDE_MIN)
+  static constexpr int MIN_BLOCKS = K <= 12 || WIDE ? 2 : 1;
   static constexpr int KP = (K + 3) / 4 * 4;     // padded row, floats
   static constexpr int MS = K * KP;              // floats per matrix
-  // dynamic shared memory of a group kernel, floats: the group, the column
-  // maxima, the identity
-  static constexpr int GROUP_FLOATS = GROUP * MS + GROUP * TPM + MS;
-  static_assert(K % C == 0 && THREADS % WARP == 0, "a team owns whole columns, whole warps");
+  // dynamic shared memory of a group or combine kernel, floats: the CTA's
+  // matrices, the column maxima, the identity
+  static constexpr int GROUP_FLOATS = M * MS + M * TPM + MS;
+  static_assert(K % C == 0 && (WIDE || THREADS % WARP == 0),
+                "a team owns whole columns (and, up to MAX_TEAM_K, whole warps)");
+  static_assert(GROUP % CL == 0 && M % ITEMS == 0, "a CTA holds whole items");
 };
 
 // The columns of one thread: C columns of K floats.
@@ -704,29 +723,31 @@ __device__ __forceinline__ void rescale_part(float* z, const float* red) {
   for (int i = 0; i < N; ++i) z[i] = wide_quotient(z[i], md, y);
 }
 
-// Shared memory of a group kernel: room for `room` >= GROUP matrices (the
-// group), the partial maxima (GROUP * TPM floats), the identity (one
-// matrix), which the constructor writes.
+// Shared memory of a group kernel: room for `room` >= M matrices (the
+// CTA's share of the group), the partial maxima (M * TPM floats), the
+// identity (one matrix), which the constructor writes.
 template <int K>
 struct TeamSmem {
   float* s;
   float* red;
   float* eye;
   __device__ TeamSmem(float* base, long long room)
-      : s(base), red(base + room * Team<K>::MS), eye(red + GROUP * Team<K>::TPM) {
+      : s(base), red(base + room * Team<K>::MS), eye(red + Team<K>::M * Team<K>::TPM) {
     for (int e = threadIdx.x; e < Team<K>::MS; e += Team<K>::THREADS)
       eye[e] = e / Team<K>::KP == e % Team<K>::KP ? 1.0f : 0.0f;
   }
 };
 
-// Group (r, q) of a (K, K, R, n) tensor, element (e, t) at src[e * plane +
-// base + t], into shared memory (thread-consecutive t: coalesced), and back.
+// The CTA's M matrices of a (K, K, R, n) tensor, element (e, t) at src[e *
+// plane + base + t], into shared memory (thread-consecutive t: coalesced),
+// and back.
 template <int K>
 __device__ __forceinline__ void team_load(const float* src, float* s, long long plane,
                                           long long base) {
+  constexpr int M = Team<K>::M;
 #pragma unroll 8
-  for (int idx = threadIdx.x; idx < K * K * GROUP; idx += Team<K>::THREADS) {
-    const int e = idx / GROUP, t = idx % GROUP;
+  for (int idx = threadIdx.x; idx < K * K * M; idx += Team<K>::THREADS) {
+    const int e = idx / M, t = idx % M;
     s[t * Team<K>::MS + (e / K) * Team<K>::KP + e % K] = src[e * plane + base + t];
   }
 }
@@ -734,9 +755,10 @@ __device__ __forceinline__ void team_load(const float* src, float* s, long long 
 template <int K>
 __device__ __forceinline__ void team_store(const float* s, float* dst, long long plane,
                                            long long base) {
+  constexpr int M = Team<K>::M;
 #pragma unroll 8
-  for (int idx = threadIdx.x; idx < K * K * GROUP; idx += Team<K>::THREADS) {
-    const int e = idx / GROUP, t = idx % GROUP;
+  for (int idx = threadIdx.x; idx < K * K * M; idx += Team<K>::THREADS) {
+    const int e = idx / M, t = idx % M;
     dst[e * plane + base + t] = s[t * Team<K>::MS + (e / K) * Team<K>::KP + e % K];
   }
 }
@@ -815,13 +837,14 @@ __device__ __forceinline__ void team_group_levels(const TeamSmem<K>& sm,
   }
 }
 
-// The group's total (its last matrix, t = GROUP - 1) from the registers of
-// its team into tot (matrix-major, padded rows) at matrix index g.
+// The group's total (its last matrix: t = M - 1 of its last CTA) from the
+// registers of its team into tot (matrix-major, padded rows) at matrix
+// index g; called by the group's last CTA.
 template <int K>
 __device__ __forceinline__ void team_total(const Cols<K> (&x)[Team<K>::ITEMS], float* tot,
                                            long long g) {
   constexpr int N = Team<K>::ITEMS - 1;
-  if (team_matrix<K>(N) == GROUP - 1) {
+  if (team_matrix<K>(N) == Team<K>::M - 1) {
 #pragma unroll
     for (int c = 0; c < Team<K>::C; ++c) {
 #pragma unroll
@@ -975,15 +998,16 @@ fbscan_prefix_team_group_kernel(const float* __restrict__ in, float* __restrict_
 
 // out_b = normalize(pre_q @ inner_b), pre_q the inclusive scan of the
 // totals at q - 1 (padded matrices in incl; the identity for q = 0), K =
-// 9..16: grid (G, R).
+// 9..32: grid (G CL, R), a CTA per M blocks (no cluster: each CTA reads
+// pre_q itself).
 template <int K>
 __global__ void __launch_bounds__(Team<K>::THREADS, Team<K>::MIN_BLOCKS)
 fbscan_prefix_team_combine_kernel(const float* __restrict__ inner, const float* __restrict__ incl,
                                   float* __restrict__ out, int R, long long n) {
   extern __shared__ __align__(16) float smem_team[];
-  const long long q = blockIdx.x, r = blockIdx.y, G = n / GROUP;
-  const long long plane = (long long)R * n, base = r * n + q * GROUP;
-  const TeamSmem<K> sm(smem_team, GROUP);
+  const long long q = blockIdx.x / Team<K>::CL, r = blockIdx.y, G = n / GROUP;
+  const long long plane = (long long)R * n, base = r * n + (long long)blockIdx.x * Team<K>::M;
+  const TeamSmem<K> sm(smem_team, Team<K>::M);
   team_load<K>(inner, sm.s, plane, base);
   __syncthreads();
   Cols<K> x[Team<K>::ITEMS];
@@ -993,25 +1017,29 @@ fbscan_prefix_team_combine_kernel(const float* __restrict__ inner, const float* 
   team_store<K>(sm.s, out, plane, base);
 }
 
-// Hillis-Steele over each of R rows of n matrices, K = 9..16, spread over
+// Hillis-Steele over each of R rows of n matrices, K = 9..32, spread over
 // the card: a cooperative launch of CTAs of ROWS_THREADS(K) threads, each
-// pass of a CTA combining 32 consecutive matrices (a thread per column), a
-// grid-wide barrier between levels; level l writes out when levels - 1 - l
-// is even, spare otherwise, so the last writes out. Element (i, j) of
-// matrix g of row r lies at (i * rs + j * cs) + (r * n + g) * ms, in all
-// three buffers: the (K, K, R, n) layout for a flat call, padded matrices
-// for the group totals.
-#define ROWS_THREADS(K) (WARP * (K))
+// pass of a CTA combining ROWS_MATS(K) consecutive matrices (a thread per
+// column; 32 up to MAX_TEAM_K, 16 up to K = 24 and 8 above, which leave a
+// thread's column and its product room in the registers without spills), a
+// grid-wide barrier between levels;
+// level l writes out when levels - 1 - l is even, spare otherwise, so the
+// last writes out. Element (i, j) of matrix g of row r lies at (i * rs + j
+// * cs) + (r * n + g) * ms, in all three buffers: the (K, K, R, n) layout
+// for a flat call, padded matrices for the group totals.
+#define ROWS_MATS(K) ((K) <= MAX_TEAM_K ? WARP : (K) <= 24 ? WARP / 2 : WARP / 4)
+#define ROWS_THREADS(K) (ROWS_MATS(K) * (K))
 template <int K>
 __global__ void __launch_bounds__(ROWS_THREADS(K))
 fbscan_prefix_team_rows_kernel(const float* in, float* out, float* spare, int R, long long n,
                                int levels, long long rs, long long cs, long long ms) {
-  __shared__ float red[WARP * K];
+  constexpr int MATS = ROWS_MATS(K);
+  __shared__ float red[MATS * K];
   cg::grid_group grid = cg::this_grid();
   const int c = threadIdx.x % K, t0 = threadIdx.x / K;
   const long long total = (long long)R * n;
   if (levels == 0) {
-    for (long long g = (long long)blockIdx.x * WARP + t0; g < total; g += (long long)gridDim.x * WARP)
+    for (long long g = (long long)blockIdx.x * MATS + t0; g < total; g += (long long)gridDim.x * MATS)
       for (int i = 0; i < K; ++i) out[i * rs + c * cs + g * ms] = in[i * rs + c * cs + g * ms];
     return;
   }
@@ -1019,8 +1047,8 @@ fbscan_prefix_team_rows_kernel(const float* in, float* out, float* spare, int R,
   for (int level = 0; level < levels; ++level) {
     const long long d = 1LL << level;
     float* dst = (levels - 1 - level) % 2 == 0 ? out : spare;
-    for (long long first = (long long)blockIdx.x * WARP; first < total;
-         first += (long long)gridDim.x * WARP) {
+    for (long long first = (long long)blockIdx.x * MATS; first < total;
+         first += (long long)gridDim.x * MATS) {
       const long long g = first + t0;
       float z[K];
       if (g < total) {
@@ -1049,6 +1077,95 @@ fbscan_prefix_team_rows_kernel(const float* in, float* out, float* spare, int R,
   }
 }
 
+// ------------------------------------------ prefix, K = 17..32: clusters
+
+// A group of 128 padded matrices no longer fits one SM above K = 20 (387
+// KB at K = 27, 524 KB at K = 32), nor its columns the registers of one
+// SM. So a group spreads over a thread block cluster of WIDE_CL CTAs, each
+// holding M = 16 consecutive matrices in shared memory and a thread per
+// column (z[:, c] = e @ x[:, c] as for the teams, columns_product). At
+// level d the earlier operand of matrix t lies d matrices back, in this
+// CTA or (t < d) in another: each level first copies the operands from
+// the other CTAs' shared memory (distributed shared memory, float4 loads
+// by every thread at once, so the copy is bound by the cluster's network
+// and not by its latency) into a staging buffer of M matrices, and the
+// products read shared memory only locally. Two cluster barriers a level,
+// each split into arrive and wait so that the products run while the
+// other CTAs arrive: after a CTA's copies (no CTA writes its matrices back
+// before every CTA's copies are done) and after its write-back (no CTA
+// copies before every CTA's write-back is done). The identity pads as for
+// the teams.
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// CTAs per SM of the wide group kernel: two up to K = 28, where a thread's
+// column, its product and a row of e fit 72 registers (the prefix at K =
+// 27, B = 29,696: 1.380 ms with one CTA per SM at 95 registers, 1.138 with
+// two); one above, where 64 registers spill (K = 32: 1.808 against 1.942;
+// fbscan_probes.py variants, on an NVIDIA H100 80GB HBM3 at 700 W).
+#define WIDE_MIN(K) ((K) <= 28 ? 2 : 1)
+
+// In-group levels, K = 17..32: grid (G WIDE_CL, R) in clusters of WIDE_CL
+// CTAs, one per group; writes the in-group scan to inner ((K, K, R, n)) and
+// each group's total to tot (padded matrices). Dynamic shared memory
+// Team<K>::GROUP_FLOATS + M * MS floats (the staging buffer).
+template <int K>
+__global__ void __cluster_dims__(WIDE_CL, 1, 1) __launch_bounds__(Team<K>::THREADS, WIDE_MIN(K))
+fbscan_prefix_wide_group_kernel(const float* __restrict__ in, float* __restrict__ inner,
+                                float* __restrict__ tot, int R, long long n) {
+  using T = Team<K>;
+  constexpr int M = T::M, MS = T::MS, KP = T::KP, TPM = T::TPM, VECS = MS / 4;
+  extern __shared__ __align__(16) float smem_team[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), first = rank * M;  // the CTA's first matrix
+  const long long q = blockIdx.x / T::CL, r = blockIdx.y, G = n / GROUP;
+  const long long plane = (long long)R * n, base = r * n + (long long)blockIdx.x * M;
+  const TeamSmem<K> sm(smem_team, M);
+  float* stage = sm.eye + MS;  // this level's earlier operands from the other CTAs
+  team_load<K>(in, sm.s, plane, base);
+  __syncthreads();
+  Cols<K> x[1];
+  team_columns<K>(sm.s, x);
+  const int t = team_matrix<K>(0), u = threadIdx.x % TPM;
+  cluster_arrive();  // loaded
+#pragma unroll 1
+  for (int level = 0; level < GROUP_LEVELS; ++level) {
+    const int d = 1 << level;
+    cluster_wait();  // every CTA's matrices of the level before are in place
+    const int remote = d < M ? d : M;  // operands t < remote lie in other CTAs
+    for (int idx = threadIdx.x; idx < remote * VECS; idx += T::THREADS) {
+      const int k = idx / VECS, g = first + k - d;
+      if (g >= 0) {
+        const float* src = cluster.map_shared_rank(sm.s, g / M) + (g % M) * MS;
+        reinterpret_cast<float4*>(stage + k * MS)[idx % VECS] =
+            reinterpret_cast<const float4*>(src)[idx % VECS];
+      }
+    }
+    cluster_arrive();  // this CTA's reads of the other CTAs are done
+    __syncthreads();   // the staging buffer is written
+    const float* e = first + t < d ? sm.eye : t < d ? stage + t * MS : sm.s + (t - d) * MS;
+    Cols<K> z;
+    sm.red[t * TPM + u] = columns_product<K, 1>(e, x[0], z);
+#pragma unroll
+    for (int i = 0; i < K; ++i) x[0][0][i] = z[0][i];
+    __syncthreads();  // the maxima are written
+    cluster_wait();   // no CTA reads this CTA's matrices any more at this level
+    rescale_part<K, TPM>(&x[0][0][0], sm.red + t * TPM);
+#pragma unroll
+    for (int i = 0; i < K; ++i) sm.s[t * MS + i * KP + u] = x[0][0][i];
+    if (level + 1 < GROUP_LEVELS) cluster_arrive();  // written back
+  }
+  __syncthreads();
+  if (rank == T::CL - 1) team_total<K>(x, tot, r * G + q);
+  team_store<K>(sm.s, inner, plane, base);
+}
+
 // ---------------------------------------------------------------- suffix
 
 // x[i] for a run-time i in [0, K) without indexing a register array (which
@@ -1061,15 +1178,34 @@ __device__ __forceinline__ int pick(const int* x, int i) {
   return v;
 }
 
+// x[i[j]] for the K entries j of a thread's map x, i[j] in [0, K): a K-way
+// select each (pick) up to MAX_TEAM_K; above, where the selects would cost
+// 2 K^2 instructions, through the thread's own column of shared memory
+// (sx: K * GROUP ints, column threadIdx.x; a lane per bank, and no barrier,
+// since no other thread touches the column).
+template <int K>
+__device__ __forceinline__ void compose(const int* x, int* i, int* sx) {
+  if constexpr (K > MAX_TEAM_K) {
+    const int t = threadIdx.x;
+#pragma unroll
+    for (int j = 0; j < K; ++j) sx[j * GROUP + t] = x[j];
+#pragma unroll
+    for (int j = 0; j < K; ++j) i[j] = sx[i[j] * GROUP + t];
+  } else {
+#pragma unroll
+    for (int j = 0; j < K; ++j) i[j] = pick<K>(x, i[j]);
+  }
+}
+
 // The 7 in-group reverse Hillis-Steele levels, new_t[j] = x_t[x_{t+d}[j]]
 // (x_t[j] past the group's end), thread t holding block t's map in x
-// (K <= MAX_REG_K): at d < WARP the later operand comes from lane + d by
+// (K <= MAX_WIDE_K): at d < WARP the later operand comes from lane + d by
 // __shfl_down_sync, and for the last d lanes of a warp from the first EDGE
 // lanes of the warp after, which publish theirs in shared memory; at d = 32
 // and 64 from shared memory. s: K * GROUP ints of shared memory, free on
-// entry.
+// entry; sx: compose's columns (K > MAX_TEAM_K).
 template <int K>
-__device__ __forceinline__ void suffix_group_levels(int* x, int* s) {
+__device__ __forceinline__ void suffix_group_levels(int* x, int* s, int* sx) {
   const int t = threadIdx.x, lane = t % WARP, warp = t / WARP;
   int y[K];
 #pragma unroll 1
@@ -1103,8 +1239,7 @@ __device__ __forceinline__ void suffix_group_levels(int* x, int* s) {
 #pragma unroll
       for (int j = 0; j < K; ++j) y[j] = j;
     }
-#pragma unroll
-    for (int j = 0; j < K; ++j) y[j] = pick<K>(x, y[j]);
+    compose<K>(x, y, sx);
 #pragma unroll
     for (int j = 0; j < K; ++j) x[j] = y[j];
   }
@@ -1176,9 +1311,10 @@ __device__ __forceinline__ int* suffix_totals_at_k(int* src, int* dst, int n, in
   return src;
 }
 
-// The whole grouped suffix scan in one cooperative launch, K <= MAX_TEAM_K:
+// The whole grouped suffix scan in one cooperative launch, K <= MAX_WIDE_K:
 // grid (G, R) of GROUP threads, every CTA resident; tot holds (K, R, G)
-// int64; dynamic shared memory max(K * GROUP, 2 * K * G) ints.
+// int64; dynamic shared memory max(K * GROUP, 2 * K * G) ints, and K *
+// GROUP more above MAX_TEAM_K (compose's columns).
 template <int K>
 __global__ void __launch_bounds__(GROUP, ONE_MIN_BLOCKS(K))
 fbscan_suffix_one_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out, int64_t* tot,
@@ -1188,10 +1324,11 @@ fbscan_suffix_one_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ o
   const long long q = blockIdx.x, r = blockIdx.y, G = n / GROUP;
   const long long plane = (long long)R * n, tplane = (long long)R * G;
   const long long off = r * n + q * GROUP + t;
+  int* sx = smem_i + K * (2 * G > GROUP ? 2 * G : GROUP);
   int x[K], after[K];
 #pragma unroll
   for (int j = 0; j < K; ++j) x[j] = (int)in[j * plane + off];
-  suffix_group_levels<K>(x, smem_i);
+  suffix_group_levels<K>(x, smem_i, sx);
   if (t == 0) {
 #pragma unroll
     for (int j = 0; j < K; ++j) tot[j * tplane + r * G + q] = x[j];
@@ -1217,8 +1354,9 @@ fbscan_suffix_one_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ o
 #pragma unroll
     for (int j = 0; j < K; ++j) after[j] = j;
   }
+  compose<K>(x, after, sx);
 #pragma unroll
-  for (int j = 0; j < K; ++j) out[j * plane + off] = pick<K>(x, after[j]);
+  for (int j = 0; j < K; ++j) out[j * plane + off] = after[j];
 }
 
 // The in-group levels with the group's maps in shared memory as int32 (two
@@ -1323,9 +1461,9 @@ bool bad_shape(int K, int R, long long n) {
 }
 
 // floats of one group total in the workspace: K * K, padded rows for the
-// team instances
+// team and wide instances
 long long total_floats(int K) {
-  return K > MAX_REG_K && K <= MAX_TEAM_K ? (long long)K * ((K + 3) / 4 * 4) : (long long)K * K;
+  return K > MAX_REG_K && K <= MAX_WIDE_K ? (long long)K * ((K + 3) / 4 * 4) : (long long)K * K;
 }
 
 template <class T>
@@ -1401,9 +1539,9 @@ cudaError_t prefix_scan_rows(const float* in, float* out, float* spare, int K, i
                              long long n, cudaStream_t s) {
   if constexpr (KT > MAX_REG_K) {
     const long long plane = (long long)R * n;
-    return launch_grid(fbscan_prefix_team_rows_kernel<KT>, (plane + WARP - 1) / WARP,
-                       ROWS_THREADS(KT), s, in, out, spare, R, n, levels_of(n), KT * plane,
-                       plane, 1);
+    return launch_grid(fbscan_prefix_team_rows_kernel<KT>,
+                       (plane + ROWS_MATS(KT) - 1) / ROWS_MATS(KT), ROWS_THREADS(KT), s, in, out,
+                       spare, R, n, levels_of(n), KT * plane, plane, 1);
   } else {
     const long long bytes = 2LL * K * K * n * (long long)sizeof(float);
     if constexpr (KT > 0) {
@@ -1417,6 +1555,17 @@ cudaError_t prefix_scan_rows(const float* in, float* out, float* spare, int K, i
                        ((long long)R * n + GRID_THREADS - 1) / GRID_THREADS, GRID_THREADS, s, in,
                        out, spare, K, R, n, levels_of(n));
   }
+}
+
+// The inclusive scan of R rows of G padded group totals (tot -> incl; the
+// buffer after incl is the spare), K = 9..32, over the card.
+template <int KT>
+cudaError_t prefix_team_totals(const float* tot, float* incl, int R, long long G,
+                               cudaStream_t s) {
+  using T = Team<KT>;
+  return launch_grid(fbscan_prefix_team_rows_kernel<KT>,
+                     (R * G + ROWS_MATS(KT) - 1) / ROWS_MATS(KT), ROWS_THREADS(KT), s, tot, incl,
+                     incl + R * G * T::MS, R, G, levels_of(G), T::KP, 1, T::MS);
 }
 
 // The grouped prefix scan for K = 9..16 (teams): one launch where every
@@ -1445,25 +1594,50 @@ cudaError_t prefix_team(const float* in, float* out, float* work, int R, long lo
   fbscan_prefix_team_group_kernel<KT><<<grid, T::THREADS, smem, s>>>(in, inner, tot, R, n);
   err = cudaGetLastError();
   if (err == cudaSuccess)
-    err = launch_grid(fbscan_prefix_team_rows_kernel<KT>, (R * G + WARP - 1) / WARP,
-                      ROWS_THREADS(KT), s, tot, incl, incl + R * G * T::MS, R, G, levels_of(G),
-                      T::KP, 1, T::MS);
+    err = prefix_team_totals<KT>(tot, incl, R, G, s);
   if (err != cudaSuccess) return err;
   fbscan_prefix_team_combine_kernel<KT><<<grid, T::THREADS, smem, s>>>(inner, incl, out, R,
                                                                              n);
   return cudaGetLastError();
 }
 
+// The grouped prefix scan for K = 17..32: the wide group kernel (a cluster
+// per group), the rows scan of the (padded) totals over the card, and the
+// team combine kernel, a CTA per M blocks. Three launches at every shape.
+template <int KT>
+cudaError_t prefix_wide(const float* in, float* out, float* work, int R, long long n,
+                        cudaStream_t s) {
+  using T = Team<KT>;
+  const long long G = n / GROUP;
+  float* inner = work;
+  float* tot = inner + (long long)KT * KT * R * n;
+  float* incl = tot + R * G * T::MS;
+  const long long smem = T::GROUP_FLOATS * (long long)sizeof(float);
+  const long long group_smem = smem + T::M * T::MS * (long long)sizeof(float);
+  cudaError_t err = allow_smem(fbscan_prefix_wide_group_kernel<KT>, group_smem);
+  if (err == cudaSuccess) err = allow_smem(fbscan_prefix_team_combine_kernel<KT>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)(G * T::CL), (unsigned)R);
+  fbscan_prefix_wide_group_kernel<KT><<<grid, T::THREADS, group_smem, s>>>(in, inner, tot, R, n);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) err = prefix_team_totals<KT>(tot, incl, R, G, s);
+  if (err != cudaSuccess) return err;
+  fbscan_prefix_team_combine_kernel<KT><<<grid, T::THREADS, smem, s>>>(inner, incl, out, R, n);
+  return cudaGetLastError();
+}
+
 // Workspace layout of a grouped prefix call: the in-group scan (K, K, R, n)
 // then three buffers of R * G totals: totals, their inclusive scan, spare
 // (the one-launch forms take the first buffer for their totals).
-// KT = K <= MAX_REG_K, in registers; MAX_REG_K < K <= MAX_TEAM_K, teams; 0:
-// any K, in device memory.
+// KT = K <= MAX_REG_K, in registers; MAX_REG_K < K <= MAX_TEAM_K, teams;
+// MAX_TEAM_K < K <= MAX_WIDE_K, clusters; 0: any K, in device memory.
 template <int KT>
 cudaError_t prefix(const float* in, float* out, float* work, int K, int R, long long n,
                    cudaStream_t s) {
   if (!grouped(n)) return prefix_scan_rows<KT>(in, out, work, K, R, n, s);
-  if constexpr (KT > MAX_REG_K) {
+  if constexpr (KT > MAX_TEAM_K) {
+    return prefix_wide<KT>(in, out, work, R, n, s);
+  } else if constexpr (KT > MAX_REG_K) {
     return prefix_team<KT>(in, out, work, R, n, s);
   } else {
     const long long G = n / GROUP, m = (long long)K * K * R;
@@ -1510,20 +1684,47 @@ cudaError_t suffix_scan_rows(const int64_t* in, int64_t* out, int64_t* spare, in
                      out, spare, K, R, n, levels_of(n));
 }
 
-// The one-launch suffix for K <= MAX_TEAM_K where it fits the card.
+// prefix<K> for the run-time K = k, K = KT..MAX_WIDE_K; prefix<0> above.
+template <int KT>
+cudaError_t prefix_at(int k, const float* in, float* out, float* work, int R, long long n,
+                      cudaStream_t s) {
+  if constexpr (KT > MAX_WIDE_K) {
+    return prefix<0>(in, out, work, k, R, n, s);
+  } else {
+    return k == KT ? prefix<KT>(in, out, work, KT, R, n, s)
+                   : prefix_at<KT + 1>(k, in, out, work, R, n, s);
+  }
+}
+
+// The one-launch suffix for K <= MAX_WIDE_K where it fits the card.
 template <int KT>
 cudaError_t suffix_one(const int64_t* in, int64_t* out, int64_t* work, int R, long long n,
                        cudaStream_t s, bool* launched) {
-  const long long G = n / GROUP, ints = 2 * G > GROUP ? 2 * G : GROUP;
+  const long long G = n / GROUP;
+  const long long ints = (2 * G > GROUP ? 2 * G : GROUP) + (KT > MAX_TEAM_K ? GROUP : 0);
   return launch_one_wave(fbscan_suffix_one_kernel<KT>, G, R, GROUP,
                          KT * ints * (long long)sizeof(int), s, launched, in, out, work, R, n);
+}
+
+// suffix_one<K> for the run-time K = k, K = KT..MAX_WIDE_K; none above
+// (*launched stays false).
+template <int KT>
+cudaError_t suffix_at(int k, const int64_t* in, int64_t* out, int64_t* work, int R, long long n,
+                      cudaStream_t s, bool* launched) {
+  if constexpr (KT > MAX_WIDE_K) {
+    *launched = false;
+    return cudaSuccess;
+  } else {
+    return k == KT ? suffix_one<KT>(in, out, work, R, n, s, launched)
+                   : suffix_at<KT + 1>(k, in, out, work, R, n, s, launched);
+  }
 }
 
 }  // namespace
 
 // Elements of float32 workspace a prefix call needs: grouped, the in-group
 // scan (K * K * R * n) and three buffers of R * G totals (padded matrices
-// for K = 9..16); flat, one (K, K, R, n) ping-pong buffer.
+// for K = 9..32); flat, one (K, K, R, n) ping-pong buffer.
 extern "C" long long hammlet_fbscan_prefix_workspace(int K, int R, long long n) {
   const long long m = (long long)K * K * R;
   return grouped(n) ? m * n + 3 * total_floats(K) * R * (n / GROUP) : m * n;
@@ -1535,27 +1736,7 @@ extern "C" int hammlet_fbscan_prefix(const float* in, float* out, float* work, i
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
-  static_assert(MAX_REG_K == 8 && MAX_TEAM_K == 16,
-                "the switch below instantiates K = 1..MAX_TEAM_K");
-  switch (K) {
-    case 1: return (int)prefix<1>(in, out, work, K, R, n, s);
-    case 2: return (int)prefix<2>(in, out, work, K, R, n, s);
-    case 3: return (int)prefix<3>(in, out, work, K, R, n, s);
-    case 4: return (int)prefix<4>(in, out, work, K, R, n, s);
-    case 5: return (int)prefix<5>(in, out, work, K, R, n, s);
-    case 6: return (int)prefix<6>(in, out, work, K, R, n, s);
-    case 7: return (int)prefix<7>(in, out, work, K, R, n, s);
-    case 8: return (int)prefix<8>(in, out, work, K, R, n, s);
-    case 9: return (int)prefix<9>(in, out, work, K, R, n, s);
-    case 10: return (int)prefix<10>(in, out, work, K, R, n, s);
-    case 11: return (int)prefix<11>(in, out, work, K, R, n, s);
-    case 12: return (int)prefix<12>(in, out, work, K, R, n, s);
-    case 13: return (int)prefix<13>(in, out, work, K, R, n, s);
-    case 14: return (int)prefix<14>(in, out, work, K, R, n, s);
-    case 15: return (int)prefix<15>(in, out, work, K, R, n, s);
-    case 16: return (int)prefix<16>(in, out, work, K, R, n, s);
-    default: return (int)prefix<0>(in, out, work, K, R, n, s);
-  }
+  return (int)prefix_at<1>(K, in, out, work, R, n, s);
 }
 
 // Elements of int64 workspace a suffix call needs: grouped, one (K, R, n)
@@ -1576,26 +1757,7 @@ extern "C" int hammlet_fbscan_suffix(const int64_t* in, int64_t* out, int64_t* w
   // whole input (exact, so the same maps as the grouped form)
   if (!grouped(n) || group_bytes > SMEM_BYTES) return (int)suffix_scan_rows(in, out, work, K, R, n, s);
   bool launched = false;
-  static_assert(MAX_TEAM_K == 16, "the switch below instantiates K = 1..MAX_TEAM_K");
-  switch (K) {
-    case 1: err = suffix_one<1>(in, out, work, R, n, s, &launched); break;
-    case 2: err = suffix_one<2>(in, out, work, R, n, s, &launched); break;
-    case 3: err = suffix_one<3>(in, out, work, R, n, s, &launched); break;
-    case 4: err = suffix_one<4>(in, out, work, R, n, s, &launched); break;
-    case 5: err = suffix_one<5>(in, out, work, R, n, s, &launched); break;
-    case 6: err = suffix_one<6>(in, out, work, R, n, s, &launched); break;
-    case 7: err = suffix_one<7>(in, out, work, R, n, s, &launched); break;
-    case 8: err = suffix_one<8>(in, out, work, R, n, s, &launched); break;
-    case 9: err = suffix_one<9>(in, out, work, R, n, s, &launched); break;
-    case 10: err = suffix_one<10>(in, out, work, R, n, s, &launched); break;
-    case 11: err = suffix_one<11>(in, out, work, R, n, s, &launched); break;
-    case 12: err = suffix_one<12>(in, out, work, R, n, s, &launched); break;
-    case 13: err = suffix_one<13>(in, out, work, R, n, s, &launched); break;
-    case 14: err = suffix_one<14>(in, out, work, R, n, s, &launched); break;
-    case 15: err = suffix_one<15>(in, out, work, R, n, s, &launched); break;
-    case 16: err = suffix_one<16>(in, out, work, R, n, s, &launched); break;
-    default: break;
-  }
+  err = suffix_at<1>(K, in, out, work, R, n, s, &launched);
   if (err != cudaSuccess || launched) return (int)err;
   const long long G = n / GROUP, m = (long long)K * R;
   int64_t* inner = work;

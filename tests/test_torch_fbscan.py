@@ -24,9 +24,10 @@ torch.set_num_threads(1)
 
 SIZES = [8, 130, 256, 384, 1024, 29_696]
 KS = [1, 2, 3, 5]
-# the team instances of csrc/fbscan.cu (K = 9-16): flat (130) and grouped (3 and 8 groups)
+# the team instances of csrc/fbscan.cu (K = 9-16) and the wide ones (K = 17-32, a thread block
+# cluster per group; -s C 3 3 is K = 27): flat (130) and grouped (3 and 8 groups)
 TEAM_SIZES = [130, 384, 1024]
-TEAM_KS = [9, 10, 16]
+TEAM_KS = [9, 10, 16, 17, 21, 27, 32]
 
 
 def _matrices(shape, seed):
@@ -77,8 +78,9 @@ def test_suffix_scan_matches_jax(B, K):
 @pytest.mark.parametrize("B", TEAM_SIZES)
 @pytest.mark.parametrize("K", TEAM_KS)
 def test_prefix_scan_matches_jax_at_team_k(B, K):
-    """The K = 9-16 shapes (configuration 4's K = 9, the -s up to 16).
-    Tolerance as test_prefix_scan_matches_jax: rtol 1e-5, atol 1e-30."""
+    """The K = 9-32 shapes (configuration 4's K = 9, -s C 3 3's 27, the -s
+    up to 32). Tolerance as test_prefix_scan_matches_jax: rtol 1e-5, atol
+    1e-30."""
     M = _matrices((K, K, B), B * 10 + K)
     np.testing.assert_allclose(
         to_np(tfb.prefix_matmul_scan_t(to_torch(M))),
@@ -89,7 +91,7 @@ def test_prefix_scan_matches_jax_at_team_k(B, K):
 @pytest.mark.parametrize("B", TEAM_SIZES)
 @pytest.mark.parametrize("K", TEAM_KS)
 def test_suffix_scan_matches_jax_at_team_k(B, K):
-    """The K = 9-16 shapes. Tolerance: exact."""
+    """The K = 9-32 shapes. Tolerance: exact."""
     maps = _maps(K, (B,), B * 10 + K)
     np.testing.assert_array_equal(
         to_np(tfb.suffix_compose_scan_t(to_torch(maps, torch.int64))),
@@ -97,7 +99,7 @@ def test_suffix_scan_matches_jax_at_team_k(B, K):
     )
 
 
-@pytest.mark.parametrize("K", [9, 16])
+@pytest.mark.parametrize("K", [9, 16, 27])
 def test_four_rows_match_per_row_jax_at_team_k(K):
     """Four rows in one call (the sweep's padding: the second half of row 1
     and all of the last row identities) at B = 1024, each row against the
