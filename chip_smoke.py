@@ -306,27 +306,40 @@ KERNEL_ROWS = (  # name (the kernels a call runs on the main path), source, the 
 FB_SIZES = [8, 130, 256, 384, 29_696, 433_920, 500_000]  # [fbscan]: block counts B
 FB_BIG = 433_920  # [cards] (d)'s capacity per shard at T = 250M: 3,390 group totals
 FB_ROWS = [1, 4]  # [fbscan]: batch rows R (the sharded engine's local shards)
-# [fbscan]: states K (9-16: the team instances; 17-32: the wide ones; 33: the generic kernels)
-FB_KS = [1, 2, 3, 5, 9, 10, 12, 16, 17, 20, 21, 27, 32, 33]
+# [fbscan]: states K (9-16: the team instances; 17-32: the wide ones; 33-64: the tiled products;
+# 65: the generic kernels)
+FB_KS = [1, 2, 3, 5, 9, 10, 12, 16, 17, 20, 21, 27, 32, 33, 36, 48, 64, 65]
 # [fbscan]: (B, R) checked at K > 16, where the plain versions of (K, K, 4, 500,000) do not fit
 # the phase's time: FB_SIZES below 433,920 in both rows, 433,920 in one row
 FB_WIDE_SHAPES = [(B, R) for B in FB_SIZES if B < 433_920 for R in FB_ROWS] + [(433_920, 1)]
+# [fbscan]: (B, R) checked at K = 33-64 (K = 64 also at (433,920, 1)) and at K > 64, where the
+# generic kernels' K^3 work per thread takes seconds at larger B
+FB_DEEP_SHAPES = [(B, R) for B in FB_SIZES if B <= 29_696 for R in FB_ROWS]
+FB_GENERIC_SHAPES = [(130, 1), (384, 1), (384, 4)]
 FB_RTOL, FB_ATOL = 1e-6, 1e-30  # [fbscan]: prefix kernel against its plain version
 FB_FLAT = 500_000  # [fbscan]: a flat B (not a multiple of 128) too long for one CTA
 # [fbscan] timed inputs whose scan calls must each be one CUDA kernel (the main path's shapes,
 # and K = 9 and 10 at its P = 1 capacity: the one-launch team instances)
 FB_ONE_LAUNCH = ("P=1 sweep data", f"P={P_SHARDED} sweep data", "P=1 uniform",
                  f"P={P_SHARDED} uniform", "K=9 uniform", "K=10 uniform")
-# the generic prefix kernels (K > 32), mangled and as torch.profiler names them; no scan call of
-# K <= 32 may reach them
+# the generic prefix kernels (K > 64), mangled and as torch.profiler names them; no scan call of
+# K <= 64 may reach them
 FB_GENERIC = ("fbscan_prefix_group_any_kernel", "fbscan_prefix_combine_any_kernel",
               "fbscan_prefix_rows_grid_kernelILi0E", "fbscan_prefix_rows_grid_kernel<0>")
 # the wide prefix instances (K = 17-32): group, totals and combine kernels, three per call
 FB_WIDE = ("fbscan_prefix_wide_group_kernel", "fbscan_prefix_team_rows_kernel",
            "fbscan_prefix_team_combine_kernel")
+# the tiled-product prefix instance (K = 33-64): one cooperative launch per call
+FB_DEEP = ("fbscan_prefix_deep_kernel",)
 # the FB scans at K = 27, B = 29,696, on the generic kernels the wide instances replaced (three
 # launches each), ms with L2 flushed (NVIDIA H100 80GB HBM3, 700.00 W)
 FB_GENERIC_K27_MS = {"prefix": 49.1638, "suffix": 0.0843}
+# the FB scans at K = 33-64, B = 29,696, on the generic kernels the tiled products replaced, ms
+# with L2 flushed, the mean of two turns of fbscan_probes.py deep (NVIDIA H100 80GB HBM3, 700.00 W)
+FB_GENERIC_DEEP_MS = {33: {"prefix": 81.0150, "suffix": 0.0942},
+                      36: {"prefix": 122.9840, "suffix": 0.1000},
+                      48: {"prefix": 283.0770, "suffix": 0.1271},
+                      64: {"prefix": 631.9546, "suffix": 0.3632}}
 # the FB scans at K = 10, B = 29,696, on the generic kernels they replaced (three launches each),
 # ms with L2 flushed (NVIDIA H100 80GB HBM3, 700.00 W)
 FB_GENERIC_K10_MS = {"prefix": 1.2159, "suffix": 0.0241}
@@ -343,6 +356,7 @@ MODEL_ROWS = [(1, 30), (1, 29_696), (4, 433_920), (1, 4_000_000)]
 MODEL_KS = [3, 10]  # [model]: states K
 MODEL_DIMS = [1, 3]  # [model]: data dimensions (P = K at dim 1, 2 above)
 MODEL_DRAWS = 50  # [model]: resample draws checked per K
+MODEL_K64_ROWS = [(1, 29_696), (1, 262_144)]  # [model]: (R, B) checked at K = 64, dim 3
 # [states9]: configuration 4 of benchmarks/run_configs.py (:160-172), "multi-track multivariate
 # emissions: 2 tracks x 3 params = 9 states" (-s C 3 2): its means (:165-167), segments, noise, seed
 CONFIG4_MEANS = ((0.0, 0.0), (0.0, 3.0), (3.0, 0.0), (3.0, 3.0), (-3.0, 0.0), (0.0, -3.0),
@@ -350,13 +364,21 @@ CONFIG4_MEANS = ((0.0, 0.0), (0.0, 3.0), (3.0, 0.0), (3.0, 3.0), (-3.0, 0.0), (0
 CONFIG4_SEGLEN, CONFIG4_NOISE, CONFIG4_SEED = 800, 1.0, 4
 CONFIG4_T = 400_000  # the configuration's own T: bin/hammlet-torch -s C 3 2, host ingest
 STATES9_K = 9
-TRACKS_SETTLED = 3  # [states9], [states27]: settled F SETTLED_ITERS 4 phases, graphed engine
+TRACKS_SETTLED = 3  # [states9], [states27], [states64]: settled F phases, graphed engine
 # [states27]: three tracks, three emission parameters per track, K = 27 = 3^3 states (-s C 3 3):
 # every mean (a, b, c) for a, b, c in {-3, 0, 3}, segments and noise as configuration 4's, seed 6
 STATES27_MEANS = tuple((a, b, c) for a in (-3.0, 0.0, 3.0) for b in (-3.0, 0.0, 3.0)
                        for c in (-3.0, 0.0, 3.0))
 STATES27_K, STATES27_SEED = 27, 6
 STATES27_CLI_T = 400_000  # [states27] through bin/hammlet-torch -s C 3 3 (host ingest)
+# [states64]: three tracks, four emission parameters per track, K = 64 = 4^3 states (-s C 4 3):
+# every mean (a, b, c) for a, b, c in {-4.5, -1.5, 1.5, 4.5} ([states27]'s spacing of 3), segments
+# and noise as configuration 4's, seed 7
+STATES64_MEANS = tuple((a, b, c) for a in (-4.5, -1.5, 1.5, 4.5) for b in (-4.5, -1.5, 1.5, 4.5)
+                       for c in (-4.5, -1.5, 1.5, 4.5))
+STATES64_K, STATES64_SEED = 64, 7
+STATES64_CLI_T = 400_000  # [states64] through bin/hammlet-torch -s C 4 3 (host ingest)
+STATES64_SETTLED_ITERS = 256  # [states64]'s settled F phases (~15 ms a sweep: the smoke's time)
 
 
 class SmokeFailure(Exception):
@@ -408,6 +430,12 @@ def states27_steps(T: int, seed: int = STATES27_SEED) -> tuple[np.ndarray, np.nd
     """[states27]'s data (three tracks, -s C 3 3): track_steps with the 27
     means STATES27_MEANS, seed 6."""
     return track_steps(STATES27_MEANS, T, seed)
+
+
+def states64_steps(T: int, seed: int = STATES64_SEED) -> tuple[np.ndarray, np.ndarray]:
+    """[states64]'s data (three tracks, -s C 4 3): track_steps with the 64
+    means STATES64_MEANS, seed 7."""
+    return track_steps(STATES64_MEANS, T, seed)
 
 
 def nvidia_smi_line() -> str:
@@ -763,20 +791,26 @@ def check_cross_shard(calls: list) -> int:
 
 def phase_fbscan() -> dict:
     """[fbscan]: each FB scan kernel against its plain version on the card
-    at FB_SIZES x FB_KS x FB_ROWS, at K > 16 FB_WIDE_SHAPES alone (the
-    prefix within FB_RTOL / FB_ATOL, also
-    counting the cases that are bitwise; the suffix bitwise), each row of a
-    4-row call bitwise equal to a one-row call on that row, a permuted and a
-    transposed view (the shape of the sharded engine's cross-shard calls)
-    against the plain versions of their contiguous copies, and NaN
-    propagating as in the plain version. Not
-    counted: callers reset the counters before the run they count."""
+    at FB_SIZES x FB_KS x FB_ROWS, at K = 17-32 FB_WIDE_SHAPES alone, at K =
+    33-64 FB_DEEP_SHAPES (K = 64 also at (433,920, 1)), at K > 64
+    FB_GENERIC_SHAPES (the prefix within FB_RTOL / FB_ATOL, also counting
+    the cases that are bitwise, and bitwise at K > 32; the suffix bitwise),
+    each row of a 4-row call bitwise equal to a one-row call on that row; at
+    K = 33-64 each prefix call one tiled-product kernel and at K > 64 the
+    generic kernels (scan_kernels); a permuted and a transposed view (the
+    shape of the sharded engine's cross-shard calls) against the plain
+    versions of their contiguous copies, and NaN propagating as in the plain
+    version. Not counted: callers reset the counters before the run they
+    count."""
     res = {"cases": 0, "bitwise": 0, "prefix_err": 0.0, "suffix_err": 0.0, "worst_rel": 0.0,
            "subnormal_cases": 0}
     for B in FB_SIZES:
         for K in FB_KS:
             for R in FB_ROWS:
-                if K > 16 and (B, R) not in FB_WIDE_SHAPES:
+                if (16 < K <= 32 and (B, R) not in FB_WIDE_SHAPES
+                        or 32 < K <= 64 and (B, R) not in FB_DEEP_SHAPES
+                        and (K, B, R) != (64, FB_BIG, 1)
+                        or K > 64 and (B, R) not in FB_GENERIC_SHAPES):
                     continue
                 M, maps = fb_inputs(B, K, R, B * 100 + K * 10 + R)
                 where = f"B={B} K={K} R={R}"
@@ -788,9 +822,17 @@ def phase_fbscan() -> dict:
                 rel = float(((got - want).abs() / (FB_ATOL + want.abs())).max())
                 check(close, f"[fbscan] prefix kernel != plain beyond rtol {FB_RTOL} ({where}, "
                       f"largest relative error {rel:.3g})")
-                res["bitwise"] += bits_equal(got, want)
+                bitwise = bits_equal(got, want)
+                check(bitwise or K <= 32,
+                      f"[fbscan] prefix kernel not bitwise equal to its plain version ({where})")
+                res["bitwise"] += bitwise
                 res["cases"] += 1
                 res["prefix_err"] = max(res["prefix_err"], max_abs_err(got, want))
+                if K > 32:
+                    names = [n for n, _ in scan_kernels(lambda: fb_cuda.prefix_matmul_scan_cuda(M))]
+                    check(len(names) == 1 and FB_DEEP[0] in names[0] if K <= 64
+                          else any(gen in " ".join(names) for gen in FB_GENERIC),
+                          f"[fbscan] a K = {K} prefix call ran {names} ({where})")
                 res["worst_rel"] = max(res["worst_rel"], rel)
                 sgot = fb_cuda.suffix_compose_scan_cuda(maps)
                 check(torch.equal(sgot, fb.suffix_compose_scan_reference(maps)),
@@ -805,13 +847,18 @@ def phase_fbscan() -> dict:
                               f"[fbscan] suffix row {r} of {R} != its one-row call ({where})")
                 del M, maps, got, want, sgot
     # the sweep's matrices: many exact zeros (underflowed emission weights), some subnormal
+    # (at K > 32 also -0: 1 % of the entries)
     for B, K in ((384, 3), (29_696, 3), (29_696, 9), (29_696, 10), (29_696, 16), (29_696, 17),
-                 (29_696, 27), (29_696, 32)):
+                 (29_696, 27), (29_696, 32), (384, 33), (29_696, 33), (29_696, 48), (384, 64),
+                 (29_696, 64)):
         M, _ = fb_inputs(B, K, 2, 99 + K)
         u = torch.rand(M.shape, generator=torch.Generator(device="cuda").manual_seed(B), device="cuda")
         M = torch.where(u < 0.4, 0.0, torch.where(u < 0.45, M * 1e-39, M))
+        if K > 32:
+            M = torch.where(u > 0.99, -0.0, M)
         got, want = fb_cuda.prefix_matmul_scan_cuda(M), fb.prefix_matmul_scan_reference(M)
-        check(torch.allclose(got, want, rtol=FB_RTOL, atol=FB_ATOL),
+        check(torch.allclose(got, want, rtol=FB_RTOL, atol=FB_ATOL)
+              and (K <= 32 or bits_equal(got, want)),
               f"[fbscan] prefix kernel != plain with zeros and subnormals (B={B} K={K})")
         res["bitwise"] += bits_equal(got, want)
         res["cases"] += 1
@@ -822,12 +869,14 @@ def phase_fbscan() -> dict:
     res["bitwise"] += check_scans(tots.permute(1, 2, 0), tmaps.T, "permuted and transposed views")
     res["cases"] += 1
     # NaN: a NaN entry turns every later product of its row into NaN, as in torch
-    for B, K in ((200, 3), (29_696, 3), (200, 9), (29_696, 9), (200, 27), (29_696, 27)):
+    for B, K in ((200, 3), (29_696, 3), (200, 9), (29_696, 9), (200, 27), (29_696, 27),
+                 (200, 64), (29_696, 64)):
         M, _ = fb_inputs(B, K, 2, 77)
         M[1, 2, 0, B // 3] = float("nan")
         got, want = fb_cuda.prefix_matmul_scan_cuda(M), fb.prefix_matmul_scan_reference(M)
         check(torch.equal(torch.isnan(got), torch.isnan(want)) and bool(torch.isnan(got).any())
-              and torch.allclose(got, want, rtol=FB_RTOL, atol=FB_ATOL, equal_nan=True),
+              and torch.allclose(got, want, rtol=FB_RTOL, atol=FB_ATOL, equal_nan=True)
+              and (K <= 32 or bits_equal(got, want)),
               f"[fbscan] NaN propagation (B={B} K={K})")
     torch.cuda.synchronize()
     return res
@@ -919,8 +968,10 @@ def time_fbscan(inputs: dict) -> dict:
         for key in ("prefix", "suffix"):
             row[key + "_kernels"] = scan_kernels(fns[key])
         for name, fn in fns.items():
-            row[name] = time_ms(fn, flushed(flush))
-            row[name + "_warm"] = time_ms(fn, lambda: torch.cuda._sleep(SLEEP_CYCLES))
+            # the plain versions' K^3 products take a second per call at K = 64
+            reps = 5 if name.endswith("_plain") and K > 32 else TIMING_REPS
+            row[name] = time_ms(fn, flushed(flush), reps)
+            row[name + "_warm"] = time_ms(fn, lambda: torch.cuda._sleep(SLEEP_CYCLES), reps)
         for name, (nbytes, ops) in fb_work(B, K, R).items():
             row[name + "_bound"], row[name + "_bound_by"] = bound_ms(nbytes, ops)
         timed[tag] = row
@@ -1043,7 +1094,8 @@ def phase_model() -> dict:
     card at MODEL_ROWS x MODEL_KS x MODEL_DIMS (at B = 29,696 also a masked
     tail and an overflowing count), each row of a 4-row call against its
     one-row call; the resample kernel against its plain version over
-    MODEL_DRAWS draws at each of MODEL_KS; both with NaN statistics. Not
+    MODEL_DRAWS draws at each of MODEL_KS; both at K = 64, dim 3 at
+    MODEL_K64_ROWS; both with NaN statistics. Not
     counted: callers reset the counters before the run they count."""
     res = {"cases": 0, "draws": 0, "stats_err": 0.0, "resample_err": 0.0}
     for R, B in MODEL_ROWS:
@@ -1055,6 +1107,14 @@ def phase_model() -> dict:
                     res["stats_err"] = max(res["stats_err"], err["stats"])
                     res["cases"] += 1
                     del args
+    # K = 64 dim 3 ([states64]'s) at 256 tiles of blocks: the run stacks of all 4,260 terms in
+    # shared memory (the M burn-in runs at B = 4M, whose plain version would take 67 GB)
+    for R, B in MODEL_K64_ROWS:
+        args = model_stats_inputs(R, B, 64, 3, B + 643)
+        err = check_model(args, model_resample_inputs(64, 64), f"R={R} B={B} K=64 dim=3")
+        res["stats_err"] = max(res["stats_err"], err["stats"])
+        res["cases"] += 1
+        del args
     for K in MODEL_KS:
         stats_args = model_stats_inputs(1, 29_696, K, 1, K)
         for draw in range(MODEL_DRAWS):
@@ -1533,9 +1593,19 @@ def phase_states27(tmp: str) -> dict:
                         ["C", "3", "3"])
 
 
-def phase_tracks(tmp: str, tag: str, steps, K: int, cli_T: int, states: list[str]) -> dict:
-    """[states9], [states27]: ``steps``' data (several tracks, K = 3^tracks
-    states) at T_MAIN positions through device ingest: make_engine ->
+def phase_states64(tmp: str) -> dict:
+    """[states64]: three tracks of four levels, K = 64 = 4^3
+    (states64_steps, -s C 4 3) through phase_tracks, settled phases of
+    STATES64_SETTLED_ITERS sweeps, and at STATES64_CLI_T through
+    bin/hammlet-torch -s C 4 3 -a."""
+    return phase_tracks(tmp, "states64", states64_steps, STATES64_K, STATES64_CLI_T,
+                        ["C", "4", "3"], STATES64_SETTLED_ITERS)
+
+
+def phase_tracks(tmp: str, tag: str, steps, K: int, cli_T: int, states: list[str],
+                 settled_iters: int = SETTLED_ITERS) -> dict:
+    """[states9], [states27], [states64]: ``steps``' data (several tracks,
+    K = P^tracks states) at T_MAIN positions through device ingest: make_engine ->
     SCHEME -> finalize through a graphed engine and through one whose
     chunks run the eager gibbs_phase, same seed. Checks that ingest took
     the device path and launched both maxlet kernels, that every kernel of
@@ -1544,7 +1614,7 @@ def phase_tracks(tmp: str, tag: str, steps, K: int, cli_T: int, states: list[str
     graphed engine was a graph replay and that both engines wrote the same
     bytes; the peak device memory of setup and of each phase, with the
     capacity the phase ended at. Then settled F rates (TRACKS_SETTLED phases
-    of SETTLED_ITERS), the maxlet kernels' times at this dim on this data,
+    of ``settled_iters``), the maxlet kernels' times at this dim on this data,
     the sweep's own scan and model-update inputs (recorded from the eager
     engine), and the same data at cli_T through bin/hammlet-torch -s
     ``states`` -a in a subprocess (host ingest). Returns the engines too,
@@ -1552,7 +1622,7 @@ def phase_tracks(tmp: str, tag: str, steps, K: int, cli_T: int, states: list[str
     data, truth = steps(T_MAIN)
     dim = data.shape[1]
     streams = ("marginals", "parameters", "compression")
-    res: dict = {"K": K, "dim": dim}
+    res: dict = {"K": K, "dim": dim, "settled_iters": settled_iters}
     engines, outs = {}, {}
     for kind in ("graph", "eager"):
         prefix = os.path.join(tmp, f"{tag}-{kind}-")
@@ -1562,7 +1632,8 @@ def phase_tracks(tmp: str, tag: str, steps, K: int, cli_T: int, states: list[str
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
-        eng = runner.make_engine(data, nr_params=3, nr_data_dim=dim, seed=SEED, records=rec)
+        eng = runner.make_engine(data, nr_params=int(states[1]), nr_data_dim=dim, seed=SEED,
+                                 records=rec)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         peaks = [("setup", 0, torch.cuda.max_memory_allocated() - base, eng.capacity)]
@@ -1605,8 +1676,8 @@ def phase_tracks(tmp: str, tag: str, steps, K: int, cli_T: int, states: list[str
     g.records = e.records = None
     rates = []
     for _ in range(TRACKS_SETTLED):
-        g.run("F", SETTLED_ITERS, 4)
-        rates.append(SETTLED_ITERS / g.phase_log[-1][2])
+        g.run("F", settled_iters, 4)
+        rates.append(settled_iters / g.phase_log[-1][2])
     res["settled"], res["settled_capacity"] = rates, g.capacity
     # the maxlet kernels at this dim on this data, L2 flushed
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
@@ -1807,10 +1878,10 @@ def phase_profile(main_eng, sharded_eng, sharded_eager, tracks: dict) -> dict:
     sweep of the [main] engine with the debug bitmask off and on, and of the
     [sharded] engine; launch calls, kernels and device ms per sweep of the
     graphed and the eager [main] and [sharded] engines and of the graphed
-    [states9] and [states27] engines (``tracks``: phase -> kind -> engine),
-    whose FB scan kernels must be the team and the wide instances (no
-    generic kernel), and the eager [states9] and [states27] sweeps' device
-    ms by stage. It runs last: once
+    [states9], [states27] and [states64] engines (``tracks``: phase -> kind
+    -> engine), whose FB scan kernels must be the team, the wide and the
+    tiled-product instances (no generic kernel), and the eager [states9],
+    [states27] and [states64] sweeps' device ms by stage. It runs last: once
     the profiler has traced the card, every later launch of the process pays
     more host time, which would lower any rate measured after it."""
     old = os.environ.get("HAMMLET_DEBUG")
@@ -1844,7 +1915,8 @@ def phase_profile(main_eng, sharded_eng, sharded_eager, tracks: dict) -> dict:
         check("modelupdate_stats_kernel" in names and "modelupdate_resample_kernel" in names,
               f"the {tag} sweep ran no sweep statistics or resample kernel: {res[tag]['model']}")
     res["sharded_eager"] = profile_launches(sharded_eager)
-    for tag, prefix_kinds in (("states9", ("fbscan_prefix_team",)), ("states27", FB_WIDE)):
+    for tag, prefix_kinds in (("states9", ("fbscan_prefix_team",)), ("states27", FB_WIDE),
+                              ("states64", FB_DEEP)):
         res[tag] = profile_launches(tracks[tag]["graph"])
         names = " ".join(res[tag]["fbscan"])
         check(all(kind in names for kind in prefix_kinds) and "fbscan_suffix_one" in names
@@ -2803,8 +2875,8 @@ def print_sharded(sh: dict, main_rate: float) -> None:
 
 
 def print_tracks(tag: str, s9: dict, what: str, states: str, cli_T: int) -> None:
-    """The [states9] or [states27] lines: ``what`` names the configuration,
-    ``states`` its -s arguments."""
+    """The [states9], [states27] or [states64] lines: ``what`` names the
+    configuration, ``states`` its -s arguments."""
     g = s9["graph"]
     rates = s9["settled"]
     print(f"[{tag}] T={T_MAIN} x {s9['dim']} tracks K={s9['K']} ({what}, -s {states}) '{SCHEME}', "
@@ -2815,7 +2887,7 @@ def print_tracks(tag: str, s9: dict, what: str, states: str, cli_T: int) -> None
           f"MAP agreement {s9['map_agreement']:.4f}, rows sum to {N_RECORDED}, launches "
           f"{g['launches']}, phases {g['phases']}, captures per phase {g['captures']}; every sweep "
           f"a CUDA graph replay; graphed and eager engines byte-identical (marginals, parameters, "
-          f"compression; sha256 {s9['sha256']}); settled F {SETTLED_ITERS} 4 {rates} sweeps/s "
+          f"compression; sha256 {s9['sha256']}); settled F {s9['settled_iters']} 4 {rates} sweeps/s "
           f"(median {np.median(rates):.2f}, spread {min(rates):.2f}-{max(rates):.2f}), settled "
           f"capacity {s9['settled_capacity']}", flush=True)
     mx = s9["maxlet"]
@@ -2915,8 +2987,11 @@ def main() -> int:
         took("fbscan")
         print(f"[fbscan] prefix_matmul_scan_kernel within rtol {FB_RTOL} / atol {FB_ATOL} of "
               f"its plain version in all {fbk['cases']} cases (B in {FB_SIZES} x K in {FB_KS} x R "
-              f"in {FB_ROWS}, at K > 16 (B, R) in {FB_WIDE_SHAPES}; {fbk['subnormal_cases']} with 40 % "
-              f"zeros and 5 % subnormals, and the views; {fbk['bitwise']} of "
+              f"in {FB_ROWS}, at K = 17-32 (B, R) in {FB_WIDE_SHAPES}, at K = 33-64 in "
+              f"{FB_DEEP_SHAPES} and K = 64 at ({FB_BIG}, 1), at K = 65 in {FB_GENERIC_SHAPES}; "
+              f"{fbk['subnormal_cases']} with 40 % zeros and 5 % subnormals (at K > 32 also 1 % -0), "
+              f"and the views; bitwise at every K > 32 and one tiled-product kernel per K = 33-64 "
+              f"call, the generic kernels at K = 65; {fbk['bitwise']} of "
               "them bitwise; largest absolute error "
               f"{fbk['prefix_err']}, relative {fbk['worst_rel']:.3g}); suffix_compose_scan_kernel "
               "bitwise equal to its plain version in all of them; each row of a 4-row call "
@@ -3004,6 +3079,10 @@ def main() -> int:
             s27 = phase_states27(tmp)
             took("states27")
         print_tracks("states27", s27, "three tracks", "C 3 3", STATES27_CLI_T)
+        with tempfile.TemporaryDirectory() as tmp:
+            s64 = phase_states64(tmp)
+            took("states64")
+        print_tracks("states64", s64, "three tracks of four levels", "C 4 3", STATES64_CLI_T)
 
         sweep_p1, views_p1 = g["scans"].main_and_others()
         sweep_p4, views_p4 = sh.pop("scans").main_and_others()
@@ -3027,7 +3106,8 @@ def main() -> int:
             "K=17 uniform": fb_inputs(m["capacity"], 17, 1, SEED),
             "K=27 uniform": fb_inputs(m["capacity"], 27, 1, SEED),
             "K=32 uniform": fb_inputs(m["capacity"], 32, 1, SEED),
-            "K=33 uniform (generic kernels)": fb_inputs(m["capacity"], 33, 1, SEED),
+            "K=64 sweep data": s64["scans"].main_and_others()[0],
+            **{f"K={K} uniform": fb_inputs(m["capacity"], K, 1, SEED) for K in (33, 36, 48, 64)},
         })
         print(f"[fbscan] the sweep's own cross-shard calls ({len(views_p4)} of the eager "
               f"P={P_SHARDED} sweep, (kind, shape, strides) "
@@ -3054,9 +3134,18 @@ def main() -> int:
         for tag, row in fbt.items():
             B, K, R = row["shape"]
             names = " ".join(n for n, _ in row["prefix_kernels"] + row["suffix_kernels"])
-            check((K <= 32) != any(gen in names for gen in FB_GENERIC),
+            check(not any(gen in names for gen in FB_GENERIC),
                   f"[fbscan] a K = {K} scan call on the {tag} inputs ran {names} (the generic "
-                  "kernels are for K > 32 alone)")
+                  "kernels are for K > 64 alone)")
+            if 32 < K <= 64:
+                prefix = [n for n, _ in row["prefix_kernels"]]
+                check(len(prefix) == 1 and FB_DEEP[0] in prefix[0],
+                      f"[fbscan] a K = {K} prefix call on the {tag} inputs ran {prefix}, not one "
+                      "tiled-product kernel")
+                check("uniform" not in tag or len(row["suffix_kernels"]) == 1
+                      and "fbscan_suffix_one_kernel" in row["suffix_kernels"][0][0],
+                      f"[fbscan] a K = {K} suffix call on the {tag} inputs ran "
+                      f"{row['suffix_kernels']}, not one CUDA kernel")
             if 16 < K <= 32:
                 prefix = [n for n, _ in row["prefix_kernels"]]
                 check(len(prefix) == 3 and all(w in n for w, n in zip(FB_WIDE, prefix)),
@@ -3079,8 +3168,21 @@ def main() -> int:
               f"{FB_GENERIC_K27_MS['prefix']} and {FB_GENERIC_K27_MS['suffix']} "
               f"({FB_GENERIC_K27_MS['prefix'] / k27['prefix']:.1f}x and "
               f"{FB_GENERIC_K27_MS['suffix'] / k27['suffix']:.2f}x); K=17 prefix "
-              f"{fbt['K=17 uniform']['prefix']:.4f}, K=32 {fbt['K=32 uniform']['prefix']:.4f}, K=33 "
-              f"(generic) {fbt['K=33 uniform (generic kernels)']['prefix']:.4f}", flush=True)
+              f"{fbt['K=17 uniform']['prefix']:.4f}, K=32 {fbt['K=32 uniform']['prefix']:.4f}",
+              flush=True)
+        deep = []
+        for K in (33, 36, 48, 64):
+            row, old = fbt[f"K={K} uniform"], FB_GENERIC_DEEP_MS.get(K)
+            deep.append(
+                f"K={K} prefix {row['prefix']:.4f} (bound {row['prefix_bound']:.4g}, "
+                f"{row['prefix_bound'] / row['prefix']:.1%}), suffix {row['suffix']:.4f}"
+                + (f"; the generic kernels took {old['prefix']} and {old['suffix']} "
+                   f"({old['prefix'] / row['prefix']:.1f}x and {old['suffix'] / row['suffix']:.2f}x)"
+                   if old else ""))
+        own = fbt["K=64 sweep data"]
+        print(f"[fbscan] K=33-64 B={m['capacity']} (the tiled products, one launch), ms with L2 "
+              f"flushed: {'; '.join(deep)}; the K=64 sweep's own at B={own['shape'][0]}: prefix "
+              f"{own['prefix']:.4f}, suffix {own['suffix']:.4f}", flush=True)
         for P in (1, P_SHARDED):
             own, uni = fbt[f"P={P} sweep data"], fbt[f"P={P} uniform"]
             print(f"[fbscan] P={P}, ms with L2 flushed on the sweep's own inputs / on uniform "
@@ -3102,6 +3204,7 @@ def main() -> int:
                                    model_resample_inputs(10, SEED)),
             "K=9 dim=2 sweep data": s9["models"].main(),
             "K=27 dim=3 sweep data": s27["models"].main(),
+            "K=64 dim=3 sweep data": s64["models"].main(),
         })
         for tag, row in mdt.items():
             R, B, K, dim = row["model_shape"]
@@ -3147,7 +3250,8 @@ def main() -> int:
                   f"on chain 1 in subprocesses without JAX; seconds {tl['seconds']}", flush=True)
 
         pr = phase_profile(main_eng, sh.pop("engine"), sh.pop("eager_engine"),
-                           {"states9": s9.pop("engines"), "states27": s27.pop("engines")})
+                           {"states9": s9.pop("engines"), "states27": s27.pop("engines"),
+                            "states64": s64.pop("engines")})
         took("profile")
         print(f"[profile] torch.profiler F 64 4 at T={T_MAIN}: [main] engine HAMMLET_DEBUG "
               f"off {pr['0'][0]} kernels/sweep, {pr['0'][1]:.4f} device ms/sweep; on "
@@ -3166,7 +3270,8 @@ def main() -> int:
                   f"kernels (per sweep, device ms per sweep) {p['fbscan']}; model-update kernels "
                   f"{p['model']}", flush=True)
         for tag, K, dim, kind in (("states9", STATES9_K, 2, "team"),
-                                  ("states27", STATES27_K, 3, "wide")):
+                                  ("states27", STATES27_K, 3, "wide"),
+                                  ("states64", STATES64_K, 3, "tiled-product")):
             p = pr[tag]
             print(f"[profile] graphed [{tag}] engine (K={K}, dim {dim}), per settled sweep of F 64 "
                   f"4: launch calls {p['launch_calls']}, {p['kernels']} device kernels, "
@@ -3222,37 +3327,25 @@ def main() -> int:
         # statistics or the resample
         "library_ms": None,
     } for kernel, source, replaces, key, count in KERNEL_ROWS] + [{
-        # [states9]'s K = 9 scan kernels, timed on that sweep's own matrices and maps
-        "name": " + ".join(kernel_label(n) for n, _ in fbt["K=9 sweep data"][key + "_kernels"]),
+        # the scan kernels of [states9] (K = 9: the team prefix), [states27] (K = 27: the wide
+        # prefix's three) and [states64] (K = 64: the tiled product), timed on each sweep's own
+        # matrices and maps
+        "name": " + ".join(kernel_label(n) for n, _ in fbt[f"K={K} sweep data"][key + "_kernels"]),
         "route": "cuda",
         "source": "hammlet_tpu_torch/csrc/fbscan.cu",
         "replaces": replaces,
-        "launches": s9["graph"]["launches"][count],
-        "device_launches_per_sweep": sum(n for kname, (n, _) in pr["states9"]["fbscan"].items()
+        "launches": phase["graph"]["launches"][count],
+        "device_launches_per_sweep": sum(n for kname, (n, _) in pr[tag]["fbscan"].items()
                                          if "fbscan_" + key in kname),
         "max_abs_err": worst[key],
-        "ms": fbt["K=9 sweep data"][key],
-        "plain_ms": fbt["K=9 sweep data"][key + "_plain"],
-        "bound_ms": fbt["K=9 sweep data"][key + "_bound"],
-        "bound_by": fbt["K=9 sweep data"][key + "_bound_by"],
+        "ms": fbt[f"K={K} sweep data"][key],
+        "plain_ms": fbt[f"K={K} sweep data"][key + "_plain"],
+        "bound_ms": fbt[f"K={K} sweep data"][key + "_bound"],
+        "bound_by": fbt[f"K={K} sweep data"][key + "_bound_by"],
         "library_ms": None,
-    } for _, _, replaces, key, count in KERNEL_ROWS if key in ("prefix", "suffix")] + [{
-        # [states27]'s K = 27 scan kernels (the wide prefix instances, the one-launch suffix),
-        # timed on that sweep's own matrices and maps
-        "name": " + ".join(kernel_label(n) for n, _ in fbt["K=27 sweep data"][key + "_kernels"]),
-        "route": "cuda",
-        "source": "hammlet_tpu_torch/csrc/fbscan.cu",
-        "replaces": replaces,
-        "launches": s27["graph"]["launches"][count],
-        "device_launches_per_sweep": sum(n for kname, (n, _) in pr["states27"]["fbscan"].items()
-                                         if "fbscan_" + key in kname),
-        "max_abs_err": worst[key],
-        "ms": fbt["K=27 sweep data"][key],
-        "plain_ms": fbt["K=27 sweep data"][key + "_plain"],
-        "bound_ms": fbt["K=27 sweep data"][key + "_bound"],
-        "bound_by": fbt["K=27 sweep data"][key + "_bound_by"],
-        "library_ms": None,
-    } for _, _, replaces, key, count in KERNEL_ROWS if key in ("prefix", "suffix")]}), flush=True)
+    } for tag, K, phase in (("states9", STATES9_K, s9), ("states27", STATES27_K, s27),
+                            ("states64", STATES64_K, s64))
+      for _, _, replaces, key, count in KERNEL_ROWS if key in ("prefix", "suffix")]}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

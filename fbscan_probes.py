@@ -61,6 +61,19 @@ kernels (csrc/modelupdate.cu) beyond chip_smoke.py.
         subnormals and with a NaN (one line "WIDE_BITS <json>": the cases,
         and those not bitwise).
 
+    python3 fbscan_probes.py deep OLD_FBSCAN_CU
+        The tiled-product instances (K = 33..64) of the current fbscan.cu,
+        as `teams`, against the parent's source (which ran K > 32 on its
+        generic kernels) in turns, on uniform inputs: K in DEEP_KS at B =
+        29,696, K = 64 at B = 9,600 in four rows and sweep-like. Prints the
+        ptxas lines of the deep and suffix kernels and one line "TEAMS
+        <json>" per input; then each K = 33..65 against the plain versions
+        at WIDE_BITS, at K in DEEP_SPECIAL_KS also with zeros and
+        subnormals, with -0 and an infinity, and with a NaN (one line
+        "WIDE_BITS <json>"); then the tile shapes (DEEP_VARIANTS: two
+        matrices per CTA, as built; one matrix per CTA; 16 x 16 threads per
+        matrix), as `variants` at K in DEEP_KS.
+
     python3 fbscan_probes.py variants KS SUBSTITUTIONS
         Copies of the current fbscan.cu, each with text substituted
         (SUBSTITUTIONS: JSON {name: [[old, new], ...]}; an empty list is
@@ -323,6 +336,25 @@ WIDE_KS = [17, 20, 21, 27, 32, 33]
 WIDE_BITS = [(130, 1), (1_024, 1), (1_024, 4), (29_696, 1), (9_600, 4)]
 
 
+#: [deep]: states of the uniform inputs at B = 29,696 (-s C 6 2 is 36, -s C 4 3 is 64)
+DEEP_KS = [33, 36, 48, 64]
+#: [deep]: states of the bitwise checks with zeros, subnormals, -0, infinities and NaN
+DEEP_SPECIAL_KS = [33, 48, 64]
+#: [deep]: the copies of fbscan.cu timed in turns: the tile shapes
+DEEP_VARIANTS = {
+    "mats2": [],
+    "mats1": [["#define DEEP_MATS 2", "#define DEEP_MATS 1"]],
+    "side16": [["#define DEEP_SIDE 8 ", "#define DEEP_SIDE 16 "]],
+}
+
+
+def deep_inputs() -> dict:
+    """`deep`'s inputs: tag -> (B, K, R)."""
+    inputs = {f"K={K} B=29696": (29_696, K, 1) for K in DEEP_KS}
+    inputs.update({"K=64 B=9600 R=4": (9_600, 64, 4), "K=64 B=29696 sweep-like": (29_696, 64, 1)})
+    return inputs
+
+
 def team_inputs() -> dict:
     """`teams`' inputs: tag -> (B, K, R)."""
     inputs = {f"K={K} B=29696": (29_696, K, 1) for K in TEAM_KS}
@@ -354,24 +386,27 @@ def print_ptxas(log: str, kinds: tuple, tag: str = "") -> None:
                              if "ptxas info" in x or "spill" in x), flush=True)
 
 
-def wide_bits() -> None:
-    """Each K of the wide instances (and 33) against the plain versions at
-    WIDE_BITS, with zeros and subnormals and with a NaN at K = 27: prints
-    "WIDE_BITS <json>" with the cases that were not bitwise (prefix) or
-    equal (suffix)."""
+def wide_bits(ks: range, special_ks: tuple) -> None:
+    """Each K of ``ks`` against the plain versions at WIDE_BITS, at
+    ``special_ks`` with zeros and subnormals, with -0 and an infinity, and
+    with a NaN: prints "WIDE_BITS <json>" with the cases that were not
+    bitwise (prefix) or equal (suffix)."""
     from hammlet_tpu_torch.samplers import fb_cuda
     from hammlet_tpu_torch.samplers import forward_backward as fb
 
     bad, cases = [], 0
-    for K in range(17, 34):
+    for K in ks:
         for B, R in WIDE_BITS:
             M, maps = cs.fb_inputs(B, K, R, B + K + R)
             variants = {"uniform": M}
-            if K == 27 and R == 1:
+            if K in special_ks and R == 1:
                 u = torch.rand(M.shape, generator=torch.Generator(device="cuda").manual_seed(B),
                                device="cuda")
                 variants["zeros and subnormals"] = torch.where(
                     u < 0.4, 0.0, torch.where(u < 0.45, M * 1e-39, M))
+                variants["-0 and inf"] = M.clone()
+                variants["-0 and inf"][:, :, 0, 5:9] = -0.0
+                variants["-0 and inf"][0, 0, 0, B // 2] = float("inf")
                 variants["NaN"] = M.clone()
                 variants["NaN"][1, 2, 0, B // 3] = float("nan")
             for name, X in variants.items():
@@ -525,7 +560,9 @@ def stamped_call(lib, call, before, stamps: int) -> dict:
     return row
 
 
-def variant_turns(ks: list[int], substitutions: dict) -> None:
+def variant_turns(ks: list[int], substitutions: dict,
+                  kinds: tuple = ("wide", "team_rows", "team_combine", "suffix_one",
+                                  "deep")) -> None:
     """`variants`: copies of fbscan.cu with text substituted, timed in
     turns (see the module's docstring)."""
     from concurrent.futures import ThreadPoolExecutor
@@ -555,7 +592,7 @@ def variant_turns(ks: list[int], substitutions: dict) -> None:
         built = list(pool.map(build, substitutions.items()))
     libs = {}
     for name, b in built:
-        print_ptxas(b.log, ("wide", "team_rows", "team_combine", "suffix_one"), name)
+        print_ptxas(b.log, kinds, name)
         print("BUILT", name, round(b.seconds, 1), flush=True)
         libs[name] = fb_cuda._bind(ctypes.CDLL(str(b.path)))
     current = fb_cuda._library()
@@ -694,7 +731,13 @@ def main() -> int:
     if sys.argv[1:2] == ["wide"] and len(sys.argv) == 3:
         # team_turns first: its build prints the ptxas lines (a built library has no log)
         team_turns(sys.argv[2], wide_inputs(), ("wide", "team_rows", "team_combine", "suffix_one"))
-        wide_bits()
+        wide_bits(range(17, 34), (27,))
+        return 0
+    if sys.argv[1:2] == ["deep"] and len(sys.argv) == 3:
+        kinds = ("deep", "suffix_one", "suffix_group", "suffix_rows")
+        team_turns(sys.argv[2], deep_inputs(), kinds)
+        wide_bits(range(33, 66), tuple(DEEP_SPECIAL_KS))
+        variant_turns(DEEP_KS, DEEP_VARIANTS, kinds)
         return 0
     if sys.argv[1:2] == ["variants"] and len(sys.argv) == 4:
         variant_turns([int(k) for k in sys.argv[2].split(",")], json.loads(sys.argv[3]))

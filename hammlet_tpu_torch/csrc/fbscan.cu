@@ -4,6 +4,9 @@
 // call's groups can be resident at once (the main path's shapes), three
 // beyond that.
 //
+// (The prefix at K = 33..64 takes one launch at every shape: see "prefix,
+// K = 33..64".)
+//
 // Replaces the JAX package's grouped scans, which XLA compiles into a few
 // fused ops on the TPU:
 //   hammlet_tpu/samplers/forward_backward.py:prefix_matmul_scan_t (:94-130)
@@ -41,12 +44,14 @@
 // barriers and dependent passes through shared memory. At K = 17-32 the
 // same holds (at K = 27, B = 29,696: 0.14 ms by float32 operations, 0.052
 // by bytes), and a group of 128 matrices no longer fits one SM: it spreads
-// over a thread block cluster (see "prefix, K = 17..32").
+// over a thread block cluster (see "prefix, K = 17..32"). At K = 33..64 a
+// group no longer fits a cluster, and the products themselves set the
+// time (see "prefix, K = 33..64").
 //
 // Grouped form (n > 256 and n % 128 == 0, G = n / 128 groups per row):
 //   *_one_kernel (K <= MAX_REG_K; the prefix's team instances for K =
 //   MAX_REG_K + 1 .. MAX_TEAM_K, fbscan_prefix_team_one_kernel; the suffix
-//   for every K <= MAX_WIDE_K), when the (G, R) grid of CTAs fits the card
+//   for every K <= MAX_DEEP_K), when the (G, R) grid of CTAs fits the card
 //   at once (the host decides by occupancy, with the dynamic shared memory
 //   the launch really takes, before the launch): one cooperative launch.
 //   Each CTA takes its group into registers, one block per thread (K <=
@@ -60,7 +65,7 @@
 //   device memory, the in-group result stays in registers. A grid-wide
 //   barrier; then each CTA computes the scan of its row's totals at the one
 //   position it needs (before its group for the prefix, after it for the
-//   suffix) in shared memory: level l of the row's scan touches that
+//   suffix; in place above MAX_WIDE_K) in shared memory: level l of the row's scan touches that
 //   position's value only through the values 2^l apart, so each level
 //   halves the values kept, with the same combines as the full scan (and
 //   all of its levels); no second barrier (the team instances take the
@@ -76,10 +81,11 @@
 //   *_group_kernel: the in-group levels as above (the prefix's team group
 //     kernel for K = 9..16, fbscan_prefix_wide_group_kernel for K =
 //     17..32; the suffix's group kernel keeps the maps in shared memory as
-//     int32, K <= 48), the in-group scan and each group's total to device
-//     memory;
+//     int32, K <= MAX_DEEP_K), the in-group scan and each group's total to
+//     device memory;
 //   rows scan of the totals: one CTA of 1024 threads per row where two
-//     copies of a row fit in 48 KB of shared memory (K <= 8), else one
+//     copies of a row fit in 48 KB of shared memory (K <= 8; the suffix
+//     above MAX_WIDE_K up to the card's opt-in shared memory), else one
 //     cooperative launch spread over the whole card, a grid-wide barrier
 //     between levels, ping-ponging through device scratch (the prefix at K
 //     = 9..32: fbscan_prefix_team_rows_kernel, a thread per column);
@@ -88,12 +94,13 @@
 // Flat form (n <= 256 or n % 128 != 0, where the JAX package is flat too):
 // the rows scan alone, on the input, in one CTA per row or over the whole
 // card as above (a flat n reaches T when the capacity is clipped to it).
-// A suffix whose group does not fit in shared memory (K > 48) takes the
-// flat form over the whole card: composition is exact, so its association
-// does not change the result. The prefix above MAX_WIDE_K (K > 32, e.g.
-// -s C 4 3) keeps the generic kernels: the in-group levels and the combine
-// in device memory (*_any_kernel) and the grid-wide rows kernel <0>; the
-// suffix above MAX_WIDE_K the group, rows and combine kernels.
+// A suffix above MAX_DEEP_K (K > 64) takes the flat form over the whole
+// card: composition is exact, so its association does not change the
+// result. The prefix at K = MAX_WIDE_K + 1 .. MAX_DEEP_K (-s C 6 2, -s C 4
+// 3) is one cooperative launch, grouped or flat (fbscan_prefix_deep_kernel;
+// see "prefix, K = 33..64"). The prefix above MAX_DEEP_K (K > 64, e.g. -s
+// C 3 4) keeps the generic kernels: the in-group levels and the combine in
+// device memory (*_any_kernel) and the grid-wide rows kernel <0>.
 //
 // Exactness: a combine is z[i,k] = sum_j e[i,j] * x[j,k] summed over j in
 // order, with the _rn intrinsics (never contracted into an FMA), then
@@ -1166,6 +1173,385 @@ fbscan_prefix_wide_group_kernel(const float* __restrict__ in, float* __restrict_
   team_store<K>(sm.s, inner, plane, base);
 }
 
+// ------------------------------------ prefix, K = 33..64: tiled products
+
+// A matrix is 4.3 to 16 KB here and a group of 128 up to 2 MB, more than a
+// cluster's shared memory, and a combine is 36 K to 262 K multiply-adds:
+// the products set the bound (at K = 64, B = 29,696: 1.89 ms by float32
+// operations, 0.29 by bytes). So each combine is a thread block's tiled
+// product: DEEP_SIDE^2 threads per matrix, thread (ti, tk) owning the T x
+// T entries (ti + DEEP_SIDE a, tk + DEEP_SIDE b) of z, T = ceil(K /
+// DEEP_SIDE) (K padded to KP = DEEP_SIDE T in i and k only; the j loop
+// runs exactly K terms, the padded entries are computed and dropped). Both
+// operands sit in shared memory row-major, rows S = KP + 4 floats apart,
+// so a warp's loads of e[i][j] (4 rows) and of x[j][k] (8 consecutive
+// columns) hit distinct banks, and each step of j loads 2T values for T^2
+// multiply-adds. The matrix's max: max_nan over the thread's valid
+// entries, the warp's by shuffles, the matrix's two warps through shared
+// memory; each thread divides its own entries (rescale_part's
+// arithmetic). The group's levels cannot stay on chip, so every level is
+// a pass over the workspace, the matrices stored matrix-major (rows of K4
+// = K rounded up to 4 floats, one 16-byte aligned run per matrix),
+// ping-ponging between two buffers; a CTA takes DEEP_MATS matrices per
+// step, copying both operands of each into shared memory with 16-byte
+// cp.async, all in flight at once. The input's (K, K, R, n) layout goes
+// through a shared-memory transpose of 32 consecutive matrices first, the
+// result back through one last. The group totals' scan and the flat form
+// take the same passes, all in one cooperative launch over the card, a
+// grid-wide barrier after each phase and level. (A thread block cluster
+// per group for the in-group phases, the totals' scan over the card
+// between, was slower at every K probed: K = 64, B = 29,696, 10.15
+// against 8.62 ms; fbscan_probes.py deep, an NVIDIA H100 80GB HBM3 at
+// 700 W.)
+#define MAX_DEEP_K 64
+#define DEEP_SIDE 8     // threads per side of a matrix's thread grid
+#define DEEP_MATS 2     // matrices per CTA and step
+#define DEEP_TILE 32    // matrices per transpose tile
+#define DEEP_BATCH 8    // loads in flight per thread in a transpose
+static_assert(MAX_DEEP_K <= 2 * WARP, "a transpose's lane takes two columns of a row");
+#define DEEP_T_MIN ((MAX_WIDE_K + DEEP_SIDE) / DEEP_SIDE)
+#define DEEP_T_MAX ((MAX_DEEP_K + DEEP_SIDE - 1) / DEEP_SIDE)
+
+template <int T>
+struct Deep {
+  static constexpr int KP = DEEP_SIDE * T;  // padded K
+  // row stride of an operand in shared memory: 16-byte rows (cp.async), and
+  // S = 4 (mod 8), so the 4 rows of e a warp reads lie in distinct banks
+  static constexpr int S = KP + 4;
+  static constexpr int SLOT = KP * S;       // floats of one operand
+  static constexpr int MAT_THREADS = DEEP_SIDE * DEEP_SIDE;
+  static constexpr int MAT_WARPS = MAT_THREADS / WARP;
+  static constexpr int THREADS = DEEP_MATS * MAT_THREADS;
+  // operand floats: two per matrix
+  static constexpr int OPERANDS = 2 * DEEP_MATS * SLOT;
+  // dynamic shared memory: the operands, the warps' maxima
+  static constexpr int SMEM_FLOATS = OPERANDS + DEEP_MATS * MAT_WARPS;
+  // CTAs per SM the registers leave room for: 128 registers a thread up to
+  // T = 6, 168 above (the T^2 entries of z, 2T operands)
+  static constexpr int MIN_BLOCKS = 65536 / (THREADS * (T <= 6 ? 128 : 168));
+  static_assert(MAT_THREADS % WARP == 0 && S % 8 == 4, "whole warps per matrix, the stride");
+  static_assert((DEEP_TILE + 1) * KP <= OPERANDS, "a transpose row fits the operands");
+};
+
+// The workspace layout: K rows of K4 floats per matrix.
+__host__ __device__ constexpr int deep_row(int K) { return (K + 3) / 4 * 4; }
+
+// What every pass of a deep scan needs: the call's tensors and shape, the
+// workspace's buffers (in-group or flat ping-pong wa / wb, totals ta / tb)
+// and the levels.
+struct DeepArgs {
+  const float* in;
+  float* out;
+  float* wa;
+  float* wb;
+  float* ta;
+  float* tb;
+  int K, R, levels, tlevels;
+  long long n, G;  // G = 0: the flat form
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned at = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(at), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// A workspace matrix (rows of K4 floats) into an operand slot (rows of S
+// floats), by the matrix's threads (lt = 0..MAT_THREADS - 1): 16-byte
+// asynchronous copies through L2 (cp.async.cg; another SM wrote them), all
+// in flight at once; the caller waits (cp_async_wait_all) and syncs.
+template <int T>
+__device__ __forceinline__ void deep_load(const float* src, float* slot, int K, int lt) {
+  const int V = deep_row(K) / 4;
+  for (int idx = lt; idx < K * V; idx += Deep<T>::MAT_THREADS)
+    cp_async16(slot + (idx / V) * Deep<T>::S + 4 * (idx % V), src + 4 * idx);
+}
+
+// The identity as an earlier operand: the same K products as the plain
+// version's identity matrix.
+template <int T>
+__device__ __forceinline__ void deep_eye(float* slot, int K, int lt) {
+  for (int idx = lt; idx < K * K; idx += Deep<T>::MAT_THREADS)
+    slot[(idx / K) * Deep<T>::S + idx % K] = idx / K == idx % K ? 1.0f : 0.0f;
+}
+
+// z = normalize(e @ x) for the thread's tile, e and x operand slots, red
+// the matrix's MAT_WARPS maxima; every thread of the CTA calls it (live:
+// whether this thread's matrix exists), so that the barrier is uniform.
+// Returns with z divided.
+template <int T>
+__device__ __forceinline__ void deep_combine(const float* e, const float* x, float* red, int K,
+                                             bool live, float (&z)[T][T]) {
+  using D = Deep<T>;
+  const int lt = threadIdx.x % D::MAT_THREADS, ti = lt / DEEP_SIDE, tk = lt % DEEP_SIDE;
+  float m = -INFINITY;
+  bool special = false;
+  if (live) {
+    const float* er = e + ti * D::S;
+    const float* xc = x + tk;
+    float ev[T], xv[T];
+#pragma unroll
+    for (int a = 0; a < T; ++a) ev[a] = er[a * DEEP_SIDE * D::S];
+#pragma unroll
+    for (int b = 0; b < T; ++b) xv[b] = xc[b * DEEP_SIDE];
+#pragma unroll
+    for (int a = 0; a < T; ++a) {
+#pragma unroll
+      for (int b = 0; b < T; ++b) z[a][b] = __fmul_rn(ev[a], xv[b]);
+    }
+#pragma unroll 2
+    for (int j = 1; j < K; ++j) {
+#pragma unroll
+      for (int a = 0; a < T; ++a) ev[a] = er[a * DEEP_SIDE * D::S + j];
+#pragma unroll
+      for (int b = 0; b < T; ++b) xv[b] = xc[j * D::S + b * DEEP_SIDE];
+#pragma unroll
+      for (int a = 0; a < T; ++a) {
+#pragma unroll
+        for (int b = 0; b < T; ++b) z[a][b] = __fadd_rn(z[a][b], __fmul_rn(ev[a], xv[b]));
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < T; ++a) {
+#pragma unroll
+      for (int b = 0; b < T; ++b) {
+        if (ti + DEEP_SIDE * a < K && tk + DEEP_SIDE * b < K) {
+          m = max_nan(m, z[a][b]);
+          special |= !isfinite(z[a][b]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int off = WARP / 2; off > 0; off /= 2) m = max_nan(m, __shfl_xor_sync(FULL_MASK, m, off));
+  const int mat = threadIdx.x / D::MAT_THREADS;
+  if (threadIdx.x % WARP == 0) red[mat * D::MAT_WARPS + lt / WARP] = m;
+  __syncthreads();
+  if (!live) return;
+  m = red[mat * D::MAT_WARPS];
+#pragma unroll
+  for (int w = 1; w < D::MAT_WARPS; ++w) m = max_nan(m, red[mat * D::MAT_WARPS + w]);
+  m = clamp_scale(m);
+  if (special || !isfinite(m)) {
+#pragma unroll
+    for (int a = 0; a < T; ++a) {
+#pragma unroll
+      for (int b = 0; b < T; ++b) z[a][b] = __fdiv_rn(z[a][b], m);
+    }
+    return;
+  }
+  const double md = m, y = __drcp_rn(md);
+#pragma unroll
+  for (int a = 0; a < T; ++a) {
+#pragma unroll
+    for (int b = 0; b < T; ++b) z[a][b] = wide_quotient(z[a][b], md, y);
+  }
+}
+
+// The thread's valid entries of z into a workspace matrix (rows of K4).
+template <int T>
+__device__ __forceinline__ void deep_store(const float (&z)[T][T], float* dst, int K) {
+  const int lt = threadIdx.x % Deep<T>::MAT_THREADS, ti = lt / DEEP_SIDE, tk = lt % DEEP_SIDE;
+  const int K4 = deep_row(K);
+#pragma unroll
+  for (int a = 0; a < T; ++a) {
+#pragma unroll
+    for (int b = 0; b < T; ++b) {
+      const int i = ti + DEEP_SIDE * a, k = tk + DEEP_SIDE * b;
+      if (i < K && k < K) dst[i * K4 + k] = z[a][b];
+    }
+  }
+}
+
+// One pass over the workspace matrices g in [lo, hi), this CTA taking
+// DEEP_MATS of them at a time (worker of workers): dst[g] =
+// normalize(earlier(g) @ xs[g]), earlier(g) a workspace matrix or nullptr
+// for the identity; where tot is given and g % seg == seg - 1 (a group's
+// last matrix), also tot[g / seg].
+template <int T, class Earlier>
+__device__ __forceinline__ void deep_pass(const float* xs, float* dst, float* tot, long long seg,
+                                          long long lo, long long hi, Earlier earlier, int K,
+                                          int worker, int workers, float* smem) {
+  using D = Deep<T>;
+  const int mat = threadIdx.x / D::MAT_THREADS, lt = threadIdx.x % D::MAT_THREADS;
+  float* es = smem + mat * 2 * D::SLOT;
+  float* xslot = es + D::SLOT;
+  float* red = smem + D::OPERANDS;
+  const long long ms = (long long)K * deep_row(K);
+  for (long long first = lo + (long long)worker * DEEP_MATS; first < hi;
+       first += (long long)workers * DEEP_MATS) {
+    const long long g = first + mat;
+    const bool live = g < hi;
+    __syncthreads();  // the slots' readers of the last step are done
+    if (live) {
+      const float* e = earlier(g);
+      if (e != nullptr) {
+        deep_load<T>(e, es, K, lt);
+      } else {
+        deep_eye<T>(es, K, lt);
+      }
+      deep_load<T>(xs + g * ms, xslot, K, lt);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    float z[T][T];
+    deep_combine<T>(es, xslot, red, K, live, z);
+    if (live) {
+      deep_store<T>(z, dst + g * ms, K);
+      if (tot != nullptr && g % seg == seg - 1) deep_store<T>(z, tot + g / seg * ms, K);
+    }
+  }
+}
+
+// Matrices [lo, hi) between the (K, K, R, n) layout (element e of matrix
+// g at e * plane + g) and the workspace's (IN: into it), DEEP_TILE
+// consecutive matrices and `rows` of their rows at a time through shared
+// memory (entry e = r K + c of the rows, matrix m at smem[e TS + m]): on
+// the (K, K, R, n) side a warp per entry and a lane per matrix, on the
+// workspace's a warp per row of a matrix and a lane per column, so every
+// warp's access is one run of consecutive floats, and no index is divided
+// per element. DEEP_BATCH loads in flight per thread (a loop of
+// load-then-store would wait out the memory's latency once per element).
+template <int T, bool IN>
+__device__ __forceinline__ void deep_transpose(const float* src, float* dst, long long plane,
+                                               long long lo, long long hi, int K, int worker,
+                                               int workers, float* smem) {
+  constexpr int WARPS_CTA = Deep<T>::THREADS / WARP, TS = DEEP_TILE + 1;
+  const int K4 = deep_row(K), rows = Deep<T>::OPERANDS / (K * TS);
+  const int lane = threadIdx.x % WARP, warp = threadIdx.x / WARP;
+  const long long ms = (long long)K * K4;
+  for (long long g0 = lo + (long long)worker * DEEP_TILE; g0 < hi;
+       g0 += (long long)workers * DEEP_TILE) {
+    const int tile = hi - g0 < DEEP_TILE ? (int)(hi - g0) : DEEP_TILE;
+    for (int i0 = 0; i0 < K; i0 += rows) {
+      const int nr = K - i0 < rows ? K - i0 : rows, width = nr * K;  // entries i0 * K ..
+      __syncthreads();  // the last step's reads of smem are done
+      if (IN) {  // a warp per entry e: in[(i0 K + e) plane + g0 + lane]
+        for (int e0 = warp; e0 < width; e0 += WARPS_CTA * DEEP_BATCH) {
+          float v[DEEP_BATCH];
+#pragma unroll
+          for (int u = 0; u < DEEP_BATCH; ++u) {
+            const int e = e0 + u * WARPS_CTA;
+            if (e < width && lane < tile) v[u] = src[(i0 * K + e) * plane + g0 + lane];
+          }
+#pragma unroll
+          for (int u = 0; u < DEEP_BATCH; ++u) {
+            const int e = e0 + u * WARPS_CTA;
+            if (e < width && lane < tile) smem[e * TS + lane] = v[u];
+          }
+        }
+      } else {  // a warp per row r of matrix m: lanes over its columns
+        for (int p0 = warp; p0 < tile * nr; p0 += WARPS_CTA * (DEEP_BATCH / 2)) {
+          float v[DEEP_BATCH / 2][2];
+#pragma unroll
+          for (int u = 0; u < DEEP_BATCH / 2; ++u) {
+            const int p = p0 + u * WARPS_CTA, m = p / nr, r = p % nr;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int c = lane + h * WARP;
+              if (p < tile * nr && c < K) v[u][h] = __ldcg(src + (g0 + m) * ms + (i0 + r) * K4 + c);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < DEEP_BATCH / 2; ++u) {
+            const int p = p0 + u * WARPS_CTA, m = p / nr, r = p % nr;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int c = lane + h * WARP;
+              if (p < tile * nr && c < K) smem[(r * K + c) * TS + m] = v[u][h];
+            }
+          }
+        }
+      }
+      __syncthreads();
+      if (IN) {  // a warp per row r of matrix m
+        for (int p = warp; p < tile * nr; p += WARPS_CTA) {
+          const int m = p / nr, r = p % nr;
+          for (int c = lane; c < K; c += WARP)
+            dst[(g0 + m) * ms + (i0 + r) * K4 + c] = smem[(r * K + c) * TS + m];
+        }
+      } else {  // a warp per entry e
+        for (int e = warp; e < width; e += WARPS_CTA)
+          if (lane < tile) dst[(i0 * K + e) * plane + g0 + lane] = smem[e * TS + lane];
+      }
+    }
+  }
+}
+
+// The phases of the scan, in order; a flat call runs all but the totals'
+// levels and the combine. (A mask, not tests of a.G: with those, ptxas
+// spills at T = 6 and 8 and the scan takes 2-3 % longer at K = 48 and 64;
+// fbscan_probes.py variants, an NVIDIA H100 80GB HBM3 at 700 W.)
+enum DeepPhase { kDeepIn = 1, kDeepLevels = 2, kDeepTotals = 4, kDeepOut = 8 };
+
+// The scan, one cooperative launch of Deep<T>::THREADS threads per CTA
+// over every matrix, all CTAs resident, a grid-wide barrier after each
+// phase and level: the transpose into wa; the in-group (flat: the row's)
+// levels, wa and wb in turns, the last in-group level also writing each
+// group's total to ta; for a grouped call the totals' levels, ta and tb in
+// turns, and the broadcast combine of each matrix with its group's
+// exclusive prefix into the other in-group buffer; the transpose of the
+// result into out.
+template <int T>
+__global__ void __launch_bounds__(Deep<T>::THREADS, Deep<T>::MIN_BLOCKS)
+fbscan_prefix_deep_kernel(DeepArgs a, int phases) {
+  extern __shared__ __align__(16) float smem_deep[];
+  cg::grid_group grid = cg::this_grid();
+  const int K = a.K, worker = (int)blockIdx.x, workers = (int)gridDim.x;
+  const long long ms = (long long)K * deep_row(K), plane = (long long)a.R * a.n, hi = plane;
+  const long long seg = a.G > 0 ? GROUP : a.n;
+  float* inner = a.levels % 2 ? a.wb : a.wa;  // the levels' result
+  const float* incl = a.tlevels % 2 ? a.tb : a.ta;
+  float* result = a.G > 0 ? (inner == a.wa ? a.wb : a.wa) : inner;
+  if (phases & kDeepIn) {
+    deep_transpose<T, true>(a.in, a.wa, plane, 0, hi, K, worker, workers, smem_deep);
+    grid.sync();
+  }
+  if (phases & kDeepLevels) {
+    float* src = a.wa;
+    float* dst = a.wb;
+    for (int level = 0; level < a.levels; ++level) {
+      const long long d = 1LL << level;
+      const float* s = src;
+      deep_pass<T>(src, dst, a.G > 0 && level + 1 == a.levels ? a.ta : nullptr, seg, 0, hi,
+                   [=](long long g) { return g % seg >= d ? s + (g - d) * ms : nullptr; }, K,
+                   worker, workers, smem_deep);
+      grid.sync();
+      float* done = dst;
+      dst = src;
+      src = done;
+    }
+  }
+  if (phases & kDeepTotals) {
+    float* src = a.ta;
+    float* dst = a.tb;
+    const long long n = a.n, G = a.G;
+    for (int level = 0; level < a.tlevels; ++level) {
+      const long long d = 1LL << level;
+      const float* s = src;
+      deep_pass<T>(src, dst, nullptr, G, 0, a.R * G,
+                   [=](long long g) { return g % G >= d ? s + (g - d) * ms : nullptr; }, K,
+                   worker, workers, smem_deep);
+      grid.sync();
+      float* done = dst;
+      dst = src;
+      src = done;
+    }
+    deep_pass<T>(inner, result, nullptr, GROUP, 0, hi,
+                 [=](long long g) {
+                   const long long q = g % n / GROUP;
+                   return q > 0 ? incl + (g / n * G + q - 1) * ms : nullptr;
+                 },
+                 K, worker, workers, smem_deep);
+    grid.sync();
+  }
+  if (phases & kDeepOut)
+    deep_transpose<T, false>(result, a.out, plane, 0, hi, K, worker, workers, smem_deep);
+}
+
 // ---------------------------------------------------------------- suffix
 
 // x[i] for a run-time i in [0, K) without indexing a register array (which
@@ -1311,10 +1697,47 @@ __device__ __forceinline__ int* suffix_totals_at_k(int* src, int* dst, int n, in
   return src;
 }
 
-// The whole grouped suffix scan in one cooperative launch, K <= MAX_WIDE_K:
+// suffix_totals_at_k in place, for K > MAX_WIDE_K (where a second copy of
+// the totals would leave room for one CTA per SM): each pass of GROUP
+// entries reads its operands into registers, a barrier, then writes entry
+// k, below every entry that a later pass of the level reads (a pass reads
+// entries 2k and 2k + 1 only). Returns s, whose entry 0 is the result.
+template <int K>
+__device__ __forceinline__ int* suffix_totals_in_place(int* s, int n, int stride) {
+  while (n > 1) {
+    const int half = (n + 1) / 2;
+    for (int base = 0; base < half; base += GROUP) {
+      const int k = base + threadIdx.x;
+      int v[K];
+      if (k < half) {
+#pragma unroll
+        for (int j = 0; j < K; ++j) v[j] = 2 * k + 1 < n ? s[j * stride + 2 * k + 1] : j;
+#pragma unroll
+        for (int j = 0; j < K; ++j) v[j] = s[v[j] * stride + 2 * k];
+      }
+      __syncthreads();
+      if (k < half) {
+#pragma unroll
+        for (int j = 0; j < K; ++j) s[j * stride + k] = v[j];
+      }
+      __syncthreads();
+    }
+    n = half;
+  }
+  return s;
+}
+
+// Ints of a row's totals the one-launch suffix kernel keeps in shared
+// memory per map entry: two copies of G (in place above MAX_WIDE_K), at
+// least the in-group levels' GROUP.
+__host__ __device__ constexpr long long suffix_room(int K, long long G) {
+  return (K > MAX_WIDE_K ? G : 2 * G) > GROUP ? (K > MAX_WIDE_K ? G : 2 * G) : GROUP;
+}
+
+// The whole grouped suffix scan in one cooperative launch, K <= MAX_DEEP_K:
 // grid (G, R) of GROUP threads, every CTA resident; tot holds (K, R, G)
-// int64; dynamic shared memory max(K * GROUP, 2 * K * G) ints, and K *
-// GROUP more above MAX_TEAM_K (compose's columns).
+// int64; dynamic shared memory K * suffix_room(K, G) ints, and K * GROUP
+// more above MAX_TEAM_K (compose's columns).
 template <int K>
 __global__ void __launch_bounds__(GROUP, ONE_MIN_BLOCKS(K))
 fbscan_suffix_one_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out, int64_t* tot,
@@ -1324,7 +1747,7 @@ fbscan_suffix_one_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ o
   const long long q = blockIdx.x, r = blockIdx.y, G = n / GROUP;
   const long long plane = (long long)R * n, tplane = (long long)R * G;
   const long long off = r * n + q * GROUP + t;
-  int* sx = smem_i + K * (2 * G > GROUP ? 2 * G : GROUP);
+  int* sx = smem_i + K * suffix_room(K, G);
   int x[K], after[K];
 #pragma unroll
   for (int j = 0; j < K; ++j) x[j] = (int)in[j * plane + off];
@@ -1343,7 +1766,9 @@ fbscan_suffix_one_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ o
     }
     __syncthreads();
     const int* at;
-    if constexpr (K > MAX_REG_K) {
+    if constexpr (K > MAX_WIDE_K) {
+      at = suffix_totals_in_place<K>(smem_i, n_after, stride);
+    } else if constexpr (K > MAX_REG_K) {
       at = suffix_totals_at_k<K>(smem_i, smem_i + K * stride, n_after, stride);
     } else {
       at = suffix_totals_at(smem_i, smem_i + K * stride, K, n_after, stride);
@@ -1471,39 +1896,56 @@ struct as_is {  // keeps a parameter out of template argument deduction
   using type = T;
 };
 
+// The opt-in shared memory of this card, bytes per CTA.
+cudaError_t smem_optin(int* optin) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return err;
+}
+
 // Raise a kernel's dynamic shared-memory limit to the card's where `smem`
 // bytes need more than the default (the same value from every thread, so
 // concurrent callers agree); cudaErrorInvalidValue where the card has less.
 template <class F>
 cudaError_t allow_smem(F kernel, long long smem) {
   if (smem <= SMEM_BYTES) return cudaSuccess;
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int optin = 0;
+  const cudaError_t err = smem_optin(&optin);
   if (err != cudaSuccess) return err;
   if (smem > optin) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               optin);
 }
 
-// A cooperative launch of a grid-wide rows scan that wants `want` CTAs of
-// `threads`: at most as many as the card holds at once (a grid-wide
-// barrier needs every CTA resident). The arguments are converted to the
-// kernel's parameter types.
+// A cooperative launch of a grid-wide kernel that wants `want` CTAs of
+// `threads` with `smem` bytes of dynamic shared memory: at most as many as
+// the card holds at once for that shared memory (a grid-wide barrier needs
+// every CTA resident). The arguments are converted to the kernel's
+// parameter types.
 template <class... A>
-cudaError_t launch_grid(void (*kernel)(A...), long long want, int threads, cudaStream_t s,
-                        typename as_is<A>::type... args) {
+cudaError_t launch_grid_smem(void (*kernel)(A...), long long want, int threads, long long smem,
+                             cudaStream_t s, typename as_is<A>::type... args) {
   int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, (size_t)smem);
   if (err != cudaSuccess) return err;
   const long long most = (long long)per_sm * sms;
   const unsigned blocks = (unsigned)(want < most ? want : most);
   void* argv[] = {&args...};
-  return cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(threads), argv, 0, s);
+  return cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(threads), argv,
+                                     (size_t)smem, s);
+}
+
+// The same without dynamic shared memory (the grid-wide rows scans).
+template <class... A>
+cudaError_t launch_grid(void (*kernel)(A...), long long want, int threads, cudaStream_t s,
+                        typename as_is<A>::type... args) {
+  return launch_grid_smem(kernel, want, threads, 0, s, args...);
 }
 
 // One cooperative launch of a one-launch kernel on its (G, R) grid of
@@ -1626,6 +2068,38 @@ cudaError_t prefix_wide(const float* in, float* out, float* work, int R, long lo
   return cudaGetLastError();
 }
 
+// The prefix scan for K = 33..64 (tiled products, T = ceil(K / DEEP_SIDE)):
+// one cooperative launch of every phase, grouped or flat. Workspace: two
+// buffers of R n matrices (rows of K4 floats), and two of R G for the
+// totals.
+template <int TT>
+cudaError_t prefix_deep(const float* in, float* out, float* work, int K, int R, long long n,
+                        cudaStream_t s) {
+  using D = Deep<TT>;
+  const bool grp = grouped(n);
+  const long long G = grp ? n / GROUP : 0, ms = (long long)K * deep_row(K), total = (long long)R * n;
+  float* wb = work + total * ms;
+  float* ta = wb + total * ms;
+  const DeepArgs a{in, out, work, wb, ta, ta + R * G * ms, K, R,
+                   grp ? GROUP_LEVELS : levels_of(n), grp ? levels_of(G) : 0, n, G};
+  const int phases = kDeepIn | kDeepLevels | (grp ? kDeepTotals : 0) | kDeepOut;
+  return launch_grid_smem(fbscan_prefix_deep_kernel<TT>, (total + DEEP_MATS - 1) / DEEP_MATS,
+                          D::THREADS, D::SMEM_FLOATS * (long long)sizeof(float), s, a, phases);
+}
+
+// prefix_deep<T> for the run-time K = k, the least tile T >= TT with
+// DEEP_SIDE T >= k.
+template <int TT>
+cudaError_t prefix_deep_at(int k, const float* in, float* out, float* work, int R, long long n,
+                           cudaStream_t s) {
+  if constexpr (TT >= DEEP_T_MAX) {
+    return prefix_deep<TT>(in, out, work, k, R, n, s);
+  } else {
+    return k <= DEEP_SIDE * TT ? prefix_deep<TT>(in, out, work, k, R, n, s)
+                               : prefix_deep_at<TT + 1>(k, in, out, work, R, n, s);
+  }
+}
+
 // Workspace layout of a grouped prefix call: the in-group scan (K, K, R, n)
 // then three buffers of R * G totals: totals, their inclusive scan, spare
 // (the one-launch forms take the first buffer for their totals).
@@ -1671,11 +2145,20 @@ cudaError_t prefix(const float* in, float* out, float* work, int K, int R, long 
   }
 }
 
-// Reverse Hillis-Steele over the n maps of each of R rows, in -> out.
+// Reverse Hillis-Steele over the n maps of each of R rows, in -> out: one
+// CTA per row where two copies fit its shared memory (above MAX_WIDE_K up to
+// the card's opt-in limit, else 48 KB), else over the card.
 cudaError_t suffix_scan_rows(const int64_t* in, int64_t* out, int64_t* spare, int K, int R,
                              long long n, cudaStream_t s) {
   const long long bytes = 2LL * K * n * (long long)sizeof(int);
-  if (bytes <= SMEM_BYTES) {
+  int optin = 0;
+  if (K > MAX_WIDE_K) {
+    const cudaError_t err = smem_optin(&optin);
+    if (err != cudaSuccess) return err;
+  }
+  if (bytes <= SMEM_BYTES || bytes <= optin) {
+    const cudaError_t err = allow_smem(fbscan_suffix_rows_smem_kernel, bytes);
+    if (err != cudaSuccess) return err;
     fbscan_suffix_rows_smem_kernel<<<R, TOTALS_THREADS, bytes, s>>>(in, out, K, R, n);
     return cudaGetLastError();
   }
@@ -1684,34 +2167,36 @@ cudaError_t suffix_scan_rows(const int64_t* in, int64_t* out, int64_t* spare, in
                      out, spare, K, R, n, levels_of(n));
 }
 
-// prefix<K> for the run-time K = k, K = KT..MAX_WIDE_K; prefix<0> above.
+// prefix<K> for the run-time K = k, K = KT..MAX_WIDE_K; the tiled
+// products up to MAX_DEEP_K; prefix<0> above.
 template <int KT>
 cudaError_t prefix_at(int k, const float* in, float* out, float* work, int R, long long n,
                       cudaStream_t s) {
   if constexpr (KT > MAX_WIDE_K) {
-    return prefix<0>(in, out, work, k, R, n, s);
+    return k <= MAX_DEEP_K ? prefix_deep_at<DEEP_T_MIN>(k, in, out, work, R, n, s)
+                           : prefix<0>(in, out, work, k, R, n, s);
   } else {
     return k == KT ? prefix<KT>(in, out, work, KT, R, n, s)
                    : prefix_at<KT + 1>(k, in, out, work, R, n, s);
   }
 }
 
-// The one-launch suffix for K <= MAX_WIDE_K where it fits the card.
+// The one-launch suffix for K <= MAX_DEEP_K where it fits the card.
 template <int KT>
 cudaError_t suffix_one(const int64_t* in, int64_t* out, int64_t* work, int R, long long n,
                        cudaStream_t s, bool* launched) {
   const long long G = n / GROUP;
-  const long long ints = (2 * G > GROUP ? 2 * G : GROUP) + (KT > MAX_TEAM_K ? GROUP : 0);
+  const long long ints = suffix_room(KT, G) + (KT > MAX_TEAM_K ? GROUP : 0);
   return launch_one_wave(fbscan_suffix_one_kernel<KT>, G, R, GROUP,
                          KT * ints * (long long)sizeof(int), s, launched, in, out, work, R, n);
 }
 
-// suffix_one<K> for the run-time K = k, K = KT..MAX_WIDE_K; none above
+// suffix_one<K> for the run-time K = k, K = KT..MAX_DEEP_K; none above
 // (*launched stays false).
 template <int KT>
 cudaError_t suffix_at(int k, const int64_t* in, int64_t* out, int64_t* work, int R, long long n,
                       cudaStream_t s, bool* launched) {
-  if constexpr (KT > MAX_WIDE_K) {
+  if constexpr (KT > MAX_DEEP_K) {
     *launched = false;
     return cudaSuccess;
   } else {
@@ -1724,9 +2209,15 @@ cudaError_t suffix_at(int k, const int64_t* in, int64_t* out, int64_t* work, int
 
 // Elements of float32 workspace a prefix call needs: grouped, the in-group
 // scan (K * K * R * n) and three buffers of R * G totals (padded matrices
-// for K = 9..32); flat, one (K, K, R, n) ping-pong buffer.
+// for K = 9..32); flat, one (K, K, R, n) ping-pong buffer. K = 33..64: two
+// buffers of R * n matrices of K rows of K4 floats, and (grouped) two of R
+// * G.
 extern "C" long long hammlet_fbscan_prefix_workspace(int K, int R, long long n) {
   const long long m = (long long)K * K * R;
+  if (K > MAX_WIDE_K && K <= MAX_DEEP_K) {
+    const long long ms = (long long)K * deep_row(K);
+    return 2 * ms * R * n + (grouped(n) ? 2 * ms * R * (n / GROUP) : 0);
+  }
   return grouped(n) ? m * n + 3 * total_floats(K) * R * (n / GROUP) : m * n;
 }
 
@@ -1753,11 +2244,12 @@ extern "C" int hammlet_fbscan_suffix(const int64_t* in, int64_t* out, int64_t* w
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
   const long long group_bytes = 2LL * K * GROUP * (long long)sizeof(int);
-  // flat, or a group too large for shared memory: the rows scan over the
-  // whole input (exact, so the same maps as the grouped form)
-  if (!grouped(n) || group_bytes > SMEM_BYTES) return (int)suffix_scan_rows(in, out, work, K, R, n, s);
+  // flat, or a group too large for shared memory (K > MAX_DEEP_K): the rows
+  // scan over the whole input (exact, so the same maps as the grouped form)
+  if (!grouped(n) || K > MAX_DEEP_K) return (int)suffix_scan_rows(in, out, work, K, R, n, s);
   bool launched = false;
   err = suffix_at<1>(K, in, out, work, R, n, s, &launched);
+  if (err == cudaSuccess && !launched) err = allow_smem(fbscan_suffix_group_smem_kernel, group_bytes);
   if (err != cudaSuccess || launched) return (int)err;
   const long long G = n / GROUP, m = (long long)K * R;
   int64_t* inner = work;

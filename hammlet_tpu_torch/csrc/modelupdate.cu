@@ -646,36 +646,42 @@ extern "C" int hammlet_sweep_stats(const int64_t* states, const int64_t* sizes,
   if (err != cudaSuccess) return (int)err;
   const int n_terms = (int)stats_terms(K, dim, P);
   const long long tiles = stats_tiles(B), Bp = 1LL << log2_ceil(B);
-  const int depth = log2_ceil(tiles) + 1;  // any run's stack
   // two stages (states and sizes as int64, then the two tree buffers; the
   // block statistics; the state before the tile in the last 8 bytes), the
-  // run stacks, the mapping; after the grid barrier an output's term totals
+  // run stacks (run_log + 1 levels: a run of 2^run_log tiles carries that
+  // far), the mapping; after the grid barrier an output's term totals
   const int stage_floats = 4 * TILE + (dim <= MAX_STAGED_DIM ? 2 * dim * TILE : 0) + 4;
-  const long long smem =
-      (2LL * stage_floats + (n_terms * depth + 1) / 2 * 2 + (dim > 2 * stage_floats ? dim : 0)) *
-          sizeof(float) +
-      (long long)K * dim * sizeof(int64_t) + (long long)K * K * sizeof(int);
+  auto smem_of = [&](int depth) {
+    return (2LL * stage_floats + (n_terms * depth + 1) / 2 * 2 +
+            (dim > 2 * stage_floats ? dim : 0)) * (long long)sizeof(float) +
+           (long long)K * dim * sizeof(int64_t) + (long long)K * K * sizeof(int);
+  };
   int sms = 0, optin = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
-  if (smem > optin) return (int)cudaErrorInvalidValue;
   const void* kernel = (const void*)modelupdate_stats_kernel;
-  if (smem > SMEM_BYTES)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, STATS_THREADS,
-                                                        (size_t)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long resident = (long long)per_sm * sms;
-  if (resident < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  // the least run_log whose rows x runs the card holds at once (with that
+  // run's stacks) and whose runs are within MAX_RUNS
   int run_log = 0;
-  long long runs = tiles;
-  while ((1LL << run_log) < tiles && (runs > MAX_RUNS || (long long)R * runs > resident)) {
+  long long runs = tiles, smem = 0, resident = 0;
+  for (;;) {
+    smem = smem_of(run_log + 1);
+    if (smem > optin) return (int)cudaErrorInvalidValue;
+    if (smem > SMEM_BYTES)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, STATS_THREADS,
+                                                          (size_t)smem);
+    if (err != cudaSuccess) return (int)err;
+    resident = (long long)per_sm * sms;
+    if (resident < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    if ((1LL << run_log) >= tiles || (runs <= MAX_RUNS && (long long)R * runs <= resident)) break;
     ++run_log;
     runs = (tiles + (1LL << run_log) - 1) >> run_log;
   }
+  const int depth = run_log + 1;
   // where rows x runs leave CTAs idle, each run's float terms go in slices
   // of at least MIN_SLICE_TERMS, one CTA each
   const int n_float = n_terms - K * K;

@@ -18,7 +18,7 @@ SYNOPSIS
     hammlet-torch [-f FILE...] [-s [C] P [D]] [-e normal VAR P] -a
             [-i SCHEME...] [-t A [D]] [-I A] [-S] [-R SEED] [-m X]
             [-o PREFIX SUFFIX] [-O STREAM...] [-w] [-v] [-g] [-h]
-            [-C PATH [EVERY]] [-D 1] [-M]
+            [-C PATH [EVERY]] [-D N] [-M]
 
 DESCRIPTION
     hammlet draws posterior samples of a hidden state sequence under a
@@ -33,9 +33,10 @@ DESCRIPTION
     billions of positions are practical. The posterior state distribution
     per position is recorded as a run-length-encoded marginals file.
 
-    This is the PyTorch/CUDA port. It runs on one CUDA device when one is
-    present, else on the CPU, and writes the same files in the same
-    formats as hammlet.
+    This is the PyTorch/CUDA port. It runs on the CUDA cards of the host
+    and writes the same files in the same formats as hammlet. Without a
+    card it stops with an error; it runs on the CPU only when the CPU is
+    asked for by name (HAMMLET_TORCH_DEVICE=cpu).
 
 INPUT
     Data is whitespace/newline-separated decimal text read from the file(s)
@@ -137,13 +138,20 @@ OPTIONS
         chain and the -i scheme exactly where they stopped.
         Checkpoints of hammlet (the JAX package) load here too.
     -D, -devices N
-        Number of devices to shard the position axis over. The port runs
-        on one device: N = 1 is accepted, N > 1 is an error (the sharded
-        and multi-host engines are not ported yet, see ROADMAP.md).
+        Number of shards of the position axis (default 1). N > 1 runs the
+        sharded engine. On a host with C > 1 cards, and no
+        HAMMLET_NUM_PROCESSES, the run spans the cards itself: W
+        processes, one per card, joined over NCCL, W the largest divisor
+        of N that is at most C, N / W shards on each. With one card all N
+        shards run on it. Under HAMMLET_NUM_PROCESSES (by hand or
+        torchrun) the run takes the processes it is given, and N must be
+        a multiple of their number. The outputs are the same bytes
+        whatever the number of processes.
     -M, -multi
         Treat every -f file as an independent chain with its own priors,
-        random stream and outputs PREFIX<file stem>-<stream>SUFFIX. The
-        chains run one after another on the one device.
+        random stream and outputs PREFIX<file stem>-<stream>SUFFIX. With
+        several local cards, one process and no -D, one chain runs per
+        card, in threads; else the chains run one after another.
 
 EXIT STATUS
     0 on success, 1 on any error (message on standard error).

@@ -359,3 +359,22 @@ def test_multi_chain_refuses_shared_stems(tmp_path, capsys, monkeypatch, names, 
     assert "[ERROR]" in err and "chr1 appears more than once" in err, err
     assert list(out.iterdir()) == []
     assert sorted(p.relative_to(tmp_path) for p in tmp_path.rglob("*")) == before + [Path("out")]
+
+
+def test_help_describes_the_port_as_it_runs():
+    """bin/hammlet-torch -h prints the manual as the code behaves: -D N
+    shards (and spans the local cards), -M runs a chain per card, a missing
+    card is an error unless the CPU is named; no passage from before the
+    sharded engines and the card requirement."""
+    import subprocess
+    import sys
+
+    exe = str(Path(__file__).resolve().parents[1] / "bin" / "hammlet-torch")
+    proc = subprocess.run([sys.executable, exe, "-h"], capture_output=True, text=True, timeout=120)
+    text = proc.stdout
+    assert proc.returncode == 0 and "SYNOPSIS" in text, (proc.returncode, proc.stderr[-2000:])
+    for stale in ("not ported", "[-D 1]", "else on the CPU", "N > 1 is an error",
+                  "one after another on the one device"):
+        assert stale not in text, stale
+    assert "[-D N]" in text and "-D, -devices N" in text and "NCCL" in text
+    assert "one chain runs per\n        card" in text and "HAMMLET_TORCH_DEVICE=cpu" in text

@@ -1052,6 +1052,106 @@ def test_fbscan_wide_instances_in_cuda_graph_on_card(cuda_device, R, K, B):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "zeros, -0 and subnormals", "NaN"])
+@pytest.mark.parametrize("B", [130, 384, 29_696])
+@pytest.mark.parametrize("K", [33, 48, 64])
+@pytest.mark.parametrize("R", [1, 4])
+def test_fbscan_deep_instances_match_plain_on_card(cuda_device, R, K, B, case):
+    """Exact on the card: at K = 33-64 the prefix (the tiled products, one
+    cooperative launch per call, flat at B = 130 and grouped above) equals
+    its plain version bit for bit on uniform matrices, on matrices with 40 %
+    zeros, 1 % -0 and 5 % subnormal entries, and with one NaN; the suffix
+    (one launch where the call's groups fit the card, else three) equals
+    its plain version. On uniform inputs each prefix call is one
+    fbscan_prefix_deep_kernel and counts one launch of its wrapper, and
+    captured into a CUDA graph and replayed it gives the eager bits."""
+    from chip_smoke import FB_DEEP, scan_kernels
+    from hammlet_tpu_torch.samplers import fb_cuda
+    from hammlet_tpu_torch.samplers import forward_backward as fb
+
+    M, maps = _fb_inputs(B, K, R, B + K + R, cuda_device)
+    if case == "zeros, -0 and subnormals":
+        u = torch.rand(M.shape, generator=torch.Generator(device=cuda_device).manual_seed(B),
+                       device=cuda_device)
+        M = torch.where(u < 0.4, 0.0, torch.where(u < 0.45, M * 1e-39, M))
+        M = torch.where(u > 0.99, -0.0, M)
+    elif case == "NaN":
+        M[1, 2, 0, B // 3] = float("nan")
+    before = fb_cuda.prefix_matmul_scan_cuda.launches
+    got = fb_cuda.prefix_matmul_scan_cuda(M)
+    assert fb_cuda.prefix_matmul_scan_cuda.launches == before + 1
+    assert_bitwise(got, fb.prefix_matmul_scan_reference(M))
+    assert torch.equal(fb_cuda.suffix_compose_scan_cuda(maps), fb.suffix_compose_scan_reference(maps))
+    if case != "uniform":
+        return
+    prefix = [name for name, _ in scan_kernels(lambda: fb_cuda.prefix_matmul_scan_cuda(M))]
+    assert len(prefix) == 1 and FB_DEEP[0] in prefix[0], prefix
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        again = fb_cuda.prefix_matmul_scan_cuda(M)
+    again.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert_bitwise(again, got)
+
+
+@pytest.mark.cuda
+def test_fbscan_refused_argument_raises_on_card(cuda_device):
+    """A call whose arguments the library refuses (here 65,536 rows of one
+    block at K = 64, beyond the 65,535 a row index may take) raises with the
+    CUDA error and counts no launch: nothing falls back to the plain version
+    or the generic kernels."""
+    from hammlet_tpu_torch.samplers import fb_cuda
+
+    M = torch.ones((64, 64, 65_536, 1), device=cuda_device)
+    maps = torch.zeros((64, 65_536, 1), dtype=torch.int64, device=cuda_device)
+    before = (fb_cuda.prefix_matmul_scan_cuda.launches, fb_cuda.suffix_compose_scan_cuda.launches)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        fb_cuda.prefix_matmul_scan_cuda(M)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        fb_cuda.suffix_compose_scan_cuda(maps)
+    assert (fb_cuda.prefix_matmul_scan_cuda.launches,
+            fb_cuda.suffix_compose_scan_cuda.launches) == before
+
+
+@pytest.mark.cuda
+def test_fbscan_deep_launch_refused_by_shared_memory_raises_on_card(cuda_device, monkeypatch):
+    """A tiled-product launch whose shared memory the card cannot give
+    raises: a copy of fbscan.cu built with K >= 33 only, its deep kernels
+    asking for four times their operands' shared memory, launches K = 33
+    (110 KiB, within the card's opt-in 227 KiB) bit for bit as the plain
+    version, and refuses K = 64 (272 KiB) in allow_smem, before any launch,
+    with the CUDA error: no launch counted, no fallback to the plain
+    version or the generic kernels."""
+    import ctypes
+
+    from hammlet_tpu_torch import _build
+    from hammlet_tpu_torch.samplers import fb_cuda
+    from hammlet_tpu_torch.samplers import forward_backward as fb
+
+    src = fb_cuda.SOURCES[0].read_text()
+    for old, new in (("prefix_at<1>(K,", "prefix_at<33>(K,"), ("suffix_at<1>(K,", "suffix_at<33>(K,"),
+                     ("SMEM_FLOATS = OPERANDS +", "SMEM_FLOATS = 4 * OPERANDS +")):
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    path = _build.BUILD_DIR / "test" / "fbscan_smem_refused.cu"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(src)
+    lib = fb_cuda._bind(ctypes.CDLL(str(_build.build("fbscan_smem_refused", [path]).path)))
+    monkeypatch.setattr(fb_cuda, "_lib", lib)
+    M, _ = _fb_inputs(29_696, 33, 1, 33, cuda_device)
+    before = fb_cuda.prefix_matmul_scan_cuda.launches
+    assert_bitwise(fb_cuda.prefix_matmul_scan_cuda(M), fb.prefix_matmul_scan_reference(M))
+    assert fb_cuda.prefix_matmul_scan_cuda.launches == before + 1
+    M, _ = _fb_inputs(29_696, 64, 1, 64, cuda_device)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        fb_cuda.prefix_matmul_scan_cuda(M)
+    torch.cuda.synchronize()
+    assert fb_cuda.prefix_matmul_scan_cuda.launches == before + 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("P", [1, 4])
 def test_graphed_engines_through_fbscan_kernels_on_card(cuda_device, P):
     """Exact on the card at T = 100,000: a graphed Engine (P = 1) and a
@@ -1207,6 +1307,30 @@ def test_sweep_stats_kernels_match_plain_on_card(cuda_device, R, B, K, dim, tail
         one = model_cuda.sweep_stats_cuda(states[r:r + 1], sizes[r:r + 1], nb[r:r + 1],
                                           bstats[:, :, r:r + 1].contiguous(), mapping, P)
         assert torch.equal(got[r].view(torch.int32), one[0].view(torch.int32)), r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [29_696, 262_144, 4_000_000])
+def test_sweep_stats_kernel_at_k64_on_card(cuda_device, B):
+    """At K = 64, dim 3 (-s C 4 3: 4,260 summed terms) the statistics kernel
+    launches at every capacity the path takes, the M burn-in's B = 4M
+    included (its run stacks in shared memory hold the run's levels, not
+    the row's); up to B = 262,144 it equals its plain version bit for bit
+    on the card, and at 4M (where the plain version's one-hot pairs would
+    take 67 GB) its state counts equal the exact integer sums of the sizes
+    per state."""
+    from hammlet_tpu_torch.models import model_cuda
+    from hammlet_tpu_torch.samplers import sweep
+
+    args, _, P = _stats_inputs(1, B, 64, 3, B + 64, cuda_device)
+    got = model_cuda.sweep_stats_cuda(*args, P)
+    torch.cuda.synchronize()
+    if B <= 262_144:
+        assert _same_bits(got, sweep.sweep_stats_reference(*args, P))
+    states, sizes = args[0][0], args[1][0]
+    exact = torch.zeros(64, dtype=torch.float64, device=cuda_device).index_add_(
+        0, states, sizes.double())
+    assert torch.equal(got[0, -64:].double(), exact)
 
 
 @pytest.mark.cuda

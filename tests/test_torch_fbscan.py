@@ -24,10 +24,11 @@ torch.set_num_threads(1)
 
 SIZES = [8, 130, 256, 384, 1024, 29_696]
 KS = [1, 2, 3, 5]
-# the team instances of csrc/fbscan.cu (K = 9-16) and the wide ones (K = 17-32, a thread block
-# cluster per group; -s C 3 3 is K = 27): flat (130) and grouped (3 and 8 groups)
+# the team instances of csrc/fbscan.cu (K = 9-16), the wide ones (K = 17-32, a thread block
+# cluster per group; -s C 3 3 is K = 27) and the tiled products (K = 33-64; -s C 6 2 is 36,
+# -s C 4 3 is 64): flat (130) and grouped (3 and 8 groups)
 TEAM_SIZES = [130, 384, 1024]
-TEAM_KS = [9, 10, 16, 17, 21, 27, 32]
+TEAM_KS = [9, 10, 16, 17, 21, 27, 32, 33, 36, 64]
 
 
 def _matrices(shape, seed):
@@ -78,9 +79,9 @@ def test_suffix_scan_matches_jax(B, K):
 @pytest.mark.parametrize("B", TEAM_SIZES)
 @pytest.mark.parametrize("K", TEAM_KS)
 def test_prefix_scan_matches_jax_at_team_k(B, K):
-    """The K = 9-32 shapes (configuration 4's K = 9, -s C 3 3's 27, the -s
-    up to 32). Tolerance as test_prefix_scan_matches_jax: rtol 1e-5, atol
-    1e-30."""
+    """The K = 9-64 shapes (configuration 4's K = 9, -s C 3 3's 27, -s C 4
+    3's 64, the -s up to 64). Tolerance as test_prefix_scan_matches_jax:
+    rtol 1e-5, atol 1e-30."""
     M = _matrices((K, K, B), B * 10 + K)
     np.testing.assert_allclose(
         to_np(tfb.prefix_matmul_scan_t(to_torch(M))),
@@ -91,7 +92,7 @@ def test_prefix_scan_matches_jax_at_team_k(B, K):
 @pytest.mark.parametrize("B", TEAM_SIZES)
 @pytest.mark.parametrize("K", TEAM_KS)
 def test_suffix_scan_matches_jax_at_team_k(B, K):
-    """The K = 9-32 shapes. Tolerance: exact."""
+    """The K = 9-64 shapes. Tolerance: exact."""
     maps = _maps(K, (B,), B * 10 + K)
     np.testing.assert_array_equal(
         to_np(tfb.suffix_compose_scan_t(to_torch(maps, torch.int64))),
