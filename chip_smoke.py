@@ -38,13 +38,17 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    from the eager [graph] and [sharded] engines) and the K = 9 and K = 27
    sweeps' (from the eager [states9] and [states27] engines), uniform
    inputs at the same shapes, at the T = 250M per-shard shape, at a flat
-   FB_FLAT and at K = 9, 10, 16, 17, 27, 32 and 33 (33: the generic
-   kernels); no call of K <= 32 may reach the generic kernels (FB_GENERIC),
-   every K = 17-32 prefix call is the three wide kernels (FB_WIDE) and its
-   suffix call one kernel, and K = 33 runs the generic ones; then the
-   sweep's own and the uniform times side by side, and K = 10 and K = 27
-   against the generic kernels' times (FB_GENERIC_K10_MS,
-   FB_GENERIC_K27_MS);
+   FB_FLAT and at K = 9, 10, 16, 17, 27, 32, 33, 36, 48, 64, 81 and 128,
+   and the [states64] and [states81] sweeps' own; every K = 17-32 prefix
+   call is the three wide kernels (FB_WIDE) and its suffix call one
+   kernel, every K = 33-64 prefix call one tiled-product kernel (FB_DEEP),
+   every K > 64 prefix call one tiled kernel with j streamed (FB_TILED) and
+   its grouped suffix call three kernels (FB_SUFFIX_GROUPED), and the
+   library holds none of the deleted generic kernels (FB_GENERIC);
+   then the sweep's own and the uniform times side by side, and K = 10,
+   27, 33-64 and 81-128 against the generic kernels' times
+   (FB_GENERIC_K10_MS, FB_GENERIC_K27_MS, FB_GENERIC_DEEP_MS,
+   FB_GENERIC_OVER64_MS);
 3c. model: the sweep statistics kernel (csrc/modelupdate.cu, through
    models/model_cuda.py) bitwise against its plain version on the card at
    MODEL_ROWS x MODEL_KS x MODEL_DIMS (a masked tail and an overflowing
@@ -62,8 +66,11 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    own statistics inputs, statistics and noise at P = 1 and P = 4 (taken
    from the eager [graph] and [sharded] engines), uniform inputs at T = 4M's
    burn-in capacity, at T = 250M's per-shard capacity in four rows and at
-   K = 10, dim 3, and the [states9] and [states27] sweeps' own (K = 9 dim
-   2, K = 27 dim 3);
+   K = 10, dim 3, and the [states9], [states27], [states64] and [states81]
+   sweeps' own (K = 9 dim 2, K = 27 dim 3, K = 64 dim 3, K = 81 dim 4);
+   above K = 64 (MODEL_LARGE_K, MODEL_RESAMPLE_KS) both kernels bitwise,
+   at (K, dim, B) = (81, 4, 4M) against the plain version's sums taken in
+   chunks (stats_reference_in_chunks), one kernel per call;
 4. main path: make_engine -> run_scheme("M 64 0 F 512 4") -> finalize at
    T = 4,000,000 positions, 3 states (the repo benchmark's configuration),
    checking that ingest launched both kernels, that every marginal row
@@ -146,6 +153,18 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    group), which [profile] requires in its graphed sweep; [fbscan] and
    [model] check and time the kernels on its sweep's own inputs (K = 27,
    dim 3), and the kernels line lists its two scans;
+9d. states64: the same for three tracks of four levels, K = 64 (-s C 4
+   3; states64_steps, seed 7), settled phases of STATES64_SETTLED_ITERS;
+   its prefix is the tiled product (one launch);
+9e. states81: the same for four tracks of three levels, K = 81 = 3^4
+   (-s C 3 4; states81_steps: the 81 means (a, b, c, d), a, b, c, d in
+   {-3, 0, 3}, segments of 800, noise 1.0, seed 8) at T = 4,000,000 x 4
+   (the maxlet kernels at dim 4) and at T = 400,000 x 4 through
+   bin/hammlet-torch -s C 3 4 -a, settled phases of STATES81_SETTLED_ITERS;
+   its prefix is the tiled product with j streamed (one launch), its
+   suffix the grouped form (three), its M burn-in's statistics at B = 4M
+   the kernel with the pair terms in slices; [profile] requires them in
+   its graphed sweep;
 10. chains: two chromosomes of T = 2,500,000 positions (100-bp bins) as
    text files; first each maxlet kernel against its plain version on each
    chromosome's data as the CLI reads it, bit for bit, on the card and on
@@ -306,31 +325,39 @@ KERNEL_ROWS = (  # name (the kernels a call runs on the main path), source, the 
 FB_SIZES = [8, 130, 256, 384, 29_696, 433_920, 500_000]  # [fbscan]: block counts B
 FB_BIG = 433_920  # [cards] (d)'s capacity per shard at T = 250M: 3,390 group totals
 FB_ROWS = [1, 4]  # [fbscan]: batch rows R (the sharded engine's local shards)
-# [fbscan]: states K (9-16: the team instances; 17-32: the wide ones; 33-64: the tiled products;
-# 65: the generic kernels)
-FB_KS = [1, 2, 3, 5, 9, 10, 12, 16, 17, 20, 21, 27, 32, 33, 36, 48, 64, 65]
+# [fbscan]: states K (9-16: the team instances; 17-32: the wide ones; 33-64: the tiled products)
+FB_KS = [1, 2, 3, 5, 9, 10, 12, 16, 17, 20, 21, 27, 32, 33, 36, 48, 64]
 # [fbscan]: (B, R) checked at K > 16, where the plain versions of (K, K, 4, 500,000) do not fit
 # the phase's time: FB_SIZES below 433,920 in both rows, 433,920 in one row
 FB_WIDE_SHAPES = [(B, R) for B in FB_SIZES if B < 433_920 for R in FB_ROWS] + [(433_920, 1)]
-# [fbscan]: (B, R) checked at K = 33-64 (K = 64 also at (433,920, 1)) and at K > 64, where the
-# generic kernels' K^3 work per thread takes seconds at larger B
+# [fbscan]: (B, R) checked at K = 33-64 (K = 64 also at (433,920, 1))
 FB_DEEP_SHAPES = [(B, R) for B in FB_SIZES if B <= 29_696 for R in FB_ROWS]
-FB_GENERIC_SHAPES = [(130, 1), (384, 1), (384, 4)]
+# [fbscan]: (K, B, R) checked above K = 64 (the tiled products with j streamed; one tile a side
+# up to K = 128, two above): K = 65-128 flat and grouped in both rows and at the P = 1 capacity,
+# K = 129-243 flat and grouped in both rows (the plain versions' K^3 products bound the shapes)
+FB_TILED_CASES = ([(K, B, R) for K in (65, 81, 96, 128) for B in (8, 130, 256, 384)
+                   for R in FB_ROWS] + [(81, 29_696, 1), (128, 29_696, 1)]
+                  + [(K, B, R) for K in (129, 160, 243) for B in (8, 130, 384) for R in FB_ROWS])
 FB_RTOL, FB_ATOL = 1e-6, 1e-30  # [fbscan]: prefix kernel against its plain version
 FB_FLAT = 500_000  # [fbscan]: a flat B (not a multiple of 128) too long for one CTA
 # [fbscan] timed inputs whose scan calls must each be one CUDA kernel (the main path's shapes,
 # and K = 9 and 10 at its P = 1 capacity: the one-launch team instances)
 FB_ONE_LAUNCH = ("P=1 sweep data", f"P={P_SHARDED} sweep data", "P=1 uniform",
                  f"P={P_SHARDED} uniform", "K=9 uniform", "K=10 uniform")
-# the generic prefix kernels (K > 64), mangled and as torch.profiler names them; no scan call of
-# K <= 64 may reach them
+# the generic prefix kernels, deleted (mangled): the built library must hold none of them
 FB_GENERIC = ("fbscan_prefix_group_any_kernel", "fbscan_prefix_combine_any_kernel",
-              "fbscan_prefix_rows_grid_kernelILi0E", "fbscan_prefix_rows_grid_kernel<0>")
+              "fbscan_prefix_rows_grid_kernelILi0E")
 # the wide prefix instances (K = 17-32): group, totals and combine kernels, three per call
 FB_WIDE = ("fbscan_prefix_wide_group_kernel", "fbscan_prefix_team_rows_kernel",
            "fbscan_prefix_team_combine_kernel")
 # the tiled-product prefix instance (K = 33-64): one cooperative launch per call
 FB_DEEP = ("fbscan_prefix_deep_kernel",)
+# the tiled-product prefix instance with j streamed (K > 64): one cooperative launch per call
+FB_TILED = ("fbscan_prefix_tiled_kernel",)
+# the grouped suffix above K = 64: group (maps in shared memory), totals' rows scan (one CTA per
+# row, or over the card), combine
+FB_SUFFIX_GROUPED = ("fbscan_suffix_group_smem_kernel", "fbscan_suffix_rows_",
+                     "fbscan_suffix_combine_kernel")
 # the FB scans at K = 27, B = 29,696, on the generic kernels the wide instances replaced (three
 # launches each), ms with L2 flushed (NVIDIA H100 80GB HBM3, 700.00 W)
 FB_GENERIC_K27_MS = {"prefix": 49.1638, "suffix": 0.0843}
@@ -340,6 +367,11 @@ FB_GENERIC_DEEP_MS = {33: {"prefix": 81.0150, "suffix": 0.0942},
                       36: {"prefix": 122.9840, "suffix": 0.1000},
                       48: {"prefix": 283.0770, "suffix": 0.1271},
                       64: {"prefix": 631.9546, "suffix": 0.3632}}
+# the FB scans at K = 81 and 128, B = 29,696, on the generic kernels the tiled products with j
+# streamed replaced (the suffix: the rows scan over the card), ms with L2 flushed, the mean of two
+# turns of fbscan_probes.py over64 (NVIDIA H100 80GB HBM3, 700.00 W)
+FB_GENERIC_OVER64_MS = {81: {"prefix": 1149.2838, "suffix": 0.5603},
+                        128: {"prefix": 4671.3588, "suffix": 1.3857}}
 # the FB scans at K = 10, B = 29,696, on the generic kernels they replaced (three launches each),
 # ms with L2 flushed (NVIDIA H100 80GB HBM3, 700.00 W)
 FB_GENERIC_K10_MS = {"prefix": 1.2159, "suffix": 0.0241}
@@ -357,6 +389,12 @@ MODEL_KS = [3, 10]  # [model]: states K
 MODEL_DIMS = [1, 3]  # [model]: data dimensions (P = K at dim 1, 2 above)
 MODEL_DRAWS = 50  # [model]: resample draws checked per K
 MODEL_K64_ROWS = [(1, 29_696), (1, 262_144)]  # [model]: (R, B) checked at K = 64, dim 3
+# [model]: (R, B, K, dim, P) checked above K = 64: -s C 3 4 (K = 81, dim 4) at the M burn-in's
+# capacity at T = 4M (the plain version's leaves would take 108 GB: stats_reference_in_chunks)
+# and at 262,144; -s C 2 7 (K = 128, dim 7) and -s C 3 5 (K = 243, dim 5) at the P = 1 capacity
+MODEL_LARGE_K = [(1, 4_000_000, 81, 4, 3), (1, 262_144, 81, 4, 3), (1, 29_696, 128, 7, 2),
+                 (1, 29_696, 243, 5, 3)]
+MODEL_RESAMPLE_KS = [128, 243]  # [model]: the resample above K = 64 (243: in passes of rows)
 # [states9]: configuration 4 of benchmarks/run_configs.py (:160-172), "multi-track multivariate
 # emissions: 2 tracks x 3 params = 9 states" (-s C 3 2): its means (:165-167), segments, noise, seed
 CONFIG4_MEANS = ((0.0, 0.0), (0.0, 3.0), (3.0, 0.0), (3.0, 3.0), (-3.0, 0.0), (0.0, -3.0),
@@ -364,7 +402,7 @@ CONFIG4_MEANS = ((0.0, 0.0), (0.0, 3.0), (3.0, 0.0), (3.0, 3.0), (-3.0, 0.0), (0
 CONFIG4_SEGLEN, CONFIG4_NOISE, CONFIG4_SEED = 800, 1.0, 4
 CONFIG4_T = 400_000  # the configuration's own T: bin/hammlet-torch -s C 3 2, host ingest
 STATES9_K = 9
-TRACKS_SETTLED = 3  # [states9], [states27], [states64]: settled F phases, graphed engine
+TRACKS_SETTLED = 3  # [states9], [states27], [states64], [states81]: settled F phases, graphed engine
 # [states27]: three tracks, three emission parameters per track, K = 27 = 3^3 states (-s C 3 3):
 # every mean (a, b, c) for a, b, c in {-3, 0, 3}, segments and noise as configuration 4's, seed 6
 STATES27_MEANS = tuple((a, b, c) for a in (-3.0, 0.0, 3.0) for b in (-3.0, 0.0, 3.0)
@@ -378,7 +416,15 @@ STATES64_MEANS = tuple((a, b, c) for a in (-4.5, -1.5, 1.5, 4.5) for b in (-4.5,
                        for c in (-4.5, -1.5, 1.5, 4.5))
 STATES64_K, STATES64_SEED = 64, 7
 STATES64_CLI_T = 400_000  # [states64] through bin/hammlet-torch -s C 4 3 (host ingest)
-STATES64_SETTLED_ITERS = 256  # [states64]'s settled F phases (~15 ms a sweep: the smoke's time)
+STATES64_SETTLED_ITERS = 128  # [states64]'s settled F phases (~13 ms a sweep: the smoke's time)
+# [states81]: four tracks, three emission parameters per track, K = 81 = 3^4 states (-s C 3 4):
+# every mean (a, b, c, d) for a, b, c, d in {-3, 0, 3} ([states27]'s levels on a fourth track),
+# segments and noise as configuration 4's, seed 8
+STATES81_MEANS = tuple((a, b, c, d) for a in (-3.0, 0.0, 3.0) for b in (-3.0, 0.0, 3.0)
+                       for c in (-3.0, 0.0, 3.0) for d in (-3.0, 0.0, 3.0))
+STATES81_K, STATES81_SEED = 81, 8
+STATES81_CLI_T = 400_000  # [states81] through bin/hammlet-torch -s C 3 4 (host ingest)
+STATES81_SETTLED_ITERS = 128  # [states81]'s settled F phases (~25 ms a sweep: the smoke's time)
 
 
 class SmokeFailure(Exception):
@@ -436,6 +482,12 @@ def states64_steps(T: int, seed: int = STATES64_SEED) -> tuple[np.ndarray, np.nd
     """[states64]'s data (three tracks, -s C 4 3): track_steps with the 64
     means STATES64_MEANS, seed 7."""
     return track_steps(STATES64_MEANS, T, seed)
+
+
+def states81_steps(T: int, seed: int = STATES81_SEED) -> tuple[np.ndarray, np.ndarray]:
+    """[states81]'s data (four tracks, -s C 3 4): track_steps with the 81
+    means STATES81_MEANS, seed 8."""
+    return track_steps(STATES81_MEANS, T, seed)
 
 
 def nvidia_smi_line() -> str:
@@ -792,65 +844,71 @@ def check_cross_shard(calls: list) -> int:
 def phase_fbscan() -> dict:
     """[fbscan]: each FB scan kernel against its plain version on the card
     at FB_SIZES x FB_KS x FB_ROWS, at K = 17-32 FB_WIDE_SHAPES alone, at K =
-    33-64 FB_DEEP_SHAPES (K = 64 also at (433,920, 1)), at K > 64
-    FB_GENERIC_SHAPES (the prefix within FB_RTOL / FB_ATOL, also counting
-    the cases that are bitwise, and bitwise at K > 32; the suffix bitwise),
-    each row of a 4-row call bitwise equal to a one-row call on that row; at
-    K = 33-64 each prefix call one tiled-product kernel and at K > 64 the
-    generic kernels (scan_kernels); a permuted and a transposed view (the
-    shape of the sharded engine's cross-shard calls) against the plain
-    versions of their contiguous copies, and NaN propagating as in the plain
-    version. Not counted: callers reset the counters before the run they
-    count."""
+    33-64 FB_DEEP_SHAPES (K = 64 also at (433,920, 1)), above K = 64
+    FB_TILED_CASES (the prefix within FB_RTOL / FB_ATOL, also counting the
+    cases that are bitwise, and bitwise at K > 32; the suffix bitwise), each
+    row of a 4-row call bitwise equal to a one-row call on that row; at K =
+    33-64 each prefix call one tiled-product kernel, above K = 64 one tiled
+    kernel with j streamed, and each grouped suffix call above K = 64 the
+    group, rows and combine kernels (scan_kernels); that the library holds
+    none of the generic kernels (FB_GENERIC); a permuted and a transposed
+    view (the shape of the sharded engine's cross-shard calls) against the
+    plain versions of their contiguous copies, and NaN propagating as in the
+    plain version. Not counted: callers reset the counters before the run
+    they count."""
     res = {"cases": 0, "bitwise": 0, "prefix_err": 0.0, "suffix_err": 0.0, "worst_rel": 0.0,
            "subnormal_cases": 0}
-    for B in FB_SIZES:
-        for K in FB_KS:
-            for R in FB_ROWS:
-                if (16 < K <= 32 and (B, R) not in FB_WIDE_SHAPES
-                        or 32 < K <= 64 and (B, R) not in FB_DEEP_SHAPES
-                        and (K, B, R) != (64, FB_BIG, 1)
-                        or K > 64 and (B, R) not in FB_GENERIC_SHAPES):
-                    continue
-                M, maps = fb_inputs(B, K, R, B * 100 + K * 10 + R)
-                where = f"B={B} K={K} R={R}"
-                got = fb_cuda.prefix_matmul_scan_cuda(M)
-                want = fb.prefix_matmul_scan_reference(M)
-                check(got.shape == M.shape and bool(torch.isfinite(got).all()),
-                      f"[fbscan] prefix kernel: shape or non-finite values ({where})")
-                close = torch.allclose(got, want, rtol=FB_RTOL, atol=FB_ATOL)
-                rel = float(((got - want).abs() / (FB_ATOL + want.abs())).max())
-                check(close, f"[fbscan] prefix kernel != plain beyond rtol {FB_RTOL} ({where}, "
-                      f"largest relative error {rel:.3g})")
-                bitwise = bits_equal(got, want)
-                check(bitwise or K <= 32,
-                      f"[fbscan] prefix kernel not bitwise equal to its plain version ({where})")
-                res["bitwise"] += bitwise
-                res["cases"] += 1
-                res["prefix_err"] = max(res["prefix_err"], max_abs_err(got, want))
-                if K > 32:
-                    names = [n for n, _ in scan_kernels(lambda: fb_cuda.prefix_matmul_scan_cuda(M))]
-                    check(len(names) == 1 and FB_DEEP[0] in names[0] if K <= 64
-                          else any(gen in " ".join(names) for gen in FB_GENERIC),
-                          f"[fbscan] a K = {K} prefix call ran {names} ({where})")
-                res["worst_rel"] = max(res["worst_rel"], rel)
-                sgot = fb_cuda.suffix_compose_scan_cuda(maps)
-                check(torch.equal(sgot, fb.suffix_compose_scan_reference(maps)),
-                      f"[fbscan] suffix kernel != plain ({where})")
-                if R > 1:
-                    for r in range(R):
-                        check(bits_equal(got[:, :, r], fb_cuda.prefix_matmul_scan_cuda(
-                            M[:, :, r:r + 1].contiguous())[:, :, 0]),
-                              f"[fbscan] prefix row {r} of {R} != its one-row call ({where})")
-                        check(torch.equal(sgot[:, r], fb_cuda.suffix_compose_scan_cuda(
-                            maps[:, r:r + 1].contiguous())[:, 0]),
-                              f"[fbscan] suffix row {r} of {R} != its one-row call ({where})")
-                del M, maps, got, want, sgot
+    binary = fb_cuda.build().path.read_bytes()
+    kept = [name for name in FB_GENERIC if name.encode() in binary]
+    check(not kept, f"[fbscan] the built library still holds the generic kernels {kept}")
+    cases = [(B, K, R) for B in FB_SIZES for K in FB_KS for R in FB_ROWS
+             if not (16 < K <= 32 and (B, R) not in FB_WIDE_SHAPES
+                     or 32 < K <= 64 and (B, R) not in FB_DEEP_SHAPES
+                     and (K, B, R) != (64, FB_BIG, 1))]
+    cases += [(B, K, R) for K, B, R in FB_TILED_CASES]
+    for B, K, R in cases:
+        M, maps = fb_inputs(B, K, R, B * 100 + K * 10 + R)
+        where = f"B={B} K={K} R={R}"
+        got = fb_cuda.prefix_matmul_scan_cuda(M)
+        want = fb.prefix_matmul_scan_reference(M)
+        check(got.shape == M.shape and bool(torch.isfinite(got).all()),
+              f"[fbscan] prefix kernel: shape or non-finite values ({where})")
+        close = torch.allclose(got, want, rtol=FB_RTOL, atol=FB_ATOL)
+        rel = float(((got - want).abs() / (FB_ATOL + want.abs())).max())
+        check(close, f"[fbscan] prefix kernel != plain beyond rtol {FB_RTOL} ({where}, "
+              f"largest relative error {rel:.3g})")
+        bitwise = bits_equal(got, want)
+        check(bitwise or K <= 32,
+              f"[fbscan] prefix kernel not bitwise equal to its plain version ({where})")
+        res["bitwise"] += bitwise
+        res["cases"] += 1
+        res["prefix_err"] = max(res["prefix_err"], max_abs_err(got, want))
+        if K > 32:
+            names = [n for n, _ in scan_kernels(lambda: fb_cuda.prefix_matmul_scan_cuda(M))]
+            check(len(names) == 1 and (FB_DEEP if K <= 64 else FB_TILED)[0] in names[0],
+                  f"[fbscan] a K = {K} prefix call ran {names} ({where})")
+        res["worst_rel"] = max(res["worst_rel"], rel)
+        sgot = fb_cuda.suffix_compose_scan_cuda(maps)
+        check(torch.equal(sgot, fb.suffix_compose_scan_reference(maps)),
+              f"[fbscan] suffix kernel != plain ({where})")
+        if K > 64 and B > 256:
+            names = [n for n, _ in scan_kernels(lambda: fb_cuda.suffix_compose_scan_cuda(maps))]
+            check(len(names) == 3 and all(k in n for k, n in zip(FB_SUFFIX_GROUPED, names)),
+                  f"[fbscan] a grouped K = {K} suffix call ran {names} ({where})")
+        if R > 1:
+            for r in range(R):
+                check(bits_equal(got[:, :, r], fb_cuda.prefix_matmul_scan_cuda(
+                    M[:, :, r:r + 1].contiguous())[:, :, 0]),
+                      f"[fbscan] prefix row {r} of {R} != its one-row call ({where})")
+                check(torch.equal(sgot[:, r], fb_cuda.suffix_compose_scan_cuda(
+                    maps[:, r:r + 1].contiguous())[:, 0]),
+                      f"[fbscan] suffix row {r} of {R} != its one-row call ({where})")
+        del M, maps, got, want, sgot
     # the sweep's matrices: many exact zeros (underflowed emission weights), some subnormal
     # (at K > 32 also -0: 1 % of the entries)
     for B, K in ((384, 3), (29_696, 3), (29_696, 9), (29_696, 10), (29_696, 16), (29_696, 17),
                  (29_696, 27), (29_696, 32), (384, 33), (29_696, 33), (29_696, 48), (384, 64),
-                 (29_696, 64)):
+                 (29_696, 64), *((384, K) for K in (65, 81, 96, 128, 129, 160, 243))):
         M, _ = fb_inputs(B, K, 2, 99 + K)
         u = torch.rand(M.shape, generator=torch.Generator(device="cuda").manual_seed(B), device="cuda")
         M = torch.where(u < 0.4, 0.0, torch.where(u < 0.45, M * 1e-39, M))
@@ -868,9 +926,20 @@ def phase_fbscan() -> dict:
     tmaps = torch.randint(0, 3, (P_SHARDED, 3), device="cuda")
     res["bitwise"] += check_scans(tots.permute(1, 2, 0), tmaps.T, "permuted and transposed views")
     res["cases"] += 1
+    # an infinity: its row's later products hold infinities and NaN, as in torch (K > 64)
+    for K in (65, 81, 96, 128, 129, 160, 243):
+        M, _ = fb_inputs(384, K, 1, 55 + K)
+        M[0, 0, 0, 200] = float("inf")
+        got, want = fb_cuda.prefix_matmul_scan_cuda(M), fb.prefix_matmul_scan_reference(M)
+        check(bits_equal(got, want) and not bool(torch.isfinite(got).all()),
+              f"[fbscan] an infinity (B=384 K={K})")
+        res["bitwise"] += 1
+        res["cases"] += 1
+        res["subnormal_cases"] += 1
     # NaN: a NaN entry turns every later product of its row into NaN, as in torch
     for B, K in ((200, 3), (29_696, 3), (200, 9), (29_696, 9), (200, 27), (29_696, 27),
-                 (200, 64), (29_696, 64)):
+                 (200, 64), (29_696, 64), (200, 81), (384, 81), (384, 128), (384, 160),
+                 (384, 243)):
         M, _ = fb_inputs(B, K, 2, 77)
         M[1, 2, 0, B // 3] = float("nan")
         got, want = fb_cuda.prefix_matmul_scan_cuda(M), fb.prefix_matmul_scan_reference(M)
@@ -968,10 +1037,13 @@ def time_fbscan(inputs: dict) -> dict:
         for key in ("prefix", "suffix"):
             row[key + "_kernels"] = scan_kernels(fns[key])
         for name, fn in fns.items():
-            # the plain versions' K^3 products take a second per call at K = 64
-            reps = 5 if name.endswith("_plain") and K > 32 else TIMING_REPS
+            # the plain versions' K^3 products take a second per call at K = 64, four at 128:
+            # above 64 one repetition, flushed only
+            plain = name.endswith("_plain")
+            reps = (1 if K > 64 else 5) if plain and K > 32 else TIMING_REPS
             row[name] = time_ms(fn, flushed(flush), reps)
-            row[name + "_warm"] = time_ms(fn, lambda: torch.cuda._sleep(SLEEP_CYCLES), reps)
+            row[name + "_warm"] = (float("nan") if plain and K > 64
+                                   else time_ms(fn, lambda: torch.cuda._sleep(SLEEP_CYCLES), reps))
         for name, (nbytes, ops) in fb_work(B, K, R).items():
             row[name + "_bound"], row[name + "_bound_by"] = bound_ms(nbytes, ops)
         timed[tag] = row
@@ -982,14 +1054,15 @@ def time_fbscan(inputs: dict) -> dict:
 
 
 def model_stats_inputs(R: int, B: int, K: int, dim: int, seed: int,
-                       tail: str = "full") -> tuple:
+                       tail: str = "full", P: int | None = None) -> tuple:
     """One statistics call's inputs, made on the card from ``seed``: (R, B)
     states and sizes, (R,) block counts (``tail``: B; "masked", about half,
     one fewer in each later row; "overflow", an overflowing sweep's B + 1),
-    (dim, 2, R, B) signed block statistics and a (K, dim) mapping into P =
-    K parameters at dim 1, else 2. Returns the kernel's arguments, P last."""
+    (dim, 2, R, B) signed block statistics and a (K, dim) mapping into P
+    parameters (by default K at dim 1, else 2). Returns the kernel's
+    arguments, P last."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    P = K if dim == 1 else 2
+    P = P or (K if dim == 1 else 2)
     states = torch.randint(0, K, (R, B), generator=gen, device="cuda")
     sizes = torch.randint(1, 400, (R, B), generator=gen, device="cuda")
     first = {"full": B, "masked": B // 2 + 1, "overflow": B + 1}[tail]
@@ -998,6 +1071,54 @@ def model_stats_inputs(R: int, B: int, K: int, dim: int, seed: int,
     bstats[:, 1].abs_()
     mapping = torch.randint(0, P, (K, dim), generator=gen, device="cuda")
     return states, sizes, n_blocks, bstats, mapping, P
+
+
+def stats_reference_in_chunks(states, sizes, n_blocks, bstats, mapping, P: int,
+                              chunk: int = 1 << 16) -> torch.Tensor:
+    """What sweep.sweep_stats_reference returns, for rows whose (R, terms,
+    B) leaves would not fit the card (K = 81, dim 4 at B = 4M: 108 GB): the
+    plain version's leaves, made for aligned chunks of ``chunk`` blocks (a
+    power of two; the last zero-padded to it), each chunk's pairwise tree
+    (sweep._pairwise_sum), then the tree over the chunk sums, zero-padded to
+    the next power of two, then the plain version's assembly. The plain
+    version's tree over B zero-padded to the next power of two splits at
+    every aligned power-of-two node, so these are its bits
+    (tests/test_torch_samplers.py holds this against it)."""
+    R, B = states.shape
+    K, dim = mapping.shape
+    f32, dev = torch.float32, states.device
+    if B <= chunk:
+        return sweep.sweep_stats_reference(states, sizes, n_blocks, bstats, mapping, P)
+    kk, pp = torch.arange(K, device=dev), torch.arange(P, device=dev)
+    sums = []
+    for c0 in range(0, B, chunk):
+        n = min(chunk, B - c0)
+        st, sz = states[:, c0:c0 + n], sizes[:, c0:c0 + n].to(f32)[:, None]
+        prev = states[:, c0 - 1:c0 + n - 1] if c0 else torch.cat(
+            [states.new_zeros((R, 1)), states[:, :n - 1]], dim=1)
+        valid = (c0 + torch.arange(n, device=dev))[None, :] < n_blocks[:, None]
+        at = ((st[:, None, :] == kk[None, :, None]) & valid[:, None, :]).to(f32)
+        pairs = ((prev[:, None, None, :] == kk[None, :, None, None])
+                 & (st[:, None, None, :] == kk[None, None, :, None]) & valid[:, None, None, :])
+        pm = mapping[st]
+        leaves = [at * sz, at * (sz - 1.0), pairs.reshape(R, K * K, n).to(f32)]
+        del pairs
+        for d in range(dim):
+            routed = ((pm[:, None, :, d] == pp[None, :, None]) & valid[:, None, :]).to(f32)
+            leaves += [routed * bstats[d, 0][:, None, c0:c0 + n],
+                       routed * bstats[d, 1][:, None, c0:c0 + n], routed * sz]
+        x = torch.nn.functional.pad(torch.cat(leaves, dim=1), (0, chunk - n))
+        del leaves
+        sums.append(sweep._pairwise_sum(x))
+        del x
+    terms = sweep._pairwise_sum(torch.stack(sums, dim=-1))
+    state, diag = terms[:, :K], terms[:, K:2 * K]
+    trans = terms[:, 2 * K:2 * K + K * K].reshape(R, K, K) + torch.diag_embed(diag)
+    theta = torch.zeros((R, 3 * P), dtype=f32, device=dev)
+    for d in range(dim):
+        at_d = 2 * K + K * K + 3 * P * d
+        theta = theta + terms[:, at_d:at_d + 3 * P]
+    return torch.cat([theta, trans.reshape(R, K * K), state], dim=1)
 
 
 def model_resample_inputs(K: int, seed: int, nan: bool = False) -> tuple:
@@ -1115,6 +1236,33 @@ def phase_model() -> dict:
         res["stats_err"] = max(res["stats_err"], err["stats"])
         res["cases"] += 1
         del args
+    # above K = 64: the run stacks and histogram of the pair terms in slices where a CTA cannot
+    # hold them all, the resample in passes of rows at K = 243; at B = 4M against the plain
+    # version's sums taken in chunks (checked against the plain version itself at 262,144)
+    for R, B, K, dim, P in MODEL_LARGE_K:
+        args = model_stats_inputs(R, B, K, dim, B + K + dim, P=P)
+        where = f"R={R} B={B} K={K} dim={dim} P={P}"
+        got = model_cuda.sweep_stats_cuda(*args)
+        if B > 262_144:
+            want = stats_reference_in_chunks(*args)
+        else:
+            want = sweep.sweep_stats_reference(*args)
+            check(bits_equal(stats_reference_in_chunks(*args, chunk=1 << 14), want),
+                  f"[model] the plain statistics in chunks != the plain version ({where})")
+        check(bits_equal(got, want), f"[model] statistics kernel != plain ({where})")
+        res["stats_err"] = max(res["stats_err"], max_abs_err(got, want))
+        res["cases"] += 1
+        del args, got, want
+        torch.cuda.empty_cache()
+    for K in MODEL_RESAMPLE_KS:
+        for draw in range(3):
+            parts = resample_parts(model_resample_inputs(K, 7 * K + draw))
+            rgot = model_cuda.resample_model_cuda(*parts)
+            rwant = hmm.resample_model_reference(*parts)
+            for name, a, b in zip(hmm.HMMState._fields, rgot, rwant):
+                check(bits_equal(a, b), f"[model] resample kernel != plain: {name} (K={K} draw {draw})")
+                res["resample_err"] = max(res["resample_err"], max_abs_err(a, b))
+            res["draws"] += 1
     for K in MODEL_KS:
         stats_args = model_stats_inputs(1, 29_696, K, 1, K)
         for draw in range(MODEL_DRAWS):
@@ -1149,7 +1297,14 @@ def model_kernels_per_call() -> dict:
                           f"ran {kern}, not one CUDA kernel")
                     cases += 1
                     del args
-    for K in MODEL_KS:
+    for R, B, K, dim, P in MODEL_LARGE_K:
+        args = model_stats_inputs(R, B, K, dim, B + K + dim, P=P)
+        kern = scan_kernels(lambda: model_cuda.sweep_stats_cuda(*args))
+        check(len(kern) == 1 and "modelupdate_stats_kernel" in kern[0][0],
+              f"[model] one statistics call at R={R} B={B} K={K} dim={dim} ran {kern}")
+        cases += 1
+        del args
+    for K in MODEL_KS + MODEL_RESAMPLE_KS:
         parts = resample_parts(model_resample_inputs(K, K))
         kern = scan_kernels(lambda: model_cuda.resample_model_cuda(*parts))
         check(len(kern) == 1 and "modelupdate_resample_kernel" in kern[0][0],
@@ -1602,9 +1757,18 @@ def phase_states64(tmp: str) -> dict:
                         ["C", "4", "3"], STATES64_SETTLED_ITERS)
 
 
+def phase_states81(tmp: str) -> dict:
+    """[states81]: four tracks of three levels, K = 81 = 3^4
+    (states81_steps, -s C 3 4) through phase_tracks, settled phases of
+    STATES81_SETTLED_ITERS sweeps, and at STATES81_CLI_T through
+    bin/hammlet-torch -s C 3 4 -a."""
+    return phase_tracks(tmp, "states81", states81_steps, STATES81_K, STATES81_CLI_T,
+                        ["C", "3", "4"], STATES81_SETTLED_ITERS)
+
+
 def phase_tracks(tmp: str, tag: str, steps, K: int, cli_T: int, states: list[str],
                  settled_iters: int = SETTLED_ITERS) -> dict:
-    """[states9], [states27], [states64]: ``steps``' data (several tracks,
+    """[states9], [states27], [states64], [states81]: ``steps``' data (several tracks,
     K = P^tracks states) at T_MAIN positions through device ingest: make_engine ->
     SCHEME -> finalize through a graphed engine and through one whose
     chunks run the eager gibbs_phase, same seed. Checks that ingest took
@@ -1878,10 +2042,11 @@ def phase_profile(main_eng, sharded_eng, sharded_eager, tracks: dict) -> dict:
     sweep of the [main] engine with the debug bitmask off and on, and of the
     [sharded] engine; launch calls, kernels and device ms per sweep of the
     graphed and the eager [main] and [sharded] engines and of the graphed
-    [states9], [states27] and [states64] engines (``tracks``: phase -> kind
-    -> engine), whose FB scan kernels must be the team, the wide and the
-    tiled-product instances (no generic kernel), and the eager [states9],
-    [states27] and [states64] sweeps' device ms by stage. It runs last: once
+    [states9], [states27], [states64] and [states81] engines (``tracks``:
+    phase -> kind -> engine), whose FB scan kernels must be the team, the
+    wide, the tiled-product instances and the tiled instances with j
+    streamed with the grouped suffix, and the eager [states9], [states27],
+    [states64] and [states81] sweeps' device ms by stage. It runs last: once
     the profiler has traced the card, every later launch of the process pays
     more host time, which would lower any rate measured after it."""
     old = os.environ.get("HAMMLET_DEBUG")
@@ -1915,12 +2080,13 @@ def phase_profile(main_eng, sharded_eng, sharded_eager, tracks: dict) -> dict:
         check("modelupdate_stats_kernel" in names and "modelupdate_resample_kernel" in names,
               f"the {tag} sweep ran no sweep statistics or resample kernel: {res[tag]['model']}")
     res["sharded_eager"] = profile_launches(sharded_eager)
-    for tag, prefix_kinds in (("states9", ("fbscan_prefix_team",)), ("states27", FB_WIDE),
-                              ("states64", FB_DEEP)):
+    for tag, kinds in (("states9", ("fbscan_prefix_team", "fbscan_suffix_one")),
+                       ("states27", FB_WIDE + ("fbscan_suffix_one",)),
+                       ("states64", FB_DEEP + ("fbscan_suffix_one",)),
+                       ("states81", FB_TILED + FB_SUFFIX_GROUPED)):
         res[tag] = profile_launches(tracks[tag]["graph"])
         names = " ".join(res[tag]["fbscan"])
-        check(all(kind in names for kind in prefix_kinds) and "fbscan_suffix_one" in names
-              and not any(gen in names for gen in FB_GENERIC),
+        check(all(kind in names for kind in kinds),
               f"[{tag}] the graphed sweep's FB scan kernels were {res[tag]['fbscan']}")
         names = " ".join(res[tag]["model"])
         check("modelupdate_stats_kernel" in names and "modelupdate_resample_kernel" in names,
@@ -2875,8 +3041,8 @@ def print_sharded(sh: dict, main_rate: float) -> None:
 
 
 def print_tracks(tag: str, s9: dict, what: str, states: str, cli_T: int) -> None:
-    """The [states9], [states27] or [states64] lines: ``what`` names the
-    configuration, ``states`` its -s arguments."""
+    """The [states9], [states27], [states64] or [states81] lines: ``what``
+    names the configuration, ``states`` its -s arguments."""
     g = s9["graph"]
     rates = s9["settled"]
     print(f"[{tag}] T={T_MAIN} x {s9['dim']} tracks K={s9['K']} ({what}, -s {states}) '{SCHEME}', "
@@ -2988,10 +3154,12 @@ def main() -> int:
         print(f"[fbscan] prefix_matmul_scan_kernel within rtol {FB_RTOL} / atol {FB_ATOL} of "
               f"its plain version in all {fbk['cases']} cases (B in {FB_SIZES} x K in {FB_KS} x R "
               f"in {FB_ROWS}, at K = 17-32 (B, R) in {FB_WIDE_SHAPES}, at K = 33-64 in "
-              f"{FB_DEEP_SHAPES} and K = 64 at ({FB_BIG}, 1), at K = 65 in {FB_GENERIC_SHAPES}; "
-              f"{fbk['subnormal_cases']} with 40 % zeros and 5 % subnormals (at K > 32 also 1 % -0), "
-              f"and the views; bitwise at every K > 32 and one tiled-product kernel per K = 33-64 "
-              f"call, the generic kernels at K = 65; {fbk['bitwise']} of "
+              f"{FB_DEEP_SHAPES} and K = 64 at ({FB_BIG}, 1), (K, B, R) in {FB_TILED_CASES}; "
+              f"{fbk['subnormal_cases']} with 40 % zeros and 5 % subnormals (at K > 32 also 1 % -0) "
+              f"or an infinity (K > 64), and the views; bitwise at every K > 32, one tiled-product "
+              f"kernel per K = 33-64 call and one tiled kernel with j streamed per K > 64 call, "
+              f"three suffix kernels per grouped K > 64 call, no generic kernel in the library "
+              f"({', '.join(FB_GENERIC)}); {fbk['bitwise']} of "
               "them bitwise; largest absolute error "
               f"{fbk['prefix_err']}, relative {fbk['worst_rel']:.3g}); suffix_compose_scan_kernel "
               "bitwise equal to its plain version in all of them; each row of a 4-row call "
@@ -3006,8 +3174,10 @@ def main() -> int:
               f"{mdk['cases']} cases ((R, B) in {MODEL_ROWS} x K in {MODEL_KS} x dim in "
               f"{MODEL_DIMS}, at B=29696 also a masked tail and B+1 blocks; largest absolute "
               f"error {mdk['stats_err']}), each row of a 4-row call bitwise equal to its one-row "
-              f"call; modelupdate_resample_kernel bitwise equal to its plain version in "
-              f"{mdk['draws']} draws at K in {MODEL_KS} with Gamma shapes 0.5-1e7 (largest "
+              f"call; above K = 64 at (R, B, K, dim, P) in {MODEL_LARGE_K} (B = 4M against the "
+              f"plain version's sums in chunks of 65,536 blocks); modelupdate_resample_kernel "
+              f"bitwise equal to its plain version in {mdk['draws']} draws at K in "
+              f"{MODEL_KS + MODEL_RESAMPLE_KS} with Gamma shapes 0.5-1e7 (largest "
               f"absolute error {mdk['resample_err']}); NaN statistics propagate as in the plain "
               "versions", flush=True)
 
@@ -3083,6 +3253,10 @@ def main() -> int:
             s64 = phase_states64(tmp)
             took("states64")
         print_tracks("states64", s64, "three tracks of four levels", "C 4 3", STATES64_CLI_T)
+        with tempfile.TemporaryDirectory() as tmp:
+            s81 = phase_states81(tmp)
+            took("states81")
+        print_tracks("states81", s81, "four tracks of three levels", "C 3 4", STATES81_CLI_T)
 
         sweep_p1, views_p1 = g["scans"].main_and_others()
         sweep_p4, views_p4 = sh.pop("scans").main_and_others()
@@ -3108,6 +3282,8 @@ def main() -> int:
             "K=32 uniform": fb_inputs(m["capacity"], 32, 1, SEED),
             "K=64 sweep data": s64["scans"].main_and_others()[0],
             **{f"K={K} uniform": fb_inputs(m["capacity"], K, 1, SEED) for K in (33, 36, 48, 64)},
+            "K=81 sweep data": s81["scans"].main_and_others()[0],
+            **{f"K={K} uniform": fb_inputs(m["capacity"], K, 1, SEED) for K in (81, 128)},
         })
         print(f"[fbscan] the sweep's own cross-shard calls ({len(views_p4)} of the eager "
               f"P={P_SHARDED} sweep, (kind, shape, strides) "
@@ -3133,10 +3309,15 @@ def main() -> int:
                       f"{fbt[tag][key + '_kernels']}, not one CUDA kernel")
         for tag, row in fbt.items():
             B, K, R = row["shape"]
-            names = " ".join(n for n, _ in row["prefix_kernels"] + row["suffix_kernels"])
-            check(not any(gen in names for gen in FB_GENERIC),
-                  f"[fbscan] a K = {K} scan call on the {tag} inputs ran {names} (the generic "
-                  "kernels are for K > 64 alone)")
+            if K > 64:
+                prefix = [n for n, _ in row["prefix_kernels"]]
+                check(len(prefix) == 1 and FB_TILED[0] in prefix[0],
+                      f"[fbscan] a K = {K} prefix call on the {tag} inputs ran {prefix}, not one "
+                      "tiled kernel with j streamed")
+                suffix = [n for n, _ in row["suffix_kernels"]]
+                check(len(suffix) == 3 and all(k in n for k, n in zip(FB_SUFFIX_GROUPED, suffix)),
+                      f"[fbscan] a K = {K} suffix call on the {tag} inputs ran {suffix}, not the "
+                      "grouped form")
             if 32 < K <= 64:
                 prefix = [n for n, _ in row["prefix_kernels"]]
                 check(len(prefix) == 1 and FB_DEEP[0] in prefix[0],
@@ -3183,6 +3364,21 @@ def main() -> int:
         print(f"[fbscan] K=33-64 B={m['capacity']} (the tiled products, one launch), ms with L2 "
               f"flushed: {'; '.join(deep)}; the K=64 sweep's own at B={own['shape'][0]}: prefix "
               f"{own['prefix']:.4f}, suffix {own['suffix']:.4f}", flush=True)
+        over = []
+        for K in (81, 128):
+            row, old = fbt[f"K={K} uniform"], FB_GENERIC_OVER64_MS.get(K)
+            over.append(
+                f"K={K} prefix {row['prefix']:.4f} (bound {row['prefix_bound']:.4g}, "
+                f"{row['prefix_bound'] / row['prefix']:.1%}; plain {row['prefix_plain']:.4f}), "
+                f"suffix {row['suffix']:.4f} (bound {row['suffix_bound']:.4g})"
+                + (f"; the generic kernels took {old['prefix']} and {old['suffix']} "
+                   f"({old['prefix'] / row['prefix']:.1f}x and {old['suffix'] / row['suffix']:.2f}x)"
+                   if old else ""))
+        own = fbt["K=81 sweep data"]
+        print(f"[fbscan] K>64 B={m['capacity']} (the tiled products with j streamed, one launch; "
+              f"the grouped suffix, three), ms with L2 flushed: {'; '.join(over)}; the K=81 "
+              f"sweep's own at B={own['shape'][0]}: prefix {own['prefix']:.4f}, suffix "
+              f"{own['suffix']:.4f}", flush=True)
         for P in (1, P_SHARDED):
             own, uni = fbt[f"P={P} sweep data"], fbt[f"P={P} uniform"]
             print(f"[fbscan] P={P}, ms with L2 flushed on the sweep's own inputs / on uniform "
@@ -3205,6 +3401,7 @@ def main() -> int:
             "K=9 dim=2 sweep data": s9["models"].main(),
             "K=27 dim=3 sweep data": s27["models"].main(),
             "K=64 dim=3 sweep data": s64["models"].main(),
+            "K=81 dim=4 sweep data": s81["models"].main(),
         })
         for tag, row in mdt.items():
             R, B, K, dim = row["model_shape"]
@@ -3230,7 +3427,8 @@ def main() -> int:
         kpc = model_kernels_per_call()
         took("timed fbscan and model")
         print(f"[model] one CUDA kernel per statistics call (modelupdate_stats_kernel) at all "
-              f"{kpc['cases']} checked shapes, and per resample call at K in {MODEL_KS}", flush=True)
+              f"{kpc['cases']} checked shapes, and per resample call at K in "
+              f"{MODEL_KS + MODEL_RESAMPLE_KS}", flush=True)
 
         with tempfile.TemporaryDirectory() as tmp:
             ch = phase_chains(tmp)
@@ -3251,7 +3449,7 @@ def main() -> int:
 
         pr = phase_profile(main_eng, sh.pop("engine"), sh.pop("eager_engine"),
                            {"states9": s9.pop("engines"), "states27": s27.pop("engines"),
-                            "states64": s64.pop("engines")})
+                            "states64": s64.pop("engines"), "states81": s81.pop("engines")})
         took("profile")
         print(f"[profile] torch.profiler F 64 4 at T={T_MAIN}: [main] engine HAMMLET_DEBUG "
               f"off {pr['0'][0]} kernels/sweep, {pr['0'][1]:.4f} device ms/sweep; on "
@@ -3271,14 +3469,15 @@ def main() -> int:
                   f"{p['model']}", flush=True)
         for tag, K, dim, kind in (("states9", STATES9_K, 2, "team"),
                                   ("states27", STATES27_K, 3, "wide"),
-                                  ("states64", STATES64_K, 3, "tiled-product")):
+                                  ("states64", STATES64_K, 3, "tiled-product"),
+                                  ("states81", STATES81_K, 4, "tiled with j streamed")):
             p = pr[tag]
             print(f"[profile] graphed [{tag}] engine (K={K}, dim {dim}), per settled sweep of F 64 "
                   f"4: launch calls {p['launch_calls']}, {p['kernels']} device kernels, "
                   f"{p['device_ms']:.4f} device ms summed, {p['busy_ms']:.4f} as the union of their "
                   f"intervals, {p['wall_ms']:.4f} wall ms (busy {p['busy']:.1%} under the "
                   f"profiler); costliest kernels {p['top']}; FB scan kernels (per sweep, device ms "
-                  f"per sweep) {p['fbscan']} ({kind} instances, no generic kernel); model-update "
+                  f"per sweep) {p['fbscan']} ({kind} instances); model-update "
                   f"kernels {p['model']}; eager [{tag}] sweep's device ms per sweep by stage "
                   f"({pr[tag + '_split']['total_ms']:.4f} ms in all): {pr[tag + '_split']['stages']}",
                   flush=True)
@@ -3328,7 +3527,8 @@ def main() -> int:
         "library_ms": None,
     } for kernel, source, replaces, key, count in KERNEL_ROWS] + [{
         # the scan kernels of [states9] (K = 9: the team prefix), [states27] (K = 27: the wide
-        # prefix's three) and [states64] (K = 64: the tiled product), timed on each sweep's own
+        # prefix's three), [states64] (K = 64: the tiled product) and [states81] (K = 81: the
+        # tiled product with j streamed; the grouped suffix's three), timed on each sweep's own
         # matrices and maps
         "name": " + ".join(kernel_label(n) for n, _ in fbt[f"K={K} sweep data"][key + "_kernels"]),
         "route": "cuda",
@@ -3344,7 +3544,7 @@ def main() -> int:
         "bound_by": fbt[f"K={K} sweep data"][key + "_bound_by"],
         "library_ms": None,
     } for tag, K, phase in (("states9", STATES9_K, s9), ("states27", STATES27_K, s27),
-                            ("states64", STATES64_K, s64))
+                            ("states64", STATES64_K, s64), ("states81", STATES81_K, s81))
       for _, _, replaces, key, count in KERNEL_ROWS if key in ("prefix", "suffix")]}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -74,6 +74,23 @@ kernels (csrc/modelupdate.cu) beyond chip_smoke.py.
         matrices per CTA, as built; one matrix per CTA; 16 x 16 threads per
         matrix), as `variants` at K in DEEP_KS.
 
+    python3 fbscan_probes.py over64 OLD_FBSCAN_CU
+        The tiled-product instances with j streamed (K > 64) of the current
+        fbscan.cu, as `teams`, against the parent's source (which ran K > 64
+        on its generic kernels, and the grouped suffix above 64 flat over
+        the card) in turns, on uniform inputs: K = 81 and 128 at B =
+        29,696, K = 160 and 243 at B = 2,944 (OVER64_INPUTS); then each K of
+        OVER64_BITS_KS against the plain versions at WIDE_BITS (above
+        4,096 blocks only up to K = 128), at OVER64_SPECIAL_KS also with zeros and
+        subnormals, with -0 and an infinity, and with a NaN ("WIDE_BITS");
+        then the slab and register variants (OVER64_VARIANTS), as
+        `variants` at K in OVER64_VARIANT_KS at B = 29,696; last the
+        current kernels alone at K = 96, 160 and 243, B = 29,696 (one line
+        "ALONE <json>" each: both scans' times with L2 flushed beside the
+        bound, the CUDA kernels per call, and at K = 96 and 160 the plain
+        versions' times, one call each). Its output is long: send it to a
+        file.
+
     python3 fbscan_probes.py variants KS SUBSTITUTIONS
         Copies of the current fbscan.cu, each with text substituted
         (SUBSTITUTIONS: JSON {name: [[old, new], ...]}; an empty list is
@@ -340,6 +357,24 @@ WIDE_BITS = [(130, 1), (1_024, 1), (1_024, 4), (29_696, 1), (9_600, 4)]
 DEEP_KS = [33, 36, 48, 64]
 #: [deep]: states of the bitwise checks with zeros, subnormals, -0, infinities and NaN
 DEEP_SPECIAL_KS = [33, 48, 64]
+#: [over64]: (B, K, R) of the inputs timed in turns against the generic kernels
+OVER64_INPUTS = {"K=81 B=29696": (29_696, 81, 1), "K=128 B=29696": (29_696, 128, 1),
+                 "K=160 B=2944": (2_944, 160, 1), "K=243 B=2944": (2_944, 243, 1)}
+#: [over64]: states of the bitwise checks (-s C 3 4, C 5 3, C 2 7, C 3 5 and the edges of T)
+OVER64_BITS_KS = [65, 72, 80, 81, 96, 97, 112, 113, 125, 128, 129, 160, 161, 192, 243, 256]
+#: [over64]: states of the bitwise checks with zeros, subnormals, -0, infinities and NaN
+OVER64_SPECIAL_KS = [65, 81, 128, 129, 243]
+#: [over64]: the copies of fbscan.cu timed in turns: slabs of 32 or 16 values of j; the
+#: registers of two CTAs per SM (128 a thread), of three at T <= 6 (85) or of one (255); the
+#: j loop unrolled twice or once
+OVER64_VARIANTS = {
+    "slab32": [],
+    "slab16": [["#define TILED_SLAB 32 ", "#define TILED_SLAB 16 "]],
+    "blocks3": [["MIN_BLOCKS = 2;", "MIN_BLOCKS = T <= 6 ? 3 : 2;"]],
+    "blocks1": [["MIN_BLOCKS = 2;", "MIN_BLOCKS = 1;"]],
+    "unroll1": [["#pragma unroll 2\n  for (int jj = jb;", "#pragma unroll 1\n  for (int jj = jb;"]],
+}
+OVER64_VARIANT_KS = [81, 96, 128]
 #: [deep]: the copies of fbscan.cu timed in turns: the tile shapes
 DEEP_VARIANTS = {
     "mats2": [],
@@ -386,17 +421,19 @@ def print_ptxas(log: str, kinds: tuple, tag: str = "") -> None:
                              if "ptxas info" in x or "spill" in x), flush=True)
 
 
-def wide_bits(ks: range, special_ks: tuple) -> None:
-    """Each K of ``ks`` against the plain versions at WIDE_BITS, at
-    ``special_ks`` with zeros and subnormals, with -0 and an infinity, and
-    with a NaN: prints "WIDE_BITS <json>" with the cases that were not
-    bitwise (prefix) or equal (suffix)."""
+def wide_bits(ks, special_ks: tuple, largest_k: int = 1 << 30) -> None:
+    """Each K of ``ks`` against the plain versions at WIDE_BITS (above 4,096
+    blocks only up to ``largest_k``), at ``special_ks`` with zeros and subnormals,
+    with -0 and an infinity, and with a NaN: prints "WIDE_BITS <json>" with
+    the cases that were not bitwise (prefix) or equal (suffix)."""
     from hammlet_tpu_torch.samplers import fb_cuda
     from hammlet_tpu_torch.samplers import forward_backward as fb
 
     bad, cases = [], 0
     for K in ks:
         for B, R in WIDE_BITS:
+            if B * R > 4_096 and K > largest_k:
+                continue
             M, maps = cs.fb_inputs(B, K, R, B + K + R)
             variants = {"uniform": M}
             if K in special_ks and R == 1:
@@ -423,9 +460,10 @@ def wide_bits(ks: range, special_ks: tuple) -> None:
 
 
 def team_turns(old: str, inputs: dict, kinds: tuple) -> None:
-    """`teams` and `wide`: the current fbscan.cu against the parent's, in
-    turns, at ``inputs`` (see the module's docstring); first the ptxas
-    lines of the kernels whose names hold one of ``kinds``."""
+    """`teams`, `wide`, `deep` and `over64`: the current fbscan.cu against
+    the parent's, in turns, at ``inputs`` (see the module's docstring);
+    first the ptxas lines of the kernels whose names hold one of
+    ``kinds``."""
     from hammlet_tpu_torch.samplers import fb_cuda
     from hammlet_tpu_torch.samplers import forward_backward as fb
 
@@ -459,7 +497,7 @@ def team_turns(old: str, inputs: dict, kinds: tuple) -> None:
                         "suffix_kernels": cs.scan_kernels(suffix),
                         "prefix_ms": [], "suffix_ms": []}
                 slow = name == "old" and (K > 8 and B > 29_696 or K > 16)
-                reps = 5 if slow else cs.TIMING_REPS
+                reps = (2 if K > 64 else 5) if slow else cs.TIMING_REPS
                 row[name]["prefix_ms"].append(cs.time_ms(prefix, cs.flushed(flush), reps))
                 row[name]["suffix_ms"].append(cs.time_ms(suffix, cs.flushed(flush), reps))
             print("TEAMS", tag, json.dumps(row), flush=True)
@@ -562,9 +600,9 @@ def stamped_call(lib, call, before, stamps: int) -> dict:
 
 def variant_turns(ks: list[int], substitutions: dict,
                   kinds: tuple = ("wide", "team_rows", "team_combine", "suffix_one",
-                                  "deep")) -> None:
+                                  "deep"), sizes: tuple = (29_696, cs.FB_BIG)) -> None:
     """`variants`: copies of fbscan.cu with text substituted, timed in
-    turns (see the module's docstring)."""
+    turns (see the module's docstring), at B in ``sizes``."""
     from concurrent.futures import ThreadPoolExecutor
 
     from hammlet_tpu_torch.samplers import fb_cuda
@@ -601,7 +639,7 @@ def variant_turns(ks: list[int], substitutions: dict,
     print(cs.nvidia_smi_line(), flush=True)
     try:
         for K in ks:
-            for B in (29_696, cs.FB_BIG):
+            for B in sizes:
                 M, maps = cs.fb_inputs(B, K, 1, cs.SEED + K)
                 want = fb.prefix_matmul_scan_reference(M)
                 swant = fb.suffix_compose_scan_reference(maps)
@@ -623,6 +661,34 @@ def variant_turns(ks: list[int], substitutions: dict,
                 torch.cuda.empty_cache()
     finally:
         fb_cuda._lib = current
+
+
+def over64_alone() -> None:
+    """`over64`'s last part: the current scans alone at K = 96, 160 and 243,
+    B = 29,696 (the generic kernels would take seconds a call there)."""
+    from hammlet_tpu_torch.samplers import fb_cuda
+    from hammlet_tpu_torch.samplers import forward_backward as fb
+
+    flush = torch.empty(cs.FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    for K in (96, 160, 243):
+        M, maps = cs.fb_inputs(29_696, K, 1, cs.SEED + K)
+        prefix = lambda: fb_cuda.prefix_matmul_scan_cuda(M)  # noqa: E731
+        suffix = lambda: fb_cuda.suffix_compose_scan_cuda(maps)  # noqa: E731
+        row: dict = {"shape": (29_696, K, 1),
+                     "prefix_kernels": [(cs.kernel_label(n), c) for n, c in cs.scan_kernels(prefix)],
+                     "suffix_kernels": [(cs.kernel_label(n), c) for n, c in cs.scan_kernels(suffix)],
+                     "prefix_ms": cs.time_ms(prefix, cs.flushed(flush), 10),
+                     "suffix_ms": cs.time_ms(suffix, cs.flushed(flush), 10)}
+        for name, (nbytes, ops) in cs.fb_work(29_696, K, 1).items():
+            row[name + "_bound"] = cs.bound_ms(nbytes, ops)
+        if K < 243:  # the plain versions: one call each (at 243 their tensors would not fit beside)
+            row["prefix_plain_ms"] = cs.time_ms(lambda: fb.prefix_matmul_scan_reference(M),
+                                                cs.flushed(flush), 1)
+            row["suffix_plain_ms"] = cs.time_ms(lambda: fb.suffix_compose_scan_reference(maps),
+                                                cs.flushed(flush), 1)
+        print("ALONE", json.dumps(row), flush=True)
+        del M, maps, prefix, suffix
+        torch.cuda.empty_cache()
 
 
 def ptxas_lines(log: str, symbol: str) -> str:
@@ -738,6 +804,13 @@ def main() -> int:
         team_turns(sys.argv[2], deep_inputs(), kinds)
         wide_bits(range(33, 66), tuple(DEEP_SPECIAL_KS))
         variant_turns(DEEP_KS, DEEP_VARIANTS, kinds)
+        return 0
+    if sys.argv[1:2] == ["over64"] and len(sys.argv) == 3:
+        kinds = ("tiled", "suffix_group", "suffix_rows", "suffix_combine")
+        team_turns(sys.argv[2], OVER64_INPUTS, kinds)
+        wide_bits(OVER64_BITS_KS, tuple(OVER64_SPECIAL_KS), largest_k=128)
+        variant_turns(OVER64_VARIANT_KS, OVER64_VARIANTS, kinds, sizes=(29_696,))
+        over64_alone()
         return 0
     if sys.argv[1:2] == ["variants"] and len(sys.argv) == 4:
         variant_turns([int(k) for k in sys.argv[2].split(",")], json.loads(sys.argv[3]))

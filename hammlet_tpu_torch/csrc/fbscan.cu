@@ -4,8 +4,8 @@
 // call's groups can be resident at once (the main path's shapes), three
 // beyond that.
 //
-// (The prefix at K = 33..64 takes one launch at every shape: see "prefix,
-// K = 33..64".)
+// (The prefix above K = 32 takes one launch at every shape: see "prefix,
+// K = 33..64" and "prefix, K > 64".)
 //
 // Replaces the JAX package's grouped scans, which XLA compiles into a few
 // fused ops on the TPU:
@@ -80,12 +80,14 @@
 //   MAX_WIDE_K at every grouped shape, a cluster of WIDE_CL CTAs per group):
 //   *_group_kernel: the in-group levels as above (the prefix's team group
 //     kernel for K = 9..16, fbscan_prefix_wide_group_kernel for K =
-//     17..32; the suffix's group kernel keeps the maps in shared memory as
-//     int32, K <= MAX_DEEP_K), the in-group scan and each group's total to
-//     device memory;
+//     17..32; the suffix's group kernel keeps the maps in shared memory,
+//     as int32 up to K = 227 and int16 up to 454, and is the grouped
+//     suffix's first launch at every shape above MAX_DEEP_K), the
+//     in-group scan and each group's total to device memory;
 //   rows scan of the totals: one CTA of 1024 threads per row where two
 //     copies of a row fit in 48 KB of shared memory (K <= 8; the suffix
-//     above MAX_WIDE_K up to the card's opt-in shared memory), else one
+//     above MAX_WIDE_K up to the card's opt-in shared memory, as int16
+//     where int32 would not fit), else one
 //     cooperative launch spread over the whole card, a grid-wide barrier
 //     between levels, ping-ponging through device scratch (the prefix at K
 //     = 9..32: fbscan_prefix_team_rows_kernel, a thread per column);
@@ -94,13 +96,14 @@
 // Flat form (n <= 256 or n % 128 != 0, where the JAX package is flat too):
 // the rows scan alone, on the input, in one CTA per row or over the whole
 // card as above (a flat n reaches T when the capacity is clipped to it).
-// A suffix above MAX_DEEP_K (K > 64) takes the flat form over the whole
-// card: composition is exact, so its association does not change the
-// result. The prefix at K = MAX_WIDE_K + 1 .. MAX_DEEP_K (-s C 6 2, -s C 4
-// 3) is one cooperative launch, grouped or flat (fbscan_prefix_deep_kernel;
-// see "prefix, K = 33..64"). The prefix above MAX_DEEP_K (K > 64, e.g. -s
-// C 3 4) keeps the generic kernels: the in-group levels and the combine in
-// device memory (*_any_kernel) and the grid-wide rows kernel <0>.
+// A grouped suffix above K = 454 takes the flat form over the whole card:
+// composition is exact, so its association does not change the result.
+// The prefix at K = MAX_WIDE_K + 1 .. MAX_DEEP_K (-s C 6 2, -s C 4 3) is
+// one cooperative launch, grouped or flat (fbscan_prefix_deep_kernel; see
+// "prefix, K = 33..64"), and so is the prefix at K = MAX_DEEP_K + 1 ..
+// MAX_TILED_K (-s C 3 4, -s C 5 3, -s C 2 7, -s C 3 5;
+// fbscan_prefix_tiled_kernel, see "prefix, K > 64"); above MAX_TILED_K the
+// prefix returns cudaErrorInvalidValue.
 //
 // Exactness: a combine is z[i,k] = sum_j e[i,j] * x[j,k] summed over j in
 // order, with the _rn intrinsics (never contracted into an FMA), then
@@ -143,8 +146,6 @@ namespace cg = cooperative_groups;
 
 static_assert((1 << GROUP_LEVELS) == GROUP, "GROUP is 2^GROUP_LEVELS");
 static_assert(2 * EDGE == WARP && (1 << 4) == EDGE, "d = 1..EDGE take the shuffle levels");
-// the generic kernels write the last in-group level into `inner`
-static_assert(GROUP_LEVELS % 2 == 1, "levels 0, 2, ..., GROUP_LEVELS - 1 write inner");
 
 __device__ __forceinline__ float max_nan(float m, float v) {
   return (v > m || isnan(v)) ? v : m;  // a NaN, once in m, stays
@@ -232,40 +233,6 @@ __device__ __forceinline__ void combine_reg(E e, X x, float* z) {
     }
   }
   rescale<K * K, D>(z, clamp_scale(m));
-}
-
-// The same for any K, in device memory, dividing by warp: element (i, k)
-// of x at x[(i * K + k) * stride], of z likewise; z is written, then
-// rescaled in place by the thread that wrote it.
-template <class E>
-__device__ __forceinline__ void combine_mem(int K, E e, const float* x, long long stride,
-                                            float* z) {
-  float m = -INFINITY;
-  bool special = false, awkward = false;
-  for (int i = 0; i < K; ++i) {
-    for (int k = 0; k < K; ++k) {
-      float acc = __fmul_rn(e(i, 0), x[(long long)k * stride]);
-      for (int j = 1; j < K; ++j)
-        acc = __fadd_rn(acc, __fmul_rn(e(i, j), x[(long long)(j * K + k) * stride]));
-      z[(long long)(i * K + k) * stride] = acc;
-      m = max_nan(m, acc);
-      special |= !isfinite(acc);
-      awkward |= !comfortable(acc);
-    }
-  }
-  m = clamp_scale(m);  // then as rescale
-  if (!__any_sync(__activemask(), awkward) || special) {
-    for (int q = 0; q < K * K; ++q) {
-      const long long at = (long long)q * stride;
-      z[at] = __fdiv_rn(z[at], m);
-    }
-    return;
-  }
-  const double md = m, y = __drcp_rn(md);
-  for (int q = 0; q < K * K; ++q) {
-    const long long at = (long long)q * stride;
-    z[at] = wide_quotient(z[at], md, y);
-  }
 }
 
 // the identity matrix as an earlier operand (the scans' padding)
@@ -437,33 +404,6 @@ fbscan_prefix_group_kernel(const float* __restrict__ in, float* __restrict__ inn
   }
 }
 
-// In-group levels, any K: levels 0, 2, 4, 6 write inner, 1, 3, 5 spare.
-__global__ void __launch_bounds__(GROUP)
-fbscan_prefix_group_any_kernel(const float* in, float* inner, float* spare, float* tot, int K,
-                               int R, long long n) {
-  const int t = threadIdx.x;
-  const long long q = blockIdx.x, G = n / GROUP, plane = (long long)R * n;
-  const long long off = (long long)blockIdx.y * n + q * GROUP + t;
-  const float* src = in;
-  for (int level = 0; level < GROUP_LEVELS; ++level) {
-    const int d = 1 << level;
-    float* dst = level % 2 == 0 ? inner : spare;
-    if (t >= d) {
-      const float* prev = src + off - d;
-      combine_mem(K, [&](int i, int j) { return prev[(long long)(i * K + j) * plane]; },
-                  src + off, plane, dst + off);
-    } else {
-      combine_mem(K, Eye(), src + off, plane, dst + off);
-    }
-    __syncthreads();
-    src = dst;
-  }
-  if (t == GROUP - 1) {
-    const long long toff = (long long)blockIdx.y * G + q;
-    for (int e = 0; e < K * K; ++e) tot[(long long)e * R * G + toff] = inner[e * plane + off];
-  }
-}
-
 // Hillis-Steele over each row's n matrices, K <= MAX_REG_K, one CTA per
 // row with the row in shared memory (two buffers of K * K * n floats): each
 // level takes a thread's matrices into registers, combines them and writes
@@ -509,20 +449,18 @@ fbscan_prefix_rows_smem_kernel(const float* __restrict__ in, float* __restrict__
 // The same scan spread over the whole card: a cooperative launch whose
 // threads stride over all R * n matrices, a grid-wide barrier between
 // levels. Level l writes out when levels - 1 - l is even, spare otherwise,
-// so the last writes out. K = 0: any K (Kr), combined in device memory;
-// else K <= MAX_REG_K, in registers.
+// so the last writes out. K <= MAX_REG_K, in registers.
 template <int K>
 __global__ void __launch_bounds__(GRID_THREADS)
-fbscan_prefix_rows_grid_kernel(const float* in, float* out, float* spare, int Kr, int R,
-                               long long n, int levels) {
+fbscan_prefix_rows_grid_kernel(const float* in, float* out, float* spare, int R, long long n,
+                               int levels) {
   cg::grid_group grid = cg::this_grid();
   const long long plane = (long long)R * n;
   const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long step = (long long)gridDim.x * blockDim.x;
-  const int KK = K > 0 ? K * K : Kr * Kr;
   if (levels == 0) {
     for (long long at = first; at < plane; at += step)
-      for (int e = 0; e < KK; ++e) out[e * plane + at] = in[e * plane + at];
+      for (int e = 0; e < K * K; ++e) out[e * plane + at] = in[e * plane + at];
     return;
   }
   const float* src = in;
@@ -530,28 +468,17 @@ fbscan_prefix_rows_grid_kernel(const float* in, float* out, float* spare, int Kr
     const long long d = 1LL << level;
     float* dst = (levels - 1 - level) % 2 == 0 ? out : spare;
     for (long long at = first; at < plane; at += step) {
-      const bool later = at % n >= d;
-      if constexpr (K > 0) {
-        float x[K * K], z[K * K];
+      float x[K * K], z[K * K];
 #pragma unroll
-        for (int e = 0; e < K * K; ++e) x[e] = src[e * plane + at];
-        if (later) {
-          combine_reg<K, kByWarp>(
-              [&](int i, int j) { return src[(i * K + j) * plane + at - d]; }, Regs<K>{x}, z);
-        } else {
-          combine_reg<K, kByWarp>(Eye(), Regs<K>{x}, z);
-        }
-#pragma unroll
-        for (int e = 0; e < K * K; ++e) dst[e * plane + at] = z[e];
+      for (int e = 0; e < K * K; ++e) x[e] = src[e * plane + at];
+      if (at % n >= d) {
+        combine_reg<K, kByWarp>(
+            [&](int i, int j) { return src[(i * K + j) * plane + at - d]; }, Regs<K>{x}, z);
       } else {
-        if (later) {
-          const float* prev = src + at - d;
-          combine_mem(Kr, [&](int i, int j) { return prev[(long long)(i * Kr + j) * plane]; },
-                      src + at, plane, dst + at);
-        } else {
-          combine_mem(Kr, Eye(), src + at, plane, dst + at);
-        }
+        combine_reg<K, kByWarp>(Eye(), Regs<K>{x}, z);
       }
+#pragma unroll
+      for (int e = 0; e < K * K; ++e) dst[e * plane + at] = z[e];
     }
     grid.sync();
     src = dst;
@@ -582,21 +509,6 @@ fbscan_prefix_combine_kernel(const float* __restrict__ inner, const float* __res
   }
 #pragma unroll
   for (int e = 0; e < K * K; ++e) out[e * plane + off] = z[e];
-}
-
-__global__ void __launch_bounds__(GROUP)
-fbscan_prefix_combine_any_kernel(const float* inner, const float* incl, float* out, int K, int R,
-                                 long long n) {
-  const long long q = blockIdx.x, G = n / GROUP, plane = (long long)R * n;
-  const long long off = (long long)blockIdx.y * n + q * GROUP + threadIdx.x;
-  if (q > 0) {
-    const float* pre = incl + (long long)blockIdx.y * G + q - 1;
-    const long long tplane = (long long)R * G;
-    combine_mem(K, [&](int i, int j) { return pre[(long long)(i * K + j) * tplane]; },
-                inner + off, plane, out + off);
-  } else {
-    combine_mem(K, Eye(), inner + off, plane, out + off);
-  }
 }
 
 // ------------------------------------------------- prefix, K = 9..16: teams
@@ -1208,7 +1120,6 @@ fbscan_prefix_wide_group_kernel(const float* __restrict__ in, float* __restrict_
 #define DEEP_MATS 2     // matrices per CTA and step
 #define DEEP_TILE 32    // matrices per transpose tile
 #define DEEP_BATCH 8    // loads in flight per thread in a transpose
-static_assert(MAX_DEEP_K <= 2 * WARP, "a transpose's lane takes two columns of a row");
 #define DEEP_T_MIN ((MAX_WIDE_K + DEEP_SIDE) / DEEP_SIDE)
 #define DEEP_T_MAX ((MAX_DEEP_K + DEEP_SIDE - 1) / DEEP_SIDE)
 
@@ -1248,6 +1159,8 @@ struct DeepArgs {
   float* tb;
   int K, R, levels, tlevels;
   long long n, G;  // G = 0: the flat form
+  float* tmax;     // K > MAX_DEEP_K with nt > 1 tiles a side: each tile's max, nt^2 per matrix
+  int nt;
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -1257,6 +1170,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups of copies are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // A workspace matrix (rows of K4 floats) into an operand slot (rows of S
@@ -1411,16 +1334,19 @@ __device__ __forceinline__ void deep_pass(const float* xs, float* dst, float* to
 // consecutive matrices and `rows` of their rows at a time through shared
 // memory (entry e = r K + c of the rows, matrix m at smem[e TS + m]): on
 // the (K, K, R, n) side a warp per entry and a lane per matrix, on the
-// workspace's a warp per row of a matrix and a lane per column, so every
-// warp's access is one run of consecutive floats, and no index is divided
-// per element. DEEP_BATCH loads in flight per thread (a loop of
-// load-then-store would wait out the memory's latency once per element).
-template <int T, bool IN>
+// workspace's a warp per row of a matrix and a lane per column (two
+// pieces of 32 columns at a time), so every warp's access is one run of
+// consecutive floats, and no index is divided per element. DEEP_BATCH
+// loads in flight per thread (a loop of load-then-store would wait out the
+// memory's latency once per element). D: the kernel's shape (THREADS, and
+// OPERANDS floats of shared memory, at least DEEP_TILE + 1 per entry of a
+// row).
+template <class D, bool IN>
 __device__ __forceinline__ void deep_transpose(const float* src, float* dst, long long plane,
                                                long long lo, long long hi, int K, int worker,
                                                int workers, float* smem) {
-  constexpr int WARPS_CTA = Deep<T>::THREADS / WARP, TS = DEEP_TILE + 1;
-  const int K4 = deep_row(K), rows = Deep<T>::OPERANDS / (K * TS);
+  constexpr int WARPS_CTA = D::THREADS / WARP, TS = DEEP_TILE + 1;
+  const int K4 = deep_row(K), rows = D::OPERANDS / (K * TS), pieces = (K + 2 * WARP - 1) / (2 * WARP);
   const int lane = threadIdx.x % WARP, warp = threadIdx.x / WARP;
   const long long ms = (long long)K * K4;
   for (long long g0 = lo + (long long)worker * DEEP_TILE; g0 < hi;
@@ -1445,23 +1371,25 @@ __device__ __forceinline__ void deep_transpose(const float* src, float* dst, lon
         }
       } else {  // a warp per row r of matrix m: lanes over its columns
         for (int p0 = warp; p0 < tile * nr; p0 += WARPS_CTA * (DEEP_BATCH / 2)) {
-          float v[DEEP_BATCH / 2][2];
+          for (int c0 = 0; c0 < pieces * 2 * WARP; c0 += 2 * WARP) {
+            float v[DEEP_BATCH / 2][2];
 #pragma unroll
-          for (int u = 0; u < DEEP_BATCH / 2; ++u) {
-            const int p = p0 + u * WARPS_CTA, m = p / nr, r = p % nr;
+            for (int u = 0; u < DEEP_BATCH / 2; ++u) {
+              const int p = p0 + u * WARPS_CTA, m = p / nr, r = p % nr;
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int c = lane + h * WARP;
-              if (p < tile * nr && c < K) v[u][h] = __ldcg(src + (g0 + m) * ms + (i0 + r) * K4 + c);
+              for (int h = 0; h < 2; ++h) {
+                const int c = c0 + lane + h * WARP;
+                if (p < tile * nr && c < K) v[u][h] = __ldcg(src + (g0 + m) * ms + (i0 + r) * K4 + c);
+              }
             }
-          }
 #pragma unroll
-          for (int u = 0; u < DEEP_BATCH / 2; ++u) {
-            const int p = p0 + u * WARPS_CTA, m = p / nr, r = p % nr;
+            for (int u = 0; u < DEEP_BATCH / 2; ++u) {
+              const int p = p0 + u * WARPS_CTA, m = p / nr, r = p % nr;
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int c = lane + h * WARP;
-              if (p < tile * nr && c < K) smem[(r * K + c) * TS + m] = v[u][h];
+              for (int h = 0; h < 2; ++h) {
+                const int c = c0 + lane + h * WARP;
+                if (p < tile * nr && c < K) smem[(r * K + c) * TS + m] = v[u][h];
+              }
             }
           }
         }
@@ -1507,7 +1435,7 @@ fbscan_prefix_deep_kernel(DeepArgs a, int phases) {
   const float* incl = a.tlevels % 2 ? a.tb : a.ta;
   float* result = a.G > 0 ? (inner == a.wa ? a.wb : a.wa) : inner;
   if (phases & kDeepIn) {
-    deep_transpose<T, true>(a.in, a.wa, plane, 0, hi, K, worker, workers, smem_deep);
+    deep_transpose<Deep<T>, true>(a.in, a.wa, plane, 0, hi, K, worker, workers, smem_deep);
     grid.sync();
   }
   if (phases & kDeepLevels) {
@@ -1549,7 +1477,375 @@ fbscan_prefix_deep_kernel(DeepArgs a, int phases) {
     grid.sync();
   }
   if (phases & kDeepOut)
-    deep_transpose<T, false>(result, a.out, plane, 0, hi, K, worker, workers, smem_deep);
+    deep_transpose<Deep<T>, false>(result, a.out, plane, 0, hi, K, worker, workers, smem_deep);
+}
+
+// ------------------------------- prefix, K > 64: tiled products, j streamed
+
+// Above K = 64 a combine no longer fits Deep's shape: its 8 x 8 threads a
+// matrix would own 16 x 16 entries each at K = 128 (256 accumulators), and
+// both whole operands take 2 x 128 x 132 floats, a CTA's shared memory for
+// one matrix. So the product is cut into output tiles of at most
+// TILED_MAX x TILED_MAX, nt = ceil(K / TILED_MAX) a side, each KP =
+// TILED_SIDE T wide (T = ceil(K / (nt TILED_SIDE)): 5-8), one tile per
+// CTA of TILED_SIDE^2 threads, thread (ti, tk) owning the T x T entries
+// (ti + TILED_SIDE a, tk + TILED_SIDE b) of the tile (K padded to nt KP in
+// i and k only). j is streamed through shared memory in slabs of
+// TILED_SLAB: the slab's columns of e (the tile's rows, [i][j], rows SE
+// floats apart, SE not a multiple of 32, so the two rows a warp reads lie
+// in distinct banks) and rows of x (the tile's columns, [j][k]), 16-byte
+// cp.async copies into one stage while the CTA multiplies the slab in the
+// other.
+// Each z[i][k] still adds its K terms in order: z = e[i][0] x[0][k], then
+// j = 1 .. K - 1, slab after slab. With one tile a side (K <= 128) the CTA
+// takes the matrix's max and divides as deep_combine does; with more, each
+// tile writes z undivided and its max to the workspace (a max is exact in
+// any order, NaN stays NaN, and clamp_scale removes the sign of a zero
+// max), and after a grid-wide barrier a pass divides each matrix by
+// clamp_scale of its tiles' max. The rest is the K = 33..64 scan's: one
+// cooperative launch over the card, every level a pass over the
+// matrix-major workspace, the transposes in and out.
+#define TILED_SIDE 16    // threads per side of a tile's thread grid
+#define TILED_MAX 128    // rows and columns of a tile at most
+#define TILED_SLAB 32    // values of j per slab
+#define MAX_TILED_K 512  // a transpose takes a row of DEEP_TILE matrices up to here
+#define TILED_T_MIN ((MAX_DEEP_K + TILED_SIDE) / TILED_SIDE)
+#define TILED_T_MAX (TILED_MAX / TILED_SIDE)
+
+template <int T>
+struct Tiled {
+  static constexpr int KP = TILED_SIDE * T;         // a tile's rows and columns
+  static constexpr int SE = TILED_SLAB + 4;         // row stride of the e slab [i][j]
+  static constexpr int SX = KP + 4;                 // row stride of the x slab [j][k]
+  static constexpr int STAGE = KP * SE + TILED_SLAB * SX;  // floats of one slab of both
+  static constexpr int THREADS = TILED_SIDE * TILED_SIDE;
+  static constexpr int CTA_WARPS = THREADS / WARP;
+  static constexpr int OPERANDS = 2 * STAGE;        // two stages, the transposes' room too
+  static constexpr int TILE_FLOATS = OPERANDS + CTA_WARPS;  // dynamic shared memory: + the warps' maxima
+  // CTAs per SM the registers leave room for: 128 registers a thread (the
+  // T^2 entries of z, 2T operands, the pass's state). Three CTAs (85
+  // registers) spilled more at T = 5 and 6 and took 11-12 % longer at K =
+  // 81 and 96; one (255) took 4-13 % longer at K = 81-128
+  // (fbscan_probes.py over64's variants, an NVIDIA H100 80GB HBM3 at 700 W)
+  static constexpr int MIN_BLOCKS = 2;
+  static_assert(SE % 4 == 0 && SE % 32 != 0 && SX % 4 == 0, "16-byte rows, the e stride");
+  static_assert(WARP % TILED_SIDE == 0, "a warp holds whole rows ti of the thread grid");
+};
+
+// Slab j0 .. j0 + jn - 1 of the tile at (i0, k0) into a stage: e's rows
+// i0 + r (r < rows), the slab's columns, as [r][SE] (the identity's entries
+// where e is nullptr); x's rows of the slab, columns k0 + c (c < cols), as
+// [jj][SX]. Workspace rows of K4 floats: 16-byte copies through L2, the
+// last of a row reaching into the row's padding (never read as a term).
+template <int T>
+__device__ __forceinline__ void tiled_load(const float* e, const float* x, float* stage, int K4,
+                                           int i0, int k0, int rows, int cols, int j0, int jn) {
+  using D = Tiled<T>;
+  constexpr int VE = TILED_SLAB / 4, VX = D::KP / 4;
+  float* es = stage;
+  float* xs = stage + D::KP * D::SE;
+  if (e != nullptr) {
+    const int ve = (jn + 3) / 4;
+    for (int idx = threadIdx.x; idx < rows * VE; idx += D::THREADS) {
+      const int r = idx / VE, v = idx % VE;
+      if (v < ve) cp_async16(es + r * D::SE + 4 * v, e + (long long)(i0 + r) * K4 + j0 + 4 * v);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * TILED_SLAB; idx += D::THREADS) {
+      const int r = idx / TILED_SLAB, c = idx % TILED_SLAB;
+      if (c < jn) es[r * D::SE + c] = i0 + r == j0 + c ? 1.0f : 0.0f;
+    }
+  }
+  const int vx = (cols + 3) / 4;
+  for (int idx = threadIdx.x; idx < jn * VX; idx += D::THREADS) {
+    const int r = idx / VX, v = idx % VX;
+    if (v < vx) cp_async16(xs + r * D::SX + 4 * v, x + (long long)(j0 + r) * K4 + k0 + 4 * v);
+  }
+}
+
+// z += the terms jj = jb .. jn - 1 of the slab in `stage`, for the
+// thread's entries (ti, tk): 2T loads from shared memory a term for T^2
+// multiply-adds.
+template <int T>
+__device__ __forceinline__ void tiled_terms(const float* stage, int jb, int jn, int ti, int tk,
+                                            float (&z)[T][T]) {
+  using D = Tiled<T>;
+  const float* er = stage + ti * D::SE;
+  const float* xc = stage + D::KP * D::SE + tk;
+#pragma unroll 2
+  for (int jj = jb; jj < jn; ++jj) {
+    float ev[T], xv[T];
+#pragma unroll
+    for (int a = 0; a < T; ++a) ev[a] = er[a * TILED_SIDE * D::SE + jj];
+#pragma unroll
+    for (int b = 0; b < T; ++b) xv[b] = xc[jj * D::SX + b * TILED_SIDE];
+#pragma unroll
+    for (int a = 0; a < T; ++a) {
+#pragma unroll
+      for (int b = 0; b < T; ++b) z[a][b] = __fadd_rn(z[a][b], __fmul_rn(ev[a], xv[b]));
+    }
+  }
+}
+
+// A tile of a pass: the operands e (nullptr: the identity) and x, the
+// tile's corner (i0, k0) in the product.
+struct TiledOps {
+  const float* e;
+  const float* x;
+  int i0, k0;
+};
+
+// Slab s of tile t into `stage` (tiled_load's copies; the caller commits).
+template <int T>
+__device__ __forceinline__ void tiled_slab(const TiledOps& t, int K, int s, float* stage) {
+  constexpr int KP = Tiled<T>::KP;
+  const int j0 = s * TILED_SLAB;
+  tiled_load<T>(t.e, t.x, stage, deep_row(K), t.i0, t.k0, K - t.i0 < KP ? K - t.i0 : KP,
+                K - t.k0 < KP ? K - t.k0 : KP, j0, K - j0 < TILED_SLAB ? K - j0 : TILED_SLAB);
+}
+
+// The thread's entries of z = e @ x, undivided, on tile `cur`, whose slab
+// 0 the caller has committed into stage `parity`: slab s + 1 copied while
+// s is multiplied, and during the last slab the next tile's slab 0 (where
+// has_next) into the other stage, so that a CTA's copies run ahead of its
+// products from one tile to the next (in turns against the same kernel
+// without it: faster at K = 81, 96 and 160, a little slower at K = 128,
+// where T = 8 leaves the fewest registers; an H100 80GB HBM3 at 700 W).
+// Returns the stage of the next tile's slab 0. Every thread of the CTA
+// calls it.
+template <int T>
+__device__ __forceinline__ int tiled_product(const TiledOps& cur, const TiledOps& next,
+                                             bool has_next, int K, int parity, float* smem,
+                                             float (&z)[T][T]) {
+  using D = Tiled<T>;
+  const int ti = threadIdx.x / TILED_SIDE, tk = threadIdx.x % TILED_SIDE;
+  const int slabs = (K + TILED_SLAB - 1) / TILED_SLAB;
+  for (int s = 0; s < slabs; ++s) {
+    const int now = (parity + s) & 1;
+    const int jn = K - s * TILED_SLAB < TILED_SLAB ? K - s * TILED_SLAB : TILED_SLAB;
+    if (s + 1 < slabs || has_next) {
+      tiled_slab<T>(s + 1 < slabs ? cur : next, K, s + 1 < slabs ? s + 1 : 0,
+                    smem + (now ^ 1) * D::STAGE);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // slab s is in its stage
+    const float* stage = smem + now * D::STAGE;
+    if (s == 0) {  // term 0 sets z, as the plain version's first product
+      const float* er = stage + ti * D::SE;
+      const float* xc = stage + D::KP * D::SE + tk;
+#pragma unroll
+      for (int a = 0; a < T; ++a) {
+#pragma unroll
+        for (int b = 0; b < T; ++b)
+          z[a][b] = __fmul_rn(er[a * TILED_SIDE * D::SE], xc[b * TILED_SIDE]);
+      }
+    }
+    tiled_terms<T>(stage, s == 0 ? 1 : 0, jn, ti, tk, z);
+    __syncthreads();  // slab s is read: its stage takes slab s + 2
+  }
+  return (parity + slabs) & 1;
+}
+
+// The thread's valid entries of z into a workspace matrix (rows of K4).
+template <int T>
+__device__ __forceinline__ void tiled_store(const float (&z)[T][T], float* dst, int K, int i0,
+                                            int k0) {
+  const int K4 = deep_row(K), ti = threadIdx.x / TILED_SIDE, tk = threadIdx.x % TILED_SIDE;
+#pragma unroll
+  for (int a = 0; a < T; ++a) {
+#pragma unroll
+    for (int b = 0; b < T; ++b) {
+      const int i = i0 + ti + TILED_SIDE * a, k = k0 + tk + TILED_SIDE * b;
+      if (i < K && k < K) dst[i * K4 + k] = z[a][b];
+    }
+  }
+}
+
+// z / m for a finite scale m (y = __drcp_rn(m)) as deep_combine divides:
+// wide_quotient for a finite entry, __fdiv_rn for another (the same
+// correctly rounded float32 quotient wherever both apply).
+__device__ __forceinline__ float tiled_quotient(float z, float m, double md, double y, bool wide) {
+  return wide && isfinite(z) ? wide_quotient(z, md, y) : __fdiv_rn(z, m);
+}
+
+// One pass over the workspace matrices g in [lo, hi), one tile of one
+// matrix at a time (items w = (g - lo) nt^2 + t, this CTA taking worker,
+// worker + workers, ...): dst[g] = normalize(earlier(g) @ xs[g]),
+// earlier(g) a workspace matrix or nullptr for the identity; where tot is
+// given and g % seg == seg - 1 (a group's last matrix), also tot[g / seg].
+// With nt > 1 tiles a side, dst[g] is left undivided and tile t's max goes
+// to tmax[g nt^2 + t]: tiled_divide finishes the pass after a grid-wide
+// barrier.
+template <int T, class Earlier>
+__device__ __forceinline__ void tiled_pass(const float* xs, float* dst, float* tot, long long seg,
+                                           long long lo, long long hi, Earlier earlier, int K,
+                                           float* tmax, int nt, int worker, int workers,
+                                           float* smem) {
+  using D = Tiled<T>;
+  const int ti = threadIdx.x / TILED_SIDE, tk = threadIdx.x % TILED_SIDE, nt2 = nt * nt;
+  const long long ms = (long long)K * deep_row(K), items = (hi - lo) * nt2;
+  float* red = smem + D::OPERANDS;
+  auto tile = [&](long long w) {
+    const long long g = lo + w / nt2;
+    const int t = (int)(w % nt2);
+    return TiledOps{earlier(g), xs + g * ms, t / nt * D::KP, t % nt * D::KP};
+  };
+  if (worker >= items) return;
+  TiledOps cur = tile(worker);
+  __syncthreads();  // the stages' last readers (a transpose) are done
+  tiled_slab<T>(cur, K, 0, smem);
+  cp_async_commit();
+  int parity = 0;
+  for (long long w = worker; w < items; w += workers) {
+    const long long g = lo + w / nt2;
+    const int t = (int)(w % nt2), i0 = cur.i0, k0 = cur.k0;
+    const bool has_next = w + workers < items;
+    const TiledOps next = has_next ? tile(w + workers) : cur;
+    float z[T][T];
+    parity = tiled_product<T>(cur, next, has_next, K, parity, smem, z);
+    cur = next;
+    float m = -INFINITY;
+    bool special = false;
+#pragma unroll
+    for (int a = 0; a < T; ++a) {
+#pragma unroll
+      for (int b = 0; b < T; ++b) {
+        if (i0 + ti + TILED_SIDE * a < K && k0 + tk + TILED_SIDE * b < K) {
+          m = max_nan(m, z[a][b]);
+          special |= !isfinite(z[a][b]);
+        }
+      }
+    }
+#pragma unroll
+    for (int off = WARP / 2; off > 0; off /= 2) m = max_nan(m, __shfl_xor_sync(FULL_MASK, m, off));
+    if (threadIdx.x % WARP == 0) red[threadIdx.x / WARP] = m;
+    __syncthreads();
+    m = red[0];
+#pragma unroll
+    for (int v = 1; v < D::CTA_WARPS; ++v) m = max_nan(m, red[v]);
+    if (nt > 1) {
+      if (threadIdx.x == 0) tmax[g * nt2 + t] = m;
+      tiled_store<T>(z, dst + g * ms, K, i0, k0);
+      continue;
+    }
+    m = clamp_scale(m);
+    const double md = m, y = __drcp_rn(md);
+    const bool wide = !special && isfinite(m);
+#pragma unroll
+    for (int a = 0; a < T; ++a) {
+#pragma unroll
+      for (int b = 0; b < T; ++b) z[a][b] = tiled_quotient(z[a][b], m, md, y, wide);
+    }
+    tiled_store<T>(z, dst + g * ms, K, i0, k0);
+    if (tot != nullptr && g % seg == seg - 1) tiled_store<T>(z, tot + g / seg * ms, K, i0, k0);
+  }
+}
+
+// The division that finishes a pass of nt > 1 tiles a side: each matrix g
+// in [lo, hi) (a CTA each, in turn) divided in place by clamp_scale of its
+// tiles' max, and copied to tot[g / seg] where tot is given and g % seg ==
+// seg - 1. The rows' padding is divided too, and never read as a value.
+template <int T>
+__device__ __forceinline__ void tiled_divide(float* dst, float* tot, long long seg, long long lo,
+                                             long long hi, int K, const float* tmax, int nt,
+                                             int worker, int workers) {
+  const long long ms = (long long)K * deep_row(K);
+  const int nt2 = nt * nt, V = (int)(ms / 4);
+  for (long long g = lo + worker; g < hi; g += workers) {
+    float m = -INFINITY;
+    for (int t = 0; t < nt2; ++t) m = max_nan(m, __ldcg(tmax + g * nt2 + t));
+    m = clamp_scale(m);
+    const double md = m, y = __drcp_rn(md);
+    const bool wide = isfinite(m);
+    float4* row = reinterpret_cast<float4*>(dst + g * ms);
+    float4* copy = tot != nullptr && g % seg == seg - 1
+                       ? reinterpret_cast<float4*>(tot + g / seg * ms) : nullptr;
+    for (int v = threadIdx.x; v < V; v += Tiled<T>::THREADS) {
+      float4 q = __ldcg(row + v);
+      q.x = tiled_quotient(q.x, m, md, y, wide);
+      q.y = tiled_quotient(q.y, m, md, y, wide);
+      q.z = tiled_quotient(q.z, m, md, y, wide);
+      q.w = tiled_quotient(q.w, m, md, y, wide);
+      row[v] = q;
+      if (copy != nullptr) copy[v] = q;
+    }
+  }
+}
+
+// The scan for K > MAX_DEEP_K: fbscan_prefix_deep_kernel's phases, with a
+// tile of one matrix per CTA step and, at nt > 1, a division pass and a
+// grid-wide barrier after each pass.
+template <int T>
+__global__ void __launch_bounds__(Tiled<T>::THREADS, Tiled<T>::MIN_BLOCKS)
+fbscan_prefix_tiled_kernel(DeepArgs a, int phases) {
+  extern __shared__ __align__(16) float smem_tiled[];
+  cg::grid_group grid = cg::this_grid();
+  const int K = a.K, nt = a.nt, worker = (int)blockIdx.x, workers = (int)gridDim.x;
+  const long long ms = (long long)K * deep_row(K), plane = (long long)a.R * a.n, hi = plane;
+  const long long seg = a.G > 0 ? GROUP : a.n;
+  float* inner = a.levels % 2 ? a.wb : a.wa;  // the levels' result
+  const float* incl = a.tlevels % 2 ? a.tb : a.ta;
+  float* result = a.G > 0 ? (inner == a.wa ? a.wb : a.wa) : inner;
+  if (phases & kDeepIn) {
+    deep_transpose<Tiled<T>, true>(a.in, a.wa, plane, 0, hi, K, worker, workers, smem_tiled);
+    grid.sync();
+  }
+  if (phases & kDeepLevels) {
+    float* src = a.wa;
+    float* dst = a.wb;
+    for (int level = 0; level < a.levels; ++level) {
+      const long long d = 1LL << level;
+      const float* s = src;
+      float* tot = a.G > 0 && level + 1 == a.levels ? a.ta : nullptr;
+      tiled_pass<T>(src, dst, tot, seg, 0, hi,
+                    [=](long long g) { return g % seg >= d ? s + (g - d) * ms : nullptr; }, K,
+                    a.tmax, nt, worker, workers, smem_tiled);
+      grid.sync();
+      if (nt > 1) {
+        tiled_divide<T>(dst, tot, seg, 0, hi, K, a.tmax, nt, worker, workers);
+        grid.sync();
+      }
+      float* done = dst;
+      dst = src;
+      src = done;
+    }
+  }
+  if (phases & kDeepTotals) {
+    float* src = a.ta;
+    float* dst = a.tb;
+    const long long n = a.n, G = a.G;
+    for (int level = 0; level < a.tlevels; ++level) {
+      const long long d = 1LL << level;
+      const float* s = src;
+      tiled_pass<T>(src, dst, nullptr, G, 0, a.R * G,
+                    [=](long long g) { return g % G >= d ? s + (g - d) * ms : nullptr; }, K,
+                    a.tmax, nt, worker, workers, smem_tiled);
+      grid.sync();
+      if (nt > 1) {
+        tiled_divide<T>(dst, nullptr, G, 0, a.R * G, K, a.tmax, nt, worker, workers);
+        grid.sync();
+      }
+      float* done = dst;
+      dst = src;
+      src = done;
+    }
+    tiled_pass<T>(inner, result, nullptr, GROUP, 0, hi,
+                  [=](long long g) {
+                    const long long q = g % n / GROUP;
+                    return q > 0 ? incl + (g / n * G + q - 1) * ms : nullptr;
+                  },
+                  K, a.tmax, nt, worker, workers, smem_tiled);
+    grid.sync();
+    if (nt > 1) {
+      tiled_divide<T>(result, nullptr, GROUP, 0, hi, K, a.tmax, nt, worker, workers);
+      grid.sync();
+    }
+  }
+  if (phases & kDeepOut)
+    deep_transpose<Tiled<T>, false>(result, a.out, plane, 0, hi, K, worker, workers, smem_tiled);
 }
 
 // ---------------------------------------------------------------- suffix
@@ -1634,9 +1930,10 @@ __device__ __forceinline__ void suffix_group_levels(int* x, int* s, int* sx) {
 // Reverse Hillis-Steele over m maps in shared memory (src, then dst: [j][g]
 // with stride m), each past the end composed with the identity; the levels
 // while d < m (composition is exact, so further identity levels change
-// nothing). Returns the buffer that holds the result. Any K.
-__device__ __forceinline__ int* suffix_totals_levels(int* src, int* dst, int K, int m,
-                                                     int threads) {
+// nothing). Returns the buffer that holds the result. Any K; S, the type
+// the maps take in shared memory (int, or short for K <= 32,767).
+template <class S>
+__device__ __forceinline__ S* suffix_totals_levels(S* src, S* dst, int K, int m, int threads) {
   for (int d = 1; d < m; d <<= 1) {
     for (int g = threadIdx.x; g < m; g += threads) {
       for (int j = 0; j < K; ++j) {
@@ -1645,7 +1942,7 @@ __device__ __forceinline__ int* suffix_totals_levels(int* src, int* dst, int K, 
       }
     }
     __syncthreads();
-    int* done = dst;
+    S* done = dst;
     dst = src;
     src = done;
   }
@@ -1784,19 +2081,22 @@ fbscan_suffix_one_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ o
   for (int j = 0; j < K; ++j) out[j * plane + off] = after[j];
 }
 
-// The in-group levels with the group's maps in shared memory as int32 (two
-// buffers of K * 128 within SMEM_BYTES), any K.
+// The in-group levels with the group's maps in shared memory as S (two
+// buffers of K * 128: int32 where they fit the card's opt-in shared memory,
+// K <= 227; int16 above, K <= 454), any K.
+template <class S>
 __global__ void __launch_bounds__(GROUP)
 fbscan_suffix_group_smem_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ inner,
                                 int64_t* __restrict__ tot, int K, int R, long long n) {
-  extern __shared__ int smem_i[];
+  extern __shared__ __align__(16) unsigned char smem_maps[];
+  S* const maps = reinterpret_cast<S*>(smem_maps);
   const int t = threadIdx.x;
   const long long q = blockIdx.x, G = n / GROUP, plane = (long long)R * n;
   const long long off = (long long)blockIdx.y * n + q * GROUP + t;
-  int* src = smem_i;
-  for (int j = 0; j < K; ++j) src[j * GROUP + t] = (int)in[j * plane + off];
+  S* src = maps;
+  for (int j = 0; j < K; ++j) src[j * GROUP + t] = (S)in[j * plane + off];
   __syncthreads();
-  src = suffix_totals_levels(src, smem_i + K * GROUP, K, GROUP, GROUP);
+  src = suffix_totals_levels<S>(src, maps + K * GROUP, K, GROUP, GROUP);
   for (int j = 0; j < K; ++j) inner[j * plane + off] = src[j * GROUP + t];
   if (t == 0) {
     const long long toff = (long long)blockIdx.y * G + q;
@@ -1805,18 +2105,21 @@ fbscan_suffix_group_smem_kernel(const int64_t* __restrict__ in, int64_t* __restr
 }
 
 // Reverse Hillis-Steele over each row's n maps: one CTA per row with the
-// row in shared memory as int32 (two buffers of K * n within SMEM_BYTES).
+// row in shared memory as S (two buffers of K * n: int32, or int16 where
+// int32 would not fit, K > MAX_WIDE_K).
+template <class S>
 __global__ void __launch_bounds__(TOTALS_THREADS)
 fbscan_suffix_rows_smem_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out, int K,
                                int R, long long n) {
-  extern __shared__ int smem_i[];
+  extern __shared__ __align__(16) unsigned char smem_rows[];
+  S* const maps = reinterpret_cast<S*>(smem_rows);
   const long long row = (long long)blockIdx.x * n, plane = (long long)R * n;
   const int m = (int)n;
-  int* src = smem_i;
+  S* src = maps;
   for (int g = threadIdx.x; g < m; g += blockDim.x)
-    for (int j = 0; j < K; ++j) src[j * m + g] = (int)in[j * plane + row + g];
+    for (int j = 0; j < K; ++j) src[j * m + g] = (S)in[j * plane + row + g];
   __syncthreads();
-  src = suffix_totals_levels(src, smem_i + K * m, K, m, blockDim.x);
+  src = suffix_totals_levels<S>(src, maps + K * m, K, m, blockDim.x);
   for (int g = threadIdx.x; g < m; g += blockDim.x)
     for (int j = 0; j < K; ++j) out[j * plane + row + g] = src[j * m + g];
 }
@@ -1974,28 +2277,25 @@ cudaError_t launch_one_wave(void (*kernel)(A...), long long G, int R, int thread
 }
 
 // Hillis-Steele over the n matrices of each of R rows, in -> out, in the
-// (K, K, R, n) layout; spare is the grid-wide kernel's second buffer. KT =
-// 0: any K.
+// (K, K, R, n) layout; spare is the grid-wide kernel's second buffer.
 template <int KT>
-cudaError_t prefix_scan_rows(const float* in, float* out, float* spare, int K, int R,
-                             long long n, cudaStream_t s) {
+cudaError_t prefix_scan_rows(const float* in, float* out, float* spare, int R, long long n,
+                             cudaStream_t s) {
   if constexpr (KT > MAX_REG_K) {
     const long long plane = (long long)R * n;
     return launch_grid(fbscan_prefix_team_rows_kernel<KT>,
                        (plane + ROWS_MATS(KT) - 1) / ROWS_MATS(KT), ROWS_THREADS(KT), s, in, out,
                        spare, R, n, levels_of(n), KT * plane, plane, 1);
   } else {
-    const long long bytes = 2LL * K * K * n * (long long)sizeof(float);
-    if constexpr (KT > 0) {
-      if (bytes <= SMEM_BYTES) {
-        fbscan_prefix_rows_smem_kernel<KT><<<R, TOTALS_THREADS, bytes, s>>>(in, out, R, n,
-                                                                            levels_of(n));
-        return cudaGetLastError();
-      }
+    const long long bytes = 2LL * KT * KT * n * (long long)sizeof(float);
+    if (bytes <= SMEM_BYTES) {
+      fbscan_prefix_rows_smem_kernel<KT><<<R, TOTALS_THREADS, bytes, s>>>(in, out, R, n,
+                                                                          levels_of(n));
+      return cudaGetLastError();
     }
     return launch_grid(fbscan_prefix_rows_grid_kernel<KT>,
                        ((long long)R * n + GRID_THREADS - 1) / GRID_THREADS, GRID_THREADS, s, in,
-                       out, spare, K, R, n, levels_of(n));
+                       out, spare, R, n, levels_of(n));
   }
 }
 
@@ -2100,54 +2400,80 @@ cudaError_t prefix_deep_at(int k, const float* in, float* out, float* work, int 
   }
 }
 
+// The prefix scan for K = MAX_DEEP_K + 1 .. MAX_TILED_K (tiled products, j
+// streamed, T = ceil(K / (nt TILED_SIDE)), nt = ceil(K / TILED_MAX)): one
+// cooperative launch of every phase, grouped or flat. Workspace: as
+// prefix_deep's, and with nt > 1 the tiles' maxima (nt^2 R n floats).
+// Above MAX_TILED_K, cudaErrorInvalidValue.
+template <int TT>
+cudaError_t prefix_tiled(const float* in, float* out, float* work, int K, int R, long long n,
+                         cudaStream_t s) {
+  using D = Tiled<TT>;
+  if (K > MAX_TILED_K || (long long)K * (DEEP_TILE + 1) > D::OPERANDS) return cudaErrorInvalidValue;
+  const bool grp = grouped(n);
+  const long long G = grp ? n / GROUP : 0, ms = (long long)K * deep_row(K), total = (long long)R * n;
+  const int nt = (K + TILED_MAX - 1) / TILED_MAX;
+  float* wb = work + total * ms;
+  float* ta = wb + total * ms;
+  float* tb = ta + R * G * ms;
+  const DeepArgs a{in, out, work, wb, ta, tb, K, R, grp ? GROUP_LEVELS : levels_of(n),
+                   grp ? levels_of(G) : 0, n, G, tb + R * G * ms, nt};
+  const int phases = kDeepIn | kDeepLevels | (grp ? kDeepTotals : 0) | kDeepOut;
+  return launch_grid_smem(fbscan_prefix_tiled_kernel<TT>, total * nt * nt, D::THREADS,
+                          D::TILE_FLOATS * (long long)sizeof(float), s, a, phases);
+}
+
+// prefix_tiled<T> for the run-time K = k, T = ceil(k / (nt TILED_SIDE)) >=
+// TT.
+template <int TT>
+cudaError_t prefix_tiled_at(int k, const float* in, float* out, float* work, int R, long long n,
+                            cudaStream_t s) {
+  if constexpr (TT >= TILED_T_MAX) {
+    return prefix_tiled<TT>(in, out, work, k, R, n, s);
+  } else {
+    const int nt = (k + TILED_MAX - 1) / TILED_MAX;
+    return k <= nt * TILED_SIDE * TT ? prefix_tiled<TT>(in, out, work, k, R, n, s)
+                                     : prefix_tiled_at<TT + 1>(k, in, out, work, R, n, s);
+  }
+}
+
 // Workspace layout of a grouped prefix call: the in-group scan (K, K, R, n)
 // then three buffers of R * G totals: totals, their inclusive scan, spare
 // (the one-launch forms take the first buffer for their totals).
 // KT = K <= MAX_REG_K, in registers; MAX_REG_K < K <= MAX_TEAM_K, teams;
-// MAX_TEAM_K < K <= MAX_WIDE_K, clusters; 0: any K, in device memory.
+// MAX_TEAM_K < K <= MAX_WIDE_K, clusters.
 template <int KT>
-cudaError_t prefix(const float* in, float* out, float* work, int K, int R, long long n,
-                   cudaStream_t s) {
-  if (!grouped(n)) return prefix_scan_rows<KT>(in, out, work, K, R, n, s);
+cudaError_t prefix(const float* in, float* out, float* work, int R, long long n, cudaStream_t s) {
+  if (!grouped(n)) return prefix_scan_rows<KT>(in, out, work, R, n, s);
   if constexpr (KT > MAX_TEAM_K) {
     return prefix_wide<KT>(in, out, work, R, n, s);
   } else if constexpr (KT > MAX_REG_K) {
     return prefix_team<KT>(in, out, work, R, n, s);
   } else {
-    const long long G = n / GROUP, m = (long long)K * K * R;
-    if constexpr (KT > 0) {
-      const long long floats = KT * KT * (2 * G > GROUP ? 2 * G : GROUP);
-      bool launched = false;
-      const cudaError_t err = launch_one_wave(fbscan_prefix_one_kernel<KT>, G, R, GROUP,
-                                              floats * (long long)sizeof(float), s, &launched,
-                                              in, out, work, R, n, levels_of(G));
-      if (err != cudaSuccess || launched) return err;
-    }
+    const long long G = n / GROUP, m = (long long)KT * KT * R;
+    const long long floats = KT * KT * (2 * G > GROUP ? 2 * G : GROUP);
+    bool launched = false;
+    cudaError_t err = launch_one_wave(fbscan_prefix_one_kernel<KT>, G, R, GROUP,
+                                      floats * (long long)sizeof(float), s, &launched, in, out,
+                                      work, R, n, levels_of(G));
+    if (err != cudaSuccess || launched) return err;
     float* inner = work;
     float* tot = inner + m * n;
     float* incl = tot + m * G;
     const dim3 grid((unsigned)G, (unsigned)R);
-    if constexpr (KT > 0) {
-      fbscan_prefix_group_kernel<KT><<<grid, GROUP, 0, s>>>(in, inner, tot, R, n);
-    } else {
-      // `out` is the odd levels' buffer until the combine overwrites it
-      fbscan_prefix_group_any_kernel<<<grid, GROUP, 0, s>>>(in, inner, out, tot, K, R, n);
-    }
-    cudaError_t err = cudaGetLastError();
-    if (err == cudaSuccess) err = prefix_scan_rows<KT>(tot, incl, incl + m * G, K, R, G, s);
+    fbscan_prefix_group_kernel<KT><<<grid, GROUP, 0, s>>>(in, inner, tot, R, n);
+    err = cudaGetLastError();
+    if (err == cudaSuccess) err = prefix_scan_rows<KT>(tot, incl, incl + m * G, R, G, s);
     if (err != cudaSuccess) return err;
-    if constexpr (KT > 0) {
-      fbscan_prefix_combine_kernel<KT><<<grid, GROUP, 0, s>>>(inner, incl, out, R, n);
-    } else {
-      fbscan_prefix_combine_any_kernel<<<grid, GROUP, 0, s>>>(inner, incl, out, K, R, n);
-    }
+    fbscan_prefix_combine_kernel<KT><<<grid, GROUP, 0, s>>>(inner, incl, out, R, n);
     return cudaGetLastError();
   }
 }
 
 // Reverse Hillis-Steele over the n maps of each of R rows, in -> out: one
 // CTA per row where two copies fit its shared memory (above MAX_WIDE_K up to
-// the card's opt-in limit, else 48 KB), else over the card.
+// the card's opt-in limit, as int16 where int32 would not fit; else 48 KB),
+// else over the card.
 cudaError_t suffix_scan_rows(const int64_t* in, int64_t* out, int64_t* spare, int K, int R,
                              long long n, cudaStream_t s) {
   const long long bytes = 2LL * K * n * (long long)sizeof(int);
@@ -2157,9 +2483,15 @@ cudaError_t suffix_scan_rows(const int64_t* in, int64_t* out, int64_t* spare, in
     if (err != cudaSuccess) return err;
   }
   if (bytes <= SMEM_BYTES || bytes <= optin) {
-    const cudaError_t err = allow_smem(fbscan_suffix_rows_smem_kernel, bytes);
+    const cudaError_t err = allow_smem(fbscan_suffix_rows_smem_kernel<int>, bytes);
     if (err != cudaSuccess) return err;
-    fbscan_suffix_rows_smem_kernel<<<R, TOTALS_THREADS, bytes, s>>>(in, out, K, R, n);
+    fbscan_suffix_rows_smem_kernel<int><<<R, TOTALS_THREADS, bytes, s>>>(in, out, K, R, n);
+    return cudaGetLastError();
+  }
+  if (bytes / 2 <= optin && K <= 32767) {
+    const cudaError_t err = allow_smem(fbscan_suffix_rows_smem_kernel<short>, bytes / 2);
+    if (err != cudaSuccess) return err;
+    fbscan_suffix_rows_smem_kernel<short><<<R, TOTALS_THREADS, bytes / 2, s>>>(in, out, K, R, n);
     return cudaGetLastError();
   }
   return launch_grid(fbscan_suffix_rows_grid_kernel,
@@ -2168,15 +2500,15 @@ cudaError_t suffix_scan_rows(const int64_t* in, int64_t* out, int64_t* spare, in
 }
 
 // prefix<K> for the run-time K = k, K = KT..MAX_WIDE_K; the tiled
-// products up to MAX_DEEP_K; prefix<0> above.
+// products above: Deep's up to MAX_DEEP_K, Tiled's beyond.
 template <int KT>
 cudaError_t prefix_at(int k, const float* in, float* out, float* work, int R, long long n,
                       cudaStream_t s) {
   if constexpr (KT > MAX_WIDE_K) {
     return k <= MAX_DEEP_K ? prefix_deep_at<DEEP_T_MIN>(k, in, out, work, R, n, s)
-                           : prefix<0>(in, out, work, k, R, n, s);
+                           : prefix_tiled_at<TILED_T_MIN>(k, in, out, work, R, n, s);
   } else {
-    return k == KT ? prefix<KT>(in, out, work, KT, R, n, s)
+    return k == KT ? prefix<KT>(in, out, work, R, n, s)
                    : prefix_at<KT + 1>(k, in, out, work, R, n, s);
   }
 }
@@ -2209,14 +2541,15 @@ cudaError_t suffix_at(int k, const int64_t* in, int64_t* out, int64_t* work, int
 
 // Elements of float32 workspace a prefix call needs: grouped, the in-group
 // scan (K * K * R * n) and three buffers of R * G totals (padded matrices
-// for K = 9..32); flat, one (K, K, R, n) ping-pong buffer. K = 33..64: two
-// buffers of R * n matrices of K rows of K4 floats, and (grouped) two of R
-// * G.
+// for K = 9..32); flat, one (K, K, R, n) ping-pong buffer. K > 32: two
+// buffers of R * n matrices of K rows of K4 floats, (grouped) two of R *
+// G, and above TILED_MAX the tiles' maxima, nt^2 per matrix.
 extern "C" long long hammlet_fbscan_prefix_workspace(int K, int R, long long n) {
   const long long m = (long long)K * K * R;
-  if (K > MAX_WIDE_K && K <= MAX_DEEP_K) {
-    const long long ms = (long long)K * deep_row(K);
-    return 2 * ms * R * n + (grouped(n) ? 2 * ms * R * (n / GROUP) : 0);
+  if (K > MAX_WIDE_K) {
+    const long long ms = (long long)K * deep_row(K), nt = (K + TILED_MAX - 1) / TILED_MAX;
+    return 2 * ms * R * n + (grouped(n) ? 2 * ms * R * (n / GROUP) : 0) +
+           (nt > 1 ? nt * nt * R * n : 0);
   }
   return grouped(n) ? m * n + 3 * total_floats(K) * R * (n / GROUP) : m * n;
 }
@@ -2243,20 +2576,32 @@ extern "C" int hammlet_fbscan_suffix(const int64_t* in, int64_t* out, int64_t* w
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
-  const long long group_bytes = 2LL * K * GROUP * (long long)sizeof(int);
-  // flat, or a group too large for shared memory (K > MAX_DEEP_K): the rows
-  // scan over the whole input (exact, so the same maps as the grouped form)
-  if (!grouped(n) || K > MAX_DEEP_K) return (int)suffix_scan_rows(in, out, work, K, R, n, s);
+  if (!grouped(n)) return (int)suffix_scan_rows(in, out, work, K, R, n, s);
   bool launched = false;
   err = suffix_at<1>(K, in, out, work, R, n, s, &launched);
-  if (err == cudaSuccess && !launched) err = allow_smem(fbscan_suffix_group_smem_kernel, group_bytes);
+  int optin = 0;
+  if (err == cudaSuccess && !launched) err = smem_optin(&optin);
   if (err != cudaSuccess || launched) return (int)err;
+  // the group kernel with two copies of a group's maps in shared memory as
+  // int32 where they fit, else as int16; above K = 454 the rows scan over
+  // the whole input (exact, so the same maps as the grouped form)
+  const long long bytes32 = 2LL * K * GROUP * (long long)sizeof(int),
+                  bytes16 = 2LL * K * GROUP * (long long)sizeof(short);
+  if (bytes16 > optin || K > 32767) return (int)suffix_scan_rows(in, out, work, K, R, n, s);
   const long long G = n / GROUP, m = (long long)K * R;
   int64_t* inner = work;
   int64_t* tot = inner + m * n;
   int64_t* incl = tot + m * G;
   const dim3 grid((unsigned)G, (unsigned)R);
-  fbscan_suffix_group_smem_kernel<<<grid, GROUP, group_bytes, s>>>(in, inner, tot, K, R, n);
+  if (bytes32 <= optin) {
+    err = allow_smem(fbscan_suffix_group_smem_kernel<int>, bytes32);
+    if (err != cudaSuccess) return (int)err;
+    fbscan_suffix_group_smem_kernel<int><<<grid, GROUP, bytes32, s>>>(in, inner, tot, K, R, n);
+  } else {
+    err = allow_smem(fbscan_suffix_group_smem_kernel<short>, bytes16);
+    if (err != cudaSuccess) return (int)err;
+    fbscan_suffix_group_smem_kernel<short><<<grid, GROUP, bytes16, s>>>(in, inner, tot, K, R, n);
+  }
   err = cudaGetLastError();
   if (err == cudaSuccess) err = suffix_scan_rows(tot, incl, incl + m * G, K, R, G, s);
   if (err != cudaSuccess) return (int)err;

@@ -27,10 +27,15 @@
 // so one cooperative launch of modelupdate_stats_kernel reproduces it:
 //   1. A persistent grid, sized by occupancy. A CTA takes a run of RUN
 //      aligned tiles of TILE blocks of one row (RUN a power of two, the
-//      least that gives every run of every row its own CTA) and, where
-//      rows x runs leave CTAs idle, a slice of the terms: at the settled
-//      P = 1 capacity (B = 29,696, 29 tiles) 145 CTAs of one tile and 3
-//      terms each. It stages tile c + 1 into shared memory (16-byte
+//      least that gives every run of every row its own CTA, or where the
+//      terms' run stacks no longer fit beside the stages, the least within
+//      MAX_RUNS, each CTA then taking several runs in turn) and a slice of
+//      the terms: where rows x runs leave CTAs idle, the float terms in
+//      slices (at the settled P = 1 capacity, B = 29,696, 29 tiles: 145
+//      CTAs of one tile and 3 terms each); where a CTA's shared memory
+//      cannot hold every term's stack, the float terms and the K*K pair
+//      terms both in slices (K = 81, dim 4, B = 4M: two slices of the pair
+//      terms). It stages tile c + 1 into shared memory (16-byte
 //      cp.async copies, neighbouring threads on neighbouring addresses)
 //      while it sums tile c. Per tile, each thread forms the nodes of its
 //      PER_THREAD neighbouring blocks in registers (node sizes 2-8) for
@@ -41,10 +46,11 @@
 //      TERM_GROUP terms at once, groups one after another, each tree in
 //      the same order. The pair terms are counts of one-hot leaves, exact
 //      integers within a tile whatever the order, so one shared-memory
-//      histogram per tile gives their tile sums. A tile's sums join the
-//      run's tree on per-term stacks in shared memory (the binary counter
-//      of the tile's position in the run); the run's sums go to device
-//      memory.
+//      histogram per tile (of the slice's pair terms) gives their tile
+//      sums. A tile's sums join the run's tree on per-term stacks in
+//      shared memory (the binary counter of the tile's position in the
+//      run; a stack for each term of the CTA's slice); the run's sums go
+//      to device memory.
 //   2. A grid-wide barrier (no counter in device memory: the workspace is
 //      torch.empty per call, and calls from several threads share a card).
 //   3. One CTA per output of a row: a warp per term the output needs (the
@@ -72,7 +78,10 @@
 // and, for i < P, writes var = beta' / g and mean = mu0' + sqrt(var / nu')
 // z; every lane of a theta shape's group computes the same NIG update.
 // After a barrier each entry of A and pi divides by its row's sum taken
-// left to right over the K columns. A few dozen values: the bound is
+// left to right over the K columns. The draws wait for that in shared
+// memory; where the n of them do not fit (K >= 241: 232,448 bytes), the
+// shapes go in passes of whole rows, each pass's draws, barrier and
+// divisions before the next. A few dozen values at K <= 10: the bound is
 // latency, one chain of a try's transcendentals.
 //
 // Bits: each operation repeats the CUDA arithmetic of the torch operation
@@ -245,28 +254,31 @@ __device__ float warp_tree(const float* part, int runs, int runs_p, int lane) {
 // whatever the order: one shared-memory histogram per tile takes their
 // place, and above the tile they join the same run and row trees. Work
 // items (row, run, slice): a CTA sums the float terms [slice *
-// slice_terms, + slice_terms) of a run of RUN = 2^run_log tiles (slice 0
-// also the pairs), staging tile c + 1 while it sums tile c. Dynamic
-// shared memory (floats): two stages of `stage_floats` (a tile's states
-// and sizes as int64, whose place the two tree buffers take once they are
-// read, its block statistics when dim <= MAX_STAGED_DIM, the state before
-// it), the run stacks (n_terms * depth), the mapping (K * dim int64), the
-// pair histogram (K * K ints).
+// slice_terms, + slice_terms) and the pair terms [slice * pair_terms, +
+// pair_terms) of a run of RUN = 2^run_log tiles, staging tile c + 1 while
+// it sums tile c. Dynamic shared memory (floats): two stages of
+// `stage_floats` (a tile's states and sizes as int64, whose place the two
+// tree buffers take once they are read, its block statistics when
+// `staged`, the state before it), the run stacks ((slice_terms +
+// pair_terms) * depth: the slice's float terms, then its pair terms), the
+// mapping (K * dim int64), the slice's pair histogram (pair_terms ints).
 __global__ void __launch_bounds__(STATS_THREADS)
 modelupdate_stats_kernel(const int64_t* __restrict__ states, const int64_t* __restrict__ sizes,
                          const int64_t* __restrict__ n_blocks, const float* __restrict__ bstats,
                          const int64_t* __restrict__ mapping, float* __restrict__ partials,
                          float* __restrict__ out, int R, long long B, long long Bp, int K,
                          int dim, int P, int n_terms, long long tiles, int run_log, int runs,
-                         int runs_p, int slices, int slice_terms, int stage_floats, int depth) {
+                         int runs_p, int slices, int slice_terms, int pair_terms, int stage_floats,
+                         int depth, bool staged) {
   extern __shared__ float smem[];
-  const bool staged = dim <= MAX_STAGED_DIM;
-  float* stacks = smem + 2 * stage_floats;  // [n_terms][depth]
-  int64_t* map = reinterpret_cast<int64_t*>(stacks + (n_terms * depth + 1) / 2 * 2);  // [K][dim]
-  int* hist = reinterpret_cast<int*>(map + K * dim);  // [K * K]
+  float* stacks = smem + 2 * stage_floats;  // [slice_terms + pair_terms][depth]
+  int64_t* map = reinterpret_cast<int64_t*>(
+      stacks + ((slice_terms + pair_terms) * depth + 1) / 2 * 2);  // [K][dim]
+  int* hist = reinterpret_cast<int*>(map + K * dim);  // [pair_terms]
   const int tid = threadIdx.x, KK = K * K, theta0 = 2 * K + KK, n_float = n_terms - KK;
-  // one more node of term j's run tree at tile c of the run (the binary
-  // counter of c: each full level adds its left node)
+  // one more node of the run tree of the slice's term j (float terms first,
+  // then pair terms) at tile c of the run (the binary counter of c: each
+  // full level adds its left node)
   auto push = [&](int j, long long c, float node) {
     float* st = stacks + j * depth;
     int l = 0;
@@ -280,7 +292,8 @@ modelupdate_stats_kernel(const int64_t* __restrict__ states, const int64_t* __re
     const int slice = w % slices, run = w / slices % runs, r = w / slices / runs;
     const int t0 = slice * slice_terms,
               t1 = t0 + slice_terms < n_float ? t0 + slice_terms : n_float;
-    const bool pairs = slice == 0;
+    const int p0 = slice * pair_terms, p1 = p0 + pair_terms < KK ? p0 + pair_terms : KK;
+    const bool pairs = p0 < p1;
     const long long n = n_blocks[r];
     const int64_t* st_row = states + (long long)r * B;
     const int64_t* sz_row = sizes + (long long)r * B;
@@ -308,9 +321,8 @@ modelupdate_stats_kernel(const int64_t* __restrict__ states, const int64_t* __re
     for (long long c = 0; c < RUN; ++c) {
       const long long tile = first + c;
       if (tile >= tiles) {  // padding past the row: the tile's sum is +0.0
-        for (int f = t0 + tid; tid < TERM_GROUP && f < t1; f += TERM_GROUP)
-          push(f < 2 * K ? f : f + KK, c, 0.0f);
-        for (int ij = tid; pairs && ij < KK; ij += STATS_THREADS) push(2 * K + ij, c, 0.0f);
+        for (int f = t0 + tid; tid < TERM_GROUP && f < t1; f += TERM_GROUP) push(f - t0, c, 0.0f);
+        for (int ij = p0 + tid; ij < p1; ij += STATS_THREADS) push(slice_terms + ij - p0, c, 0.0f);
         continue;
       }
       cp_async_wait_all();
@@ -349,13 +361,13 @@ modelupdate_stats_kernel(const int64_t* __restrict__ states, const int64_t* __re
         prev = s[i];
         if (!valid || !known) s[i] = -1;  // for the mapping: no parameter
       }
-      for (int ij = tid; pairs && ij < KK; ij += STATS_THREADS) hist[ij] = 0;
+      for (int q = tid; q < p1 - p0; q += STATS_THREADS) hist[q] = 0;
       __syncthreads();  // the staged states and sizes are read: the trees take their place
       float* tree_a = base;  // [group][STATS_THREADS], then [group][STATS_THREADS / 2]
-      if (pairs) {  // one prev -> cur transition per valid block
+      if (pairs) {  // one prev -> cur transition per valid block, those of the slice
 #pragma unroll
         for (int i = 0; i < PER_THREAD; ++i)
-          if (code[i] >= 0) atomicAdd(hist + code[i], 1);
+          if (code[i] >= p0 && code[i] < p1) atomicAdd(hist + code[i] - p0, 1);
       }
 
       for (int g0 = t0; g0 < t1; g0 += TERM_GROUP) {
@@ -427,20 +439,23 @@ modelupdate_stats_kernel(const int64_t* __restrict__ states, const int64_t* __re
           dst = t;
         }
         // the tile's sums (an odd number of levels up: not in tree_a) join the run's trees
-        if (tid < gn) push(g0 + tid < 2 * K ? g0 + tid : g0 + tid + KK, c, src[tid]);
+        if (tid < gn) push(g0 + tid - t0, c, src[tid]);
       }
-      // the tile's pair counts (read after the groups' barriers)
-      for (int ij = tid; pairs && ij < KK; ij += STATS_THREADS) push(2 * K + ij, c, (float)hist[ij]);
+      // the tile's pair counts (read after the groups' barriers; a slice of
+      // pair terms alone has none)
+      if (pairs && t0 >= t1) __syncthreads();
+      for (int ij = p0 + tid; ij < p1; ij += STATS_THREADS)
+        push(slice_terms + ij - p0, c, (float)hist[ij - p0]);
     }
     // the run's sums: thread k wrote the stacks of float terms t0 + k, t0 + k +
-    // TERM_GROUP, ... and of pair terms k, k + STATS_THREADS, ...
+    // TERM_GROUP, ... and of pair terms p0 + k, p0 + k + STATS_THREADS, ...
     float* row_part = partials + (long long)r * n_terms * runs + run;
     for (int f = t0 + tid; tid < TERM_GROUP && f < t1; f += TERM_GROUP) {
       const int j = f < 2 * K ? f : f + KK;
-      row_part[(long long)j * runs] = stacks[j * depth + run_log];
+      row_part[(long long)j * runs] = stacks[(f - t0) * depth + run_log];
     }
-    for (int ij = tid; pairs && ij < KK; ij += STATS_THREADS)
-      row_part[(long long)(2 * K + ij) * runs] = stacks[(2 * K + ij) * depth + run_log];
+    for (int ij = p0 + tid; ij < p1; ij += STATS_THREADS)
+      row_part[(long long)(2 * K + ij) * runs] = stacks[(slice_terms + ij - p0) * depth + run_log];
   }
 
   cp_async_wait_all();  // a CTA without items still has the mapping in flight
@@ -513,6 +528,12 @@ __device__ __forceinline__ bool gamma_try(float d, float c, float xk, float uk_r
 // nig (P, 4), a_alphas (K, K), pi_alphas (K,); the statistics; the noise x,
 // u (TRIES, n), ub (n,), z (P,); outputs mean, var (P,), A (K, K), pi (K,).
 // blockDim.x: a multiple of WARP (every lane takes part in the votes).
+// Dynamic shared memory: `cap` floats (cap >= P, cap >= K), the draws of
+// one pass: shapes [lo, hi), hi the last row boundary (P, P + K, ..., P +
+// K*K, n) within lo + cap. PASSES = false: one pass of all n (cap = n),
+// the loop compiled away (in passes, the index arithmetic made the
+// one-pass calls of K = 3 0.1-0.3 us slower, fbscan_probes.py turns).
+template <bool PASSES>
 __global__ void __launch_bounds__(RESAMPLE_THREADS)
 modelupdate_resample_kernel(const float* __restrict__ nig, const float* __restrict__ a_alphas,
                             const float* __restrict__ pi_alphas, const float* __restrict__ sums,
@@ -521,78 +542,83 @@ modelupdate_resample_kernel(const float* __restrict__ nig, const float* __restri
                             const float* __restrict__ x, const float* __restrict__ u,
                             const float* __restrict__ ub, const float* __restrict__ z,
                             float* __restrict__ mean, float* __restrict__ var,
-                            float* __restrict__ A, float* __restrict__ pi, int P, int K) {
-  extern __shared__ float g[];  // [n]
+                            float* __restrict__ A, float* __restrict__ pi, int P, int K,
+                            int cap) {
+  extern __shared__ float g[];  // [cap]: draw i of the pass at g[i - lo]
   const int KK = K * K, n = P + KK + K, lane = threadIdx.x % WARP, k = threadIdx.x % TRIES;
   const int lead = lane - k;  // the group's first lane
-  for (int base = 0; base < n; base += blockDim.x / TRIES) {  // the same trips for every thread
-    const int i = base + threadIdx.x / TRIES;
-    const bool live = i < n, theta = live && i < P, row = live && i >= P;
-    const int at = live ? i : 0;
-    // every load of the trip first, so that they travel together
-    const float xk = x[k * n + at], uk = u[k * n + at], ubi = ub[at];
-    const float zi = theta ? z[i] : 0.0f;
-    const float alpha = theta ? nig[4 * i] : 0.0f, beta = theta ? nig[4 * i + 1] : 0.0f,
-                mu0 = theta ? nig[4 * i + 2] : 0.0f, nu = theta ? nig[4 * i + 3] : 1.0f;
-    const float cnt = theta ? counts[i] : 0.0f, sm = theta ? sums[i] : 0.0f,
-                sq = theta ? sumsqs[i] : 0.0f;
-    const float prior = row ? (i < P + KK ? a_alphas[i - P] : pi_alphas[i - P - KK]) : 1.0f;
-    const float seen_n = row ? (i < P + KK ? trans[i - P] : state[i - P - KK]) : 0.0f;
-    float a = 1.0f, b = 0.0f, m0 = 0.0f, n0 = 1.0f;
-    if (theta) {
-      // nig_update (Conjugate.hpp:120-168), the same in every lane of the group
-      const float safe_n = clamp_min(cnt, 1.0f);
-      const float xbar = __fdiv_rn(sm, safe_n);
-      const float ssn = minimum(__fdiv_rn(__fmul_rn(sm, sm), safe_n), sq);
-      const float dev = __fsub_rn(xbar, mu0);
-      const float new_alpha = __fadd_rn(alpha, __fmul_rn(cnt, 0.5f));
-      const float shrink = __fdiv_rn(__fmul_rn(cnt, nu), __fadd_rn(cnt, nu));
-      const float spread = __fsub_rn(__fadd_rn(sq, __fmul_rn(shrink, __fmul_rn(dev, dev))), ssn);
-      const float new_beta = __fadd_rn(beta, __fmul_rn(spread, 0.5f));
-      const float new_mu0 = __fdiv_rn(__fadd_rn(__fmul_rn(nu, mu0), sm), __fadd_rn(nu, cnt));
-      const float new_nu = __fadd_rn(nu, cnt);
-      const bool seen = cnt > 0.0f;
-      a = seen ? new_alpha : alpha;
-      b = seen ? new_beta : beta;
-      m0 = seen ? new_mu0 : mu0;
-      n0 = seen ? new_nu : nu;
-    } else if (row) {
-      a = __fadd_rn(prior, seen_n);
-    }
-    // gamma_fixed_tries for shape a: this lane's try, and the boost for a < 1
-    const bool boost = a < 1.0f;
-    const float a_eff = boost ? __fadd_rn(a, 1.0f) : a;
-    const float d = __fsub_rn(a_eff, F32(1.0 / 3.0));
-    const float c = __fdiv_rn(1.0f, __fsqrt_rn(__fmul_rn(d, 9.0f)));  // reciprocal(sqrt(9 d))
-    float cand = 0.0f;
-    const bool ok = live && gamma_try(d, c, xk, uk, &cand);
-    const float e = __fdiv_rn(1.0f, clamp_min(a, F32(1e-6)));  // reciprocal(clamp(a, 1e-6))
-    const float lift = boost && k == 0 ? powf(clamp_min(ubi, F32(1e-38)), e) : 1.0f;
-    // the first accepted try (argmax of the mask), else the mode
-    const unsigned votes = (__ballot_sync(FULL_MASK, ok) >> lead) & ((1u << TRIES) - 1);
-    const float first = __shfl_sync(FULL_MASK, cand, lead + (votes ? __ffs(votes) - 1 : 0));
-    if (live && k == 0) {
-      float gi = votes ? first : d;
-      if (boost) gi = __fmul_rn(gi, lift);
+  for (int lo = 0, hi; lo < n; lo = hi) {
+    hi = !PASSES || lo + cap >= n ? n : P + (lo + cap - P) / K * K;
+    for (int base = lo; base < hi; base += blockDim.x / TRIES) {  // the same trips for every thread
+      const int i = base + threadIdx.x / TRIES;
+      const bool live = i < hi, theta = live && i < P, row = live && i >= P;
+      const int at = live ? i : 0;
+      // every load of the trip first, so that they travel together
+      const float xk = x[k * n + at], uk = u[k * n + at], ubi = ub[at];
+      const float zi = theta ? z[i] : 0.0f;
+      const float alpha = theta ? nig[4 * i] : 0.0f, beta = theta ? nig[4 * i + 1] : 0.0f,
+                  mu0 = theta ? nig[4 * i + 2] : 0.0f, nu = theta ? nig[4 * i + 3] : 1.0f;
+      const float cnt = theta ? counts[i] : 0.0f, sm = theta ? sums[i] : 0.0f,
+                  sq = theta ? sumsqs[i] : 0.0f;
+      const float prior = row ? (i < P + KK ? a_alphas[i - P] : pi_alphas[i - P - KK]) : 1.0f;
+      const float seen_n = row ? (i < P + KK ? trans[i - P] : state[i - P - KK]) : 0.0f;
+      float a = 1.0f, b = 0.0f, m0 = 0.0f, n0 = 1.0f;
       if (theta) {
-        const float vi = __fdiv_rn(b, gi);
-        var[i] = vi;
-        mean[i] = __fadd_rn(m0, __fmul_rn(__fsqrt_rn(__fdiv_rn(vi, n0)), zi));
+        // nig_update (Conjugate.hpp:120-168), the same in every lane of the group
+        const float safe_n = clamp_min(cnt, 1.0f);
+        const float xbar = __fdiv_rn(sm, safe_n);
+        const float ssn = minimum(__fdiv_rn(__fmul_rn(sm, sm), safe_n), sq);
+        const float dev = __fsub_rn(xbar, mu0);
+        const float new_alpha = __fadd_rn(alpha, __fmul_rn(cnt, 0.5f));
+        const float shrink = __fdiv_rn(__fmul_rn(cnt, nu), __fadd_rn(cnt, nu));
+        const float spread = __fsub_rn(__fadd_rn(sq, __fmul_rn(shrink, __fmul_rn(dev, dev))), ssn);
+        const float new_beta = __fadd_rn(beta, __fmul_rn(spread, 0.5f));
+        const float new_mu0 = __fdiv_rn(__fadd_rn(__fmul_rn(nu, mu0), sm), __fadd_rn(nu, cnt));
+        const float new_nu = __fadd_rn(nu, cnt);
+        const bool seen = cnt > 0.0f;
+        a = seen ? new_alpha : alpha;
+        b = seen ? new_beta : beta;
+        m0 = seen ? new_mu0 : mu0;
+        n0 = seen ? new_nu : nu;
+      } else if (row) {
+        a = __fadd_rn(prior, seen_n);
       }
-      g[i] = gi;
+      // gamma_fixed_tries for shape a: this lane's try, and the boost for a < 1
+      const bool boost = a < 1.0f;
+      const float a_eff = boost ? __fadd_rn(a, 1.0f) : a;
+      const float d = __fsub_rn(a_eff, F32(1.0 / 3.0));
+      const float c = __fdiv_rn(1.0f, __fsqrt_rn(__fmul_rn(d, 9.0f)));  // reciprocal(sqrt(9 d))
+      float cand = 0.0f;
+      const bool ok = live && gamma_try(d, c, xk, uk, &cand);
+      const float e = __fdiv_rn(1.0f, clamp_min(a, F32(1e-6)));  // reciprocal(clamp(a, 1e-6))
+      const float lift = boost && k == 0 ? powf(clamp_min(ubi, F32(1e-38)), e) : 1.0f;
+      // the first accepted try (argmax of the mask), else the mode
+      const unsigned votes = (__ballot_sync(FULL_MASK, ok) >> lead) & ((1u << TRIES) - 1);
+      const float first = __shfl_sync(FULL_MASK, cand, lead + (votes ? __ffs(votes) - 1 : 0));
+      if (live && k == 0) {
+        float gi = votes ? first : d;
+        if (boost) gi = __fmul_rn(gi, lift);
+        if (theta) {
+          const float vi = __fdiv_rn(b, gi);
+          var[i] = vi;
+          mean[i] = __fadd_rn(m0, __fmul_rn(__fsqrt_rn(__fdiv_rn(vi, n0)), zi));
+        }
+        g[i - lo] = gi;
+      }
     }
-  }
-  __syncthreads();
-  // A's rows and pi, each over its sum taken left to right
-  for (int i = P + threadIdx.x; i < n; i += blockDim.x) {
-    const int first = i < P + KK ? P + (i - P) / K * K : P + KK;
-    float total = g[first];
-    for (int j = 1; j < K; ++j) total = __fadd_rn(total, g[first + j]);
-    const float q = __fdiv_rn(g[i], total);
-    if (i < P + KK)
-      A[i - P] = q;
-    else
-      pi[i - P - KK] = q;
+    __syncthreads();
+    // the pass's rows of A and pi, each over its sum taken left to right
+    for (int i = (lo > P ? lo : P) + threadIdx.x; i < hi; i += blockDim.x) {
+      const int first = (i < P + KK ? P + (i - P) / K * K : P + KK) - lo;
+      float total = g[first];
+      for (int j = 1; j < K; ++j) total = __fadd_rn(total, g[first + j]);
+      const float q = __fdiv_rn(g[i - lo], total);
+      if (i < P + KK)
+        A[i - P] = q;
+      else
+        pi[i - P - KK] = q;
+    }
+    if (hi < n) __syncthreads();  // the pass's draws are read before the next pass's
   }
 }
 
@@ -627,12 +653,17 @@ extern "C" long long hammlet_sweep_stats_workspace(int R, long long B, int K, in
 }
 
 // One cooperative launch of the statistics kernel: as many CTAs as rows x
-// runs, at most as many as the card holds at once (the grid barrier needs
-// every CTA resident); runs of RUN = 2^run_log tiles, the least RUN with
-// rows x runs within that and runs within MAX_RUNS. Above 48 KB of shared
-// memory the kernel's limit is raised to the card's (the same value from
-// every thread, so concurrent callers agree). A card that refuses the
-// cooperative launch returns its error.
+// runs x slices, at most as many as the card holds at once (the grid
+// barrier needs every CTA resident); runs of RUN = 2^run_log tiles, the
+// least RUN with rows x runs within that and runs within MAX_RUNS, or,
+// where a CTA's shared memory cannot hold the run stacks of every term
+// (K = 81, dim 4 at B = 4M), the least within MAX_RUNS, the terms in
+// slices whose stacks and histogram fit. The block statistics are staged
+// where their two stages take at most half the card's shared memory.
+// Above 48 KB of shared memory the kernel's limit is raised to the card's
+// (the same value from every thread, so concurrent callers agree). A
+// shape whose least slice does not fit returns cudaErrorInvalidValue; a
+// card that refuses the cooperative launch returns its error.
 extern "C" int hammlet_sweep_stats(const int64_t* states, const int64_t* sizes,
                                    const int64_t* n_blocks, const float* bstats,
                                    const int64_t* mapping, float* out, float* work, int R,
@@ -644,29 +675,54 @@ extern "C" int hammlet_sweep_stats(const int64_t* states, const int64_t* sizes,
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int n_terms = (int)stats_terms(K, dim, P);
+  const int n_terms = (int)stats_terms(K, dim, P), KK = K * K, n_float = n_terms - KK;
   const long long tiles = stats_tiles(B), Bp = 1LL << log2_ceil(B);
-  // two stages (states and sizes as int64, then the two tree buffers; the
-  // block statistics; the state before the tile in the last 8 bytes), the
-  // run stacks (run_log + 1 levels: a run of 2^run_log tiles carries that
-  // far), the mapping; after the grid barrier an output's term totals
-  const int stage_floats = 4 * TILE + (dim <= MAX_STAGED_DIM ? 2 * dim * TILE : 0) + 4;
-  auto smem_of = [&](int depth) {
-    return (2LL * stage_floats + (n_terms * depth + 1) / 2 * 2 +
-            (dim > 2 * stage_floats ? dim : 0)) * (long long)sizeof(float) +
-           (long long)K * dim * sizeof(int64_t) + (long long)K * K * sizeof(int);
-  };
   int sms = 0, optin = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
+  // two stages (states and sizes as int64, then the two tree buffers; the
+  // block statistics where staged; the state before the tile in the last 8
+  // bytes), the run stacks (run_log + 1 levels: a run of 2^run_log tiles
+  // carries that far), the mapping, the pair histogram; after the grid
+  // barrier an output's term totals
+  const long long staged_floats = 4 * TILE + 2LL * dim * TILE + 4;
+  const bool staged = dim <= MAX_STAGED_DIM && 2 * staged_floats * (long long)sizeof(float) <= optin / 2;
+  const int stage_floats = (int)(staged ? staged_floats : 4 * TILE + 4);
+  const long long fixed = (2LL * stage_floats + (dim > 2 * stage_floats ? dim : 0) + 1) *
+                              (long long)sizeof(float) + (long long)K * dim * sizeof(int64_t);
+  // the terms a CTA's slice may take at this depth: every term, else half
+  // the room for pair terms (a stack and a histogram count each), the rest
+  // for float terms; false where not even one of each fits
+  int fcap = n_float, pcap = KK;
+  bool limited = false;
+  auto caps = [&](int depth) {
+    const long long room = (optin - fixed) / (long long)sizeof(float);
+    limited = (long long)n_float * depth + (long long)KK * (depth + 1) > room;
+    if (!limited) {
+      fcap = n_float, pcap = KK;
+    } else {
+      const long long p = room / 2 / (depth + 1);
+      pcap = (int)(p < KK ? p : KK);
+      const long long f = (room - (long long)pcap * (depth + 1)) / depth;
+      fcap = (int)(f < n_float ? f : n_float);
+    }
+    return pcap >= 1 && fcap >= 1;
+  };
+  auto smem_of = [&](int depth) {
+    return fixed - (long long)sizeof(float) +
+           ((long long)(fcap + pcap) * depth + 1) / 2 * 2 * (long long)sizeof(float) +
+           (long long)pcap * sizeof(int);
+  };
   const void* kernel = (const void*)modelupdate_stats_kernel;
   // the least run_log whose rows x runs the card holds at once (with that
-  // run's stacks) and whose runs are within MAX_RUNS
+  // run's stacks), or the least where the stacks take slices, and whose
+  // runs are within MAX_RUNS
   int run_log = 0;
   long long runs = tiles, smem = 0, resident = 0;
   for (;;) {
+    if (!caps(run_log + 1)) return (int)cudaErrorInvalidValue;
     smem = smem_of(run_log + 1);
     if (smem > optin) return (int)cudaErrorInvalidValue;
     if (smem > SMEM_BYTES)
@@ -677,31 +733,37 @@ extern "C" int hammlet_sweep_stats(const int64_t* states, const int64_t* sizes,
     if (err != cudaSuccess) return (int)err;
     resident = (long long)per_sm * sms;
     if (resident < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-    if ((1LL << run_log) >= tiles || (runs <= MAX_RUNS && (long long)R * runs <= resident)) break;
+    if ((1LL << run_log) >= tiles ||
+        (runs <= MAX_RUNS && ((long long)R * runs <= resident || limited)))
+      break;
     ++run_log;
     runs = (tiles + (1LL << run_log) - 1) >> run_log;
   }
   const int depth = run_log + 1;
   // where rows x runs leave CTAs idle, each run's float terms go in slices
-  // of at least MIN_SLICE_TERMS, one CTA each
-  const int n_float = n_terms - K * K;
+  // of at least MIN_SLICE_TERMS, one CTA each; every slice within the caps
   long long slices = 1;
   if ((long long)R * runs < resident) {
     slices = resident / ((long long)R * runs);
     const long long most = (n_float + MIN_SLICE_TERMS - 1) / MIN_SLICE_TERMS;
     if (slices > most) slices = most;
   }
-  const int slice_terms = (int)((n_float + slices - 1) / slices);
-  slices = (n_float + slice_terms - 1) / slice_terms;
+  int slice_terms = (int)((n_float + slices - 1) / slices);
+  if (slice_terms > fcap) slice_terms = fcap;
+  const long long float_slices = (n_float + slice_terms - 1) / slice_terms,
+                  pair_slices = (KK + pcap - 1) / pcap;
+  slices = float_slices > pair_slices ? float_slices : pair_slices;
   const long long items = (long long)R * runs * slices;
+  if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const unsigned grid = (unsigned)(items < resident ? items : resident);
   int iR = R, iK = K, idim = dim, iP = P, iterms = n_terms, irun_log = run_log, iruns = (int)runs,
       iruns_p = 1 << log2_ceil(runs), islices = (int)slices, islice_terms = slice_terms,
-      istage = stage_floats, idepth = depth;
+      ipair_terms = pcap, istage = stage_floats, idepth = depth;
+  bool bstaged = staged;
   long long lB = B, lBp = Bp, ltiles = tiles;
   void* argv[] = {&states, &sizes, &n_blocks, &bstats, &mapping, &work, &out, &iR, &lB, &lBp,
                   &iK, &idim, &iP, &iterms, &ltiles, &irun_log, &iruns, &iruns_p, &islices,
-                  &islice_terms, &istage, &idepth};
+                  &islice_terms, &ipair_terms, &istage, &idepth, &bstaged};
   return (int)cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(STATS_THREADS), argv,
                                           (size_t)smem, (cudaStream_t)stream);
 }
@@ -717,17 +779,26 @@ extern "C" int hammlet_resample_model(const float* nig, const float* a_alphas,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const long long n = (long long)P + (long long)K * K + K;
-  const long long smem = n * (long long)sizeof(float);
-  if (smem > SMEM_BYTES) {
-    err = cudaFuncSetAttribute((const void*)modelupdate_resample_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (n > 0x7fffffffLL / TRIES) return (int)cudaErrorInvalidValue;
+  // the draws in shared memory: all n where they fit the card's opt-in
+  // shared memory, else passes of whole rows of at most that
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  const long long most = optin / (long long)sizeof(float), cap = n < most ? n : most;
+  if (cap < P || cap < K) return (int)cudaErrorInvalidValue;
+  const long long smem = cap * (long long)sizeof(float);
+  auto kernel = cap < n ? modelupdate_resample_kernel<true> : modelupdate_resample_kernel<false>;
+  if (smem > SMEM_BYTES) {  // the card's limit from every thread, so concurrent callers agree
+    err = cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
     if (err != cudaSuccess) return (int)err;
   }
   const long long lanes = (TRIES * n + WARP - 1) / WARP * WARP;
   const int threads = (int)(lanes < RESAMPLE_THREADS ? lanes : RESAMPLE_THREADS);
-  modelupdate_resample_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
-      nig, a_alphas, pi_alphas, sums, sumsqs, counts, trans, state, x, u, ub, z, mean, var, A, pi,
-      P, K);
+  kernel<<<1, threads, smem, (cudaStream_t)stream>>>(nig, a_alphas, pi_alphas, sums, sumsqs,
+                                                     counts, trans, state, x, u, ub, z, mean, var,
+                                                     A, pi, P, K, (int)cap);
   return (int)cudaGetLastError();
 }
 

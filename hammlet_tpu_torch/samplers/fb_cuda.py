@@ -8,15 +8,19 @@ block matrices, ``suffix_compose_scan_cuda`` an int64 (K, *batch, B) stack
 of index maps; each launches one kernel on the current stream where all of
 a call's groups fit the card at once (the main path's shapes, K = 3, and
 configuration 4's K = 9; the suffix up to K = 64), else three (the grouped
-prefix at K = 17-32 always), and returns what the plain versions in
-samplers/forward_backward.py (``prefix_matmul_scan_reference``,
-``suffix_compose_scan_reference``) return. The prefix has instances for
-K = 1-8 (a matrix per thread), 9-16 (a team of threads per matrix), 17-32
-(a thread block cluster per group of 128 matrices, a thread per column),
-33-64 (a thread block's tiled product per combine, every pass one
-cooperative launch over the card) and a generic form above 64; the suffix
-one instance per K up to 64. The kernels are chosen by K and shape alone:
-a refused launch raises. A
+prefix at K = 17-32 always, the grouped suffix above K = 64 always), and
+returns what the plain versions in samplers/forward_backward.py
+(``prefix_matmul_scan_reference``, ``suffix_compose_scan_reference``)
+return. The prefix has instances for K = 1-8 (a matrix per thread), 9-16
+(a team of threads per matrix), 17-32 (a thread block cluster per group of
+128 matrices, a thread per column), 33-64 (a thread block's tiled product
+per combine, every pass one cooperative launch over the card) and 65-512
+(the same with output tiles of up to 128 x 128 and j streamed through
+shared memory in slabs: one launch per call); no generic form is left,
+and K > 512 raises. The suffix has one instance per K up to 64 and above
+that the group kernel with the maps in shared memory (int32 to K = 227,
+int16 to 454), the totals' rows scan and the combine. The kernels are
+chosen by K and shape alone: a refused launch raises. A
 non-contiguous input is made contiguous first (the sharded
 engine's cross-shard scans pass a permuted and a transposed view, which
 come out contiguous from the gathers they read). Outputs and the
@@ -130,8 +134,8 @@ def suffix_compose_scan_cuda(maps_t: torch.Tensor) -> torch.Tensor:
 
 #: calls that launched the kernels since the last reset (each call launches
 #: one kernel on a flat B or a grouped B whose groups fit the card at once,
-#: the prefix at K <= 16, the suffix at K <= 64; the prefix at K = 33-64 one
+#: the prefix at K <= 16, the suffix at K <= 64; the prefix above K = 32 one
 #: at every shape; three on a longer grouped B, the grouped prefix at K =
-#: 17-32, and the grouped prefix above K = 64)
+#: 17-32, and the grouped suffix above K = 64)
 prefix_matmul_scan_cuda.launches = 0
 suffix_compose_scan_cuda.launches = 0

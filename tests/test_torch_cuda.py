@@ -1097,11 +1097,81 @@ def test_fbscan_deep_instances_match_plain_on_card(cuda_device, R, K, B, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "zeros, -0 and subnormals", "NaN"])
+@pytest.mark.parametrize("B", [130, 384])
+@pytest.mark.parametrize("K", [65, 81, 128, 129, 243])
+@pytest.mark.parametrize("R", [1, 4])
+def test_fbscan_tiled_instances_match_plain_on_card(cuda_device, R, K, B, case):
+    """Exact on the card: above K = 64 the prefix (the tiled products with j
+    streamed, one cooperative launch per call, flat at B = 130 and grouped
+    at 384; one tile a side up to K = 128, two above, whose division takes
+    a pass of its own) equals its plain version bit for bit on uniform
+    matrices, on matrices with 40 % zeros, 1 % -0 and 5 % subnormal entries,
+    and with one NaN; the suffix (grouped: the group kernel with the maps in
+    shared memory, the totals' rows scan, the combine) equals its plain
+    version. On uniform inputs each prefix call is one
+    fbscan_prefix_tiled_kernel and counts one launch of its wrapper, each
+    grouped suffix call the three suffix kernels, and the prefix captured
+    into a CUDA graph and replayed gives the eager bits."""
+    from chip_smoke import FB_SUFFIX_GROUPED, FB_TILED, scan_kernels
+    from hammlet_tpu_torch.samplers import fb_cuda
+    from hammlet_tpu_torch.samplers import forward_backward as fb
+
+    M, maps = _fb_inputs(B, K, R, B + K + R, cuda_device)
+    if case == "zeros, -0 and subnormals":
+        u = torch.rand(M.shape, generator=torch.Generator(device=cuda_device).manual_seed(B),
+                       device=cuda_device)
+        M = torch.where(u < 0.4, 0.0, torch.where(u < 0.45, M * 1e-39, M))
+        M = torch.where(u > 0.99, -0.0, M)
+    elif case == "NaN":
+        M[1, 2, 0, B // 3] = float("nan")
+    before = fb_cuda.prefix_matmul_scan_cuda.launches
+    got = fb_cuda.prefix_matmul_scan_cuda(M)
+    assert fb_cuda.prefix_matmul_scan_cuda.launches == before + 1
+    assert_bitwise(got, fb.prefix_matmul_scan_reference(M))
+    assert torch.equal(fb_cuda.suffix_compose_scan_cuda(maps), fb.suffix_compose_scan_reference(maps))
+    if case != "uniform":
+        return
+    prefix = [name for name, _ in scan_kernels(lambda: fb_cuda.prefix_matmul_scan_cuda(M))]
+    assert len(prefix) == 1 and FB_TILED[0] in prefix[0], prefix
+    suffix = [name for name, _ in scan_kernels(lambda: fb_cuda.suffix_compose_scan_cuda(maps))]
+    if B > 256:
+        assert len(suffix) == 3 and all(k in n for k, n in zip(FB_SUFFIX_GROUPED, suffix)), suffix
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        again = fb_cuda.prefix_matmul_scan_cuda(M)
+    again.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert_bitwise(again, got)
+
+
+@pytest.mark.cuda
+def test_fbscan_tiled_prefix_refused_above_its_limit_raises_on_card(cuda_device):
+    """Above MAX_TILED_K = 512 (a transpose's row of 32 matrices no longer
+    fits the kernel's shared memory) the prefix call raises with the CUDA
+    error and counts no launch; K = 512 itself runs, bit for bit as the
+    plain version. Nothing falls back to a plain version."""
+    from hammlet_tpu_torch.samplers import fb_cuda
+    from hammlet_tpu_torch.samplers import forward_backward as fb
+
+    M, _ = _fb_inputs(8, 512, 1, 512, cuda_device)
+    before = fb_cuda.prefix_matmul_scan_cuda.launches
+    assert_bitwise(fb_cuda.prefix_matmul_scan_cuda(M), fb.prefix_matmul_scan_reference(M))
+    M, _ = _fb_inputs(8, 513, 1, 513, cuda_device)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        fb_cuda.prefix_matmul_scan_cuda(M)
+    torch.cuda.synchronize()
+    assert fb_cuda.prefix_matmul_scan_cuda.launches == before + 1
+
+
+@pytest.mark.cuda
 def test_fbscan_refused_argument_raises_on_card(cuda_device):
     """A call whose arguments the library refuses (here 65,536 rows of one
     block at K = 64, beyond the 65,535 a row index may take) raises with the
-    CUDA error and counts no launch: nothing falls back to the plain version
-    or the generic kernels."""
+    CUDA error and counts no launch: nothing falls back to the plain
+    version."""
     from hammlet_tpu_torch.samplers import fb_cuda
 
     M = torch.ones((64, 64, 65_536, 1), device=cuda_device)
@@ -1334,6 +1404,51 @@ def test_sweep_stats_kernel_at_k64_on_card(cuda_device, B):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("R, B, K, dim, P", [(1, 4_000_000, 81, 4, 3), (1, 262_144, 81, 4, 3),
+                                             (1, 29_696, 128, 7, 2), (1, 29_696, 243, 5, 3)])
+def test_sweep_stats_kernel_above_k64_on_card(cuda_device, R, B, K, dim, P):
+    """Exact on the card above K = 64, where a CTA's shared memory cannot
+    hold every term's run stack and the pair histogram (-s C 3 4 at the M
+    burn-in's B = 4M, -s C 2 7, -s C 3 5: the terms in slices): the
+    statistics call is one CUDA kernel, counts one launch, and equals its
+    plain version bit for bit (at B = 4M, where the plain version's leaves
+    would take 108 GB, the plain version's sums taken in chunks,
+    chip_smoke.stats_reference_in_chunks)."""
+    from chip_smoke import stats_reference_in_chunks
+    from hammlet_tpu_torch.models import model_cuda
+    from hammlet_tpu_torch.samplers import sweep
+
+    rng = np.random.default_rng(B + K)
+    mapping = torch.from_numpy(rng.integers(0, P, size=(K, dim))).to(cuda_device)
+    args = _stats_inputs(R, B, K, dim, B + K + dim, cuda_device)[0][:4] + (mapping,)
+    before = model_cuda.sweep_stats_cuda.launches
+    got = model_cuda.sweep_stats_cuda(*args, P)
+    torch.cuda.synchronize()
+    assert model_cuda.sweep_stats_cuda.launches == before + 1
+    want = (stats_reference_in_chunks(*args, P) if B > 262_144
+            else sweep.sweep_stats_reference(*args, P))
+    assert _same_bits(got, want)
+    names = _scan_kernels(lambda: model_cuda.sweep_stats_cuda(*args, P))
+    assert len(names) == 1 and "modelupdate_stats_kernel" in names[0], names
+
+
+@pytest.mark.cuda
+def test_sweep_stats_refused_beyond_shared_memory_raises_on_card(cuda_device):
+    """A statistics call whose least slice of terms cannot fit a CTA's
+    shared memory beside the mapping (K = 1,000, dim 30: a 240 KB mapping)
+    raises with the CUDA error and counts no launch: nothing falls back to
+    the plain version."""
+    from hammlet_tpu_torch.models import model_cuda
+
+    args, _, _ = _stats_inputs(1, 30, 1000, 30, 3, cuda_device)
+    before = model_cuda.sweep_stats_cuda.launches
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        model_cuda.sweep_stats_cuda(*args, 2)
+    torch.cuda.synchronize()
+    assert model_cuda.sweep_stats_cuda.launches == before
+
+
+@pytest.mark.cuda
 def test_sweep_stats_nan_on_card(cuda_device):
     """Exact on the card: a NaN block statistic (valid or masked) turns
     every theta sum of its dimension NaN, as the plain version's mask *
@@ -1393,6 +1508,27 @@ def test_resample_kernel_matches_plain_on_card(cuda_device, K, nan):
         for name, a, b in zip(hmm.HMMState._fields, got, want):
             assert _same_bits(a, b), (seed, name)
         assert bool(torch.isnan(got[0]).any()) == nan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [128, 243])
+def test_resample_kernel_above_k64_on_card(cuda_device, K):
+    """Exact on the card at K = 128 and 243 (243 parameters: 59,535 Gamma shapes,
+    more than the card's shared memory holds, so the kernel draws them in
+    passes of whole rows): the resample kernel equals its plain version bit
+    for bit, counts one launch and is one CUDA kernel per call."""
+    from hammlet_tpu_torch.models import hmm, model_cuda
+
+    for seed in range(3):
+        priors, stats, noise = _resample_inputs(K, seed, cuda_device)
+        before = model_cuda.resample_model_cuda.launches
+        got = model_cuda.resample_model_cuda(priors, stats, noise)
+        assert model_cuda.resample_model_cuda.launches == before + 1
+        want = hmm.resample_model_reference(priors, stats, noise)
+        for name, a, b in zip(hmm.HMMState._fields, got, want):
+            assert _same_bits(a, b), (seed, name)
+    names = _scan_kernels(lambda: model_cuda.resample_model_cuda(priors, stats, noise))
+    assert len(names) == 1 and "modelupdate_resample_kernel" in names[0], names
 
 
 @pytest.mark.cuda

@@ -29,6 +29,11 @@ KS = [1, 2, 3, 5]
 # -s C 4 3 is 64): flat (130) and grouped (3 and 8 groups)
 TEAM_SIZES = [130, 384, 1024]
 TEAM_KS = [9, 10, 16, 17, 21, 27, 32, 33, 36, 64]
+# above K = 64, the tiled products with j streamed (one tile a side up to K = 128, two above;
+# -s C 3 4 is K = 81): flat (130) and grouped (3 groups); the plain versions' K^3 products on one
+# CPU thread bound the shapes (K = 129 at 384: ~22 s)
+OVER64_SIZES = [130, 384]
+OVER64_KS = [81, 129]
 
 
 def _matrices(shape, seed):
@@ -93,6 +98,31 @@ def test_prefix_scan_matches_jax_at_team_k(B, K):
 @pytest.mark.parametrize("K", TEAM_KS)
 def test_suffix_scan_matches_jax_at_team_k(B, K):
     """The K = 9-64 shapes. Tolerance: exact."""
+    maps = _maps(K, (B,), B * 10 + K)
+    np.testing.assert_array_equal(
+        to_np(tfb.suffix_compose_scan_t(to_torch(maps, torch.int64))),
+        np.asarray(jfb.suffix_compose_scan_t(jnp.asarray(maps))),
+    )
+
+
+@pytest.mark.parametrize("B", OVER64_SIZES)
+@pytest.mark.parametrize("K", OVER64_KS)
+def test_prefix_scan_matches_jax_above_k64(B, K):
+    """The K > 64 shapes (-s C 3 4's 81; 129, the first K of two tiles a
+    side on a card). Tolerance as test_prefix_scan_matches_jax: rtol 1e-5,
+    atol 1e-30."""
+    M = _matrices((K, K, B), B * 10 + K)
+    np.testing.assert_allclose(
+        to_np(tfb.prefix_matmul_scan_t(to_torch(M))),
+        np.asarray(jfb.prefix_matmul_scan_t(jnp.asarray(M))), rtol=1e-5, atol=1e-30,
+    )
+
+
+@pytest.mark.parametrize("B", OVER64_SIZES)
+@pytest.mark.parametrize("K", OVER64_KS)
+def test_suffix_scan_matches_jax_above_k64(B, K):
+    """The K > 64 shapes (on a card the grouped form's group kernel keeps
+    the maps in shared memory). Tolerance: exact."""
     maps = _maps(K, (B,), B * 10 + K)
     np.testing.assert_array_equal(
         to_np(tfb.suffix_compose_scan_t(to_torch(maps, torch.int64))),

@@ -178,11 +178,12 @@ def test_convert_carries_jax_state():
     np.testing.assert_allclose(float(tm.threshold(500)), float(jm.threshold(500)), rtol=1e-6)
 
 
-def _resample_case(K: int, seed: int):
+def _resample_case(K: int, seed: int, P: int | None = None):
     """Priors and sweep statistics whose Gamma shapes run from 0.5 to 1e7
-    (HMMPriors.create's alphas plus counts of 0 to 1e7), as numpy arrays."""
+    (HMMPriors.create's alphas plus counts of 0 to 1e7), as numpy arrays;
+    P parameters (K by default)."""
     rng = np.random.default_rng(seed)
-    P = K
+    P = P or K
     nig = np.tile(np.array([2.0, 0.4, 0.1, 0.3], np.float32), (P, 1))
     spread = np.array([0.0, 1.0, 7.0, 120.0, 5e4, 1e7], np.float32)
     counts = rng.choice(spread, size=P).astype(np.float32)
@@ -206,6 +207,36 @@ def test_resample_model_matches_jax_given_its_noise(K, seed):
     nig, stats = _resample_case(K, seed)
     P, n = K, 2 * K + K * K
     key = jax.random.PRNGKey(11 + seed)
+    jp, tp = jhmm.HMMPriors.create(nig, K), thmm.HMMPriors.create(nig, K)
+    want = jhmm.resample_model(key, jp, jhmm.SweepStats(*(jnp.asarray(a) for a in stats)))
+    k_gamma, k_normal = jax.random.split(key)
+    k_n, k_u, k_b = jax.random.split(k_gamma, 3)
+    noise = (
+        jax.random.normal(k_n, (8, n), dtype=jnp.float32),
+        jax.random.uniform(k_u, (8, n), dtype=jnp.float32, minval=1e-38),
+        jax.random.uniform(k_b, (n,), dtype=jnp.float32, minval=1e-38),
+        jax.random.normal(k_normal, (P,)),
+    )
+    got = thmm.resample_model(
+        None, tp, thmm.SweepStats(*(torch.from_numpy(a) for a in stats)),
+        noise=tuple(to_torch(a) for a in noise),
+    )
+    for name in thmm.HMMState._fields:
+        np.testing.assert_allclose(
+            to_np(getattr(got, name)), np.asarray(getattr(want, name)), rtol=1e-5, err_msg=name
+        )
+
+
+@pytest.mark.parametrize("K,P", [(81, 3), (243, 3)])
+def test_resample_model_matches_jax_above_k64(K, P):
+    """-s C 3 4 (K = 81) and -s C 3 5 (K = 243, three parameters a track;
+    on a card the resample kernel draws K = 243's 59,295 shapes in passes
+    of whole rows, which the card's shared memory cannot hold at once).
+    Tolerance as test_resample_model_matches_jax_given_its_noise: rtol
+    1e-5, fed the JAX package's draws."""
+    nig, stats = _resample_case(K, K, P)
+    n = P + K * K + K
+    key = jax.random.PRNGKey(K)
     jp, tp = jhmm.HMMPriors.create(nig, K), thmm.HMMPriors.create(nig, K)
     want = jhmm.resample_model(key, jp, jhmm.SweepStats(*(jnp.asarray(a) for a in stats)))
     k_gamma, k_normal = jax.random.split(key)

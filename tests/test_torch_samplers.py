@@ -178,6 +178,56 @@ def test_accumulate_sweep_stats_matches_jax(integer_stats):
             np.testing.assert_allclose(to_np(getattr(got, f)), np.asarray(getattr(want, f)), rtol=1e-6)
 
 
+@pytest.mark.parametrize("K,dim,P,B,n_blocks", [(81, 4, 3, 300, 260), (243, 5, 3, 400, 400)])
+def test_accumulate_sweep_stats_matches_jax_above_k64(K, dim, P, B, n_blocks):
+    """-s C 3 4 (K = 81, dim 4, a masked tail) and -s C 3 5 (K = 243, dim
+    5) on a few hundred blocks, whose statistics a card sums with the pair
+    terms in slices. Tolerance: exact, the block statistics integer-valued
+    (any summation order is then exact)."""
+    rng = np.random.default_rng(K + dim)
+    mapping = np.array(np.unravel_index(np.arange(K), (P,) * dim)).T.astype(np.int32)
+    states = rng.integers(0, K, size=B).astype(np.int32)
+    sizes = rng.integers(1, 400, size=B).astype(np.int32)
+    stats_t = np.round(rng.normal(0, 30, size=(dim, 2, B))).astype(np.float32)
+    stats_t[:, 1] = np.abs(stats_t[:, 1])
+    want = jsw.accumulate_sweep_stats(
+        jnp.asarray(states), jnp.asarray(sizes), jnp.int32(n_blocks), jnp.asarray(stats_t),
+        jnp.asarray(mapping), P,
+    )
+    got = tsw.accumulate_sweep_stats(
+        to_torch(states, torch.int64), to_torch(sizes), torch.tensor(n_blocks), to_torch(stats_t),
+        to_torch(mapping, torch.int64), P,
+    )
+    for f in tsw.SweepStats._fields:
+        np.testing.assert_array_equal(to_np(getattr(got, f)), np.asarray(getattr(want, f)), err_msg=f)
+
+
+@pytest.mark.parametrize("R,B,K,dim,P,chunk,tail", [
+    (1, 1000, 5, 2, 3, 64, "full"), (2, 4097, 9, 3, 3, 256, "masked"), (1, 300, 4, 1, 4, 32, "full"),
+    (3, 777, 6, 2, 2, 128, "overflow"),
+])
+def test_stats_reference_in_chunks_is_the_plain_version(R, B, K, dim, P, chunk, tail):
+    """Exact: chip_smoke.stats_reference_in_chunks (the plain statistics'
+    leaves in aligned chunks, each chunk's pairwise tree, then the tree over
+    the chunk sums; how the card's [model] checks K = 81, dim 4 at B = 4M,
+    where the plain version's leaves would take 108 GB) equals
+    sweep_stats_reference bit for bit: a last chunk shorter than the rest,
+    a masked tail, an overflowing count, signed block statistics."""
+    from chip_smoke import stats_reference_in_chunks
+
+    rng = np.random.default_rng(B)
+    states = torch.from_numpy(rng.integers(0, K, (R, B)))
+    sizes = torch.from_numpy(rng.integers(1, 400, (R, B)))
+    n_blocks = {"full": torch.full((R,), B), "overflow": torch.full((R,), B + 1),
+                "masked": torch.tensor([B // 2 + 1 - r for r in range(R)])}[tail]
+    bstats = torch.from_numpy(rng.normal(0, 30, (dim, 2, R, B)).astype(np.float32))
+    bstats[:, 1].abs_()
+    mapping = torch.from_numpy(rng.integers(0, P, (K, dim)))
+    want = tsw.sweep_stats_reference(states, sizes, n_blocks, bstats, mapping, P)
+    got = stats_reference_in_chunks(states, sizes, n_blocks, bstats, mapping, P, chunk)
+    np.testing.assert_array_equal(to_np(got).view(np.int32), to_np(want).view(np.int32))
+
+
 def _np_pairwise(v: np.ndarray) -> np.float32:
     """float32 pairwise tree: zero-padded to a power of two, (2i, 2i + 1)
     added at each level."""
