@@ -165,6 +165,23 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    suffix the grouped form (three), its M burn-in's statistics at B = 4M
    the kernel with the pair terms in slices; [profile] requires them in
    its graphed sweep;
+9f. sharded_tracks: the data of 9b-9e (T = 4,000,000 per track, K = 9, 27,
+   64, 81) through the position-sharded engine with P = 4 shards on the
+   one card (make_sharded_engine -> SCHEME, at K = 64 and 81
+   SHARDED_TRACKS_CUT_SCHEME -> finalize), graphed and through the eager
+   sharded_phase, checking (a) the sharded ingest's weights against
+   ingest_device's at the data's dim, bit for bit, (b) the same bytes, (c)
+   marginal rows that cover T and count the recorded sweeps, (d) MAP
+   agreement >= 0.95, (e) every sweep a graph replay, no plain version
+   called (PlainCalls), every sweep kernel launched; settled rates beside
+   the same run's P = 1 rate of the same data, peak memory per phase;
+   [fbscan] and [model] check and time the kernels on each sharded
+   sweep's own inputs (four rows, and the cross-shard views), and (f)
+   [profile] requires each hand-written kernel in the graphed P = 4 sweep
+   as often as the sweep's own calls launch it, and no generic kernel;
+   [fbscan] also checks the cross-shard calls at P = 2-4 for K = 9-81
+   (FB_CROSS_CASES) and [model] the statistics at the sharded M burn-in's
+   four rows of 1,048,576 blocks (MODEL_SHARDED_ROWS);
 10. chains: two chromosomes of T = 2,500,000 positions (100-bp bins) as
    text files; first each maxlet kernel against its plain version on each
    chromosome's data as the CLI reads it, bit for bit, on the card and on
@@ -210,7 +227,9 @@ calls; (d) T positions (250,000,000 by
 default: chr1 at 1 bp) made by a data provider in each process, -D N over N
 cards, M 16 0 F 32 4: setup seconds, M and F sweeps/s, each card's peak
 memory, marginal rows that cover T and count the 8 recorded sweeps, MAP
-agreement >= 0.95.
+agreement >= 0.95; (g) (b) and (c) again on three tracks at K = 27
+(states27_steps, T = 4,000,000 per track, -s C 3 3). In (c) and (g) every
+rank must have captured the same graphs.
 
 ``python3 chip_smoke.py --chains-cards N [PAIRS]`` runs phase 10 alone on N
 cards (one chain per card in threads, against the N chains one after
@@ -227,6 +246,7 @@ Needs no network and imports nothing of JAX.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import io
 import json
@@ -347,6 +367,9 @@ FB_ONE_LAUNCH = ("P=1 sweep data", f"P={P_SHARDED} sweep data", "P=1 uniform",
 # the generic prefix kernels, deleted (mangled): the built library must hold none of them
 FB_GENERIC = ("fbscan_prefix_group_any_kernel", "fbscan_prefix_combine_any_kernel",
               "fbscan_prefix_rows_grid_kernelILi0E")
+# the same as torch.profiler names them (demangled)
+FB_GENERIC_LABELS = ("fbscan_prefix_group_any_kernel", "fbscan_prefix_combine_any_kernel",
+                     "fbscan_prefix_rows_grid_kernel<0>")
 # the wide prefix instances (K = 17-32): group, totals and combine kernels, three per call
 FB_WIDE = ("fbscan_prefix_wide_group_kernel", "fbscan_prefix_team_rows_kernel",
            "fbscan_prefix_team_combine_kernel")
@@ -394,6 +417,10 @@ MODEL_K64_ROWS = [(1, 29_696), (1, 262_144)]  # [model]: (R, B) checked at K = 6
 # and at 262,144; -s C 2 7 (K = 128, dim 7) and -s C 3 5 (K = 243, dim 5) at the P = 1 capacity
 MODEL_LARGE_K = [(1, 4_000_000, 81, 4, 3), (1, 262_144, 81, 4, 3), (1, 29_696, 128, 7, 2),
                  (1, 29_696, 243, 5, 3)]
+# [model]: (R, B, K, dim, P) of the sharded M burn-in at T = 4M, P = 4 shards: four rows of
+# T_local = 1,048,576 blocks, -s C 4 3 (K = 64, dim 3) and -s C 3 4 (K = 81, dim 4), against
+# the plain version's sums in chunks
+MODEL_SHARDED_ROWS = [(4, 1_048_576, 64, 3, 4), (4, 1_048_576, 81, 4, 3)]
 MODEL_RESAMPLE_KS = [128, 243]  # [model]: the resample above K = 64 (243: in passes of rows)
 # [states9]: configuration 4 of benchmarks/run_configs.py (:160-172), "multi-track multivariate
 # emissions: 2 tracks x 3 params = 9 states" (-s C 3 2): its means (:165-167), segments, noise, seed
@@ -425,6 +452,15 @@ STATES81_MEANS = tuple((a, b, c, d) for a in (-3.0, 0.0, 3.0) for b in (-3.0, 0.
 STATES81_K, STATES81_SEED = 81, 8
 STATES81_CLI_T = 400_000  # [states81] through bin/hammlet-torch -s C 3 4 (host ingest)
 STATES81_SETTLED_ITERS = 128  # [states81]'s settled F phases (~25 ms a sweep: the smoke's time)
+# [sharded_tracks]: the sharded engine, P_SHARDED shards on the one card, on the data of
+# [states9], [states27], [states64] and [states81] (T_MAIN positions per track, their seeds and
+# means). K = 9 and 27 run SCHEME; K = 64 and 81 the cut scheme (the burn-in kept, F cut from
+# 512 to 128 sweeps) for the smoke's time. Settled phases of 512 sweeps at K = 9 and 27, 64 at
+# K = 64 and 81.
+SHARDED_TRACKS_CUT_SCHEME = "M 64 0 F 128 4"
+SHARDED_TRACKS_SETTLED = {9: 512, 27: 512, 64: 64, 81: 64}
+# [fbscan]: the sharded sweep's cross-shard scans, (K, K, P) and (K, P), at P = 2, 3, 4 shards
+FB_CROSS_CASES = [(B, K) for K in (9, 27, 64, 81) for B in (2, 3, 4)]
 
 
 class SmokeFailure(Exception):
@@ -926,6 +962,10 @@ def phase_fbscan() -> dict:
     tmaps = torch.randint(0, 3, (P_SHARDED, 3), device="cuda")
     res["bitwise"] += check_scans(tots.permute(1, 2, 0), tmaps.T, "permuted and transposed views")
     res["cases"] += 1
+    cross = fbscan_cross_cases()
+    res["cross"] = cross["kernels"]
+    res["bitwise"] += cross["bitwise"]
+    res["cases"] += cross["cases"]
     # an infinity: its row's later products hold infinities and NaN, as in torch (K > 64)
     for K in (65, 81, 96, 128, 129, 160, 243):
         M, _ = fb_inputs(384, K, 1, 55 + K)
@@ -948,6 +988,36 @@ def phase_fbscan() -> dict:
               and (K <= 32 or bits_equal(got, want)),
               f"[fbscan] NaN propagation (B={B} K={K})")
     torch.cuda.synchronize()
+    return res
+
+
+def fbscan_cross_cases() -> dict:
+    """The sharded sweep's cross-shard scans at K > 3 and P = 2-4 shards
+    (FB_CROSS_CASES: flat calls at B = P): the (K, K, B) view of B shard
+    totals and the (K, B) view of their maps, then their contiguous copies,
+    against the plain versions (check_scans; bitwise at K > 32, where each
+    prefix call must be one tiled-product kernel), and the CUDA kernels of
+    one call of each on the contiguous copies."""
+    res: dict = {"cases": 0, "bitwise": 0, "kernels": {}}
+    for B, K in FB_CROSS_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(31 * B + K)
+        tots = torch.rand((B, K, K), generator=gen, device="cuda").mul_(0.95).add_(0.05)
+        tmaps = torch.randint(0, K, (B, K), generator=gen, device="cuda")
+        views = (tots.permute(1, 2, 0), tmaps.T)
+        for M, maps in (views, tuple(v.contiguous() for v in views)):
+            where = f"cross-shard B={B} K={K} strides {M.stride()}"
+            bitwise = check_scans(M, maps, where)
+            check(bitwise or K <= 32, f"[fbscan] prefix kernel not bitwise equal to its plain "
+                  f"version ({where})")
+            res["bitwise"] += bitwise
+            res["cases"] += 1
+        kinds = {key: [kernel_label(n) for n, _ in scan_kernels(fn)] for key, fn in (
+            ("prefix", lambda: fb_cuda.prefix_matmul_scan_cuda(M)),
+            ("suffix", lambda: fb_cuda.suffix_compose_scan_cuda(maps)))}
+        check(K <= 32 or len(kinds["prefix"]) == 1
+              and (FB_DEEP if K <= 64 else FB_TILED)[0] in kinds["prefix"][0],
+              f"[fbscan] a cross-shard K = {K} prefix call at B = {B} ran {kinds['prefix']}")
+        res["kernels"][(B, K)] = kinds
     return res
 
 
@@ -1210,6 +1280,30 @@ def check_model(stats_args: tuple, resample_args: tuple | None, where: str) -> d
     return err
 
 
+def check_large_stats(rows: list) -> dict:
+    """The statistics kernel against its plain version at each (R, B, K,
+    dim, P) of ``rows``, bit for bit: above B = 262,144 against the plain
+    version's sums taken in chunks (stats_reference_in_chunks), which are
+    checked against the plain version itself at smaller B."""
+    res = {"cases": 0, "stats_err": 0.0}
+    for R, B, K, dim, P in rows:
+        args = model_stats_inputs(R, B, K, dim, B + K + dim, P=P)
+        where = f"R={R} B={B} K={K} dim={dim} P={P}"
+        got = model_cuda.sweep_stats_cuda(*args)
+        if B > 262_144:
+            want = stats_reference_in_chunks(*args)
+        else:
+            want = sweep.sweep_stats_reference(*args)
+            check(bits_equal(stats_reference_in_chunks(*args, chunk=1 << 14), want),
+                  f"[model] the plain statistics in chunks != the plain version ({where})")
+        check(bits_equal(got, want), f"[model] statistics kernel != plain ({where})")
+        res["stats_err"] = max(res["stats_err"], max_abs_err(got, want))
+        res["cases"] += 1
+        del args, got, want
+        torch.cuda.empty_cache()
+    return res
+
+
 def phase_model() -> dict:
     """[model]: the statistics kernel against its plain version on the
     card at MODEL_ROWS x MODEL_KS x MODEL_DIMS (at B = 29,696 also a masked
@@ -1237,23 +1331,10 @@ def phase_model() -> dict:
         res["cases"] += 1
         del args
     # above K = 64: the run stacks and histogram of the pair terms in slices where a CTA cannot
-    # hold them all, the resample in passes of rows at K = 243; at B = 4M against the plain
-    # version's sums taken in chunks (checked against the plain version itself at 262,144)
-    for R, B, K, dim, P in MODEL_LARGE_K:
-        args = model_stats_inputs(R, B, K, dim, B + K + dim, P=P)
-        where = f"R={R} B={B} K={K} dim={dim} P={P}"
-        got = model_cuda.sweep_stats_cuda(*args)
-        if B > 262_144:
-            want = stats_reference_in_chunks(*args)
-        else:
-            want = sweep.sweep_stats_reference(*args)
-            check(bits_equal(stats_reference_in_chunks(*args, chunk=1 << 14), want),
-                  f"[model] the plain statistics in chunks != the plain version ({where})")
-        check(bits_equal(got, want), f"[model] statistics kernel != plain ({where})")
-        res["stats_err"] = max(res["stats_err"], max_abs_err(got, want))
-        res["cases"] += 1
-        del args, got, want
-        torch.cuda.empty_cache()
+    # hold them all; the sharded M burn-in's four rows
+    large = check_large_stats(MODEL_LARGE_K + MODEL_SHARDED_ROWS)
+    res["cases"] += large["cases"]
+    res["stats_err"] = max(res["stats_err"], large["stats_err"])
     for K in MODEL_RESAMPLE_KS:
         for draw in range(3):
             parts = resample_parts(model_resample_inputs(K, 7 * K + draw))
@@ -1297,7 +1378,7 @@ def model_kernels_per_call() -> dict:
                           f"ran {kern}, not one CUDA kernel")
                     cases += 1
                     del args
-    for R, B, K, dim, P in MODEL_LARGE_K:
+    for R, B, K, dim, P in MODEL_LARGE_K + MODEL_SHARDED_ROWS:
         args = model_stats_inputs(R, B, K, dim, B + K + dim, P=P)
         kern = scan_kernels(lambda: model_cuda.sweep_stats_cuda(*args))
         check(len(kern) == 1 and "modelupdate_stats_kernel" in kern[0][0],
@@ -1876,7 +1957,8 @@ def log_peaks(eng, base: int, peaks: list) -> None:
         torch.cuda.reset_peak_memory_stats()
         real(method, iterations, thinning, start)
         torch.cuda.synchronize()
-        peaks.append((method, iterations, torch.cuda.max_memory_allocated() - base, eng.capacity))
+        capacity = eng.cap_local if isinstance(eng, sharded.ShardedEngine) else eng.capacity
+        peaks.append((method, iterations, torch.cuda.max_memory_allocated() - base, capacity))
 
     eng.run = run
 
@@ -1909,6 +1991,220 @@ def tracks_cli(tmp: str, tag: str, steps, K: int, T: int, states: list[str]) -> 
     agreement = map_agreement(sizes, counts, truth)
     check(agreement >= MAP_AGREEMENT_MIN, f"{what} MAP agreement {agreement:.4f}")
     return {"seconds": seconds, "map_agreement": agreement, "rows": len(sizes)}
+
+
+class PlainCalls:
+    """While entered, counts the calls of the plain versions of the FB scans
+    and of the model update (fb.prefix_matmul_scan_reference,
+    fb.suffix_compose_scan_reference, sweep.sweep_stats_reference,
+    hmm.resample_model_reference), through the module attributes the
+    sweep's dispatch calls. On the card the wrappers launch their kernels or
+    raise: a count above 0 means a sweep ran a plain version."""
+
+    FUNCTIONS = ((fb, "prefix_matmul_scan_reference"), (fb, "suffix_compose_scan_reference"),
+                 (sweep, "sweep_stats_reference"), (hmm, "resample_model_reference"))
+
+    def __enter__(self):
+        self.calls: dict = {}
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name in self.FUNCTIONS]
+        for mod, name, fn in self.saved:
+            def counted(*args, _name=name, _fn=fn, **kwargs):
+                self.calls[_name] = self.calls.get(_name, 0) + 1
+                return _fn(*args, **kwargs)
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def kernel_base(name: str) -> str:
+    """The identifier of a CUDA kernel of csrc/ from its mangled symbol or
+    its demangled signature: fbscan_prefix_tiled_kernel<5>(float const*,
+    ...) -> fbscan_prefix_tiled_kernel."""
+    import re
+
+    m = re.search(r"(fbscan_\w+?|modelupdate_\w+?)(?:ILi|I[a-z]E|<|\(|$)", kernel_label(name))
+    return m.group(1) if m else name
+
+
+def sharded_tracks_cases() -> tuple:
+    """(tag, steps, K, -s arguments, scheme, settled sweeps) of each
+    configuration [sharded_tracks] runs: the data of [states9], [states27],
+    [states64] and [states81]."""
+    return tuple(
+        (tag, steps, K, states, SCHEME if K <= 27 else SHARDED_TRACKS_CUT_SCHEME,
+         SHARDED_TRACKS_SETTLED[K])
+        for tag, steps, K, states in (
+            ("states9", config4_steps, STATES9_K, ["C", "3", "2"]),
+            ("states27", states27_steps, STATES27_K, ["C", "3", "3"]),
+            ("states64", states64_steps, STATES64_K, ["C", "4", "3"]),
+            ("states81", states81_steps, STATES81_K, ["C", "3", "4"])))
+
+
+def recorded_sweeps(scheme: str) -> int:
+    """The sweeps a scheme records: iterations // thinning of each phase
+    whose thinning is above 0."""
+    tok = scheme.split()
+    return sum(int(n) // int(t) for n, t in zip(tok[1::3], tok[2::3]) if int(t) > 0)
+
+
+def phase_sharded_tracks(tmp: str, tag: str, steps, K: int, states: list[str], scheme: str,
+                         settled_iters: int) -> dict:
+    """[sharded_tracks] for one configuration: ``steps``' data (several
+    tracks, K states, T_MAIN positions per track) through the sharded
+    engine with P_SHARDED shards on the one card, make_sharded_engine ->
+    ``scheme`` -> finalize, through a graphed engine and through one whose
+    chunks run the eager sharded_phase (the same ingest: the second engine
+    is the first's dataclasses.replace before either runs). Checks (a) that
+    the sharded host ingest's breakpoint weights equal ingest_device's at
+    this dim (the maxlet kernels) bit for bit, (b) that both engines write
+    the same bytes (marginals, parameters, compression), (c) that the
+    marginal rows cover T and sum to the recorded sweeps, (d) MAP agreement
+    >= MAP_AGREEMENT_MIN, (e) that every sweep of the graphed engine was a
+    graph replay, and that neither the graphed run nor the eager one called
+    a plain version (PlainCalls) while every kernel of the sweep launched;
+    the peak device memory of setup and of each phase, with the capacity per
+    shard at its end; then settled F rates (TRACKS_SETTLED phases of
+    ``settled_iters``); then, at the graphed engine's settled state and
+    capacity, one eager chunk of F 4 4 through sharded_phase that records
+    the sweep's own scan and model-update inputs, and the CUDA kernels one
+    call of each scan on them launches ([profile] holds the graphed sweep
+    to them: (f)). Returns the graphed engine too, for [profile]."""
+    data, truth = steps(T_MAIN)
+    dim = data.shape[1]
+    where = f"[sharded_tracks] K={K}"
+    streams = ("marginals", "parameters", "compression")
+    n_rec = recorded_sweeps(scheme)
+    res: dict = {"tag": tag, "K": K, "dim": dim, "states": states, "scheme": scheme,
+                 "settled_iters": settled_iters}
+    t_phase = time.perf_counter()
+    recs = {kind: Records(T_MAIN, os.path.join(tmp, f"{tag}-{kind}-"), ".csv", K,
+                          outputs=set(streams), overwrite=True) for kind in ("graph", "eager")}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = sharded.make_sharded_engine(data, n_devices=P_SHARDED, nr_params=int(states[1]),
+                                    nr_data_dim=dim, seed=SEED, records=recs["graph"],
+                                    device="cuda")
+    torch.cuda.synchronize()
+    res["setup_s"] = time.perf_counter() - t0
+    peaks = [("setup", 0, torch.cuda.max_memory_allocated() - base, g.cap_local)]
+    e = eager_sharded_engine(dataclasses.replace(g, records=recs["eager"]))
+    check(g.spec.nr_states == K and g.device.type == "cuda",
+          f"{where} engine of {g.spec.nr_states} states on {g.device}")
+    # (a) the sharded host ingest's weights against the kernel-driven device ingest's
+    before = read_counts()
+    ref = runner.ingest_device(data, device="cuda")
+    check(all(read_counts()[k] == before[k] + 1 for k in MAXLET_NAMES),
+          f"{where} ingest_device did not launch each maxlet kernel once")
+    weights = torch.empty_like(g.negw).scatter_(1, g.rank, -g.negw).reshape(-1)[:T_MAIN]
+    check(bits_equal(weights, ref.weights),
+          f"{where} the sharded ingest's weights != ingest_device's (maxlet kernels, dim {dim})")
+    del ref, weights
+    torch.cuda.empty_cache()
+    # the graphed run, then the eager one
+    log = log_captures(g)
+    log_peaks(g, base, peaks)
+    reset_counts()
+    with PlainCalls() as plain:
+        t0 = time.perf_counter()
+        g.run_scheme(scheme.split())
+        g.finalize()
+        torch.cuda.synchronize()
+        res["run_s"] = time.perf_counter() - t0
+        res["launches"] = read_counts()
+        torch.cuda.reset_peak_memory_stats()
+        e_base = torch.cuda.memory_allocated()
+        e.run_scheme(scheme.split())
+        e.finalize()
+        torch.cuda.synchronize()
+        res["eager_peak_mem_bytes"] = torch.cuda.max_memory_allocated() - e_base
+    check(not plain.calls, f"{where} a plain version ran on the card: {plain.calls}")
+    for name in SWEEP_NAMES:
+        check(res["launches"][name] >= 1, f"{where} the graphed run never launched {name}")
+    check_graphed(g, where)
+    check(e.phase_graphs.replays == 0, f"{where} the eager engine replayed graphs")
+    out = {kind: {s: open(os.path.join(tmp, f"{tag}-{kind}-{s}.csv"), "rb").read()
+                  for s in streams} for kind in ("graph", "eager")}
+    for s in streams:
+        check(out["graph"][s] == out["eager"][s],
+              f"{where} {s}: the graphed engine's bytes differ from the eager sharded_phase's")
+    res["sha256"] = {s: hashlib.sha256(out["graph"][s]).hexdigest()[:16]
+                     for s in ("marginals", "parameters")}
+    sizes, counts = read_marginals(os.path.join(tmp, f"{tag}-graph-marginals.csv"))
+    check(counts.shape[1] == K and int(sizes.sum()) == T_MAIN,
+          f"{where} marginal rows of {counts.shape[1]} states cover {sizes.sum()} positions")
+    check(bool((counts.sum(axis=1) == n_rec).all()), f"{where} marginal row sums != {n_rec}")
+    res["rows"] = len(sizes)
+    res["map_agreement"] = map_agreement(sizes, counts, truth)
+    check(res["map_agreement"] >= MAP_AGREEMENT_MIN,
+          f"{where} MAP agreement {res['map_agreement']:.4f}")
+    pg = g.phase_graphs
+    res.update(peaks=peaks, peak_mem_bytes=max(p for _, _, p, _ in peaks), captures=list(log),
+               graphs=[pg.captures, pg.graphs, round(pg.capture_seconds, 4)],
+               phases=[(m, n, round(t, 4)) for m, n, t in g.phase_log],
+               eager_phases=[(m, n, round(t, 4)) for m, n, t in e.phase_log])
+    g.records = None
+    del e, out
+    torch.cuda.empty_cache()
+    rates = []
+    with PlainCalls() as plain:
+        for _ in range(TRACKS_SETTLED):
+            g.run("F", settled_iters, 4)
+            rates.append(settled_iters / g.phase_log[-1][2])
+    check(not plain.calls, f"{where} a plain version ran in the settled phases: {plain.calls}")
+    res["settled"], res["cap_local"] = rates, g.cap_local
+    # the sweep's own inputs at the graphed engine's state and capacity, through the eager pieces
+    candpos, candrank = g._shard_candidates()
+    with ScanInputs() as scans, ModelInputs() as models:
+        sharded.sharded_phase(
+            g.mesh, g.seed, 10**6, g.model, g.priors, g.negw, candpos, candrank, g.r_t, g.q2_hi,
+            g.q2_lo, g.buffers.clone(), None, method="F", T=g.T, T_local=g.T_local,
+            cell_bits=g.cell_bits, mapping=g._mapping, nr_params=g.spec.nr_params,
+            use_self_transitions=g.spec.use_self_transitions, n_iters=4, thinning=4)
+    (M, maps), others = scans.main_and_others()
+    check(sorted((k, v.shape[-1]) for k, v in others) == [("prefix", P_SHARDED), ("suffix", P_SHARDED)]
+          and tuple(M.shape) == (K, K, P_SHARDED, g.cap_local),
+          f"{where} the sweep's scan calls were {tuple(M.shape)} and "
+          f"{[(k, tuple(v.shape)) for k, v in others]}")
+    res["cross_bitwise"] = check_cross_shard(others)
+    # the CUDA kernels of each scan call of one F sweep, and of the model update's two calls
+    expected: dict = {}
+    calls = [("prefix", M), ("suffix", maps)] + [(k, v.contiguous()) for k, v in others]
+    for kind, x in calls:
+        fn = fb_cuda.prefix_matmul_scan_cuda if kind == "prefix" else fb_cuda.suffix_compose_scan_cuda
+        for name, _ in scan_kernels(lambda: fn(x)):
+            expected[kernel_base(name)] = expected.get(kernel_base(name), 0) + 1
+    for name in ("modelupdate_stats_kernel", "modelupdate_resample_kernel"):
+        expected[name] = 1
+    res.update(scans=(M, maps), models=models.main(), expected_per_sweep=expected,
+               engine=g, seconds=time.perf_counter() - t_phase)
+    return res
+
+
+def check_sharded_tracks_profile(st: dict, p: dict) -> dict:
+    """[sharded_tracks] (f): the hand-written kernels per settled sweep of
+    the graphed P_SHARDED sweep (profile_launches ``p``) against the
+    kernels the sweep's own calls launch (st["expected_per_sweep"]): each
+    there, no more often than expected and at least 0.9 times as often
+    (torch.profiler now and then drops a kernel of a traced call), and no
+    other kernel of csrc/fbscan.cu or csrc/modelupdate.cu, none of the
+    deleted generic kernels. Returns the per-sweep counts by kernel."""
+    where = f"[sharded_tracks] K={st['K']} (f)"
+    seen: dict = {}
+    for name, (n, _) in {**p["fbscan"], **p["model"]}.items():
+        seen[kernel_base(name)] = seen.get(kernel_base(name), 0.0) + n
+        check(not any(gen in name for gen in FB_GENERIC_LABELS),
+              f"{where} the graphed sweep ran a deleted generic kernel: {name}")
+    want = st["expected_per_sweep"]
+    check(set(seen) == set(want), f"{where} the graphed sweep's kernels {seen}, expected {want}")
+    for name, n in want.items():
+        check(0.9 * n <= seen[name] <= n + 1e-9,
+              f"{where} {name}: {seen[name]} per sweep, expected {n} ({seen})")
+    return seen
 
 
 def profile_launches(eng, iters: int = 64) -> dict:
@@ -2037,7 +2333,8 @@ def device_split_by_stage(eng, iters: int = 16) -> dict:
                              for stage, kern in names.items()}}
 
 
-def phase_profile(main_eng, sharded_eng, sharded_eager, tracks: dict) -> dict:
+def phase_profile(main_eng, sharded_eng, sharded_eager, tracks: dict,
+                  sharded_tracks: dict | None = None) -> dict:
     """torch.profiler over F 64 4: CUDA kernels and device ms per settled
     sweep of the [main] engine with the debug bitmask off and on, and of the
     [sharded] engine; launch calls, kernels and device ms per sweep of the
@@ -2092,6 +2389,8 @@ def phase_profile(main_eng, sharded_eng, sharded_eager, tracks: dict) -> dict:
         check("modelupdate_stats_kernel" in names and "modelupdate_resample_kernel" in names,
               f"[{tag}] the graphed sweep ran no model-update kernel: {res[tag]['model']}")
         res[tag + "_split"] = device_split_by_stage(tracks[tag]["eager"])
+    for K, eng in (sharded_tracks or {}).items():  # [sharded_tracks] (f), checked by the caller
+        res[f"sharded{K}"] = profile_launches(eng)
     eager_engine(main_eng)  # its chunks run the eager gibbs_phase from here on
     res["eager"] = profile_launches(main_eng)
     res["split"] = device_split_by_stage(main_eng)
@@ -2657,41 +2956,60 @@ def cards_kernels(n: int) -> dict:
     return worst
 
 
-def cards_cli(n: int, tmp: str) -> dict:
-    """[cards] (b): the main path's data and scheme as a text file through
-    bin/hammlet-torch -D n -C: spanning n cards (n processes), under
-    CUDA_VISIBLE_DEVICES=0 (one process), and spanning n cards killed after
-    its first checkpoint and run again; the three write the same bytes."""
+# [cards]: (b) and (c) on the main path's data (K = 3), (g) both again on states27_steps' three
+# tracks (-s C 3 3, K = 27): the labels of the two parts, -s arguments, nr_params, dim
+CARDS_CASES = {"main": (("[cards] (b)", "[cards] (c)"), ["3"], 3, 1),
+               "tracks": (("[cards] (g)", "[cards] (g)"), ["C", "3", "3"], 3, 3)}
+
+
+def cards_data(case: str) -> tuple[np.ndarray, np.ndarray]:
+    """The data and true states of a CARDS_CASES case at T_MAIN positions."""
+    return synth(T_MAIN, SEED) if case == "main" else states27_steps(T_MAIN)
+
+
+def cards_cli(n: int, tmp: str, case: str) -> dict:
+    """[cards] (b) and (g): the case's data (CARDS_CASES) and SCHEME as a
+    text file through bin/hammlet-torch -s ... -D n -C: spanning n cards (n
+    processes), under CUDA_VISIBLE_DEVICES=0 (one process), and spanning n
+    cards killed after its first checkpoint and run again; the three write
+    the same bytes; the marginal rows cover T, have K columns and count the
+    recorded sweeps, MAP agreement >= MAP_AGREEMENT_MIN."""
+    (label, _), states, nr_params, dim = CARDS_CASES[case]
+    data, truth = cards_data(case)
+    K = nr_params**dim
     here = os.path.dirname(os.path.abspath(__file__))
     path = os.path.join(tmp, "d.txt")
+    t0 = time.perf_counter()
     with open(path, "w") as fh:  # shortest round-trip text of each float32
-        fh.write("\n".join(map(repr, synth(T_MAIN, SEED)[0].astype(np.float64).tolist())) + "\n")
+        fh.write("\n".join(" ".join(map(repr, row))
+                           for row in data.reshape(T_MAIN, dim).astype(np.float64).tolist()) + "\n")
+    res: dict = {"write_s": time.perf_counter() - t0}
     env = {k: v for k, v in os.environ.items() if k not in GROUP_VARS}
     streams = ("marginals", "parameters", "compression")
 
     def argv(tag: str) -> list[str]:
-        return [sys.executable, os.path.join(here, "bin", "hammlet-torch"), "-f", path, "-s", "3",
-                "-a", "-R", str(SEED), "-D", str(n), "-i", *SCHEME.split(), "-O", *streams,
-                "-o", os.path.join(tmp, tag + "-"), ".csv", "-w", "-v",
+        return [sys.executable, os.path.join(here, "bin", "hammlet-torch"), "-f", path, "-s",
+                *states, "-a", "-R", str(SEED), "-D", str(n), "-i", *SCHEME.split(), "-O",
+                *streams, "-o", os.path.join(tmp, tag + "-"), ".csv", "-w", "-v",
                 "-C", os.path.join(tmp, tag + ".npz"), str(CARDS_CKPT_EVERY)]
 
     def run(tag: str, extra_env: dict | None = None) -> tuple:
         t0 = time.perf_counter()
         proc = subprocess.run(argv(tag), env={**env, **(extra_env or {})}, capture_output=True,
                               text=True, timeout=900)
-        check(proc.returncode == 0, f"[cards] {tag} run exited {proc.returncode}: "
+        check(proc.returncode == 0, f"{label} {tag} run exited {proc.returncode}: "
               f"{proc.stdout[-1500:]} {proc.stderr[-3000:]}")
         outs = {s: open(os.path.join(tmp, f"{tag}-{s}.csv"), "rb").read() for s in streams}
         return proc.stdout, time.perf_counter() - t0, outs
 
-    res: dict = {}
     spanned = f"Cards: {torch.cuda.device_count()}; -D {n}: {n} processes, one per card"
     out, res["cards_s"], want = run("cards")
-    check(spanned in out and "Processes: " in out, f"-D {n} did not span {n} cards: {out[-2000:]}")
+    check(spanned in out and "Processes: " in out and f"States: {K}" in out,
+          f"{label} -D {n} did not span {n} cards: {out[-2000:]}")
     out, res["one_s"], got = run("one", {"CUDA_VISIBLE_DEVICES": "0"})
-    check("Cards:" not in out and "Device: cuda:0" in out, f"one card: {out[-2000:]}")
+    check("Cards:" not in out and "Device: cuda:0" in out, f"{label} one card: {out[-2000:]}")
     for s in streams:
-        check(got[s] == want[s], f"[cards] -D {n} on one card: {s} differs from {n} cards")
+        check(got[s] == want[s], f"{label} -D {n} on one card: {s} differs from {n} cards")
 
     ck = os.path.join(tmp, "cut.npz")
     proc = subprocess.Popen(argv("cut"), env=env, stdout=subprocess.DEVNULL,
@@ -2701,7 +3019,8 @@ def cards_cli(n: int, tmp: str) -> dict:
         time.sleep(0.01)
     proc.kill()
     proc.wait()
-    check(proc.returncode == -9, f"the cut run ended on its own ({proc.returncode}) before its cut")
+    check(proc.returncode == -9, f"{label} the cut run ended on its own ({proc.returncode}) "
+          "before its cut")
     with np.load(ck) as z:
         res["cut_at"] = int(z["sweeps_completed"])
     for _ in range(300):  # the workers die with their launcher
@@ -2709,16 +3028,19 @@ def cards_cli(n: int, tmp: str) -> dict:
         if not res["left"]:
             break
         time.sleep(0.1)
-    check(not res["left"], f"workers {res['left']} outlived their killed launcher")
+    check(not res["left"], f"{label} workers {res['left']} outlived their killed launcher")
     out, res["resume_s"], got = run("cut")
-    check(f"Resumed from {ck} at sweep {res['cut_at']}" in out, f"no resume: {out[-2000:]}")
+    check(f"Resumed from {ck} at sweep {res['cut_at']}" in out, f"{label} no resume: {out[-2000:]}")
     for s in streams:
-        check(got[s] == want[s], f"[cards] the cut and resumed run: {s} differs")
+        check(got[s] == want[s], f"{label} the cut and resumed run: {s} differs")
+    res["sha256"] = {s: hashlib.sha256(want[s]).hexdigest()[:16] for s in ("marginals", "parameters")}
     sizes, counts = read_marginals(os.path.join(tmp, "cards-marginals.csv"))
-    check(int(sizes.sum()) == T_MAIN and bool((counts.sum(axis=1) == N_RECORDED).all()),
-          "[cards] marginal rows do not cover T or sum to the recorded sweeps")
-    res["map_agreement"] = map_agreement(sizes, counts, synth(T_MAIN, SEED)[1])
-    check(res["map_agreement"] >= MAP_AGREEMENT_MIN, f"[cards] MAP agreement {res['map_agreement']}")
+    check(counts.shape[1] == K and int(sizes.sum()) == T_MAIN
+          and bool((counts.sum(axis=1) == N_RECORDED).all()),
+          f"{label} marginal rows do not cover T or sum to the recorded sweeps")
+    res["rows"] = len(sizes)
+    res["map_agreement"] = map_agreement(sizes, counts, truth)
+    check(res["map_agreement"] >= MAP_AGREEMENT_MIN, f"{label} MAP agreement {res['map_agreement']}")
     return res
 
 
@@ -2757,49 +3079,56 @@ def profile_nccl(eng, iters: int = 64) -> dict:
     }
 
 
-def cards_rates(n: int, pairs: int) -> dict:
-    """[cards] (c), in each process of an n-process group (one card each,
-    launch.run_on_cards): the main path's data and scheme through the
-    sharded engine with one shard per card (W = n), graphed and with its
-    chunks through the eager sharded_phase (rank 0 checks that the two
-    wrote the same bytes), and on rank 0 also through the single-device
-    engine (P = 1) and the sharded engine with n shards on card 0 (P = n);
-    then settled F 512 4 phases in ``pairs`` rotations of the four (the
-    other ranks wait at a barrier while rank 0 runs P = 1 or P = n alone),
-    then torch.profiler on rank 0 over F 64 4 of W = n, graphed and eager.
-    Returns rank 0's sweeps/s, profiles and graph counters."""
+def cards_rates(n: int, pairs: int, case: str) -> dict:
+    """[cards] (c) and (g), in each process of an n-process group (one card
+    each, launch.run_on_cards): the case's data (CARDS_CASES) and SCHEME
+    through the sharded engine with one shard per card (W = n), graphed and
+    with its chunks through the eager sharded_phase (rank 0 checks that the
+    two wrote the same bytes; every rank must have captured the same
+    graphs), and on rank 0 also through the single-device engine (P = 1)
+    and the sharded engine with n shards on card 0 (P = n); then settled F
+    512 4 phases in ``pairs`` rotations of the four (the other ranks wait
+    at a barrier while rank 0 runs P = 1 or P = n alone), then
+    torch.profiler on rank 0 over F 64 4 of W = n, graphed and eager.
+    Returns rank 0's sweeps/s, profiles and graph counters, and every
+    rank's."""
     rank = torch.distributed.get_rank()
     dev = distributed.process_device()
-    data = synth(T_MAIN, SEED)[0]
+    (_, where), _, nr_params, dim = CARDS_CASES[case]
+    data = cards_data(case)[0]
     mpc = ("marginals", "parameters", "compression")
     with tempfile.TemporaryDirectory() as tmp:
 
         def records(tag: str) -> Records:
-            return Records(T_MAIN, os.path.join(tmp, tag + "-"), ".csv", 3, outputs=set(mpc),
-                           overwrite=True, write=rank == 0)
+            return Records(T_MAIN, os.path.join(tmp, tag + "-"), ".csv", nr_params**dim,
+                           outputs=set(mpc), overwrite=True, write=rank == 0)
 
-        engines = {tag: sharded.make_sharded_engine(data, mesh=position_mesh(n), nr_params=3,
-                                                    seed=SEED, records=records(tag))
+        model = {"nr_params": nr_params, "nr_data_dim": dim, "seed": SEED}
+        engines = {tag: sharded.make_sharded_engine(data, mesh=position_mesh(n), records=records(tag),
+                                                    **model)
                    for tag in ("cards", "eager")}
         eager_sharded_engine(engines["eager"])
         if rank == 0:
-            engines["one"] = runner.make_engine(data, nr_params=3, seed=SEED, records=records("one"),
-                                                device=dev)
+            engines["one"] = runner.make_engine(data, records=records("one"), device=dev, **model)
             engines["shards"] = sharded.make_sharded_engine(
-                data, mesh=PositionMesh(n, dev), nr_params=3, seed=SEED, records=records("shards"))
+                data, mesh=PositionMesh(n, dev), records=records("shards"), **model)
         for eng in engines.values():
             eng.run_scheme(SCHEME.split())
             eng.finalize()
         pg = engines["cards"].phase_graphs
-        check_graphed(engines["cards"], "[cards] (c)")
-        check(pg.graphs >= 4 * pg.captures, f"[cards] (c) {pg.graphs} graphs for {pg.captures} "
+        check_graphed(engines["cards"], where)
+        check(pg.graphs >= 4 * pg.captures, f"{where} {pg.graphs} graphs for {pg.captures} "
               "sweep kinds: the collectives are not between the graphs")
-        check(engines["eager"].phase_graphs.replays == 0, "[cards] (c) the eager engine replayed graphs")
+        mine = torch.tensor([pg.captures, pg.graphs, pg.replays], device=dev)
+        every = engines["cards"].mesh.all_gather(mine[None])
+        check(bool((every == mine).all()), f"{where} the ranks captured different graphs: "
+              f"{every.tolist()}")
+        check(engines["eager"].phase_graphs.replays == 0, f"{where} the eager engine replayed graphs")
         if rank == 0:
             for s_ in mpc:
                 got, want = (open(os.path.join(tmp, f"{t}-{s_}.csv"), "rb").read()
                              for t in ("cards", "eager"))
-                check(got == want, f"[cards] (c) W={n} graphed and eager {s_} differ")
+                check(got == want, f"{where} W={n} graphed and eager {s_} differ")
         torch.distributed.barrier()
         tags = ("cards", "eager", "one", "shards")
         order = [tags[(i + j) % 4] for j in range(pairs) for i in range(4)]
@@ -2820,7 +3149,8 @@ def cards_rates(n: int, pairs: int) -> dict:
             torch.distributed.barrier()
     return {"order": order, "rates": rates, "profile": prof["cards"], "eager_profile": prof["eager"],
             "cap_local": engines["cards"].cap_local,
-            "captures": [pg.captures, pg.graphs, round(pg.capture_seconds, 4)]}
+            "captures": [pg.captures, pg.graphs, round(pg.capture_seconds, 4)],
+            "graphs": every.tolist()}
 
 
 def cards_big(n: int, T: int) -> dict:
@@ -2882,34 +3212,7 @@ def sharded_cards(n: int, pairs: int = CARDS_PAIRS, t_big: int = T_BIG) -> int:
           f"dim 1 and 3 (max abs errors {worst}); prefix_matmul_scan_kernel and "
           "suffix_compose_scan_kernel, and the sweep statistics and resample kernels, bitwise "
           "equal to their plain versions on each card at B=29696 K=3, R 1 and 4", flush=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        b = cards_cli(n, tmp)
-    print(f"[cards] (b) T={T_MAIN} '{SCHEME}' marginals+parameters+compression, bin/hammlet-torch "
-          f"-D {n} -C ... {CARDS_CKPT_EVERY}: {n} processes on {n} cards {b['cards_s']:.2f} s, one "
-          f"process under CUDA_VISIBLE_DEVICES=0 {b['one_s']:.2f} s, byte-identical; killed after "
-          f"its first checkpoint (sweep {b['cut_at']}, no worker left) and resumed "
-          f"{b['resume_s']:.2f} s, byte-identical; MAP agreement {b['map_agreement']:.4f}",
-          flush=True)
-    rc, c = launch.run_on_cards("chip_smoke:cards_rates", n, (n, pairs))
-    check(rc == 0 and c is not None, f"[cards] (c) exited {rc}")
-    r = c["rates"]
-    print(f"[cards] (c) settled F 512 4 at T={T_MAIN}, sweeps/s in the order {' '.join(c['order'])}: "
-          f"W={n} (one shard per card) graphed {r['cards']}, eager {r['eager']}, P=1 on cuda:0 "
-          f"{r['one']}, P={n} on cuda:0 (graphed) {r['shards']}; W={n} graphed vs eager: "
-          f"{pair_summary(r['cards'], r['eager'], True)}; medians P=1 {np.median(r['one']):.2f} / "
-          f"P={n} {np.median(r['shards']):.2f}; cap_local {c['cap_local']}; W={n} graphed and eager "
-          f"byte-identical; sweep kinds captured, graphs, capture seconds on rank 0 "
-          f"{c['captures']}", flush=True)
-    for tag, pr in (("graphed", c["profile"]), ("eager", c["eager_profile"])):
-        print(f"[cards] (c) torch.profiler F 64 4 on rank 0, W={n} {tag}: launch calls per sweep "
-              f"{pr['launch_calls']}, {pr['kernels_per_sweep']} CUDA kernels/sweep, "
-              f"{pr['device_ms_per_sweep']:.4f} device ms/sweep, of them "
-              f"{pr['nccl_kernels_per_sweep']} NCCL kernels/sweep, {pr['nccl_ms_per_sweep']:.4f} "
-              f"NCCL device ms/sweep, one NCCL kernel's us min / median / 90th percentile "
-              f"{pr['nccl_kernel_us']} ({pr['nccl_names']}); on the host "
-              f"{pr['collective_calls_per_sweep']} collective calls and "
-              f"{pr['collective_host_ms_per_sweep']:.4f} ms per sweep inside them; FB scan kernels "
-              f"per sweep {pr['fbscan_per_sweep']}", flush=True)
+    b, c = cards_case(n, pairs, "main")
     rc, d = launch.run_on_cards("chip_smoke:cards_big", n, (n, t_big))
     check(rc == 0 and d is not None, f"[cards] (d) exited {rc}")
     print(f"[cards] (d) T={d['T']} (chr1 at 1 bp, made in each process) '{BIG_SCHEME}' -D {n} on "
@@ -2920,8 +3223,49 @@ def sharded_cards(n: int, pairs: int = CARDS_PAIRS, t_big: int = T_BIG) -> int:
           f"last blocks {d['last_n_blocks']}, {d['rows']} marginal rows cover T and count "
           f"{BIG_RECORDED} sweeps each, MAP agreement {d['map_agreement']:.4f}, phases "
           f"{d['phases']}", flush=True)
-    print(json.dumps({"cards": {"a": worst, "b": b, "c": c, "d": d}}), flush=True)
+    g = dict(zip(("cli", "rates"), cards_case(n, pairs, "tracks")))
+    print(json.dumps({"cards": {"a": worst, "b": b, "c": c, "d": d, "g": g}}), flush=True)
     return 0
+
+
+def cards_case(n: int, pairs: int, case: str) -> tuple[dict, dict]:
+    """[cards] (b) and (c), or (g): cards_cli on the case's data, then
+    cards_rates in an n-process group; prints their lines and returns both
+    results."""
+    (cli_label, rates_label), states, nr_params, dim = CARDS_CASES[case]
+    with tempfile.TemporaryDirectory() as tmp:
+        b = cards_cli(n, tmp, case)
+    print(f"{cli_label} T={T_MAIN} x {dim} track(s) K={nr_params**dim} (-s {' '.join(states)}) "
+          f"'{SCHEME}' marginals+parameters+compression, bin/hammlet-torch -D {n} -C ... "
+          f"{CARDS_CKPT_EVERY} (text file written in {b['write_s']:.2f} s): {n} processes on {n} "
+          f"cards {b['cards_s']:.2f} s, one process under CUDA_VISIBLE_DEVICES=0 {b['one_s']:.2f} s, "
+          f"byte-identical; killed after its first checkpoint (sweep {b['cut_at']}, no worker left) "
+          f"and resumed {b['resume_s']:.2f} s, byte-identical (sha256 {b['sha256']}); {b['rows']} "
+          f"marginal rows cover T and count {N_RECORDED} sweeps, MAP agreement "
+          f"{b['map_agreement']:.4f}", flush=True)
+    rc, c = launch.run_on_cards("chip_smoke:cards_rates", n, (n, pairs, case))
+    check(rc == 0 and c is not None, f"{rates_label} exited {rc}")
+    r = c["rates"]
+    print(f"{rates_label} settled F 512 4 at T={T_MAIN} x {dim} K={nr_params**dim}, sweeps/s in the "
+          f"order {' '.join(c['order'])}: W={n} (one shard per card) graphed {r['cards']}, eager "
+          f"{r['eager']}, P=1 on cuda:0 {r['one']}, P={n} on cuda:0 (graphed) {r['shards']}; W={n} "
+          f"graphed vs eager: {pair_summary(r['cards'], r['eager'], True)}; W={n} vs P={n} on one "
+          f"card: {pair_summary(r['cards'], r['shards'], True)}; medians W={n} "
+          f"{np.median(r['cards']):.2f} / P=1 {np.median(r['one']):.2f} / P={n} "
+          f"{np.median(r['shards']):.2f}; cap_local {c['cap_local']}; W={n} graphed and eager "
+          f"byte-identical; sweep kinds captured, graphs, capture seconds on rank 0 "
+          f"{c['captures']}; every rank's sweep kinds, graphs and replays {c['graphs']}", flush=True)
+    for tag, pr in (("graphed", c["profile"]), ("eager", c["eager_profile"])):
+        print(f"{rates_label} torch.profiler F 64 4 on rank 0, W={n} {tag}: launch calls per sweep "
+              f"{pr['launch_calls']}, {pr['kernels_per_sweep']} CUDA kernels/sweep, "
+              f"{pr['device_ms_per_sweep']:.4f} device ms/sweep, of them "
+              f"{pr['nccl_kernels_per_sweep']} NCCL kernels/sweep, {pr['nccl_ms_per_sweep']:.4f} "
+              f"NCCL device ms/sweep, one NCCL kernel's us min / median / 90th percentile "
+              f"{pr['nccl_kernel_us']} ({pr['nccl_names']}); on the host "
+              f"{pr['collective_calls_per_sweep']} collective calls and "
+              f"{pr['collective_host_ms_per_sweep']:.4f} ms per sweep inside them; FB scan kernels "
+              f"per sweep {pr['fbscan_per_sweep']}", flush=True)
+    return b, c
 
 
 def chains_across_cards(n: int, pairs: int = 2) -> int:
@@ -3067,6 +3411,30 @@ def print_tracks(tag: str, s9: dict, what: str, states: str, cli_T: int) -> None
           f"{c['map_agreement']:.4f}", flush=True)
 
 
+def print_sharded_tracks(st: dict, p1_rates: list) -> None:
+    """The [sharded_tracks] line of one configuration, beside the same
+    run's P = 1 settled rates of the same data (``p1_rates``)."""
+    rates = st["settled"]
+    print(f"[sharded_tracks] K={st['K']} (-s {' '.join(st['states'])}: {st['dim']} tracks x "
+          f"T={T_MAIN}, [{st['tag']}]'s data) P={P_SHARDED} shards on one card '{st['scheme']}': "
+          f"setup {st['setup_s']:.3f} s, graphed run {st['run_s']:.3f} s, peak device memory "
+          f"{st['peak_mem_bytes'] / 2**20:.1f} MiB (per phase (phase, sweeps, MiB, capacity per "
+          f"shard at its end) {[(m, n, round(b / 2**20, 1), c) for m, n, b, c in st['peaks']]}; "
+          f"eager run {st['eager_peak_mem_bytes'] / 2**20:.1f} MiB), MAP agreement "
+          f"{st['map_agreement']:.4f}, {st['rows']} marginal rows cover T and sum to "
+          f"{recorded_sweeps(st['scheme'])}; (a) sharded ingest weights bitwise = ingest_device's "
+          f"(maxlet kernels at dim {st['dim']}); (b) graphed and eager sharded_phase engines "
+          f"byte-identical (marginals, parameters, compression; sha256 {st['sha256']}); (e) every "
+          f"sweep a CUDA graph replay (captures per phase {st['captures']}; kinds, graphs, capture "
+          f"seconds {st['graphs']}), no plain version called, launches {st['launches']}; phases "
+          f"{st['phases']}, eager {st['eager_phases']}; settled F {st['settled_iters']} 4 {rates} "
+          f"sweeps/s (median {np.median(rates):.2f}, spread {min(rates):.2f}-{max(rates):.2f}) "
+          f"vs this run's P=1 [{st['tag']}] median {np.median(p1_rates):.2f} "
+          f"({np.median(rates) / np.median(p1_rates):.3f}x); settled capacity per shard "
+          f"{st['cap_local']}; the sweep's cross-shard scan calls {st['cross_bitwise']} of 2 "
+          f"bitwise; phase {st['seconds']:.1f} s", flush=True)
+
+
 def kernel_label(mangled: str) -> str:
     """A kernel's name and template argument from its mangled symbol:
     _Z29fbscan_prefix_team_one_kernelILi9EEv... -> fbscan_prefix_team_one_kernel<9>."""
@@ -3167,6 +3535,12 @@ def main() -> int:
               "versions of their contiguous copies (one of the cases); NaN propagates as in the "
               "plain version", flush=True)
 
+        print(f"[fbscan] the sharded sweep's cross-shard calls at K > 3, P = B shards: the (K, K, "
+              f"B) view of B shard totals and the (K, B) view of their maps, and their contiguous "
+              f"copies, at (B, K) in {FB_CROSS_CASES}, against their plain versions (prefix "
+              f"bitwise at K > 32, suffix bitwise; counted above); CUDA kernels per call "
+              f"(contiguous) {fbk['cross']}", flush=True)
+
         mdk = phase_model()
         took("model")
         print(f"[model] the statistics kernel (modelupdate_stats_kernel, one cooperative launch) "
@@ -3174,8 +3548,9 @@ def main() -> int:
               f"{mdk['cases']} cases ((R, B) in {MODEL_ROWS} x K in {MODEL_KS} x dim in "
               f"{MODEL_DIMS}, at B=29696 also a masked tail and B+1 blocks; largest absolute "
               f"error {mdk['stats_err']}), each row of a 4-row call bitwise equal to its one-row "
-              f"call; above K = 64 at (R, B, K, dim, P) in {MODEL_LARGE_K} (B = 4M against the "
-              f"plain version's sums in chunks of 65,536 blocks); modelupdate_resample_kernel "
+              f"call; above K = 64 at (R, B, K, dim, P) in {MODEL_LARGE_K}, and the sharded M "
+              f"burn-in's rows at {MODEL_SHARDED_ROWS} (B > 262,144 against the plain version's "
+              f"sums in chunks of 65,536 blocks); modelupdate_resample_kernel "
               f"bitwise equal to its plain version in {mdk['draws']} draws at K in "
               f"{MODEL_KS + MODEL_RESAMPLE_KS} with Gamma shapes 0.5-1e7 (largest "
               f"absolute error {mdk['resample_err']}); NaN statistics propagate as in the plain "
@@ -3258,6 +3633,14 @@ def main() -> int:
             took("states81")
         print_tracks("states81", s81, "four tracks of three levels", "C 3 4", STATES81_CLI_T)
 
+        tracks_p1 = {"states9": s9, "states27": s27, "states64": s64, "states81": s81}
+        sht = {}
+        for case in sharded_tracks_cases():
+            with tempfile.TemporaryDirectory() as tmp:
+                sht[case[2]] = phase_sharded_tracks(tmp, *case)
+            print_sharded_tracks(sht[case[2]], tracks_p1[case[0]]["settled"])
+        took("sharded_tracks")
+
         sweep_p1, views_p1 = g["scans"].main_and_others()
         sweep_p4, views_p4 = sh.pop("scans").main_and_others()
         check(sorted((k, v.shape[-1]) for k, v in views_p4)
@@ -3284,6 +3667,7 @@ def main() -> int:
             **{f"K={K} uniform": fb_inputs(m["capacity"], K, 1, SEED) for K in (33, 36, 48, 64)},
             "K=81 sweep data": s81["scans"].main_and_others()[0],
             **{f"K={K} uniform": fb_inputs(m["capacity"], K, 1, SEED) for K in (81, 128)},
+            **{f"K={K} P={P_SHARDED} sweep data": st.pop("scans") for K, st in sht.items()},
         })
         print(f"[fbscan] the sweep's own cross-shard calls ({len(views_p4)} of the eager "
               f"P={P_SHARDED} sweep, (kind, shape, strides) "
@@ -3402,6 +3786,8 @@ def main() -> int:
             "K=27 dim=3 sweep data": s27["models"].main(),
             "K=64 dim=3 sweep data": s64["models"].main(),
             "K=81 dim=4 sweep data": s81["models"].main(),
+            **{f"K={K} dim={st['dim']} P={P_SHARDED} sweep data": st.pop("models")
+               for K, st in sht.items()},
         })
         for tag, row in mdt.items():
             R, B, K, dim = row["model_shape"]
@@ -3449,8 +3835,20 @@ def main() -> int:
 
         pr = phase_profile(main_eng, sh.pop("engine"), sh.pop("eager_engine"),
                            {"states9": s9.pop("engines"), "states27": s27.pop("engines"),
-                            "states64": s64.pop("engines"), "states81": s81.pop("engines")})
+                            "states64": s64.pop("engines"), "states81": s81.pop("engines")},
+                           {K: st.pop("engine") for K, st in sht.items()})
         took("profile")
+        for K, st in sht.items():
+            seen = check_sharded_tracks_profile(st, pr[f"sharded{K}"])
+            p = pr[f"sharded{K}"]
+            print(f"[sharded_tracks] K={K} (f) graphed P={P_SHARDED} engine under torch.profiler, "
+                  f"per settled sweep of F 64 4: hand-written kernels {seen}, expected from the "
+                  f"sweep's own calls {st['expected_per_sweep']}; no plain version, no generic "
+                  f"kernel; launch calls {p['launch_calls']}, {p['kernels']} device kernels, "
+                  f"{p['device_ms']:.4f} device ms summed, {p['busy_ms']:.4f} as the union of "
+                  f"their intervals, {p['wall_ms']:.4f} wall ms (busy {p['busy']:.1%} under the "
+                  f"profiler); costliest kernels {p['top']}; FB scan kernels (per sweep, device ms "
+                  f"per sweep) {p['fbscan']}; model-update kernels {p['model']}", flush=True)
         print(f"[profile] torch.profiler F 64 4 at T={T_MAIN}: [main] engine HAMMLET_DEBUG "
               f"off {pr['0'][0]} kernels/sweep, {pr['0'][1]:.4f} device ms/sweep; on "
               f"{pr['1'][0]} kernels/sweep, {pr['1'][1]:.4f} device ms/sweep; [sharded] "
@@ -3545,7 +3943,29 @@ def main() -> int:
         "library_ms": None,
     } for tag, K, phase in (("states9", STATES9_K, s9), ("states27", STATES27_K, s27),
                             ("states64", STATES64_K, s64), ("states81", STATES81_K, s81))
-      for _, _, replaces, key, count in KERNEL_ROWS if key in ("prefix", "suffix")]}), flush=True)
+      for _, _, replaces, key, count in KERNEL_ROWS if key in ("prefix", "suffix")] + [{
+        # the sweep's kernels in [sharded_tracks] (P = 4 shards on one card, K = 9, 27, 64, 81),
+        # timed on each sharded sweep's own inputs
+        "name": (" + ".join(kernel_label(n) for n, _ in row[key + "_kernels"])
+                 if key in ("prefix", "suffix") else kernel),
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": sht[K]["launches"][count],
+        "device_launches_per_sweep": sum(
+            n for kname, (n, _) in {**pr[f"sharded{K}"]["fbscan"], **pr[f"sharded{K}"]["model"]}.items()
+            if ("fbscan_" if key in ("prefix", "suffix") else "modelupdate_") + key in kname),
+        "max_abs_err": worst[key],
+        "ms": row[key],
+        "plain_ms": row[key + "_plain"],
+        "bound_ms": row[key + "_bound"],
+        "bound_by": row[key + "_bound_by"],
+        "library_ms": None,
+    } for K in sht for kernel, source, replaces, key, count in KERNEL_ROWS
+      if key in ("prefix", "suffix", "stats", "resample")
+      for row in ([fbt[f"K={K} P={P_SHARDED} sweep data"]] if key in ("prefix", "suffix")
+                  else [mdt[f"K={K} dim={sht[K]['dim']} P={P_SHARDED} sweep data"]])]}),
+          flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -1405,14 +1405,17 @@ def test_sweep_stats_kernel_at_k64_on_card(cuda_device, B):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("R, B, K, dim, P", [(1, 4_000_000, 81, 4, 3), (1, 262_144, 81, 4, 3),
-                                             (1, 29_696, 128, 7, 2), (1, 29_696, 243, 5, 3)])
+                                             (1, 29_696, 128, 7, 2), (1, 29_696, 243, 5, 3),
+                                             (4, 1_048_576, 81, 4, 3), (4, 1_048_576, 64, 3, 4)])
 def test_sweep_stats_kernel_above_k64_on_card(cuda_device, R, B, K, dim, P):
     """Exact on the card above K = 64, where a CTA's shared memory cannot
     hold every term's run stack and the pair histogram (-s C 3 4 at the M
-    burn-in's B = 4M, -s C 2 7, -s C 3 5: the terms in slices): the
-    statistics call is one CUDA kernel, counts one launch, and equals its
-    plain version bit for bit (at B = 4M, where the plain version's leaves
-    would take 108 GB, the plain version's sums taken in chunks,
+    burn-in's B = 4M, -s C 2 7, -s C 3 5: the terms in slices), and at the
+    sharded M burn-in's four rows of 1,048,576 blocks (T = 4M over P = 4
+    shards; -s C 3 4 and -s C 4 3): the statistics call is one CUDA kernel,
+    counts one launch, and equals its plain version bit for bit (above B =
+    262,144, where the plain version's leaves would take up to 108 GB, the
+    plain version's sums taken in chunks,
     chip_smoke.stats_reference_in_chunks)."""
     from chip_smoke import stats_reference_in_chunks
     from hammlet_tpu_torch.models import model_cuda
@@ -1711,3 +1714,72 @@ def test_graphed_engines_through_model_kernels_on_card(cuda_device, P):
     for name in names:
         assert torch.equal(getattr(g.buffers, name), getattr(e.buffers, name)), name
     assert all(torch.equal(a, b) for a, b in zip(g.model, e.model))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [2, 3, 4])
+@pytest.mark.parametrize("K", [9, 27, 64, 81])
+def test_fbscan_cross_shard_calls_match_plain_on_card(cuda_device, K, B):
+    """Exact on the card: the sharded sweep's cross-shard scans at P = B
+    shards (parallel/sharded.py: the (K, K, P) view of the P gathered shard
+    totals, the (K, P) view of their maps), as those views and as
+    contiguous copies, at K = 9-81: each call counts one launch of its
+    wrapper and gives its plain version's bits; at K > 32 each prefix call
+    is one tiled-product kernel."""
+    from chip_smoke import FB_DEEP, FB_TILED
+    from hammlet_tpu_torch.samplers import fb_cuda
+    from hammlet_tpu_torch.samplers import forward_backward as fb
+
+    rng = np.random.default_rng(100 * B + K)
+    tots = torch.from_numpy(rng.uniform(0.05, 1.0, size=(B, K, K)).astype(np.float32)).to(cuda_device)
+    tmaps = torch.from_numpy(rng.integers(0, K, size=(B, K))).to(cuda_device)
+    views = (tots.permute(1, 2, 0), tmaps.T)
+    for M, maps in (views, tuple(v.contiguous() for v in views)):
+        before = (fb_cuda.prefix_matmul_scan_cuda.launches, fb_cuda.suffix_compose_scan_cuda.launches)
+        got, sgot = fb.prefix_matmul_scan_t(M), fb.suffix_compose_scan_t(maps)
+        torch.cuda.synchronize()
+        assert (fb_cuda.prefix_matmul_scan_cuda.launches,
+                fb_cuda.suffix_compose_scan_cuda.launches) == (before[0] + 1, before[1] + 1)
+        assert_bitwise(got, fb.prefix_matmul_scan_reference(M.contiguous()))
+        assert torch.equal(sgot, fb.suffix_compose_scan_reference(maps.contiguous()))
+    if K > 32:
+        names = _scan_kernels(lambda: fb_cuda.prefix_matmul_scan_cuda(M))
+        assert len(names) == 1 and (FB_DEEP if K <= 64 else FB_TILED)[0] in names[0], names
+
+
+@pytest.mark.cuda
+def test_sharded_tracks_graph_matches_eager_on_card(cuda_device, tmp_path):
+    """Exact on the card: the sharded engine with P = 4 shards of three
+    tracks at K = 27 (chip_smoke.states27_steps, -s C 3 3), whose sweep
+    takes the wide prefix instances in four rows, the team kernels over the
+    (27, 27, 4) shard totals and the one-launch suffix, writes the same
+    bytes whether it replays graphs or runs its chunks through the eager
+    sharded_phase; every sweep of the graphed run was a replay, the eager
+    engine replayed none, and the marginal rows have 27 columns and count
+    the recorded sweeps."""
+    from _torch_helpers import eager_sharded_engine
+    from chip_smoke import states27_steps
+    from hammlet_tpu_torch.parallel import sharded
+
+    data = states27_steps(200_000)[0]
+    streams = ("marginals", "parameters", "compression")
+    engines, out = [], {}
+    for tag in ("graph", "eager"):
+        rec = Records(len(data), str(tmp_path / f"{tag}-"), ".csv", 27, outputs=set(streams),
+                      overwrite=True)
+        eng = sharded.make_sharded_engine(data, n_devices=4, nr_params=3, nr_data_dim=3, seed=3,
+                                          records=rec, device=cuda_device)
+        if tag == "eager":
+            eager_sharded_engine(eng)
+        eng.run_scheme("M 16 0 F 32 4".split())
+        eng.finalize()
+        engines.append(eng)
+        out[tag] = {s_: (tmp_path / f"{tag}-{s_}.csv").read_bytes() for s_ in streams}
+    g, e = engines
+    assert g.device.type == "cuda" and g.spec.nr_states == 27 and _graphed(g)
+    assert e.phase_graphs.replays == 0
+    for s_ in streams:
+        assert out["graph"][s_] == out["eager"][s_], s_
+    rows = [list(map(int, line.split("\t"))) for line in out["graph"]["marginals"].decode().splitlines()]
+    assert all(len(r) == 28 and sum(r[1:]) == 8 for r in rows)
+    assert sum(r[0] for r in rows) == len(data)

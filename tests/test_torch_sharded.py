@@ -86,6 +86,8 @@ def _blocky(T, dim=1, seed=0):
         (3000, 1, 4, 384, 1.0),
         (4096, 1, 6, 512, 1.0),  # exact power of two, full shards
         (2048, 2, 5, 256, 1.0),  # multivariate
+        (3000, 3, 5, 512, 1.0),  # three tracks (-s C 3 3, -s C 4 3)
+        (2500, 4, 4, 384, 1.0),  # four tracks (-s C 3 4), partial last shard
         (911, 1, 4, 128, 2.5),  # prime T + weight multiplier
         (130, 1, 4, 512, 1.0),  # single active shard, tiny T
     ],
@@ -171,29 +173,37 @@ def test_marginals_match_jax_sharded(jax_run, tmp_path):
     assert best < 0.06, best
 
 
-def test_compaction_matches_jax(jax_run):
+def check_compaction_matches_jax(je, e, P: int, K: int) -> None:
     """Exact, vs hammlet_tpu.parallel.sharded.compact_sharded_marginals on
-    the same recorded buffers (the JAX run's)."""
-    je = jax_run["engine"]
-    e = _port(jax_run["data"], 8, 5)
-    K = 3
-    e.buffers.counts = torch.from_numpy(np.array(je.counts).reshape(8, K * e.T_local))
-    e.buffers.everb[:, : e.T_local] = torch.from_numpy(np.array(je.everb).reshape(8, e.T_local))
+    the JAX engine ``je``'s recorded buffers, copied into the port's engine
+    ``e`` of the same data and P shards: segment starts and (n_seg, K)
+    counts, values and dtypes."""
+    e.buffers.counts = torch.from_numpy(np.array(je.counts).reshape(P, K * e.T_local))
+    e.buffers.everb[:, : e.T_local] = torch.from_numpy(np.array(je.everb).reshape(P, e.T_local))
     want_starts, want_counts = jsh.compact_sharded_marginals(je)
     got_starts, got_counts = tsh.compact_sharded_marginals(e)
+    assert got_counts.shape == (len(want_starts), K) and len(want_starts) > 3
     np.testing.assert_array_equal(got_starts, want_starts)
     np.testing.assert_array_equal(got_counts, want_counts)
     assert got_counts.dtype == want_counts.dtype and got_starts.dtype == want_starts.dtype
 
 
+def test_compaction_matches_jax(jax_run):
+    """check_compaction_matches_jax on the JAX run's buffers."""
+    check_compaction_matches_jax(jax_run["engine"], _port(jax_run["data"], 8, 5), 8, 3)
+
+
 # ---- the sweep body given JAX's draws -----------------------------------------
 
 
-def _global_stats(data, z, sizes, nb):
+def global_stats(data, z, sizes, nb, mapping, n_params):
     """Sweep statistics of the global chain the per-shard blocks form, in
-    float64 on the host (accumulate_sweep_stats' convention: the first
-    block's previous state is 0)."""
-    K = 3
+    float64 on the host (accumulate_sweep_stats' convention, sweep.py:100:
+    the first block's previous state is 0; the statistics of each (block,
+    track) go to the emission parameter mapping[state, track], mapping of
+    shape (K, dim)). Returns the statistics and, per parameter, the sum of
+    |x| its signed sums cancel over."""
+    K, dim = mapping.shape
     states, lens = [], []
     for j in range(len(nb)):
         states += list(z[j, : int(nb[j])])
@@ -201,10 +211,10 @@ def _global_stats(data, z, sizes, nb):
     lens = np.array(lens, np.int64)
     states = np.array(states)
     pos = np.concatenate([[0], np.cumsum(lens)[:-1]])
-    x = data.astype(np.float64)
-    sums = np.array([x[p : p + n].sum() for p, n in zip(pos, lens)])
-    abs_sums = np.array([np.abs(x[p : p + n]).sum() for p, n in zip(pos, lens)])
-    sumsqs = np.array([(x[p : p + n] ** 2).sum() for p, n in zip(pos, lens)])
+    x = data.astype(np.float64).reshape(len(data), dim)
+    sums = np.array([x[p : p + n].sum(axis=0) for p, n in zip(pos, lens)])  # (B, dim)
+    abs_sums = np.array([np.abs(x[p : p + n]).sum(axis=0) for p, n in zip(pos, lens)])
+    sumsqs = np.array([(x[p : p + n] ** 2).sum(axis=0) for p, n in zip(pos, lens)])
     trans = np.zeros((K, K))
     prev = 0
     for s, n in zip(states, lens):
@@ -212,27 +222,34 @@ def _global_stats(data, z, sizes, nb):
         trans[s, s] += n - 1
         prev = s
     onehot = states[None, :] == np.arange(K)[:, None]
+    theta = {name: np.zeros(n_params) for name in ("sums", "sumsqs", "counts", "abs")}
+    for d in range(dim):
+        route = mapping[states, d][None, :] == np.arange(n_params)[:, None]  # (n_params, B)
+        theta["sums"] += route @ sums[:, d]
+        theta["sumsqs"] += route @ sumsqs[:, d]
+        theta["counts"] += route @ lens
+        theta["abs"] += route @ abs_sums[:, d]
     stats = dict(
-        theta_sums=onehot @ sums, theta_sumsqs=onehot @ sumsqs,
-        theta_counts=onehot @ lens, trans_counts=trans, state_counts=onehot @ lens,
+        theta_sums=theta["sums"], theta_sumsqs=theta["sumsqs"], theta_counts=theta["counts"],
+        trans_counts=trans, state_counts=onehot @ lens,
     )
-    return stats, onehot @ abs_sums
+    return stats, theta["abs"]
 
 
-@pytest.mark.parametrize("method", ["F", "M"])
-def test_sweep_given_jax_draws(jax_run, method):
+def check_sweep_given_jax_draws(je, data, e, ckpt: str, P: int, key, method: str) -> None:
     """vs the JAX sharded sweep body (sharded.py:79, through
-    ShardedEngine._sweep_fn) on the JAX run's settled state, with its
-    Gumbels regenerated from the same keys (k_z, fold_in(k_local, shard)):
-    the same per-shard block counts, sizes and states (exact), the same
+    ShardedEngine._sweep_fn) on the settled state of the JAX engine ``je``
+    (P shards of ``data``, saved to ``ckpt``), with its Gumbels regenerated
+    from the same ``key`` (k_z, fold_in(k_local, shard)), run by the port's
+    engine ``e`` of the same data and shards restored from ``ckpt``: the
+    same per-shard block counts, sizes and states (exact), the same
     recorded counts, boundary union, n_rec and n_bound (exact); the ordered
-    sweep statistics equal the global chain's (float64 on the host): counts
-    exact, sums of squares within rtol 1e-5, and the signed sums within
-    1e-5 of the sum of |x| they cancel over (float32 block statistics)."""
-    je = jax_run["engine"]
-    data = jax_run["data"]
-    P, K = 8, 3
-    key = jax.random.PRNGKey(123)
+    sweep statistics (the carried-state correction on the (K, K)
+    transitions included) equal the global chain's (global_stats, float64
+    on the host): counts exact, sums of squares within rtol 1e-5, and the
+    signed sums within 1e-5 of the sum of |x| they cancel over (float32
+    block statistics)."""
+    K, n_params = je.spec.nr_states, je.spec.nr_params
     je._resize_capacity_for_phase()
     cap = je.cap_local
     jpos, jrank = je._shard_candidates()
@@ -244,8 +261,7 @@ def test_sweep_given_jax_draws(jax_run, method):
     )
     j_counts, j_everb, j_nrec, j_nbound, j_z, j_sizes, j_nb = (np.asarray(x) for x in out[1:8])
     # the port starts from the same state: the JAX run's checkpoint of it
-    e = _port(data, P, 5)
-    restore_sharded_checkpoint(e, str(jax_run["tmp"] / "jax.npz"))
+    restore_sharded_checkpoint(e, ckpt)
     e.model = convert.hmm_state(je.model)
     e.cap_local = cap
     pos, rank = e._shard_candidates()
@@ -270,22 +286,33 @@ def test_sweep_given_jax_draws(jax_run, method):
     # one sweep of the port's pieces (those the engine's graphs capture),
     # run eagerly on the engine's buffers
     program = e.phase_graphs.program
-    key = graph_key(cap, method, True, False, False, True)
+    gkey = graph_key(cap, method, True, False, False, True)
     slots = program.create_slots(e.model, e.buffers, 1, rank, False)
     program.seed_sweep(0, 0)  # the model update's stream (not compared)
     got = SimpleNamespace()
-    run_pieces(program.pieces(key, pos, rank, write_row=False, noise=noise), slots, got)
+    run_pieces(program.pieces(gkey, pos, rank, write_row=False, noise=noise), slots, got)
     np.testing.assert_array_equal(to_np(got.nb_all), j_nb)
+    sampled = np.concatenate([j_z.reshape(P, cap)[j, : j_nb[j]] for j in range(P)])
+    assert len(sampled) > 10 and len(np.unique(sampled)) >= min(K, 4)
     np.testing.assert_array_equal(to_np(got.sizes), j_sizes.reshape(P, cap))
     np.testing.assert_array_equal(to_np(got.z), j_z.reshape(P, cap))
     np.testing.assert_array_equal(to_np(e.buffers.counts).reshape(-1), j_counts)
     np.testing.assert_array_equal(to_np(e.buffers.everb[:, : e.T_local]).reshape(-1), j_everb)
     assert (int(e.buffers.n_rec), int(e.buffers.n_bound)) == (int(j_nrec), int(j_nbound))
-    want, abs_sums = _global_stats(data, j_z.reshape(P, cap), j_sizes.reshape(P, cap), j_nb)
+    want, abs_sums = global_stats(data, j_z.reshape(P, cap), j_sizes.reshape(P, cap), j_nb,
+                                  je.spec.mapping(), n_params)
     for name in ("theta_counts", "trans_counts", "state_counts"):
         np.testing.assert_array_equal(to_np(getattr(got.stats, name)), want[name], err_msg=name)
     np.testing.assert_allclose(to_np(got.stats.theta_sumsqs), want["theta_sumsqs"], rtol=1e-5)
     assert (np.abs(to_np(got.stats.theta_sums) - want["theta_sums"]) <= 1e-5 * abs_sums).all()
+
+
+@pytest.mark.parametrize("method", ["F", "M"])
+def test_sweep_given_jax_draws(jax_run, method):
+    """check_sweep_given_jax_draws at K = 3 on the JAX run's settled state,
+    P = 8 shards."""
+    check_sweep_given_jax_draws(jax_run["engine"], jax_run["data"], _port(jax_run["data"], 8, 5),
+                                str(jax_run["tmp"] / "jax.npz"), 8, jax.random.PRNGKey(123), method)
 
 
 # ---- partition, invariants, streams --------------------------------------------
@@ -393,15 +420,17 @@ def test_all_streams(tmp_path):
 # ---- checkpoints ------------------------------------------------------------------
 
 
-def test_jax_sharded_checkpoint_restores_into_port(jax_run, tmp_path):
-    """A checkpoint of hammlet_tpu.checkpoint.save_sharded_checkpoint
-    restores into the port exactly (model, counts, boundary union, n_rec,
-    n_bound, cursor); the port's own file has the same keys and dtypes; the
-    port continues the run, and every marginal row sums to all recorded
-    sweeps; a file of another shard count is refused."""
-    jck = str(jax_run["tmp"] / "jax.npz")
-    rec = Records(len(jax_run["data"]), str(tmp_path / "r-"), ".csv", 3, overwrite=True)
-    e = _port(jax_run["data"], 8, 5, records=rec)
+def check_jax_checkpoint_restores(jck: str, data, make, P: int, K: int, n_rec: int, tmp_path) -> None:
+    """A checkpoint ``jck`` of hammlet_tpu.checkpoint.save_sharded_checkpoint
+    (P shards of ``data``, K states, n_rec recorded sweeps) restores into
+    the port's engine ``make(P, records=...)`` exactly (model, (P, K
+    T_local) counts, boundary union, n_rec, n_bound, cursor); the port's
+    own file has the same keys and dtypes; the port continues the run, and
+    every marginal row (K states) sums to all recorded sweeps; an engine of
+    another shard count refuses the file."""
+    T = len(data)
+    rec = Records(T, str(tmp_path / "r-"), ".csv", K, overwrite=True)
+    e = make(P, records=rec)
     restore_sharded_checkpoint(e, jck)
     with np.load(jck) as z:
         for name in ("theta_mean", "theta_var", "A", "pi"):
@@ -411,7 +440,8 @@ def test_jax_sharded_checkpoint_restores_into_port(jax_run, tmp_path):
         assert (int(e.buffers.n_rec), int(e.buffers.n_bound)) == (int(z["n_rec"]), int(z["n_bound"]))
         assert (e.sweep_counter, e.sweeps_completed, e.cap_local) == (
             int(z["sweep_counter"]), int(z["sweeps_completed"]), int(z["cap_local"]))
-    assert int(e.buffers.n_rec) == 20
+        assert z["A"].shape == (K, K)
+    assert int(e.buffers.n_rec) == n_rec
 
     tck = str(tmp_path / "port.npz")
     save_sharded_checkpoint(e, tck)
@@ -422,31 +452,46 @@ def test_jax_sharded_checkpoint_restores_into_port(jax_run, tmp_path):
     e.run("F", 8, 2)
     e.finalize()
     rows = [list(map(int, x.split("\t"))) for x in (tmp_path / "r-marginals.csv").read_text().splitlines()]
-    assert sum(r[0] for r in rows) == len(jax_run["data"])
-    assert all(sum(r[1:]) == 20 + 4 for r in rows)
+    assert all(len(r) == 1 + K for r in rows)
+    assert sum(r[0] for r in rows) == T
+    assert all(sum(r[1:]) == n_rec + 4 for r in rows)
     with pytest.raises(ValueError, match="shards"):
-        restore_sharded_checkpoint(_port(jax_run["data"], 4, 5), jck)
+        restore_sharded_checkpoint(make(P // 2), jck)
 
 
-def test_resume_bitwise_equal(tmp_path):
-    """Exact: M 16 0 -> save -> new engine -> restore -> F 32 4 equals the
-    uninterrupted run in the model and every buffer."""
-    data = synth_segments(3000, 3, seglen=200, scale=2.0)[0]
+def test_jax_sharded_checkpoint_restores_into_port(jax_run, tmp_path):
+    """check_jax_checkpoint_restores on the JAX run's checkpoint (K = 3, P =
+    8, 20 recorded sweeps)."""
+    check_jax_checkpoint_restores(str(jax_run["tmp"] / "jax.npz"), jax_run["data"],
+                                  lambda P, **kw: _port(jax_run["data"], P, 5, **kw), 8, 3, 20,
+                                  tmp_path)
+
+
+def check_resume_bitwise(make, tmp_path, f_iters: int) -> None:
+    """Exact: on engines ``make()``, M 16 0 -> save -> new engine -> restore
+    -> F f_iters 4 equals the uninterrupted run in the model and every
+    buffer."""
     ck = str(tmp_path / "s.npz")
-    e1 = _port(data, 4, 9)
+    e1 = make()
     e1.run("M", 16, 0)
-    e1.run("F", 32, 4)
-    e2 = _port(data, 4, 9)
+    e1.run("F", f_iters, 4)
+    e2 = make()
     e2.run("M", 16, 0)
     save_sharded_checkpoint(e2, ck)
-    e3 = _port(data, 4, 9)
+    e3 = make()
     restore_sharded_checkpoint(e3, ck)
-    e3.run("F", 32, 4)
+    e3.run("F", f_iters, 4)
     for a, b in zip(e1.model, e3.model):
         assert torch.equal(a, b)
     for name in ("counts", "everb", "n_rec", "n_bound"):
         assert torch.equal(getattr(e1.buffers, name), getattr(e3.buffers, name)), name
-    assert int(e3.buffers.n_rec) == 8 and e1.cap_local == e3.cap_local
+    assert int(e3.buffers.n_rec) == f_iters // 4 and e1.cap_local == e3.cap_local
+
+
+def test_resume_bitwise_equal(tmp_path):
+    """check_resume_bitwise at K = 3, P = 4, F 32 4."""
+    data = synth_segments(3000, 3, seglen=200, scale=2.0)[0]
+    check_resume_bitwise(lambda: _port(data, 4, 9), tmp_path, 32)
 
 
 # the child of test_sharded_cli_resume_keeps_stream_lines: the CLI with
@@ -541,24 +586,23 @@ def test_nan_model_fails_loudly():
         e.run("F", 4, 0)
 
 
-@pytest.mark.parametrize("world", [2, 4])
-def test_thread_ranks_match_one_process(tmp_path, monkeypatch, world):
-    """Exact: P = 4 shards over ``world`` ranks, played by threads of this
-    process (_torch_helpers.ThreadRanks), write the bytes of one process
-    holding all four, at T = 100,000, where the per-shard float sums are
-    long enough that a summation order that depends on the shards per
-    process shows in the parameters."""
+def check_thread_ranks(tmp_path, monkeypatch, data, world: int, K: int, scheme: str,
+                       **engine_kw) -> None:
+    """Exact: P = 4 shards of ``data`` (K states) over ``world`` ranks,
+    played by threads of this process (_torch_helpers.ThreadRanks), write
+    the bytes of one process holding all four after ``scheme``: the gathers
+    of shard totals, maps and statistics do not depend on the shards per
+    process."""
     from _torch_helpers import ThreadRanks
     from hammlet_tpu_torch.parallel.mesh import PositionMesh
 
-    data = synth_segments(100_000, 21)[0]
     streams = {"marginals", "parameters", "compression"}
 
     def run(tag, mesh, rank=0):
-        rec = Records(len(data), str(tmp_path / f"{tag}-"), ".csv", 3, outputs=streams,
+        rec = Records(len(data), str(tmp_path / f"{tag}-"), ".csv", K, outputs=streams,
                       overwrite=True, write=rank == 0)
-        eng = tsh.make_sharded_engine(data, mesh=mesh, nr_params=3, seed=8, records=rec)
-        eng.run_scheme("M 16 0 F 32 4".split())
+        eng = tsh.make_sharded_engine(data, mesh=mesh, seed=8, records=rec, **engine_kw)
+        eng.run_scheme(scheme.split())
         eng.finalize()
 
     run("one", PositionMesh(4, torch.device("cpu")))
@@ -567,3 +611,12 @@ def test_thread_ranks_match_one_process(tmp_path, monkeypatch, world):
     ranks.run(lambda r: run("ranks", PositionMesh(4, torch.device("cpu"), group=ranks), r))
     for s in sorted(streams):
         assert (tmp_path / f"ranks-{s}.csv").read_bytes() == (tmp_path / f"one-{s}.csv").read_bytes(), s
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_thread_ranks_match_one_process(tmp_path, monkeypatch, world):
+    """check_thread_ranks at K = 3, T = 100,000, where the per-shard float
+    sums are long enough that a summation order that depends on the shards
+    per process shows in the parameters."""
+    check_thread_ranks(tmp_path, monkeypatch, synth_segments(100_000, 21)[0], world, 3,
+                       "M 16 0 F 32 4", nr_params=3)
