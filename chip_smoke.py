@@ -182,6 +182,27 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    [fbscan] also checks the cross-shard calls at P = 2-4 for K = 9-81
    (FB_CROSS_CASES) and [model] the statistics at the sharded M burn-in's
    four rows of 1,048,576 blocks (MODEL_SHARDED_ROWS);
+9g. cli_tracks: the CLI's user surface (cli.main on the card, engine seed
+   CLI_TRACKS_SEED) on the data of 9b-9e at CLI_TRACKS_T = 400,000
+   positions per track: (a) CLI_TRACKS_SCHEME, the default scheme's ops in
+   order with its sweeps cut, and all seven streams at K = 9, 27, 64 and
+   81, the streams checked at K columns (check_streams: [cli]'s checks,
+   MAP agreement among them), graphed against eager at CLI_TRACKS_EAGER;
+   (b) the same with -C CLI_TRACKS_CKPT_EVERY in a child killed right
+   after its first checkpoint, then resumed: (a)'s bytes, the checkpoint's
+   size and write seconds, at CLI_TRACKS_RESUME; (c) -M over two inputs of
+   CLI_TRACKS_CHAIN_T x 3 tracks (device ingest; the maxlet kernels first
+   checked on them), two threads on cuda:0 against one after another: the
+   same bytes, the peak memory; (d) phase 8 at K = 81; (e) F phases right
+   after a prior draw (CLI_TRACKS_PRIOR_RUNS): the first chunk's capacity,
+   seconds and peak, K = 64 and 81 under CLI_TRACKS_CEILING truncated with
+   an exact recording, K = 81 with no ceiling (it runs, or exits 1 with
+   one error naming the capacity, K and HAMMLET_MAX_CAPACITY and no output
+   written as if finished); (f) no
+   plain version ran (PlainCalls) and every kernel launched; then the
+   scans and the model update of one eager F sweep right after a prior
+   draw at each (e) capacity against their plain versions, timed into the
+   kernels line;
 10. chains: two chromosomes of T = 2,500,000 positions (100-bp bins) as
    text files; first each maxlet kernel against its plain version on each
    chromosome's data as the CLI reads it, bit for bit, on the card and on
@@ -245,6 +266,7 @@ Needs no network and imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -461,6 +483,9 @@ SHARDED_TRACKS_CUT_SCHEME = "M 64 0 F 128 4"
 SHARDED_TRACKS_SETTLED = {9: 512, 27: 512, 64: 64, 81: 64}
 # [fbscan]: the sharded sweep's cross-shard scans, (K, K, P) and (K, P), at P = 2, 3, 4 shards
 FB_CROSS_CASES = [(B, K) for K in (9, 27, 64, 81) for B in (2, 3, 4)]
+ALL_STREAMS = ("marginals", "sequences", "parameters", "blocks", "compression", "mapping",
+               "segments")
+PER_SWEEP_STREAMS = ("sequences", "parameters", "blocks", "compression", "segments")
 
 
 class SmokeFailure(Exception):
@@ -840,11 +865,12 @@ class ScanInputs:
         return tuple(main), others
 
 
-def check_scans(M: torch.Tensor, maps: torch.Tensor, where: str) -> bool:
+def check_scans(M: torch.Tensor, maps: torch.Tensor, where: str, errors: dict | None = None) -> bool:
     """Each FB scan kernel against its plain version on the contiguous copy
     of its input: the prefix within FB_RTOL / FB_ATOL (NaN where the plain
     version has NaN), the suffix bitwise. Returns whether the prefix was
-    bitwise too."""
+    bitwise too; puts each kernel's largest absolute error into ``errors``
+    if given."""
     got = fb_cuda.prefix_matmul_scan_cuda(M)
     want = fb.prefix_matmul_scan_reference(M.contiguous())
     check(got.shape == M.shape and torch.allclose(got, want, rtol=FB_RTOL, atol=FB_ATOL,
@@ -853,6 +879,8 @@ def check_scans(M: torch.Tensor, maps: torch.Tensor, where: str) -> bool:
     check(torch.equal(fb_cuda.suffix_compose_scan_cuda(maps),
                       fb.suffix_compose_scan_reference(maps.contiguous())),
           f"[fbscan] suffix kernel != plain ({where})")
+    if errors is not None:
+        errors.update(prefix_err=max_abs_err(got, want), suffix_err=0.0)
     return bits_equal(got, want)
 
 
@@ -1086,18 +1114,20 @@ def flushed(flush: torch.Tensor):
     return before
 
 
-def time_fbscan(inputs: dict) -> dict:
+def time_fbscan(inputs: dict, reps: int | None = None) -> dict:
     """For each tag -> (M, maps) of ``inputs``: each FB scan kernel checked
     against its plain version on those inputs (check_scans), the CUDA
     kernels one call of each launches, then CUDA-event times (L2 flushed,
     and warm) of both and of their plain versions, beside the least time on
-    the card."""
+    the card; ``reps`` repetitions of each, if given (the plain versions at
+    K > 64 one)."""
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     timed = {}
     for tag, (M, maps) in inputs.items():
         K, B = M.shape[0], M.shape[-1]
         R = M.numel() // (K * K * B)
-        row = {"shape": (B, K, R), "bitwise": check_scans(M, maps, tag)}
+        row = {"shape": (B, K, R)}
+        row["bitwise"] = check_scans(M, maps, tag, row)
         fns = {
             "prefix": lambda: fb_cuda.prefix_matmul_scan_cuda(M),
             "suffix": lambda: fb_cuda.suffix_compose_scan_cuda(maps),
@@ -1110,10 +1140,11 @@ def time_fbscan(inputs: dict) -> dict:
             # the plain versions' K^3 products take a second per call at K = 64, four at 128:
             # above 64 one repetition, flushed only
             plain = name.endswith("_plain")
-            reps = (1 if K > 64 else 5) if plain and K > 32 else TIMING_REPS
-            row[name] = time_ms(fn, flushed(flush), reps)
+            n = (1 if K > 64 else 5) if plain and K > 32 else TIMING_REPS
+            n = min(n, reps) if reps else n
+            row[name] = time_ms(fn, flushed(flush), n)
             row[name + "_warm"] = (float("nan") if plain and K > 64
-                                   else time_ms(fn, lambda: torch.cuda._sleep(SLEEP_CYCLES), reps))
+                                   else time_ms(fn, lambda: torch.cuda._sleep(SLEEP_CYCLES), n))
         for name, (nbytes, ops) in fb_work(B, K, R).items():
             row[name + "_bound"], row[name + "_bound_by"] = bound_ms(nbytes, ops)
         timed[tag] = row
@@ -1409,16 +1440,16 @@ def model_work(R: int, B: int, K: int, dim: int, P: int) -> dict:
     }
 
 
-def time_model(inputs: dict) -> dict:
+def time_model(inputs: dict, reps: int = TIMING_REPS) -> dict:
     """For each tag -> (statistics arguments, resample arguments) of
     ``inputs``: both kernels checked against their plain versions on those
     inputs (check_model), the CUDA kernels one call of each launches, then
-    CUDA-event times (L2 flushed, and warm) of both and of their plain
-    versions, beside the least time on the card."""
+    CUDA-event times (L2 flushed, and warm, ``reps`` repetitions) of both
+    and of their plain versions, beside the least time on the card."""
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     timed = {}
     for tag, (stats_args, resample_args) in inputs.items():
-        check_model(stats_args, resample_args, tag)
+        err = check_model(stats_args, resample_args, tag)
         states, _, _, _, mapping, P = stats_args
         (R, B), (K, dim) = states.shape, mapping.shape
         parts = resample_parts(resample_args)
@@ -1429,10 +1460,11 @@ def time_model(inputs: dict) -> dict:
             "resample_plain": lambda: hmm.resample_model_reference(*parts),
         }
         row = {"model_shape": (R, B, K, dim), "stats_kernels": scan_kernels(fns["stats"]),
-               "resample_kernels": scan_kernels(fns["resample"])}
+               "resample_kernels": scan_kernels(fns["resample"]), "stats_err": err["stats"],
+               "resample_err": err["resample"]}
         for name, fn in fns.items():
-            row[name] = time_ms(fn, flushed(flush))
-            row[name + "_warm"] = time_ms(fn, lambda: torch.cuda._sleep(SLEEP_CYCLES))
+            row[name] = time_ms(fn, flushed(flush), reps)
+            row[name + "_warm"] = time_ms(fn, lambda: torch.cuda._sleep(SLEEP_CYCLES), reps)
         for name, (nbytes, ops) in model_work(R, B, K, dim, P).items():
             row[name + "_bound"], row[name + "_bound_by"] = bound_ms(nbytes, ops)
         timed[tag] = row
@@ -1924,26 +1956,33 @@ def phase_tracks(tmp: str, tag: str, steps, K: int, cli_T: int, states: list[str
         g.run("F", settled_iters, 4)
         rates.append(settled_iters / g.phase_log[-1][2])
     res["settled"], res["settled_capacity"] = rates, g.capacity
-    # the maxlet kernels at this dim on this data, L2 flushed
-    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
-    x = torch.from_numpy(data).cuda()
-    kc, kt = wavelet_cuda.maxlet_chunks_cuda(x)
-    buf = kc.clone()
-    res["maxlet"] = {
-        "chunk": time_ms(lambda: wavelet_cuda.maxlet_chunks_cuda(x), flush.zero_),
-        "cross": time_ms(lambda: wavelet_cuda.maxlet_cross_cuda(buf, kt), flush.zero_),
-        "chunk_plain": time_ms(lambda: wavelet_cuda.maxlet_chunks_reference(x), flush.zero_),
-        "cross_plain": time_ms(lambda: wavelet_cuda.maxlet_cross_reference(buf, kt), flush.zero_),
-    }
-    for name, (nbytes, ops) in transform_work(T_MAIN, dim).items():
-        res["maxlet"][name + "_bound"], res["maxlet"][name + "_bound_by"] = bound_ms(nbytes, ops)
-    del flush, x, kc, kt, buf
-    torch.cuda.empty_cache()
+    res["maxlet"] = maxlet_times(torch.from_numpy(data).cuda())
     with ScanInputs() as scans, ModelInputs() as models:
         e.run("F", 4, 4)
     res["scans"], res["models"] = scans, models
     res["cli"] = tracks_cli(tmp, tag, steps, K, cli_T, states)
     res["engines"] = engines
+    return res
+
+
+def maxlet_times(x: torch.Tensor) -> dict:
+    """CUDA-event ms of each maxlet kernel and of its plain version on the
+    card's (T, dim) ``x``, L2 flushed (FLUSH_BYTES written before each
+    call), beside the least time on the card."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    before = flush.zero_
+    kc, kt = wavelet_cuda.maxlet_chunks_cuda(x)
+    buf = kc.clone()
+    res = {
+        "chunk": time_ms(lambda: wavelet_cuda.maxlet_chunks_cuda(x), before),
+        "cross": time_ms(lambda: wavelet_cuda.maxlet_cross_cuda(buf, kt), before),
+        "chunk_plain": time_ms(lambda: wavelet_cuda.maxlet_chunks_reference(x), before),
+        "cross_plain": time_ms(lambda: wavelet_cuda.maxlet_cross_reference(buf, kt), before),
+    }
+    for name, (nbytes, ops) in transform_work(*x.shape).items():
+        res[name + "_bound"], res[name + "_bound_by"] = bound_ms(nbytes, ops)
+    del flush, kc, kt, buf
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2046,8 +2085,8 @@ def sharded_tracks_cases() -> tuple:
 def recorded_sweeps(scheme: str) -> int:
     """The sweeps a scheme records: iterations // thinning of each phase
     whose thinning is above 0."""
-    tok = scheme.split()
-    return sum(int(n) // int(t) for n, t in zip(tok[1::3], tok[2::3]) if int(t) > 0)
+    return sum(op[2] // op[3] for op in runner.parse_scheme(scheme.split())
+               if op[0] == "run" and op[3] > 0)
 
 
 def phase_sharded_tracks(tmp: str, tag: str, steps, K: int, states: list[str], scheme: str,
@@ -2404,11 +2443,62 @@ def phase_profile(main_eng, sharded_eng, sharded_eager, tracks: dict,
     return res
 
 
+def check_streams(prefix: str, suffix: str, T: int, K: int, n_params: int, dim: int,
+                  n_rec: int, truth: np.ndarray, where: str,
+                  map_min: float | None = MAP_AGREEMENT_MIN) -> dict:
+    """The CLI's seven output streams ``prefix``<stream>``suffix`` of a run
+    on T positions with K = n_params^dim states that recorded ``n_rec``
+    sweeps: one line per recorded sweep in every per-sweep stream; blocks
+    and sequences cover T; compression is T / #blocks; 2 P fields per
+    parameters line; the mapping is the combinations mapping; sequences
+    never repeat a state and their boundaries lie on marginals boundaries;
+    each segments line counts the union of the boundaries recorded so far,
+    + 1, and (K + 1) times that; marginal rows cover T in at most K columns
+    and sum to n_rec; MAP agreement >= ``map_min`` unless that is None.
+    Returns the agreement, the last segments count and the marginal rows."""
+    from hammlet_tpu_torch.models.mapping import combinations_mapping
+
+    lines = {s: open(f"{prefix}{s}{suffix}").read().splitlines() for s in ALL_STREAMS}
+    for s in PER_SWEEP_STREAMS:
+        check(len(lines[s]) == n_rec, f"{where} {s}: {len(lines[s])} lines, not {n_rec}")
+    check(lines["mapping"] == ["\t".join(map(str, row))
+                               for row in combinations_mapping(dim, n_params)],
+          f"{where} mapping stream")
+    check(all(len(x.split("\t")) == 2 * n_params for x in lines["parameters"]),
+          f"{where} parameters lines of other than {2 * n_params} fields")
+    for blk, comp in zip(lines["blocks"], lines["compression"]):
+        sizes = np.array(blk.split("\t"), dtype=np.int64)
+        check(int(sizes.sum()) == T and bool((sizes > 0).all()), f"{where} blocks line")
+        check(comp == f"{T / len(sizes):.6g}", f"{where} compression {comp} != T/{len(sizes)}")
+    rows = np.array([r.split("\t") for r in lines["marginals"]], dtype=np.int64)
+    sizes, counts = rows[:, 0], rows[:, 1:]
+    check(int(sizes.sum()) == T and counts.shape[1] <= K, f"{where} marginal rows do not cover T "
+          f"in at most {K} columns")
+    check(bool((counts.sum(axis=1) == n_rec).all()), f"{where} marginal row sums != {n_rec}")
+    marg_bound = np.zeros(T + 1, dtype=bool)
+    marg_bound[np.cumsum(sizes)] = True
+    union = np.zeros(T + 1, dtype=bool)
+    nseg = 1
+    for seq, seg in zip(lines["sequences"], lines["segments"]):
+        toks = np.array(seq.replace(":", "\t").split("\t"), dtype=np.int64).reshape(-1, 2)
+        check(int(toks[:, 0].sum()) == T, f"{where} sequences line does not cover T")
+        check(bool((toks[:, 1] < K).all()), f"{where} sequences: a state >= {K}")
+        check(bool((toks[1:, 1] != toks[:-1, 1]).all()), f"{where} sequences: equal adjacent states")
+        bounds = np.cumsum(toks[:-1, 0])
+        check(bool(marg_bound[bounds].all()), f"{where} sequence boundary not on a marginals boundary")
+        union[bounds] = True
+        nseg, internal = map(int, seg.split("\t"))
+        check(nseg == int(union.sum()) + 1 and internal == (K + 1) * nseg,
+              f"{where} segments {nseg} {internal} != recorded boundaries {int(union.sum())} + 1, "
+              f"times {K + 1}")
+    agreement = map_agreement(sizes, counts, truth)
+    check(map_min is None or agreement >= map_min, f"{where} MAP agreement {agreement:.4f}")
+    return {"map_agreement": agreement, "segments": nseg, "rows": len(sizes)}
+
+
 def phase_cli(main_rate: float) -> dict:
     """The CLI with every output stream at the main path's size."""
     data, truth = synth(T_MAIN, SEED)
-    streams = ["marginals", "sequences", "parameters", "blocks", "compression",
-               "mapping", "segments"]
     engines = []
     make_engine = cli.make_engine
 
@@ -2424,7 +2514,7 @@ def phase_cli(main_rate: float) -> dict:
         with open(path, "w") as fh:  # shortest round-trip text of each float32
             fh.write("\n".join(map(repr, data.astype(np.float64).tolist())) + "\n")
         argv = ["-f", path, "-s", "3", "-a", "-R", str(SEED), "-i", *SCHEME.split(),
-                "-O", *streams, "-w"]
+                "-O", *ALL_STREAMS, "-w"]
         cli.make_engine = spy
         reset_counts()
         try:
@@ -2433,40 +2523,15 @@ def phase_cli(main_rate: float) -> dict:
             cli.make_engine = make_engine
         launches = read_counts()
         check(rc == 0 and len(engines) == 1, f"cli.main returned {rc}")
-        lines = {s: open(os.path.join(tmp, f"smoke-{s}.txt")).read().splitlines()
-                 for s in streams}
-    eng, setup_s = engines[0]
+        eng, setup_s = engines[0]
+        streams = check_streams(os.path.join(tmp, "smoke-"), ".txt", T_MAIN, 3, 3, 1, N_RECORDED,
+                                truth, "[cli]")
     check(eng.device.type == "cuda", f"CLI engine ran on {eng.device}")
     check_graphed(eng, "[cli]")
     for name, n in launches.items():
         check(n >= 1, f"the CLI never launched {name}")
-    for s in ("sequences", "parameters", "blocks", "compression", "segments"):
-        check(len(lines[s]) == N_RECORDED, f"{s}: {len(lines[s])} lines, not {N_RECORDED}")
-    check(lines["mapping"] == ["0", "1", "2"], "mapping stream")
-    for blk, comp in zip(lines["blocks"], lines["compression"]):
-        sizes = np.array(blk.split("\t"), dtype=np.int64)
-        check(int(sizes.sum()) == T_MAIN and bool((sizes > 0).all()), "blocks line")
-        check(comp == f"{T_MAIN / len(sizes):.6g}", f"compression {comp} != T/{len(sizes)}")
-    rows = np.array([r.split("\t") for r in lines["marginals"]], dtype=np.int64)
-    sizes, counts = rows[:, 0], rows[:, 1:]
-    check(int(sizes.sum()) == T_MAIN, "marginal rows do not cover T")
-    check(bool((counts.sum(axis=1) == N_RECORDED).all()), "marginal row sums != 128")
-    marg_bound = np.zeros(T_MAIN + 1, dtype=bool)
-    marg_bound[np.cumsum(sizes)] = True
-    union = np.zeros(T_MAIN + 1, dtype=bool)
-    for seq, seg in zip(lines["sequences"], lines["segments"]):
-        toks = np.array(seq.replace(":", "\t").split("\t"), dtype=np.int64).reshape(-1, 2)
-        check(int(toks[:, 0].sum()) == T_MAIN, "sequences line does not cover T")
-        check(bool((toks[1:, 1] != toks[:-1, 1]).all()), "sequences: equal adjacent states")
-        bounds = np.cumsum(toks[:-1, 0])
-        check(bool(marg_bound[bounds].all()), "sequence boundary not on a marginals boundary")
-        union[bounds] = True
-        nseg, internal = map(int, seg.split("\t"))
-        check(nseg == int(union.sum()) + 1 and internal == 4 * nseg,
-              f"segments {nseg} != recorded boundaries {int(union.sum())} + 1")
-    check(nseg == len(sizes) == int(eng.buffers.n_boundaries) + 1, "segments vs marginals rows")
-    agreement = map_agreement(sizes, counts, truth)
-    check(agreement >= MAP_AGREEMENT_MIN, f"CLI MAP agreement {agreement:.4f}")
+    check(streams["segments"] == streams["rows"] == int(eng.buffers.n_boundaries) + 1,
+          "segments vs marginals rows")
     f_sweeps = sum(n for m, n, _ in eng.phase_log if m == "F")
     f_secs = sum(t for m, _, t in eng.phase_log if m == "F")
     return {
@@ -2474,7 +2539,7 @@ def phase_cli(main_rate: float) -> dict:
         "setup_s": setup_s,
         "f_sweeps_per_s": f_sweeps / f_secs,
         "ratio": f_sweeps / f_secs / main_rate,
-        "map_agreement": agreement,
+        "map_agreement": streams["map_agreement"],
         "native": native.available(),
     }
 
@@ -2510,12 +2575,21 @@ def phase_resume() -> None:
     check(int(resumed.buffers.n_records) == 16, "resumed run recorded != 16 sweeps")
 
 
-def phase_debug() -> None:
-    """The per-sweep invariant bitmask on the card."""
+def phase_debug(data: np.ndarray | None = None, where: str = "[debug]") -> dict:
+    """The per-sweep invariant bitmask on the card: with HAMMLET_DEBUG=1 a
+    healthy F chunk raises nothing and a NaN emission mean raises
+    FloatingPointError ("emission mean"); by default at K = 3 on T_RESUME
+    positions, else on ``data`` (T, tracks) at K = 3^tracks.
+    Returns the engine's K and the seconds."""
     old = os.environ.get("HAMMLET_DEBUG")
     os.environ["HAMMLET_DEBUG"] = "1"
+    t0 = time.perf_counter()
+    if data is None:
+        data = synth(T_RESUME, SEED + 2)[0]
     try:
-        eng = runner.make_engine(synth(T_RESUME, SEED + 2)[0], nr_params=3, seed=SEED + 2)
+        eng = runner.make_engine(data, nr_params=3,
+                                 nr_data_dim=1 if data.ndim == 1 else data.shape[1], seed=SEED + 2)
+        check(eng.device.type == "cuda", f"{where} engine on {eng.device}")
         eng.run("M", 16, 0)
         eng.run("F", 16, 2)  # a healthy chunk: raises on any error bit
         mean = eng.model.theta_mean.clone()
@@ -2524,14 +2598,15 @@ def phase_debug() -> None:
         try:
             eng.run("F", 4, 0)
         except FloatingPointError as exc:
-            check("emission mean" in str(exc), f"wrong error: {exc}")
+            check("emission mean" in str(exc), f"{where} wrong error: {exc}")
         else:
-            raise SmokeFailure("a NaN emission mean did not raise")
+            raise SmokeFailure(f"{where} a NaN emission mean did not raise")
     finally:
         if old is None:
             del os.environ["HAMMLET_DEBUG"]
         else:
             os.environ["HAMMLET_DEBUG"] = old
+    return {"K": eng.spec.nr_states, "seconds": time.perf_counter() - t0}
 
 
 def sharded_run(data: np.ndarray, tmp: str, tag: str, mesh=None, eager: bool = False) -> tuple:
@@ -2879,6 +2954,478 @@ def phase_tools(prefix: str) -> dict:
           f"sort-states printed {lines}")
     return {"segments": len(seg), "means": lines[1:],
             "seconds": {t: round(v[1], 3) for t, v in out.items()}}
+
+
+# [cli_tracks]: the CLI's user surface on multi-track data, the data of [states9]-[states81] at
+# each configuration's CLI T (CLI_TRACKS_T positions per track): (a) the default scheme's ops in
+# order (M 500 0 S P F 200 0 F 300 3, its sweeps cut) with every stream, graphed against eager at
+# CLI_TRACKS_EAGER; (b) -C killed after its first checkpoint and resumed at CLI_TRACKS_RESUME;
+# (c) -M over two inputs of CLI_TRACKS_CHAIN_T positions x 3 tracks (device ingest), threads
+# against one after another; (d) HAMMLET_DEBUG=1 at K = 81; (e) F phases right after a prior
+# draw, with and without a capacity ceiling (CLI_TRACKS_PRIOR_RUNS)
+CLI_TRACKS_T = 400_000
+CLI_TRACKS_SCHEME = "M 32 0 S P F 32 0 F 128 4"
+# the engine seed of every [cli_tracks] run, chosen as the first at which CLI_TRACKS_SCHEME's chain
+# reached MAP_AGREEMENT_MIN at every K on the card (cli_map_survey.py; PERF.md §6). (a)'s MAP gate
+# thus holds one chain: at K = 64 the chains of the default scheme's ops stay in a local mode at
+# most seeds, the JAX package's on the CPU too (ROADMAP §3)
+CLI_TRACKS_SEED = 1
+CLI_TRACKS_EAGER = (27, 81)
+CLI_TRACKS_RESUME = (27, 81)
+CLI_TRACKS_CKPT_EVERY = 32  # (b): the first checkpoint ends the M phase
+CLI_TRACKS_CHAIN_T = 1_000_000  # (c): 3M values per input, so each chain takes device ingest
+# (e): HAMMLET_MAX_CAPACITY at K = 64 and 81. The first F chunk after a prior draw takes ~108
+# KB a block at K = 81 and ~67 KB at K = 64 on the H100 (PERF.md §6: 41,384 and 25,450 MiB at
+# capacity 400,000, fbscan_probes.py prior_peak); 2^17 blocks take ~14 GB at K = 81, a sixth
+# of the card's 80 GB, which leaves room for the process's other engines and a second -M chain
+CLI_TRACKS_CEILING = 131_072
+# (e): (K, scheme, ceiling or None). They run in this process, which holds the engines of earlier
+# phases: K = 81 with no ceiling, which alone needs ~41 GB (fbscan_probes.py prior_peak), may
+# not fit beside them
+CLI_TRACKS_PRIOR_RUNS = ((9, "F 16 0 F 64 4", None), (27, "F 16 0 F 64 4", None),
+                         (64, "F 16 0 F 64 4", CLI_TRACKS_CEILING),
+                         (81, "F 16 0 F 64 4", CLI_TRACKS_CEILING),
+                         (81, "M 16 0 P F 16 0 F 64 4", CLI_TRACKS_CEILING),
+                         (81, "F 16 0 F 64 4", None))
+# (b)'s child: the CLI, killed (os._exit: the streams' buffers are lost) right after its first
+# checkpoint, which it times
+CLI_TRACKS_KILLED = """
+import json, os, sys, time
+from hammlet_tpu_torch import cli, runner
+real = runner.save_checkpoint
+def save(engine, path):
+    t0 = time.perf_counter()
+    real(engine, path)
+    print(json.dumps({"sweeps": engine.sweeps_completed, "seconds": time.perf_counter() - t0,
+                      "bytes": os.path.getsize(path)}), flush=True)
+    os._exit(9)
+runner.save_checkpoint = save
+sys.exit(cli.main(sys.argv[1:]))
+"""
+
+
+def cli_tracks_cases() -> dict:
+    """K -> (tag, data function, -s arguments) of the configurations
+    [cli_tracks] runs: those of [states9], [states27], [states64] and
+    [states81]."""
+    return {K: (tag, steps, states) for tag, steps, K, states, *_ in sharded_tracks_cases()}
+
+
+def log_chunks(eng, log: list) -> None:
+    """Append a dict per chunk ``eng`` runs (an overflow's replay included):
+    method, sweeps, capacity, the ceiling, the most blocks a sweep of it
+    needed, whether it ran truncated (more blocks than the capacity at the
+    ceiling: accepted as it is), seconds, and the peak device memory
+    allocated during it above what was allocated when it began (the
+    process's other engines and this engine's own state excluded) and the
+    peak reserved by the process; a chunk that raised is logged with its
+    error."""
+    real = eng._run_chunk
+
+    def run_chunk(counter, method, n, *rest):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        row = {"method": method, "n": n, "record": bool(rest[1]), "capacity": eng.capacity,
+               "ceiling": eng.max_capacity}
+        t0 = time.perf_counter()
+        try:
+            out = real(counter, method, n, *rest)
+            torch.cuda.synchronize()
+        except BaseException as exc:
+            row.update(error=type(exc).__name__, peak=torch.cuda.max_memory_allocated() - base,
+                       reserved=torch.cuda.max_memory_reserved())
+            log.append(row)
+            raise
+        row.update(max_nb=int(out[0][0]), seconds=time.perf_counter() - t0,
+                   peak=torch.cuda.max_memory_allocated() - base,
+                   reserved=torch.cuda.max_memory_reserved())
+        row["truncated"] = row["max_nb"] > eng.capacity >= eng.max_capacity
+        log.append(row)
+        return out
+
+    eng._run_chunk = run_chunk
+
+
+def run_cli(argv: list[str], eager: bool = False, log: list | None = None) -> dict:
+    """cli.main(argv) in this process, its engines kept (made eager, and
+    their chunks logged into ``log``, if asked): exit code, engines,
+    standard error, seconds."""
+    engines: list = []
+    make_engine = cli.make_engine
+
+    def spy(*args, **kwargs):
+        eng = make_engine(*args, **kwargs)
+        if eager:
+            eager_engine(eng)
+        if log is not None:
+            log_chunks(eng, log)
+        engines.append(eng)
+        return eng
+
+    err = io.StringIO()
+    cli.make_engine = spy
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        cli.make_engine = make_engine
+    return {"rc": rc, "engines": engines, "stderr": err.getvalue(),
+            "seconds": time.perf_counter() - t0}
+
+
+def cli_tracks_argv(path: str, states: list[str], prefix: str, scheme: str) -> list[str]:
+    return ["-f", path, "-s", *states, "-a", "-R", str(CLI_TRACKS_SEED), "-i", *scheme.split(),
+            "-O", *ALL_STREAMS, "-o", prefix, ".csv", "-w"]
+
+
+def stream_bytes(prefix: str) -> dict:
+    return {s: open(f"{prefix}{s}.csv", "rb").read() for s in ALL_STREAMS}
+
+
+def phase_summary(log: list) -> list:
+    """(method, recording or not, sweeps, capacity of its first chunk, peak
+    MiB allocated, peak MiB reserved, seconds) of each run of chunks of one
+    method that all record or all do not, in a chunk log."""
+    out: list = []
+    for row in log:
+        if out and (out[-1]["method"], out[-1]["record"]) == (row["method"], row["record"]):
+            last = out[-1]
+            last["n"] += row["n"]
+            last["peak_mib"] = max(last["peak_mib"], row["peak"] / 2**20)
+            last["reserved_mib"] = max(last["reserved_mib"], row.get("reserved", 0) / 2**20)
+            last["seconds"] += row.get("seconds", 0.0)
+        else:
+            out.append({"method": row["method"], "record": row["record"], "n": row["n"],
+                        "capacity": row["capacity"],
+                        "peak_mib": row["peak"] / 2**20,
+                        "reserved_mib": row.get("reserved", 0) / 2**20,
+                        "seconds": row.get("seconds", 0.0)})
+    return [(p["method"] + (" rec" if p["record"] else ""), p["n"], p["capacity"],
+             round(p["peak_mib"], 1),
+             round(p["reserved_mib"], 1), round(p["seconds"], 3)) for p in out]
+
+
+def cli_tracks_default(tmp: str, K: int, path: str, truth: np.ndarray, states: list[str]) -> dict:
+    """(a) at K: bin/hammlet-torch's CLI (cli.main) with CLI_TRACKS_SCHEME and
+    every stream on the card, the streams checked at K columns
+    (check_streams), every sweep a graph replay; at CLI_TRACKS_EAGER the
+    same argv through an engine whose chunks run the eager gibbs_phase
+    writes the same bytes. Returns seconds, phases (capacity, peaks), the
+    drain's seconds per chunk, MAP agreement."""
+    where = f"[cli_tracks] (a) K={K}"
+    n_params, dim = int(states[1]), int(states[2])
+    log: list = []
+    run = run_cli(cli_tracks_argv(path, states, os.path.join(tmp, f"a{K}-"), CLI_TRACKS_SCHEME),
+                  log=log)
+    check(run["rc"] == 0 and len(run["engines"]) == 1, f"{where} exit {run['rc']}: {run['stderr'][-2000:]}")
+    eng = run["engines"][0]
+    check(eng.device.type == "cuda" and eng.spec.nr_states == K,
+          f"{where} engine on {eng.device} with {eng.spec.nr_states} states")
+    check_graphed(eng, where)
+    streams = check_streams(os.path.join(tmp, f"a{K}-"), ".csv", CLI_TRACKS_T, K, n_params, dim,
+                            recorded_sweeps(CLI_TRACKS_SCHEME), truth, where)
+    check(streams["segments"] == streams["rows"] == int(eng.buffers.n_boundaries) + 1,
+          f"{where} segments vs marginals rows")
+    res = {"seconds": run["seconds"], "phases": phase_summary(log), "map_agreement":
+           streams["map_agreement"], "drain_ms": [round(1e3 * b, 3) for b in eng.drain.busy],
+           "rows": streams["rows"], "sha256": hashlib.sha256(
+               open(os.path.join(tmp, f"a{K}-marginals.csv"), "rb").read()).hexdigest()[:16]}
+    if K in CLI_TRACKS_EAGER:
+        eager = run_cli(cli_tracks_argv(path, states, os.path.join(tmp, f"e{K}-"),
+                                        CLI_TRACKS_SCHEME), eager=True)
+        check(eager["rc"] == 0 and eager["engines"][0].phase_graphs.replays == 0,
+              f"{where} eager run: exit {eager['rc']} {eager['stderr'][-2000:]}")
+        check(stream_bytes(os.path.join(tmp, f"e{K}-")) == stream_bytes(os.path.join(tmp, f"a{K}-")),
+              f"{where} the graphed engine's streams differ from the eager engine's")
+        res["eager_seconds"] = eager["seconds"]
+    return res
+
+
+def cli_tracks_resume(tmp: str, here: str, K: int, path: str, states: list[str]) -> dict:
+    """(b) at K: (a)'s argv with -C CLI_TRACKS_CKPT_EVERY in a child process,
+    killed (os._exit) right after its first checkpoint, then run again
+    with the same argv in this process: it resumes, and its seven files
+    are (a)'s bytes. Returns the checkpoint's size, the seconds of each of
+    its writes, the resumed run's seconds."""
+    where = f"[cli_tracks] (b) K={K}"
+    ckpt = os.path.join(tmp, f"b{K}.npz")
+    argv = cli_tracks_argv(path, states, os.path.join(tmp, f"b{K}-"), CLI_TRACKS_SCHEME) + [
+        "-C", ckpt, str(CLI_TRACKS_CKPT_EVERY)]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CLI_TRACKS_KILLED, *argv], capture_output=True,
+                          text=True, timeout=600, cwd=here)
+    child_s = time.perf_counter() - t0
+    check(proc.returncode == 9 and os.path.exists(ckpt),
+          f"{where} the child was not killed after its first checkpoint: exit {proc.returncode}, "
+          f"{proc.stderr[-2000:]}")
+    first = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(first["sweeps"] == CLI_TRACKS_CKPT_EVERY, f"{where} first checkpoint at {first}")
+    writes = [first["seconds"]]
+    real = runner.save_checkpoint
+
+    def timed(engine, p):
+        t = time.perf_counter()
+        real(engine, p)
+        writes.append(time.perf_counter() - t)
+
+    runner.save_checkpoint = timed
+    try:
+        run = run_cli(argv)
+    finally:
+        runner.save_checkpoint = real
+    check(run["rc"] == 0, f"{where} resumed run: exit {run['rc']} {run['stderr'][-2000:]}")
+    check_graphed(run["engines"][0], where)
+    check(stream_bytes(os.path.join(tmp, f"b{K}-")) == stream_bytes(os.path.join(tmp, f"a{K}-")),
+          f"{where} the resumed run's streams differ from the uninterrupted run's")
+    return {"bytes": os.path.getsize(ckpt), "write_s": [round(w, 3) for w in writes],
+            "child_s": child_s, "resumed_s": run["seconds"]}
+
+
+def cli_tracks_chains(tmp: str, files: list[str]) -> dict:
+    """(c): cli.main -M over ``files`` (K = 27, three tracks, device ingest)
+    with cli._chain_devices giving cuda:0 twice (two threads on the one
+    card, taking turns at phases) and once (one chain after the other):
+    the same bytes in all seven streams of both chains, one launch of each
+    maxlet kernel per chain; seconds and peak memory of each."""
+    card = torch.device("cuda", 0)
+    res: dict = {}
+    outputs = {}
+    chain_devices = cli._chain_devices
+    try:
+        for tag, devs in (("threads", [card] * 2), ("sequential", [card])):
+            cli._chain_devices = lambda devs=devs: devs
+            prefix = os.path.join(tmp, f"c-{tag}-")
+            before = read_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            run = run_cli(["-M", "-f", *files, "-o", prefix, ".csv", "-s", "C", "3", "3", "-a",
+                           "-R", str(CLI_TRACKS_SEED), "-i", *CLI_TRACKS_SCHEME.split(), "-O",
+                           *ALL_STREAMS, "-w"])
+            after = read_counts()
+            check(run["rc"] == 0 and len(run["engines"]) == 2,
+                  f"[cli_tracks] (c) -M ({tag}) exit {run['rc']}: {run['stderr'][-2000:]}")
+            for name in MAXLET_NAMES:
+                check(after[name] - before[name] == 2,
+                      f"[cli_tracks] (c) -M ({tag}) launched {name} {after[name] - before[name]} "
+                      "times, not once per chain")
+            for eng in run["engines"]:
+                check(eng.ing.weights_host is None, "[cli_tracks] (c) a chain took host ingest")
+                check_graphed(eng, f"[cli_tracks] (c) -M ({tag})")
+            res[tag] = {"seconds": run["seconds"],
+                        "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2**20}
+            outputs[tag] = {(i, s): open(f"{prefix}chr{i + 1}-{s}.csv", "rb").read()
+                            for i in range(len(files)) for s in ALL_STREAMS}
+            del run
+    finally:
+        cli._chain_devices = chain_devices
+    check(outputs["threads"] == outputs["sequential"],
+          "[cli_tracks] (c) threaded -M chains differ from the sequential ones")
+    return res
+
+
+def cli_tracks_prior(tmp: str, K: int, path: str, truth: np.ndarray, states: list[str],
+                     scheme: str, ceiling: int | None) -> dict:
+    """(e) one run: ``scheme`` (its first F phase right after a prior draw)
+    with every stream at K, under a capacity ceiling (runner._MAX_CAPACITY,
+    what HAMMLET_MAX_CAPACITY sets) or the default. Exit 0: the streams
+    pass check_streams (the MAP agreement reported, not gated), no
+    recording chunk ran truncated, and under a ceiling the first chunk ran
+    at it, truncated. Exit 1 (allowed only without a ceiling): one [ERROR] message
+    naming the capacity, K and HAMMLET_MAX_CAPACITY, an empty marginals
+    file and no recorded sweep in any per-sweep stream. Returns the chunk
+    log's phases, the first chunk's capacity, seconds and peaks, the
+    truncated chunks, the engine (its graphs released) and the exit."""
+    where = f"[cli_tracks] (e) K={K} '{scheme}' ceiling {ceiling or 'default'}"
+    n_params, dim = int(states[1]), int(states[2])
+    prefix = os.path.join(tmp, f"p{K}-{len(scheme)}-{ceiling or 0}-")
+    log: list = []
+    default = runner._MAX_CAPACITY
+    runner._MAX_CAPACITY = ceiling or default
+    try:
+        run = run_cli(cli_tracks_argv(path, states, prefix, scheme), log=log)
+    finally:
+        runner._MAX_CAPACITY = default
+    first = next((r for r in log if r["method"] == "F"), {})
+    res = {"K": K, "scheme": scheme, "ceiling": ceiling, "rc": run["rc"], "seconds": run["seconds"],
+           "first_F": {k: first.get(k) for k in ("capacity", "max_nb", "seconds", "peak", "reserved",
+                                                 "error")},
+           "phases": phase_summary(log), "truncated": sum(bool(r.get("truncated")) for r in log),
+           "engine": run["engines"][0] if run["engines"] else None}
+    if run["rc"] == 0:
+        check_graphed(run["engines"][0], where)
+        # a burn-in of 16 sweeps from a prior draw (truncated under the ceiling) is too short
+        # for a chain to find every level: the agreement is reported, not gated
+        streams = check_streams(prefix, ".csv", CLI_TRACKS_T, K, n_params, dim,
+                                recorded_sweeps(scheme), truth, where, map_min=None)
+        res["map_agreement"] = streams["map_agreement"]
+        check(not any(r["truncated"] for r in log if r["record"]),
+              f"{where} a recording chunk ran truncated")
+        if ceiling:
+            check(first["capacity"] == ceiling and first["truncated"],
+                  f"{where} the first F chunk ran at {first['capacity']} blocks, "
+                  f"{first.get('max_nb')} needed: not truncated at the ceiling")
+    else:
+        errors = [ln for ln in run["stderr"].splitlines() if "[ERROR]" in ln]
+        check(ceiling is None and run["rc"] == 1 and len(errors) == 1,
+              f"{where} exit {run['rc']}, stderr {run['stderr'][-2000:]}")
+        for word in (f"capacity {first.get('capacity')}", f"K = {K}", "HAMMLET_MAX_CAPACITY"):
+            check(word in errors[0], f"{where} the error does not name {word!r}: {errors[0]}")
+        check(os.path.getsize(prefix + "marginals.csv") == 0,
+              f"{where} a marginals file was written by a run that failed")
+        for s in PER_SWEEP_STREAMS:
+            check(os.path.getsize(f"{prefix}{s}.csv") == 0,
+                  f"{where} {s} holds recorded sweeps of a run that failed")
+        res["error"] = errors[0]
+    if res["engine"] is not None:
+        res["engine"].phase_graphs.release()
+    return res
+
+
+def prior_draw_inputs(eng) -> tuple:
+    """The scan and model-update inputs of one F sweep right after a prior
+    draw on ``eng`` (its run over, its graphs released), through the eager
+    gibbs_phase: (scans, models, capacity)."""
+    vars(eng).pop("_run_chunk", None)  # log_chunks' wrapper of the graphed chunk
+    eager_engine(eng)
+    eng.records = None
+    eng.sample_prior()
+    with ScanInputs() as scans, ModelInputs() as models:
+        eng.run("F", 1, 0)
+    return scans.main_and_others()[0], models.main(), eng.capacity
+
+
+def phase_cli_tracks(tmp: str) -> dict:
+    """[cli_tracks]: (a)-(e) on the data of [states9]-[states81] at
+    CLI_TRACKS_T positions per track (and (c) on two inputs of
+    CLI_TRACKS_CHAIN_T), every run through cli.main on the card; (f) no
+    plain version of a scan or the model update runs (PlainCalls), and
+    every kernel launched. Then the kernels at the shapes these runs gave
+    them that no earlier phase checks: each maxlet kernel on (c)'s inputs
+    (before the runs, not counted), and the scans and the model update of
+    one F sweep right after a prior draw at each K of (e), at capacity ~T
+    or at the ceiling, against their plain versions and timed."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cases = cli_tracks_cases()
+    res: dict = {"seconds": {}, "a": {}, "b": {}, "e": []}
+    last = [time.perf_counter()]
+
+    def took(part: str) -> None:
+        now = time.perf_counter()
+        res["seconds"][part] = round(now - last[0], 1)
+        last[0] = now
+
+    worst = {"chunk": 0.0, "cross": 0.0, "transform": 0.0}
+    chain_files = []
+    for i in range(2):
+        chain_files.append(os.path.join(tmp, f"chr{i + 1}.txt"))
+        np.savetxt(chain_files[-1], states27_steps(CLI_TRACKS_CHAIN_T, seed=STATES27_SEED + 20 + i)[0],
+                   fmt="%.5f")
+        x_cpu = torch.from_numpy(np.ascontiguousarray(read_values([chain_files[-1]], 3)))
+        x = x_cpu.cuda()
+        check_kernels(x, x_cpu, worst)
+    res["maxlet"] = {**maxlet_times(x), "worst": worst}
+    del x, x_cpu
+    files = {}
+    for K, (tag, steps, states) in cases.items():
+        data, truth = steps(CLI_TRACKS_T)
+        files[K] = (os.path.join(tmp, f"{tag}.csv"), truth, states)
+        np.savetxt(files[K][0], data, fmt="%.5f")
+    d81 = cases[81][1](CLI_TRACKS_T)[0]
+    torch.cuda.empty_cache()
+    took("inputs")
+    reset_counts()
+    with PlainCalls() as plain:
+        for K in cases:
+            res["a"][K] = cli_tracks_default(tmp, K, *files[K])
+        took("a")
+        for K in CLI_TRACKS_RESUME:
+            path, _, states = files[K]
+            res["b"][K] = cli_tracks_resume(tmp, here, K, path, states)
+        took("b")
+        res["c"] = cli_tracks_chains(tmp, chain_files)
+        took("c")
+        res["d"] = phase_debug(d81, "[cli_tracks] (d)")
+        took("d")
+        for K, scheme, ceiling in CLI_TRACKS_PRIOR_RUNS:
+            res["e"].append(cli_tracks_prior(tmp, K, *files[K], scheme, ceiling))
+            torch.cuda.empty_cache()
+        took("e")
+    res["launches"] = read_counts()
+    check(not plain.calls, f"[cli_tracks] (f) plain versions ran: {plain.calls}")
+    for name, n in res["launches"].items():
+        check(n >= 1, f"[cli_tracks] (f) the path never launched {name}")
+    # the scans' and the model update's inputs at capacity ~T (K = 9, 27) and at the ceiling (K =
+    # 64, 81); not at K = 81 and ~T, whose plain versions this process's memory does not hold
+    inputs = {}
+    seen = set()
+    for run in res["e"]:
+        eng = run.pop("engine")
+        if (run["rc"] == 0 and (run["ceiling"] or run["K"] <= 27)
+                and (run["K"], run["ceiling"]) not in seen):
+            seen.add((run["K"], run["ceiling"]))
+            scans, models, cap = prior_draw_inputs(eng)
+            inputs[f"K={run['K']} B={cap} after a prior draw"] = (scans, models)
+        del eng
+    torch.cuda.empty_cache()
+    res["fbscan"] = time_fbscan({tag: v[0] for tag, v in inputs.items()}, reps=1)
+    res["model"] = time_model({tag: v[1] for tag, v in inputs.items()}, reps=1)
+    del inputs
+    torch.cuda.empty_cache()
+    took("kernels")
+    return res
+
+
+def print_cli_tracks(ct: dict) -> None:
+    for K, a in ct["a"].items():
+        print(f"[cli_tracks] (a) K={K} T={CLI_TRACKS_T} '{CLI_TRACKS_SCHEME}' all 7 streams: "
+              f"{a['seconds']:.2f} s (eager {a.get('eager_seconds', float('nan')):.2f} s, same "
+              f"bytes: {K in CLI_TRACKS_EAGER}), phases (method, sweeps, first capacity, peak MiB "
+              f"allocated above a chunk's start, peak MiB reserved by the process, s) "
+              f"{a['phases']}, drain ms per chunk on the worker "
+              f"{a['drain_ms']}, {a['rows']} marginal rows, MAP agreement {a['map_agreement']:.4f}, "
+              f"marginals sha256 {a['sha256']}; stream checks passed", flush=True)
+    for K, b in ct["b"].items():
+        print(f"[cli_tracks] (b) K={K} -C {CLI_TRACKS_CKPT_EVERY}: killed after its first "
+              f"checkpoint ({b['child_s']:.2f} s), resumed in {b['resumed_s']:.2f} s, the "
+              f"uninterrupted run's bytes; checkpoint {b['bytes']} bytes, writes {b['write_s']} s",
+              flush=True)
+    c = ct["c"]
+    print(f"[cli_tracks] (c) -M two inputs of T={CLI_TRACKS_CHAIN_T} x 3 (device ingest) on one "
+          f"card: threads {c['threads']['seconds']:.2f} s (peak {c['threads']['peak_mib']:.1f} MiB "
+          f"allocated above the run's start), one after another {c['sequential']['seconds']:.2f} s "
+          f"(peak {c['sequential']['peak_mib']:.1f} MiB); all 7 streams byte-identical; maxlet at dim 3 "
+          f"on these inputs bitwise, flushed ms chunk {ct['maxlet']['chunk']:.4f} (bound "
+          f"{ct['maxlet']['chunk_bound']:.4g}), cross {ct['maxlet']['cross']:.4f}", flush=True)
+    print(f"[cli_tracks] (d) HAMMLET_DEBUG=1 at K={ct['d']['K']}: healthy F chunk error bits 0; NaN "
+          f"emission mean raised FloatingPointError ({ct['d']['seconds']:.2f} s)", flush=True)
+    for e in ct["e"]:
+        f = e["first_F"]
+        print(f"[cli_tracks] (e) K={e['K']} '{e['scheme']}' HAMMLET_MAX_CAPACITY "
+              f"{e['ceiling'] or 'unset'}: exit {e['rc']} in {e['seconds']:.2f} s; first F chunk "
+              f"capacity {f['capacity']} (sweeps needed up to {f['max_nb']} blocks), "
+              f"{f['seconds'] if f['seconds'] is None else round(f['seconds'], 3)} s, peak "
+              f"{(f['peak'] or 0) / 2**20:.1f} MiB allocated above its start, "
+              f"{(f['reserved'] or 0) / 2**20:.1f} reserved by the process; truncated chunks "
+              f"{e['truncated']}; phases {e['phases']}"
+              + (f"; MAP agreement {e['map_agreement']:.4f}" if "map_agreement" in e else "")
+              + (f"; error: {e['error']}" if "error" in e else ""), flush=True)
+    for tag, row in ct["fbscan"].items():
+        m = ct["model"][tag]
+        print(f"[cli_tracks] {tag}: both scans and both model-update kernels against their plain "
+              f"versions on the sweep's own inputs (prefix bitwise {row['bitwise']}); kernels "
+              f"prefix {[kernel_label(n) for n, _ in row['prefix_kernels']]}, suffix "
+              f"{[kernel_label(n) for n, _ in row['suffix_kernels']]}; ms flushed (bound): prefix "
+              f"{row['prefix']:.4f} ({row['prefix_bound']:.4g}), plain {row['prefix_plain']:.4f}; "
+              f"suffix {row['suffix']:.4f} ({row['suffix_bound']:.4g}), plain "
+              f"{row['suffix_plain']:.4f}; statistics {m['stats']:.4f} ({m['stats_bound']:.4g}), "
+              f"plain {m['stats_plain']:.4f}; resample {m['resample']:.4f}, plain "
+              f"{m['resample_plain']:.4f}", flush=True)
+    print(f"[cli_tracks] (f) no plain version ran; launches {ct['launches']}; seconds "
+          f"{ct['seconds']}", flush=True)
 
 
 class BigData:
@@ -3641,6 +4188,11 @@ def main() -> int:
             print_sharded_tracks(sht[case[2]], tracks_p1[case[0]]["settled"])
         took("sharded_tracks")
 
+        with tempfile.TemporaryDirectory() as tmp:
+            ct = phase_cli_tracks(tmp)
+        took("cli_tracks")
+        print_cli_tracks(ct)
+
         sweep_p1, views_p1 = g["scans"].main_and_others()
         sweep_p4, views_p4 = sh.pop("scans").main_and_others()
         check(sorted((k, v.shape[-1]) for k, v in views_p4)
@@ -3964,7 +4516,27 @@ def main() -> int:
     } for K in sht for kernel, source, replaces, key, count in KERNEL_ROWS
       if key in ("prefix", "suffix", "stats", "resample")
       for row in ([fbt[f"K={K} P={P_SHARDED} sweep data"]] if key in ("prefix", "suffix")
-                  else [mdt[f"K={K} dim={sht[K]['dim']} P={P_SHARDED} sweep data"]])]}),
+                  else [mdt[f"K={K} dim={sht[K]['dim']} P={P_SHARDED} sweep data"]])] + [{
+        # [cli_tracks]: the maxlet kernels at dim 3 on (c)'s -M inputs (device ingest), and the
+        # sweep's kernels in an F sweep right after a prior draw at capacity ~T or at the ceiling
+        # ((e)), checked and timed on that sweep's own inputs; the launches are the whole path's
+        "name": (" + ".join(kernel_label(n) for n, _ in row[key + "_kernels"])
+                 if key in ("prefix", "suffix") else kernel),
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": ct["launches"][count],
+        "device_launches_per_sweep": None,
+        "max_abs_err": ct["maxlet"]["worst"][key] if key in ("chunk", "cross") else row[key + "_err"],
+        "ms": row[key],
+        "plain_ms": row[key + "_plain"],
+        "bound_ms": row[key + "_bound"],
+        "bound_by": row[key + "_bound_by"],
+        "library_ms": None,
+    } for kernel, source, replaces, key, count in KERNEL_ROWS
+      for row in ([ct["maxlet"]] if key in ("chunk", "cross") else
+                  list(ct["fbscan"].values()) if key in ("prefix", "suffix") else
+                  list(ct["model"].values()))]}),
           flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

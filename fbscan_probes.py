@@ -128,6 +128,19 @@ kernels (csrc/modelupdate.cu) beyond chip_smoke.py.
         "STAMPS <json>" per input and mode: microseconds after the first
         CTA's entry, [min, median, max] over the CTAs, per stamp.
 
+    python3 fbscan_probes.py prior_peak K
+        One F phase of 16 sweeps right after a prior draw, the first op of
+        chip_smoke.py's [cli_tracks] (e), on [states9]-[states81]'s data at K
+        (9, 27, 64 or 81) and 400,000 positions per track, through
+        runner.make_engine in this process, at the prior threshold's
+        capacity. Prints one line "PRIOR_PEAK <json>": the capacity,
+        seconds, the seconds its captures took, the device memory the
+        engine held before the phase, the peak allocated above it, the peak
+        reserved by the process, and the full text of an error. Runs on an
+        older tree too (copy this file there), to compare the capture's
+        memory of two trees in turns; tests/test_torch_cuda.py runs it at K
+        = 81.
+
 Needs one card (turns, stamps) or N (t250); imports no JAX.
 """
 
@@ -782,6 +795,33 @@ def stamps() -> None:
         model_cuda._lib = current
 
 
+def prior_peak(K: int) -> None:
+    """The prior_peak probe (module docstring)."""
+    from hammlet_tpu_torch import runner
+
+    steps, n_params = {9: (cs.config4_steps, 3), 27: (cs.states27_steps, 3),
+                       64: (cs.states64_steps, 4), 81: (cs.states81_steps, 3)}[K]
+    data = steps(400_000)[0]
+    eng = runner.make_engine(data, nr_params=n_params, nr_data_dim=data.shape[1], seed=1)
+    eng.sample_prior()
+    eng._resize_capacity_for_phase()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    row = {"K": K, "capacity": eng.capacity, "base_mib": base / 2**20, "error": None}
+    t0 = time.perf_counter()
+    try:
+        eng.run("F", 16, 0)
+        torch.cuda.synchronize()
+    except torch.OutOfMemoryError as exc:
+        row["error"] = str(exc)
+    row.update(seconds=round(time.perf_counter() - t0, 3),
+               capture_seconds=round(eng.phase_graphs.capture_seconds, 3),
+               peak_allocated_mib=(torch.cuda.max_memory_allocated() - base) / 2**20,
+               peak_reserved_mib=torch.cuda.max_memory_reserved() / 2**20)
+    print("PRIOR_PEAK", json.dumps(row), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("fbscan_probes: needs an NVIDIA GPU", file=sys.stderr)
@@ -820,6 +860,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["stamps"]:
         stamps()
+        return 0
+    if sys.argv[1:2] == ["prior_peak"] and len(sys.argv) == 3:
+        prior_peak(int(sys.argv[2]))
         return 0
     if sys.argv[1:2] == ["turns"] and len(sys.argv) > 2:
         model = [src for src in sys.argv[2:] if "hammlet_sweep_stats" in Path(src).read_text()]

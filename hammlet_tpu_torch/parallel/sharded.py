@@ -878,6 +878,9 @@ class ShardedEngine(runner.ChainOps):
         per_shard = torch.searchsorted(self.negw, value, right=True)[:, 0]
         return int(self.mesh.all_gather(per_shard).max())
 
+    def _capacity_text(self) -> str:
+        return f"block capacity {self.cap_local} per shard"
+
     def _resize_capacity_for_phase(self) -> None:
         """Re-size cap_local to the CURRENT threshold's worst-shard boundary
         count at a phase boundary (both directions), as

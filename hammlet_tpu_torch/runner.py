@@ -416,8 +416,9 @@ class ChainOps:
     that Engine and the sharded engine (parallel/sharded.ShardedEngine)
     share. A subclass provides ``T``, ``seed``, ``device``, ``priors``,
     ``model``, ``records``, ``drain`` (a RecordDrain), ``_cands`` and
-    ``_cands_h``, ``_resize_capacity_for_phase``, ``_run_phase``,
-    ``_write_records`` and ``_save_checkpoint``."""
+    ``_cands_h``, ``phase_graphs``, ``_resize_capacity_for_phase``,
+    ``_run_phase``, ``_write_records``, ``_save_checkpoint`` and
+    ``_capacity_text``."""
 
     #: held while the engine launches a phase's sweeps. The CLI gives the
     #: -M chains it runs in threads one shared lock, so that they take turns
@@ -461,12 +462,33 @@ class ChainOps:
             with self.phase_turn:
                 self._resize_capacity_for_phase()
                 t0 = time.perf_counter()
-                self._run_phase(method, iterations, thinning, start)
+                try:
+                    self._run_phase(method, iterations, thinning, start)
+                except torch.OutOfMemoryError as exc:
+                    raise self._out_of_memory(method, exc) from exc
         synchronize(self.device)
         self.phase_log.append((method, iterations, time.perf_counter() - t0))
 
     def run_scheme(self, tokens: list[str]) -> None:
         run_scheme_resumable(self, tokens)
+
+    def _out_of_memory(
+        self, method: str, exc: torch.OutOfMemoryError
+    ) -> torch.OutOfMemoryError:
+        """The error a phase that ran out of device memory raises: it names
+        the block capacity, K and HAMMLET_MAX_CAPACITY, the one setting a
+        user can act on (a sweep at capacity ~T, the first after a prior
+        draw, holds (K, K, capacity) float32 transients). The engine's
+        captured sweeps are dropped and their memory given back to the
+        card, so that the process can go on."""
+        self.phase_graphs.release()
+        first = str(exc).strip().splitlines()[0] if str(exc).strip() else type(exc).__name__
+        return torch.OutOfMemoryError(
+            f"out of device memory in an {method} phase at {self._capacity_text()} with "
+            f"K = {self.spec.nr_states} states and T = {self.T} ({first}); set "
+            "HAMMLET_MAX_CAPACITY to a smaller block capacity: burn-in chunks above it "
+            "then run truncated, recording chunks must fit under it"
+        )
 
     @contextlib.contextmanager
     def _draining(self):
@@ -589,6 +611,9 @@ class Engine(ChainOps):
 
     def _save_checkpoint(self) -> None:
         save_checkpoint(self, self.checkpoint_path)
+
+    def _capacity_text(self) -> str:
+        return f"block capacity {self.capacity}"
 
     def _candidates(self) -> tuple[torch.Tensor, torch.Tensor]:
         """Position-sorted boundary candidates for the current capacity

@@ -48,11 +48,12 @@ the plain version seeds the same way.
 
 A capture first warms its sweep up on scratch copies of the slots on the
 engine's side stream, collectives included (every process captures the
-same kinds in the same order, so their collectives meet), then captures
-each run of local pieces under the process-wide capture lock in
-``thread_local`` mode. On the CPU the same pieces run eagerly on the same
-slots (there is no graph to capture). On a card a failed capture raises;
-nothing runs the eager loop instead.
+same kinds in the same order, so their collectives meet), gives the
+allocator's cache back to the card where it holds more than the card has
+free, then captures each run of local pieces under the process-wide
+capture lock in ``thread_local`` mode. On the CPU the same pieces run eagerly on
+the same slots (there is no graph to capture). On a card a failed capture
+raises; nothing runs the eager loop instead.
 """
 
 from __future__ import annotations
@@ -286,6 +287,17 @@ class PhaseGraphs:
         with torch.cuda.stream(self._stream), contextlib.nullcontext() if talks else _CAPTURE_LOCK:
             run_pieces(pieces, self._scratch(s.slots, key.record), SimpleNamespace())
             with _CAPTURE_LOCK:
+                # the warm-up's transients are back in the allocator's cache, which a
+                # capture cannot take from (it allocates from its own pool) and which
+                # the allocator does not free while a capture is under way: where the
+                # cache holds more than the card has free (at capacity ~T and K = 81)
+                # the capture would find no room. Emptied only then, as it empties
+                # every card's cache. (A pool of the warm-up's own, dropped here,
+                # aborted the process beside other threads' warm-ups and after a
+                # failed capture.)
+                free = torch.cuda.mem_get_info(self.device)[0]
+                if torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(self.device) > free:
+                    torch.cuda.empty_cache()
                 for x in order:
                     if isinstance(x, list):
                         plan.append(self._capture_run(s, x, st))
@@ -391,6 +403,18 @@ class PhaseGraphs:
             self.chunks += 1
         blk = (slots.blk_states[:rows], slots.blk_bounds[:rows]) if want_blocks else None
         return slots.diag, slots.nbs[:rows], slots.means[:rows], slots.varis[:rows], blk
+
+    def release(self) -> None:
+        """Drop the slots, every captured sweep and the snapshot, and give
+        their memory back to the card (after an out-of-memory error); the
+        next chunk sets them up again. The allocator's cache is emptied
+        under the capture lock: no other thread's capture is under way."""
+        self._set = None
+        self._snapshot = None
+        self._snapshot_taken = False
+        if self._cuda:
+            with _CAPTURE_LOCK:
+                torch.cuda.empty_cache()
 
     def model_copy(self) -> HMMState:
         """The last chunk's model, copied out of the slots (which the next

@@ -299,16 +299,22 @@ def test_cli_marginals_within_seed_envelope(e2e):
 # ---- -M ---------------------------------------------------------------------
 
 
-def test_multi_chain_matches_solo_runs(tmp_path):
+@pytest.mark.parametrize("states", [["2"], ["C", "3", "2"]], ids=["s2", "sC32"])
+def test_multi_chain_matches_solo_runs(tmp_path, states):
     """Exact: every -M chain's outputs are byte-identical to a solo run of
     its file with the same seed; with -C each chain checkpoints to its own
-    file, and a rerun resumes each chain from its own state."""
+    file, and a rerun resumes each chain from its own state. At -s 2 on one
+    track, and at -s C 3 2 on two tracks (K = 9, chip_smoke.py's
+    configuration 4 data)."""
+    from chip_smoke import config4_steps
+
     files = []
     for i, T in enumerate((800, 800, 1100)):
         f = tmp_path / f"chr{i + 1}.csv"
-        np.savetxt(f, synth_segments(T, 10 + i)[0])
+        np.savetxt(f, synth_segments(T, 10 + i)[0] if states == ["2"]
+                   else config4_steps(2 * T, seed=10 + i)[0])
         files.append(str(f))
-    common = ["-s", "2", "-a", "-R", "3", "-i", "M", "8", "0", "F", "12", "2",
+    common = ["-s", *states, "-a", "-R", "3", "-i", "M", "8", "0", "F", "12", "2",
               "-O", "marginals", "sequences", "parameters", "-w"]
     ck = tmp_path / "run.npz"
     argv = ["-M", "-f", *files, "-o", str(tmp_path / "wgs-"), ".csv", "-C", str(ck), "8", *common]

@@ -30,6 +30,36 @@ torch.set_num_threads(1)
 
 
 @pytest.mark.cuda
+def test_capture_after_prior_draw_fits_the_card_on_card(cuda_device):
+    """On the card, in a process of its own (fbscan_probes.py prior_peak
+    81): the first F phase right after a prior draw at K = 81 (-s C 3 4,
+    T = 400,000 x 4) runs at capacity ~T; its sweeps' warm-ups leave ~41 GB
+    in the allocator's cache, more than the card has free, so the cache
+    goes back to the card before each capture: the phase runs, and the
+    process reserves at most 1.1x the most it held allocated. (With the
+    cache kept, the capture ran out of memory on an NVIDIA H100 80GB HBM3:
+    62,506 MiB reserved.) First in this file: the other process needs ~42
+    GB of the card, more than later tests' leftovers in this one leave."""
+    import gc
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    gc.collect()  # engines of earlier tests, held in reference cycles
+    torch.cuda.empty_cache()  # this process's cache is the other process's room
+    proc = subprocess.run([sys.executable, str(repo / "fbscan_probes.py"), "prior_peak", "81"],
+                          cwd=repo, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    line = next(x for x in proc.stdout.splitlines() if x.startswith("PRIOR_PEAK "))
+    row = json.loads(line.split(" ", 1)[1])
+    assert row["error"] is None, row["error"]
+    assert row["capacity"] >= 300_000, row
+    assert row["peak_reserved_mib"] <= 1.1 * (row["base_mib"] + row["peak_allocated_mib"]), row
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("T", [100, 8192, 8193, 20000, 65536, 100000])
 @pytest.mark.parametrize("dim", [1, 3])
 def test_kernel_bitwise_on_card(cuda_device, T, dim):
@@ -509,16 +539,21 @@ def test_graph_overflow_replay_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_resume_into_graphed_engine_on_card(cuda_device, tmp_path):
+@pytest.mark.parametrize("K", [3, 27])
+def test_resume_into_graphed_engine_on_card(cuda_device, tmp_path, K):
     """Exact on the card: a checkpoint restored into an engine that has
     already captured graphs (its buffers keep their addresses) continues
-    with the bytes of the uninterrupted eager run."""
+    with the bytes of the uninterrupted eager run; at K = 3 on one track,
+    and at K = 27 on three (chip_smoke.states27_steps, -s C 3 3: the wide
+    prefix instances)."""
+    from chip_smoke import states27_steps
     from hammlet_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint
 
-    data = synth_segments(300_000, 19)[0]
+    data = synth_segments(300_000, 19)[0] if K == 3 else states27_steps(300_000, seed=19)[0]
+    dim = 1 if K == 3 else 3
 
     def build():
-        return runner.make_engine(data, seed=5, device=cuda_device)
+        return runner.make_engine(data, seed=5, nr_data_dim=dim, device=cuda_device)
 
     whole = eager_engine(build())
     whole.run("M", 16, 0)
@@ -1783,3 +1818,67 @@ def test_sharded_tracks_graph_matches_eager_on_card(cuda_device, tmp_path):
     rows = [list(map(int, line.split("\t"))) for line in out["graph"]["marginals"].decode().splitlines()]
     assert all(len(r) == 28 and sum(r[1:]) == 8 for r in rows)
     assert sum(r[0] for r in rows) == len(data)
+
+
+@pytest.mark.cuda
+def test_cli_tracks_graph_matches_eager_on_card(cuda_device, tmp_path, monkeypatch):
+    """Exact on the card: cli.main at -s C 3 3 (three tracks, K = 27) with
+    the default scheme's ops in order (M · 0 S P F · 0 F · t, its sweeps
+    cut) and all seven outputs writes the same bytes whether the engine
+    replays its CUDA graphs or runs the eager gibbs_phase; every sweep of
+    the graphed run was a replay; 27 mapping rows, one line per recorded
+    sweep in every per-sweep stream."""
+    from chip_smoke import states27_steps
+
+    np.savetxt(tmp_path / "d.csv", states27_steps(200_000, seed=21)[0], fmt="%.5f")
+    make = cli.make_engine
+    engines, out = [], {}
+    for tag in ("graph", "eager"):
+        wrap = eager_engine if tag == "eager" else (lambda e: e)
+        monkeypatch.setattr(cli, "make_engine", lambda *a, **k: engines.append(wrap(make(*a, **k))) or engines[-1])
+        argv = ["-f", str(tmp_path / "d.csv"), "-s", "C", "3", "3", "-a", "-R", "3", "-i",
+                *"M 16 0 S P F 16 0 F 64 4".split(), "-O", *STREAMS,
+                "-o", str(tmp_path / f"{tag}-"), ".csv", "-w"]
+        assert cli.main(argv) == 0
+        out[tag] = {s: (tmp_path / f"{tag}-{s}.csv").read_bytes() for s in STREAMS}
+    assert engines[0].device.type == "cuda" and engines[0].spec.nr_states == 27
+    assert _graphed(engines[0]) and engines[1].phase_graphs.replays == 0
+    for s in STREAMS:
+        assert out["graph"][s] == out["eager"][s], s
+    assert out["graph"]["mapping"].count(b"\n") == 27
+    for s in ("sequences", "parameters", "blocks", "compression", "segments"):
+        assert out["graph"][s].count(b"\n") == 16, s
+
+
+@pytest.mark.cuda
+def test_ceiling_truncates_burn_in_at_k64_on_card(cuda_device, monkeypatch):
+    """Exact on the card, K = 64 (chip_smoke.states64_steps, -s C 4 3: the
+    tiled-product prefix) under a ceiling of 16,384 blocks (runner.
+    _MAX_CAPACITY, what HAMMLET_MAX_CAPACITY sets) well below the first
+    sweeps' block count after a prior draw: the F burn-in's first chunk
+    runs at the ceiling, truncated (its sweeps needed more blocks), the
+    recording phase is exact (its rows sum to the recorded sweeps, no
+    recording chunk truncated), and the graphed engine ends with the eager
+    engine's counts and model."""
+    from chip_smoke import log_chunks, states64_steps
+
+    data = states64_steps(200_000, seed=22)[0]
+    monkeypatch.setattr(runner, "_MAX_CAPACITY", 16_384)
+    engines = []
+    for eager in (False, True):
+        eng = runner.make_engine(data, nr_params=4, nr_data_dim=3, seed=6, device=cuda_device)
+        if eager:
+            eager_engine(eng)
+        log = []
+        log_chunks(eng, log)
+        eng.run_scheme("F 16 0 F 32 4".split())
+        assert eng.max_capacity == 16_384
+        assert log[0]["capacity"] == 16_384 and log[0]["truncated"], log[0]
+        assert not any(r["truncated"] for r in log if r["record"])
+        engines.append(eng)
+    g, e = engines
+    assert _graphed(g)
+    assert set(g.marginal_counts.sum(axis=0).tolist()) == {8}
+    for name in ("counts", "ever_boundary", "n_records", "n_boundaries"):
+        assert torch.equal(getattr(g.buffers, name), getattr(e.buffers, name)), name
+    assert all(torch.equal(a, b) for a, b in zip(g.model, e.model))

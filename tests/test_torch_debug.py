@@ -19,12 +19,16 @@ from hammlet_tpu_torch.samplers import sweep
 torch.set_num_threads(1)
 
 
-def _model(**poison):
+def _model(K=3, **poison):
+    """A healthy model of P = 3 emission parameters and K states (K = 27:
+    three tracks, -s C 3 3), with ``poison`` written into entry 1 of the
+    named fields."""
+    rng = np.random.default_rng(K)
     m = dict(
         theta_mean=np.array([-1.0, 0.5, 2.0], np.float32),
         theta_var=np.array([0.9, 1.1, 0.7], np.float32),
-        A=np.full((3, 3), 1 / 3, np.float32),
-        pi=np.full(3, 1 / 3, np.float32),
+        A=rng.dirichlet(np.ones(K), size=K).astype(np.float32),
+        pi=rng.dirichlet(np.ones(K)).astype(np.float32),
     )
     for field, value in poison.items():
         m[field] = m[field].copy()
@@ -45,13 +49,15 @@ POISONS = [
 ]
 
 
+@pytest.mark.parametrize("K", [3, 27])
 @pytest.mark.parametrize("poison", POISONS, ids=lambda p: "+".join(p) or "healthy")
 @pytest.mark.parametrize("bad_stats", [False, True])
-def test_model_error_bits_match_jax(poison, bad_stats):
+def test_model_error_bits_match_jax(poison, bad_stats, K):
     """Exact: the same bitmask as the JAX package for each violated
-    invariant, and the same error text."""
-    m = _model(**poison)
-    bstats = np.ones((1, 2, 8), np.float32)
+    invariant, and the same error text; at K = 3 and at K = 27 ((27, 27)
+    transitions, block statistics of three tracks)."""
+    m = _model(K, **poison)
+    bstats = np.ones((1 if K == 3 else 3, 2, 8), np.float32)
     if bad_stats:
         bstats[0, 1, 5] = np.inf
     want = int(jdebug.model_error_bits(JHMMState(**{k: jnp.asarray(v) for k, v in m.items()}), jnp.asarray(bstats)))

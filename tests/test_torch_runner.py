@@ -236,13 +236,25 @@ def test_sequences_stream_is_the_recorded_states(tmp_path):
     assert segs[-1] == int(eng.buffers.n_boundaries) + 1 == int(eng.buffers.ever_boundary.sum()) + 1
 
 
-def test_overflow_replay_and_ceiling():
+@pytest.mark.parametrize("K", [3, 9, 27])
+def test_overflow_replay_and_ceiling(K):
     """A chunk that overflows the capacity is replayed at a grown capacity
     from the same streams; recording sweeps stay exact (rows sum to the
-    recorded sweeps); at the ceiling a burn-in chunk runs truncated and a
-    recording chunk raises."""
-    data = synth_segments(20000, 2, seglen=250)[0]
-    eng = trun.make_engine(data, seed=4, capacity=128, device="cpu")
+    recorded sweeps); at the ceiling, after a prior draw, a burn-in chunk
+    runs truncated (the block count clamped: its last count is at most
+    the ceiling) and a recording chunk raises, in both packages, with the
+    JAX package's message (hammlet_tpu/runner.py:742-746) up to the block
+    count. K = 3 on one track; K = 9 and 27 on chip_smoke.py's two- and
+    three-track data."""
+    from chip_smoke import config4_steps, states27_steps
+
+    if K == 3:
+        data, dim = synth_segments(20000, 2, seglen=250)[0], 1
+    else:
+        dim = {9: 2, 27: 3}[K]
+        data = (config4_steps if K == 9 else states27_steps)(40000, seed=2)[0]
+    eng = trun.make_engine(data, nr_data_dim=dim, seed=4, capacity=128, device="cpu")
+    assert eng.spec.nr_states == K
     eng.run("M", 4, 0)
     eng._resize_capacity_for_phase = lambda: None  # keep the small capacity
     eng.capacity = 128
@@ -251,12 +263,19 @@ def test_overflow_replay_and_ceiling():
     assert set(eng.marginal_counts.sum(axis=0).tolist()) == {4}
 
     eng.max_capacity = eng.capacity = 128
-    eng.sample_prior()  # ~T blocks again
-    eng.run("M", 2, 0)  # truncated at the ceiling: accepted
-    assert eng.capacity == 128
-    with pytest.raises(RuntimeError, match="capacity ceiling"):
-        eng.sample_prior()
-        eng.run("F", 2, 1)
+    jeng = jrun.make_engine(data, nr_data_dim=dim, seed=4, capacity=128)
+    jeng.max_capacity = 128
+    msgs = []
+    for e in (jeng, eng):
+        e.sample_prior()  # ~T blocks again
+        e.run("M", 2, 0)  # truncated at the ceiling: accepted
+        assert e.capacity == 128 and e.last_n_blocks <= 128
+        with pytest.raises(RuntimeError, match=r"recording sweep needs \d+ blocks but the capacity "
+                           r"ceiling is 128 \(HAMMLET_MAX_CAPACITY\)") as exc:
+            e.sample_prior()
+            e.run("F", 2, 1)
+        msgs.append(re.sub(r"needs \d+ blocks", "needs N blocks", str(exc.value)))
+    assert msgs[0] == msgs[1], msgs
 
 
 def _run_engine(pkg_runner, records_cls, data, seed, prefix, **kw):
