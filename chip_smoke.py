@@ -10,6 +10,25 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
 2. build: nvcc builds csrc/maxlet.cu, csrc/fbscan.cu and
    csrc/modelupdate.cu for sm_90a into hammlet_tpu_torch/build/, all three
    started together (ptxas registers and spills of each kernel);
+2b. states625 (first, in a process of its own: this script with
+   STATES625_FLAG, while no engine of this process holds the card): four
+   tracks of five levels, K = 625 = 5^4 (-s C 5 4; states625_steps: the 625
+   means (a, b, c, d), a, b, c, d in {-6, -3, 0, 3, 6}, segments of 800,
+   noise 1.0, seed 9) at T = 500,000 x 4 through device ingest (the maxlet
+   kernels at dim 4): make_engine -> STATES625_SCHEME -> finalize, graphed
+   and eager, same seed, phase_tracks' checks (every kernel launched, rows,
+   every sweep a replay, the same bytes) but MAP agreement, which is
+   reported: the burn-in's model must hold the five levels instead), peak
+   memory and capacity per phase, two settled F phases; the sweep's own
+   scan and model-update inputs checked and timed (its prefix is the tiled
+   kernel with j streamed, whose transposes take a row of matrices in
+   pieces above K = 512), and the prefix past 2^31 entries a call
+   (STATES625_WIDE_B, on permutation matrices); then bin/hammlet-torch -s C 5 4 through cli.main
+   with all seven streams (STATES625_CLI_RUNS): the default scheme's ops
+   cut, under HAMMLET_MAX_CAPACITY = STATES625_CEILING (the streams'
+   checks, the first M chunk truncated at the ceiling) and with none; F
+   right after the prior draw with no ceiling (exit 1, one error naming the
+   capacity, K and HAMMLET_MAX_CAPACITY, nothing recorded);
 3. kernel: each Hopper maxlet kernel (chunk, cross-chunk) against its own
    plain torch version and the whole transform against
    wavelet.maxlet_transform, on the card and on the CPU, bit for bit, at
@@ -43,8 +62,12 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    call is the three wide kernels (FB_WIDE) and its suffix call one
    kernel, every K = 33-64 prefix call one tiled-product kernel (FB_DEEP),
    every K > 64 prefix call one tiled kernel with j streamed (FB_TILED) and
-   its grouped suffix call three kernels (FB_SUFFIX_GROUPED), and the
-   library holds none of the deleted generic kernels (FB_GENERIC);
+   its grouped suffix call three kernels (FB_SUFFIX_GROUPED; above K = 454
+   the rows scan alone), and the library holds none of the deleted generic
+   kernels (FB_GENERIC); above K = 512 (FB_HUGE_CASES, FB_HUGE_SPECIAL: K =
+   513, 625, 729, 1024, flat and grouped, in one and four rows, with zeros,
+   -0, subnormals, an infinity and NaN; the cross-shard calls at K = 625)
+   bitwise, one tiled kernel per prefix call, and timed at FB_HUGE_TIMED;
    then the sweep's own and the uniform times side by side, and K = 10,
    27, 33-64 and 81-128 against the generic kernels' times
    (FB_GENERIC_K10_MS, FB_GENERIC_K27_MS, FB_GENERIC_DEEP_MS,
@@ -68,9 +91,11 @@ Phases, one line each (a failed phase exits non-zero and prints no result):
    burn-in capacity, at T = 250M's per-shard capacity in four rows and at
    K = 10, dim 3, and the [states9], [states27], [states64] and [states81]
    sweeps' own (K = 9 dim 2, K = 27 dim 3, K = 64 dim 3, K = 81 dim 4);
-   above K = 64 (MODEL_LARGE_K, MODEL_RESAMPLE_KS) both kernels bitwise,
-   at (K, dim, B) = (81, 4, 4M) against the plain version's sums taken in
-   chunks (stats_reference_in_chunks), one kernel per call;
+   above K = 64 (MODEL_LARGE_K, MODEL_HUGE_K, MODEL_RESAMPLE_KS) both
+   kernels bitwise, at (K, dim, B) = (81, 4, 4M) against the plain version's
+   sums taken in chunks (stats_reference_in_chunks), one kernel per call;
+   the statistics at (K, dim) = (625, 4), (729, 6), (512, 9) and (1024, 10)
+   and the resample at K = 625 and 1024, timed at (625, 4) and (1024, 10);
 4. main path: make_engine -> run_scheme("M 64 0 F 512 4") -> finalize at
    T = 4,000,000 positions, 3 states (the repo benchmark's configuration),
    checking that ingest launched both kernels, that every marginal row
@@ -380,6 +405,17 @@ FB_DEEP_SHAPES = [(B, R) for B in FB_SIZES if B <= 29_696 for R in FB_ROWS]
 FB_TILED_CASES = ([(K, B, R) for K in (65, 81, 96, 128) for B in (8, 130, 256, 384)
                    for R in FB_ROWS] + [(81, 29_696, 1), (128, 29_696, 1)]
                   + [(K, B, R) for K in (129, 160, 243) for B in (8, 130, 384) for R in FB_ROWS])
+# [fbscan]: (K, B, R) checked above K = 512 (the tiled kernel's transposes take a row of matrices
+# in pieces): -s C 2 9's 513 - 1, -s C 5 4's 625, -s C 3 6's 729, -s C 2 10's 1024, flat and in
+# one row grouped (at K = 1024 the timed input, FB_HUGE_TIMED); the plain versions' K^3 combines
+# take ~21 s at K = 1024, B = 384
+FB_HUGE_KS = [513, 625, 729, 1024]
+FB_HUGE_CASES = ([(K, B, R) for K in FB_HUGE_KS for B, R in ((4, 1), (4, 4), (130, 1))]
+                 + [(K, 384, 1) for K in FB_HUGE_KS[:-1]] + [(625, 130, 4)])
+# [fbscan]: (B, K) of the K > 512 calls with zeros, -0 and subnormals, an infinity and NaN
+FB_HUGE_SPECIAL = [(130, 513), (130, 625), (4, 729), (4, 1024)]
+# [fbscan]: the timed K > 512 inputs, K -> B (one row, grouped), with the plain version once
+FB_HUGE_TIMED = {625: 384, 1024: 384}
 FB_RTOL, FB_ATOL = 1e-6, 1e-30  # [fbscan]: prefix kernel against its plain version
 FB_FLAT = 500_000  # [fbscan]: a flat B (not a multiple of 128) too long for one CTA
 # [fbscan] timed inputs whose scan calls must each be one CUDA kernel (the main path's shapes,
@@ -400,9 +436,10 @@ FB_DEEP = ("fbscan_prefix_deep_kernel",)
 # the tiled-product prefix instance with j streamed (K > 64): one cooperative launch per call
 FB_TILED = ("fbscan_prefix_tiled_kernel",)
 # the grouped suffix above K = 64: group (maps in shared memory), totals' rows scan (one CTA per
-# row, or over the card), combine
+# row, or over the card), combine; above FB_SUFFIX_FLAT_K the rows scan alone
 FB_SUFFIX_GROUPED = ("fbscan_suffix_group_smem_kernel", "fbscan_suffix_rows_",
                      "fbscan_suffix_combine_kernel")
+FB_SUFFIX_FLAT_K = 454  # a group's maps as int16 no longer fit a CTA's shared memory twice
 # the FB scans at K = 27, B = 29,696, on the generic kernels the wide instances replaced (three
 # launches each), ms with L2 flushed (NVIDIA H100 80GB HBM3, 700.00 W)
 FB_GENERIC_K27_MS = {"prefix": 49.1638, "suffix": 0.0843}
@@ -443,7 +480,13 @@ MODEL_LARGE_K = [(1, 4_000_000, 81, 4, 3), (1, 262_144, 81, 4, 3), (1, 29_696, 1
 # T_local = 1,048,576 blocks, -s C 4 3 (K = 64, dim 3) and -s C 3 4 (K = 81, dim 4), against
 # the plain version's sums in chunks
 MODEL_SHARDED_ROWS = [(4, 1_048_576, 64, 3, 4), (4, 1_048_576, 81, 4, 3)]
-MODEL_RESAMPLE_KS = [128, 243]  # [model]: the resample above K = 64 (243: in passes of rows)
+# [model]: (R, B, K, dim, P) checked above K = 512 (the plain version's leaves take K^2 B floats):
+# -s C 5 4 (K = 625, dim 4), -s C 3 6 (729, dim 6), -s C 2 9 (512, dim 9) and -s C 2 10 (1024,
+# dim 10); above dim 8 the block statistics are read unstaged
+MODEL_HUGE_K = [(1, 4096, 625, 4, 5), (1, 2048, 729, 6, 3), (1, 4096, 512, 9, 2),
+                (1, 1024, 1024, 10, 2), (2, 512, 1024, 10, 2)]
+# [model]: the resample above K = 64 (243 and up: in passes of rows; 1024: 1,049,600 shapes)
+MODEL_RESAMPLE_KS = [128, 243, 625, 1024]
 # [states9]: configuration 4 of benchmarks/run_configs.py (:160-172), "multi-track multivariate
 # emissions: 2 tracks x 3 params = 9 states" (-s C 3 2): its means (:165-167), segments, noise, seed
 CONFIG4_MEANS = ((0.0, 0.0), (0.0, 3.0), (3.0, 0.0), (3.0, 3.0), (-3.0, 0.0), (0.0, -3.0),
@@ -474,6 +517,53 @@ STATES81_MEANS = tuple((a, b, c, d) for a in (-3.0, 0.0, 3.0) for b in (-3.0, 0.
 STATES81_K, STATES81_SEED = 81, 8
 STATES81_CLI_T = 400_000  # [states81] through bin/hammlet-torch -s C 3 4 (host ingest)
 STATES81_SETTLED_ITERS = 128  # [states81]'s settled F phases (~25 ms a sweep: the smoke's time)
+# [states625]: four tracks, five emission parameters per track, K = 625 = 5^4 states (-s C 5 4):
+# every mean (a, b, c, d) for a, b, c, d in {-6, -3, 0, 3, 6} ([states27]'s spacing of 3),
+# segments and noise as configuration 4's, seed 9
+STATES625_MEANS = tuple((a, b, c, d) for a in (-6.0, -3.0, 0.0, 3.0, 6.0)
+                        for b in (-6.0, -3.0, 0.0, 3.0, 6.0) for c in (-6.0, -3.0, 0.0, 3.0, 6.0)
+                        for d in (-6.0, -3.0, 0.0, 3.0, 6.0))
+STATES625_K, STATES625_SEED = 625, 9
+STATES625_STATES = ["C", "5", "4"]  # -s C 5 4
+# [states625]'s engine seed: the first whose M burn-in found the five levels on the card. Two
+# chains in three settle instead with two emission means on one level and one spanning two (20
+# of 64 seeds found the five levels; the JAX package's burn-in 14 of 32 at T = 40,000 on the
+# CPU; PERF.md §6, ROADMAP §3). The gate is on the burn-in's model (STATES625_LEVEL_TOL,
+# STATES625_VAR_MAX), not on MAP agreement: the F sweeps that follow lose the levels in both
+# packages (a visited state's a_ss of ~0.5 over a block of 800 scales every forward column
+# below the 1e-38 floor of the predecessor draws, hammlet_tpu/samplers/forward_backward.py:
+# 242; ROADMAP §3), so the MAP agreement of the recorded F sweeps is reported
+STATES625_ENGINE_SEED = 12
+# [states625]: the burn-in found the five levels when each lies within STATES625_LEVEL_TOL of an
+# emission mean and every emission variance is below STATES625_VAR_MAX (the data's noise is 1.0)
+STATES625_LEVEL_TOL, STATES625_VAR_MAX = 0.5, 1.5
+# [states625] runs in a process of its own (this script with STATES625_FLAG): at ~6.6 MiB a
+# block, its F sweeps need a card that the other phases' engines do not hold. T = 500,000 a
+# track: 2,000,000 values, ingest_device's threshold (runner.py:840), so both maxlet kernels run
+# at dim 4. Its sweeps cut for the smoke's time (~1 s each; PERF.md §4): the scheme's F phase to
+# 32 sweeps, two settled F phases of STATES625_SETTLED_ITERS
+STATES625_FLAG = "--states625"
+STATES625_T = 500_000
+STATES625_SCHEME = "M 64 0 F 32 4"
+STATES625_SETTLED_ITERS = 8
+# the sweep's own prefix matrices checked against the plain version on their first blocks
+# (three groups; at the whole capacity the plain version's K^3 combines would take ~45 s)
+STATES625_CHECK_B = 384
+# [states625]: the prefix kernel on calls whose K^2 B entries pass 2^31 at K = 625 (64-bit
+# offsets), flat and grouped, on permutation matrices (prefix_permutations): ~9.4 GB a tensor,
+# where the plain version's K^3 combines would take ~75 s a call
+STATES625_WIDE_B = (6001, 6016)
+# [states625]'s CLI part, bin/hammlet-torch -s C 5 4 with all seven streams: (scheme, ceiling,
+# the method of its first phase after a prior draw, the exit). The default scheme's ops cut (M 500
+# 0 S P F 200 0 F 300 3 to M 16 0 S P F 8 0 F 16 4) start with M chunks at ~T blocks (the prior's
+# threshold), which need no K^2 a block, and its F phases after S P keep the burn-in's static
+# threshold: it runs under HAMMLET_MAX_CAPACITY = 4096 (its first M chunk truncated there) and
+# without one. An F phase right after the prior draw runs at ~T blocks, ~6.4 MB each: with no
+# ceiling it exits 1 with the one error naming the capacity, K and HAMMLET_MAX_CAPACITY
+STATES625_CEILING = 4096
+STATES625_CLI_RUNS = [("M 16 0 S P F 8 0 F 16 4", STATES625_CEILING, "M", 0),
+                      ("M 16 0 S P F 8 0 F 16 4", None, "M", 0),
+                      ("F 8 0 F 16 4", None, "F", 1)]
 # [sharded_tracks]: the sharded engine, P_SHARDED shards on the one card, on the data of
 # [states9], [states27], [states64] and [states81] (T_MAIN positions per track, their seeds and
 # means). K = 9 and 27 run SCHEME; K = 64 and 81 the cut scheme (the burn-in kept, F cut from
@@ -482,7 +572,7 @@ STATES81_SETTLED_ITERS = 128  # [states81]'s settled F phases (~25 ms a sweep: t
 SHARDED_TRACKS_CUT_SCHEME = "M 64 0 F 128 4"
 SHARDED_TRACKS_SETTLED = {9: 512, 27: 512, 64: 64, 81: 64}
 # [fbscan]: the sharded sweep's cross-shard scans, (K, K, P) and (K, P), at P = 2, 3, 4 shards
-FB_CROSS_CASES = [(B, K) for K in (9, 27, 64, 81) for B in (2, 3, 4)]
+FB_CROSS_CASES = [(B, K) for K in (9, 27, 64, 81, 625) for B in (2, 3, 4)]
 ALL_STREAMS = ("marginals", "sequences", "parameters", "blocks", "compression", "mapping",
                "segments")
 PER_SWEEP_STREAMS = ("sequences", "parameters", "blocks", "compression", "segments")
@@ -549,6 +639,12 @@ def states81_steps(T: int, seed: int = STATES81_SEED) -> tuple[np.ndarray, np.nd
     """[states81]'s data (four tracks, -s C 3 4): track_steps with the 81
     means STATES81_MEANS, seed 8."""
     return track_steps(STATES81_MEANS, T, seed)
+
+
+def states625_steps(T: int, seed: int = STATES625_SEED) -> tuple[np.ndarray, np.ndarray]:
+    """[states625]'s data (four tracks of five levels, -s C 5 4): track_steps
+    with the 625 means STATES625_MEANS, seed 9."""
+    return track_steps(STATES625_MEANS, T, seed)
 
 
 def nvidia_smi_line() -> str:
@@ -865,14 +961,16 @@ class ScanInputs:
         return tuple(main), others
 
 
-def check_scans(M: torch.Tensor, maps: torch.Tensor, where: str, errors: dict | None = None) -> bool:
+def check_scans(M: torch.Tensor, maps: torch.Tensor, where: str, errors: dict | None = None,
+                want: torch.Tensor | None = None) -> bool:
     """Each FB scan kernel against its plain version on the contiguous copy
-    of its input: the prefix within FB_RTOL / FB_ATOL (NaN where the plain
-    version has NaN), the suffix bitwise. Returns whether the prefix was
-    bitwise too; puts each kernel's largest absolute error into ``errors``
-    if given."""
+    of its input (``want``: the plain prefix's result, if taken already):
+    the prefix within FB_RTOL / FB_ATOL (NaN where the plain version has
+    NaN), the suffix bitwise. Returns whether the prefix was bitwise too;
+    puts each kernel's largest absolute error into ``errors`` if given."""
     got = fb_cuda.prefix_matmul_scan_cuda(M)
-    want = fb.prefix_matmul_scan_reference(M.contiguous())
+    if want is None:
+        want = fb.prefix_matmul_scan_reference(M.contiguous())
     check(got.shape == M.shape and torch.allclose(got, want, rtol=FB_RTOL, atol=FB_ATOL,
                                                   equal_nan=True),
           f"[fbscan] prefix kernel != plain beyond rtol {FB_RTOL} ({where})")
@@ -929,7 +1027,7 @@ def phase_fbscan() -> dict:
              if not (16 < K <= 32 and (B, R) not in FB_WIDE_SHAPES
                      or 32 < K <= 64 and (B, R) not in FB_DEEP_SHAPES
                      and (K, B, R) != (64, FB_BIG, 1))]
-    cases += [(B, K, R) for K, B, R in FB_TILED_CASES]
+    cases += [(B, K, R) for K, B, R in FB_TILED_CASES + FB_HUGE_CASES]
     for B, K, R in cases:
         M, maps = fb_inputs(B, K, R, B * 100 + K * 10 + R)
         where = f"B={B} K={K} R={R}"
@@ -957,8 +1055,8 @@ def phase_fbscan() -> dict:
               f"[fbscan] suffix kernel != plain ({where})")
         if K > 64 and B > 256:
             names = [n for n, _ in scan_kernels(lambda: fb_cuda.suffix_compose_scan_cuda(maps))]
-            check(len(names) == 3 and all(k in n for k, n in zip(FB_SUFFIX_GROUPED, names)),
-                  f"[fbscan] a grouped K = {K} suffix call ran {names} ({where})")
+            check(suffix_grouped(K, names), f"[fbscan] a grouped K = {K} suffix call ran {names} "
+                  f"({where})")
         if R > 1:
             for r in range(R):
                 check(bits_equal(got[:, :, r], fb_cuda.prefix_matmul_scan_cuda(
@@ -985,6 +1083,24 @@ def phase_fbscan() -> dict:
         res["bitwise"] += bits_equal(got, want)
         res["cases"] += 1
         res["subnormal_cases"] += 1
+    # above K = 512: the same with pieces of a row through the transposes (the infinity at B / 2)
+    for B, K in FB_HUGE_SPECIAL:
+        M, _ = fb_inputs(B, K, 2, 99 + K)
+        u = torch.rand(M.shape, generator=torch.Generator(device="cuda").manual_seed(B), device="cuda")
+        M = torch.where(u < 0.4, 0.0, torch.where(u < 0.45, M * 1e-39, M))
+        M = torch.where(u > 0.99, -0.0, M)
+        inf, _ = fb_inputs(B, K, 1, 55 + K)
+        inf[0, 0, 0, B // 2] = float("inf")
+        nan, _ = fb_inputs(B, K, 2, 77)
+        nan[1, 2, 0, B // 3] = float("nan")
+        for what, x in (("zeros, -0 and subnormals", M), ("an infinity", inf), ("NaN", nan)):
+            got, want = fb_cuda.prefix_matmul_scan_cuda(x), fb.prefix_matmul_scan_reference(x)
+            check(bits_equal(got, want) and (what != "NaN" or bool(torch.isnan(got).any())),
+                  f"[fbscan] prefix kernel != plain with {what} (B={B} K={K})")
+            res["bitwise"] += 1
+            res["cases"] += 1
+            res["subnormal_cases"] += 1
+        del M, inf, nan, got, want
     # the sharded engine's cross-shard calls: a (P, K, K) permuted, a (P, K) transposed
     tots = torch.rand((P_SHARDED, 3, 3), device="cuda") + 0.05
     tmaps = torch.randint(0, 3, (P_SHARDED, 3), device="cuda")
@@ -1017,6 +1133,15 @@ def phase_fbscan() -> dict:
               f"[fbscan] NaN propagation (B={B} K={K})")
     torch.cuda.synchronize()
     return res
+
+
+def suffix_grouped(K: int, names: list[str]) -> bool:
+    """Whether ``names`` are the kernels of one grouped suffix call at K > 64:
+    the group, rows and combine kernels (FB_SUFFIX_GROUPED), above
+    FB_SUFFIX_FLAT_K the rows scan alone."""
+    if K > FB_SUFFIX_FLAT_K:
+        return len(names) == 1 and FB_SUFFIX_GROUPED[1] in names[0]
+    return len(names) == 3 and all(k in n for k, n in zip(FB_SUFFIX_GROUPED, names))
 
 
 def fbscan_cross_cases() -> dict:
@@ -1127,7 +1252,16 @@ def time_fbscan(inputs: dict, reps: int | None = None) -> dict:
         K, B = M.shape[0], M.shape[-1]
         R = M.numel() // (K * K * B)
         row = {"shape": (B, K, R)}
-        row["bitwise"] = check_scans(M, maps, tag, row)
+        want = None
+        if K > 512:  # the plain prefix's K^3 combines take seconds: one timed call, whose result
+            # the check takes
+            flush.zero_()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = fb.prefix_matmul_scan_reference(M.contiguous())
+            torch.cuda.synchronize()
+            row["prefix_plain"] = 1e3 * (time.perf_counter() - t0)
+        row["bitwise"] = check_scans(M, maps, tag, row, want)
         fns = {
             "prefix": lambda: fb_cuda.prefix_matmul_scan_cuda(M),
             "suffix": lambda: fb_cuda.suffix_compose_scan_cuda(maps),
@@ -1138,9 +1272,12 @@ def time_fbscan(inputs: dict, reps: int | None = None) -> dict:
             row[key + "_kernels"] = scan_kernels(fns[key])
         for name, fn in fns.items():
             # the plain versions' K^3 products take a second per call at K = 64, four at 128:
-            # above 64 one repetition, flushed only
+            # above 64 one repetition, flushed only; above 512 the prefix's the call above
+            if name in row:
+                row[name + "_warm"] = float("nan")
+                continue
             plain = name.endswith("_plain")
-            n = (1 if K > 64 else 5) if plain and K > 32 else TIMING_REPS
+            n = (1 if K > 64 else 5) if plain and K > 32 else TIMING_REPS if K <= 512 else 3
             n = min(n, reps) if reps else n
             row[name] = time_ms(fn, flushed(flush), n)
             row[name + "_warm"] = (float("nan") if plain and K > 64
@@ -1148,7 +1285,7 @@ def time_fbscan(inputs: dict, reps: int | None = None) -> dict:
         for name, (nbytes, ops) in fb_work(B, K, R).items():
             row[name + "_bound"], row[name + "_bound_by"] = bound_ms(nbytes, ops)
         timed[tag] = row
-        del fns
+        del fns, want
     del flush
     torch.cuda.empty_cache()
     return timed
@@ -1363,7 +1500,7 @@ def phase_model() -> dict:
         del args
     # above K = 64: the run stacks and histogram of the pair terms in slices where a CTA cannot
     # hold them all; the sharded M burn-in's four rows
-    large = check_large_stats(MODEL_LARGE_K + MODEL_SHARDED_ROWS)
+    large = check_large_stats(MODEL_LARGE_K + MODEL_SHARDED_ROWS + MODEL_HUGE_K)
     res["cases"] += large["cases"]
     res["stats_err"] = max(res["stats_err"], large["stats_err"])
     for K in MODEL_RESAMPLE_KS:
@@ -1409,7 +1546,7 @@ def model_kernels_per_call() -> dict:
                           f"ran {kern}, not one CUDA kernel")
                     cases += 1
                     del args
-    for R, B, K, dim, P in MODEL_LARGE_K + MODEL_SHARDED_ROWS:
+    for R, B, K, dim, P in MODEL_LARGE_K + MODEL_SHARDED_ROWS + MODEL_HUGE_K:
         args = model_stats_inputs(R, B, K, dim, B + K + dim, P=P)
         kern = scan_kernels(lambda: model_cuda.sweep_stats_cuda(*args))
         check(len(kern) == 1 and "modelupdate_stats_kernel" in kern[0][0],
@@ -1629,10 +1766,11 @@ def map_agreement(sizes: np.ndarray, counts: np.ndarray, truth: np.ndarray) -> f
     positions (scipy.optimize.linear_sum_assignment on the confusion counts;
     at K = 3 the best of the 3! permutations). The MAP state is int8 per
     position and the counts are taken in slices, so that T = 250M fits the
-    host."""
+    host (int16 above K = 128)."""
     from scipy.optimize import linear_sum_assignment
 
-    map_state = np.repeat(counts.argmax(axis=1).astype(np.int8), sizes)
+    map_state = np.repeat(counts.argmax(axis=1).astype(np.int8 if counts.shape[1] <= 128
+                                                       else np.int16), sizes)
     k_map, k_true = counts.shape[1], int(truth.max()) + 1
     conf = np.zeros(k_map * k_true, dtype=np.int64)
     for lo in range(0, len(truth), 1 << 24):
@@ -1965,6 +2103,316 @@ def phase_tracks(tmp: str, tag: str, steps, K: int, cli_T: int, states: list[str
     return res
 
 
+def phase_states625(tmp: str) -> dict:
+    """[states625] (in a process of its own: STATES625_FLAG): four tracks of
+    five levels, K = 625 = 5^4 (states625_steps, -s C 5 4) at STATES625_T
+    positions a track through device ingest: make_engine ->
+    STATES625_SCHEME -> finalize through a graphed engine and through one
+    whose chunks run the eager gibbs_phase, same seed. Checks what
+    phase_tracks checks: ingest on the device with both maxlet kernels,
+    every kernel of the sweep launched, marginal rows that cover T and
+    count the recorded sweeps, every sweep of the graphed engine a graph
+    replay, the same bytes; in place of the MAP gate, the five levels in
+    the burn-in's model (see STATES625_ENGINE_SEED; the MAP agreement is
+    reported); the emission model and the peak device memory of setup and
+    of each phase with the capacity it ended at.
+    The graphed engine's graphs are released before the eager engine runs
+    (two engines' transients at K = 625 would not fit beside each other).
+    Then two settled F phases of STATES625_SETTLED_ITERS on the graphed
+    engine and one eager F sweep whose scan and model-update inputs are
+    kept; the CLI (cli.main, this process) on the same data as text, each
+    of STATES625_CLI_RUNS with all seven streams (cli_tracks_prior: exit 0,
+    the streams' checks, under a ceiling the first M chunk truncated at it,
+    no recording chunk truncated, the MAP agreement reported; or exit 1,
+    one error naming the capacity, K and HAMMLET_MAX_CAPACITY, nothing
+    recorded); in all of these no plain
+    version runs (PlainCalls). Last the maxlet kernels at dim 4 on this
+    data (bitwise against their plain versions, on the card and the CPU,
+    and timed) and the kept scan and model-update inputs checked against
+    the plain versions and timed (the prefix against its plain version on
+    the first STATES625_CHECK_B blocks, and alone at the whole capacity),
+    and the prefix at STATES625_WIDE_B, past 2^31 entries a call
+    (prefix_permutations). Returns only numbers and text (JSON)."""
+    K, T, where = STATES625_K, STATES625_T, "[states625]"
+    data, truth = states625_steps(T)
+    dim = data.shape[1]
+    streams = ("marginals", "parameters", "compression")
+    n_rec = recorded_sweeps(STATES625_SCHEME)
+    res: dict = {"K": K, "dim": dim, "T": T, "seconds": {}}
+    last = [time.perf_counter()]
+
+    def took(part: str) -> None:
+        now = time.perf_counter()
+        res["seconds"][part] = round(now - last[0], 1)
+        last[0] = now
+
+    outs, engines = {}, {}
+    with PlainCalls() as plain:
+        for kind in ("graph", "eager"):
+            prefix = os.path.join(tmp, f"states625-{kind}-")
+            rec = Records(T, prefix, ".csv", K, outputs=set(streams), overwrite=True)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            eng = runner.make_engine(data, nr_params=int(STATES625_STATES[1]), nr_data_dim=dim,
+                                     seed=STATES625_ENGINE_SEED, records=rec)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            peaks = [("setup", 0, torch.cuda.max_memory_allocated() - base, eng.capacity)]
+            if kind == "eager":
+                eager_engine(eng)
+            log = log_captures(eng)
+            log_peaks(eng, base, peaks)
+            models = log_models(eng)
+            eng.run_scheme(STATES625_SCHEME.split())
+            eng.finalize()
+            torch.cuda.synchronize()
+            res[kind] = {"setup_s": setup_s, "total_s": time.perf_counter() - t0,
+                         "peak_mem_bytes": max(p for _, _, p, _ in peaks), "peaks": peaks,
+                         "launches": read_counts(), "captures": list(log),
+                         "phases": [(m, n, round(t, 4)) for m, n, t in eng.phase_log],
+                         "capacity": eng.capacity, "models": models}
+            outs[kind] = {name: open(prefix + name + ".csv", "rb").read() for name in streams}
+            engines[kind] = eng
+            eng.records = None
+            if kind == "graph":
+                sizes, counts = read_marginals(prefix + "marginals.csv")
+                check_graphed(eng, where)
+                check(eng.device.type == "cuda" and eng.spec.nr_states == K,
+                      f"{where} engine on {eng.device} with {eng.spec.nr_states} states")
+                check(eng.ing.weights_host is None, f"{where} ingest did not take the device path")
+                for name, n in res[kind]["launches"].items():
+                    check(n >= 1, f"{where} the path never launched {name}")
+                _, means, varis = models[0]
+                levels = np.array(sorted({a for m in STATES625_MEANS for a in m}))
+                check(models[0][0] == "M" and all(np.abs(np.array(means) - v).min()
+                                                  <= STATES625_LEVEL_TOL for v in levels)
+                      and max(varis) < STATES625_VAR_MAX,
+                      f"{where} the burn-in did not find the five levels: means {means}, "
+                      f"variances {varis}")
+                rates = []
+                for _ in range(2):
+                    eng.run("F", STATES625_SETTLED_ITERS, 4)
+                    rates.append(STATES625_SETTLED_ITERS / eng.phase_log[-1][2])
+                res["settled"], res["settled_capacity"] = rates, eng.capacity
+                check_graphed(eng, where)
+                res["replays"] = eng.phase_graphs.replays
+                eng.phase_graphs.release()
+                torch.cuda.empty_cache()
+            took(kind)
+            print(f"{where} {kind}: phases {res[kind]['phases']}, capacity {eng.capacity}, "
+                  f"emission means and variances after each phase {models}", flush=True)
+        e = engines["eager"]
+        check(e.phase_graphs.replays == 0, f"{where} the eager engine replayed graphs")
+        # the marginals hold the states up to the highest one sampled: at K = 625 on 625
+        # segments some states are never drawn, the last few among them
+        check(counts.shape[1] <= K and int(sizes.sum()) == T,
+              f"{where} marginal rows of {counts.shape[1]} states cover {sizes.sum()} positions")
+        check(bool((counts.sum(axis=1) == n_rec).all()), f"{where} marginal row sums != {n_rec}")
+        res["map_agreement"] = map_agreement(sizes, counts, truth)  # reported: see
+        # STATES625_ENGINE_SEED
+        for name in streams:
+            check(outs["graph"][name] == outs["eager"][name],
+                  f"{where} {name}: the graphed engine's bytes differ from the eager engine's")
+        res["sha256"] = {name: hashlib.sha256(outs["graph"][name]).hexdigest()[:16]
+                         for name in ("marginals", "parameters")}
+        del engines["graph"]
+        with ScanInputs() as scans, ModelInputs() as models:
+            e.run("F", 4, 4)
+        del engines, e
+        torch.cuda.empty_cache()
+        path = os.path.join(tmp, "states625.csv")
+        np.savetxt(path, data, fmt="%.5f")  # benchmarks/run_configs.py's _data_file format
+        took("settled and inputs")
+        res["cli"] = []
+        for scheme, ceiling, method, rc in STATES625_CLI_RUNS:
+            run = cli_tracks_prior(tmp, K, path, truth, STATES625_STATES, scheme, ceiling, T,
+                                   method)
+            del run["engine"]
+            torch.cuda.empty_cache()
+            check(run["rc"] == rc, f"{where} the CLI '{scheme}' under ceiling {ceiling} exited "
+                  f"{run['rc']}, not {rc}")
+            res["cli"].append(run)
+        took("cli")
+    check(not plain.calls, f"{where} plain versions ran: {plain.calls}")
+    x_cpu = torch.from_numpy(data)
+    worst = {"chunk": 0.0, "cross": 0.0, "transform": 0.0}
+    check_kernels(x_cpu.cuda(), x_cpu, worst)
+    res["maxlet"] = {**maxlet_times(x_cpu.cuda()), "worst": worst}
+    res["sweep"] = states625_sweep_kernels(scans.main_and_others()[0], models.main())
+    del scans, models
+    torch.cuda.empty_cache()
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    res["wide"] = [prefix_permutations(K, B, SEED + B, flush if B % 128 == 0 else None)
+                   for B in STATES625_WIDE_B]
+    del flush
+    took("kernels")
+    return res
+
+
+def states625_sweep_kernels(scan_inputs: tuple, model_inputs: tuple) -> dict:
+    """The [states625] sweep's own scan and model-update inputs: the prefix
+    kernel against its plain version on the first STATES625_CHECK_B blocks
+    of the sweep's matrices (bitwise, one tiled kernel a call) and both
+    timed there (L2 flushed; the plain version once), the prefix kernel
+    alone on the whole capacity (flushed, beside the bound), the suffix and
+    both model-update kernels against their plain versions on the whole
+    call (time_fbscan, time_model; one repetition of the plain versions)."""
+    M, maps = scan_inputs
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    part = M[..., :STATES625_CHECK_B].contiguous()
+    res = time_fbscan({"part": (part, maps[..., :STATES625_CHECK_B].contiguous())})["part"]
+    K, B = M.shape[0], M.shape[-1]
+    R = M.numel() // (K * K * B)
+    check(res["bitwise"] and len(res["prefix_kernels"]) == 1
+          and FB_TILED[0] in res["prefix_kernels"][0][0],
+          f"[states625] the sweep's prefix on {STATES625_CHECK_B} blocks: bitwise "
+          f"{res['bitwise']}, kernels {res['prefix_kernels']}")
+    del part
+    whole = {"shape": (B, K, R), "prefix_kernels": scan_kernels(
+        lambda: fb_cuda.prefix_matmul_scan_cuda(M))}
+    check(len(whole["prefix_kernels"]) == 1 and FB_TILED[0] in whole["prefix_kernels"][0][0],
+          f"[states625] the sweep's prefix call ran {whole['prefix_kernels']}")
+    whole["prefix"] = time_ms(lambda: fb_cuda.prefix_matmul_scan_cuda(M), flushed(flush), 3)
+    whole["prefix_bound"], whole["prefix_bound_by"] = bound_ms(*fb_work(B, K, R)["prefix"])
+    suffix = fb_cuda.suffix_compose_scan_cuda(maps)
+    check(torch.equal(suffix, fb.suffix_compose_scan_reference(maps)),
+          "[states625] suffix kernel != plain on the sweep's own maps")
+    whole["suffix_kernels"] = scan_kernels(lambda: fb_cuda.suffix_compose_scan_cuda(maps))
+    whole["suffix"] = time_ms(lambda: fb_cuda.suffix_compose_scan_cuda(maps), flushed(flush))
+    whole["suffix_plain"] = time_ms(lambda: fb.suffix_compose_scan_reference(maps), flushed(flush), 1)
+    whole["suffix_bound"], whole["suffix_bound_by"] = bound_ms(*fb_work(B, K, R)["suffix"])
+    del flush, M, maps, suffix
+    torch.cuda.empty_cache()
+    model = time_model({"own": model_inputs}, reps=3)["own"]
+    return {"part": res, "whole": whole, "model": model}
+
+
+def prefix_permutations(K: int, B: int, seed: int, flush: torch.Tensor | None = None) -> dict:
+    """The prefix kernel on B random K x K permutation matrices in one row
+    (grouped where the plain version groups): each of their products is
+    exact in any order (a sum of one product of ones and zeros; every
+    matrix's max, so its scale, is 1), so the plain version's result is the
+    prefix composition of the permutations, c_b = p_b o c_(b - 1), taken
+    on the host without its K^3 combines. Checks that the call counts one
+    launch and that its result is that bit for bit (ones at (i, c_b[i]),
+    every entry nonnegative, the sum K B: every other entry +0); times it
+    with L2 flushed if ``flush`` is given. The card's cache is emptied
+    first: a call takes three tensors of K^2 B floats and more, the
+    workspace of ~17.7 GB at K = 625, B = 6,016 in one piece. Returns the
+    shape, K^2 B and the ms."""
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed)
+    perms = np.argsort(rng.random((B, K)), axis=1)
+    cum, c = np.empty((K, B), dtype=np.int64), np.arange(K)
+    for b in range(B):
+        c = perms[b][c]
+        cum[:, b] = c
+    M = torch.zeros((K, K, B), device="cuda")
+    M[torch.arange(K, device="cuda")[:, None], torch.from_numpy(perms.T).cuda(),
+      torch.arange(B, device="cuda")[None]] = 1.0
+    before = fb_cuda.prefix_matmul_scan_cuda.launches
+    got = fb_cuda.prefix_matmul_scan_cuda(M)
+    check(fb_cuda.prefix_matmul_scan_cuda.launches == before + 1,
+          f"[states625] the prefix call on {B} permutations counted no launch")
+    ones = got.gather(1, torch.from_numpy(cum).cuda()[:, None])
+    check(bool((ones == 1).all()) and bool((got >= 0).all()) and float(got.sum(dtype=torch.float64))
+          == K * B, f"[states625] the prefix kernel on {B} K = {K} permutations (K^2 B = "
+          f"{K * K * B}) is not their composition")
+    del got, ones
+    res = {"shape": (B, K, 1), "entries": K * K * B}
+    if flush is not None:
+        res["ms"] = time_ms(lambda: fb_cuda.prefix_matmul_scan_cuda(M), flushed(flush), 3)
+    del M
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_states625() -> dict:
+    """[states625] in a child process (this script with STATES625_FLAG and
+    a file for its result), started on a card that this process's engines
+    do not hold: its result, its output lines and its seconds. A failed
+    child fails the smoke with the child's message."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "states625.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), STATES625_FLAG, out],
+                              capture_output=True, text=True, timeout=900, cwd=here)
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0 and os.path.exists(out),
+              f"[states625] the child exited {proc.returncode}: "
+              f"{proc.stdout.splitlines()[-6:] or proc.stderr[-3000:]}")
+        with open(out) as f:
+            res = json.load(f)
+    res["child_s"] = seconds
+    return res
+
+
+def states625_child(out: str) -> int:
+    """STATES625_FLAG: phase_states625 in this process, its result as JSON
+    into ``out``."""
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            res = phase_states625(tmp)
+    except SmokeFailure as exc:
+        print(f"chip_smoke FAILED: {exc}", flush=True)
+        return 1
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def print_states625(s: dict) -> None:
+    g, e, sw = s["graph"], s["eager"], s["sweep"]
+    mib = lambda peaks: [(m, n, round(p / 2**20, 1), cap) for m, n, p, cap in peaks]  # noqa: E731
+    print(f"[states625] four tracks of five levels (-s C 5 4, K={s['K']}, states625_steps, seed "
+          f"{STATES625_SEED}) T={s['T']} x {s['dim']} '{STATES625_SCHEME}' in a process of its own "
+          f"({s['child_s']:.1f} s; parts {s['seconds']}): device ingest with both maxlet kernels; "
+          f"graphed: setup {g['setup_s']:.3f} s, total {g['total_s']:.3f} s, phases {g['phases']}, "
+          f"captures {g['captures']}, launches {g['launches']}; eager: total {e['total_s']:.3f} s, "
+          f"phases {e['phases']}; same bytes; every graphed sweep a replay ({s['replays']}); "
+          f"marginal rows count the {recorded_sweeps(STATES625_SCHEME)} recorded sweeps; the "
+          f"burn-in found the five levels (emission means and variances after each phase "
+          f"{g['models']}); MAP agreement {s['map_agreement']:.4f} (reported); sha256 "
+          f"{s['sha256']}", flush=True)
+    print(f"[states625] peak device memory above the engine's start (method, sweeps, MiB, capacity "
+          f"at the phase's end): graphed {mib(g['peaks'])}, eager {mib(e['peaks'])}; settled F "
+          f"{STATES625_SETTLED_ITERS} 4 sweeps/s {[round(r, 3) for r in s['settled']]} at capacity "
+          f"{s['settled_capacity']}; maxlet at dim 4, flushed ms chunk {s['maxlet']['chunk']:.4f} "
+          f"(bound {s['maxlet']['chunk_bound']:.4g}), cross {s['maxlet']['cross']:.4f}", flush=True)
+    part, whole, m = sw["part"], sw["whole"], sw["model"]
+    print(f"[states625] the sweep's own inputs (one eager F sweep, B={whole['shape'][0]}): prefix "
+          f"kernel ({kernel_label(whole['prefix_kernels'][0][0])}, one launch) {whole['prefix']:.4f} "
+          f"ms flushed (bound {whole['prefix_bound']:.4g} by {whole['prefix_bound_by']}, "
+          f"{whole['prefix_bound'] / whole['prefix']:.1%}); on its first {STATES625_CHECK_B} blocks "
+          f"bitwise {part['bitwise']}, {part['prefix']:.4f} ms (bound {part['prefix_bound']:.4g}), "
+          f"plain {part['prefix_plain']:.4f}; suffix bitwise, {whole['suffix']:.4f} ms (bound "
+          f"{whole['suffix_bound']:.4g}), kernels {[kernel_label(n) for n, _ in whole['suffix_kernels']]}, "
+          f"plain {whole['suffix_plain']:.4f}; statistics bitwise {m['stats']:.4f} ms (bound "
+          f"{m['stats_bound']:.4g}), plain {m['stats_plain']:.4f}; resample bitwise "
+          f"{m['resample']:.4f} (bound {m['resample_bound']:.4g}), plain {m['resample_plain']:.4f}",
+          flush=True)
+    print(f"[states625] the prefix kernel past 2^31 entries (64-bit offsets), on permutation "
+          f"matrices, bitwise their composition: "
+          + "; ".join(f"B={w['shape'][0]} K^2 B={w['entries']}"
+                      + (f" {w['ms']:.4f} ms flushed" if "ms" in w else "") for w in s["wide"]),
+          flush=True)
+    for run in s["cli"]:
+        f = run["first"]
+        print(f"[states625] bin/hammlet-torch -s C 5 4 '{run['scheme']}' all 7 streams, "
+              f"HAMMLET_MAX_CAPACITY {run['ceiling'] or 'unset'}: exit {run['rc']} in "
+              f"{run['seconds']:.2f} s; first {run['method']} chunk capacity {f['capacity']} (sweeps "
+              f"needed up to "
+              f"{f['max_nb']} blocks), peak {(f['peak'] or 0) / 2**20:.1f} MiB allocated above its "
+              f"start; truncated chunks {run['truncated']}; phases {run['phases']}"
+              + (f"; stream checks passed, MAP agreement {run['map_agreement']:.4f}"
+                 if "map_agreement" in run else "")
+              + (f"; error: {run['error']}" if "error" in run else ""), flush=True)
+
+
 def maxlet_times(x: torch.Tensor) -> dict:
     """CUDA-event ms of each maxlet kernel and of its plain version on the
     card's (T, dim) ``x``, L2 flushed (FLUSH_BYTES written before each
@@ -2000,6 +2448,22 @@ def log_peaks(eng, base: int, peaks: list) -> None:
         peaks.append((method, iterations, torch.cuda.max_memory_allocated() - base, capacity))
 
     eng.run = run
+
+
+def log_models(eng) -> list:
+    """A list that gets (method, emission means, emission variances), as
+    lists of floats rounded to 3 places, after each phase of ``eng`` (its
+    ``run`` wrapped)."""
+    models: list = []
+    real = eng.run
+
+    def run(method, *args, **kwargs):
+        real(method, *args, **kwargs)
+        models.append((method, [round(float(v), 3) for v in eng.model.theta_mean.cpu()],
+                       [round(float(v), 3) for v in eng.model.theta_var.cpu()]))
+
+    eng.run = run
+    return models
 
 
 def tracks_cli(tmp: str, tag: str, steps, K: int, T: int, states: list[str]) -> dict:
@@ -3228,17 +3692,20 @@ def cli_tracks_chains(tmp: str, files: list[str]) -> dict:
 
 
 def cli_tracks_prior(tmp: str, K: int, path: str, truth: np.ndarray, states: list[str],
-                     scheme: str, ceiling: int | None) -> dict:
-    """(e) one run: ``scheme`` (its first F phase right after a prior draw)
-    with every stream at K, under a capacity ceiling (runner._MAX_CAPACITY,
-    what HAMMLET_MAX_CAPACITY sets) or the default. Exit 0: the streams
-    pass check_streams (the MAP agreement reported, not gated), no
-    recording chunk ran truncated, and under a ceiling the first chunk ran
-    at it, truncated. Exit 1 (allowed only without a ceiling): one [ERROR] message
-    naming the capacity, K and HAMMLET_MAX_CAPACITY, an empty marginals
-    file and no recorded sweep in any per-sweep stream. Returns the chunk
-    log's phases, the first chunk's capacity, seconds and peaks, the
-    truncated chunks, the engine (its graphs released) and the exit."""
+                     scheme: str, ceiling: int | None, T: int = CLI_TRACKS_T,
+                     method: str = "F") -> dict:
+    """(e) one run: ``scheme`` (its first ``method`` phase right after a
+    prior draw whose threshold is dynamic) with every stream at K on T
+    positions, under a capacity ceiling (runner._MAX_CAPACITY, what
+    HAMMLET_MAX_CAPACITY sets) or the default. Exit 0: the streams pass
+    check_streams (the MAP agreement reported, not gated), no recording
+    chunk ran truncated, and under a ceiling the first ``method`` chunk ran
+    at it, truncated. Exit 1 (allowed only without a ceiling): one [ERROR]
+    message naming the capacity, K and HAMMLET_MAX_CAPACITY, an empty
+    marginals file and no recorded sweep in any per-sweep stream. Returns
+    the chunk log's phases, the first ``method`` chunk's capacity, seconds
+    and peaks, the truncated chunks, the engine (its graphs released) and
+    the exit."""
     where = f"[cli_tracks] (e) K={K} '{scheme}' ceiling {ceiling or 'default'}"
     n_params, dim = int(states[1]), int(states[2])
     prefix = os.path.join(tmp, f"p{K}-{len(scheme)}-{ceiling or 0}-")
@@ -3249,9 +3716,10 @@ def cli_tracks_prior(tmp: str, K: int, path: str, truth: np.ndarray, states: lis
         run = run_cli(cli_tracks_argv(path, states, prefix, scheme), log=log)
     finally:
         runner._MAX_CAPACITY = default
-    first = next((r for r in log if r["method"] == "F"), {})
-    res = {"K": K, "scheme": scheme, "ceiling": ceiling, "rc": run["rc"], "seconds": run["seconds"],
-           "first_F": {k: first.get(k) for k in ("capacity", "max_nb", "seconds", "peak", "reserved",
+    first = next((r for r in log if r["method"] == method), {})
+    res = {"K": K, "scheme": scheme, "ceiling": ceiling, "method": method, "rc": run["rc"],
+           "seconds": run["seconds"],
+           "first": {k: first.get(k) for k in ("capacity", "max_nb", "seconds", "peak", "reserved",
                                                  "error")},
            "phases": phase_summary(log), "truncated": sum(bool(r.get("truncated")) for r in log),
            "engine": run["engines"][0] if run["engines"] else None}
@@ -3259,14 +3727,14 @@ def cli_tracks_prior(tmp: str, K: int, path: str, truth: np.ndarray, states: lis
         check_graphed(run["engines"][0], where)
         # a burn-in of 16 sweeps from a prior draw (truncated under the ceiling) is too short
         # for a chain to find every level: the agreement is reported, not gated
-        streams = check_streams(prefix, ".csv", CLI_TRACKS_T, K, n_params, dim,
+        streams = check_streams(prefix, ".csv", T, K, n_params, dim,
                                 recorded_sweeps(scheme), truth, where, map_min=None)
         res["map_agreement"] = streams["map_agreement"]
         check(not any(r["truncated"] for r in log if r["record"]),
               f"{where} a recording chunk ran truncated")
         if ceiling:
             check(first["capacity"] == ceiling and first["truncated"],
-                  f"{where} the first F chunk ran at {first['capacity']} blocks, "
+                  f"{where} the first {method} chunk ran at {first['capacity']} blocks, "
                   f"{first.get('max_nb')} needed: not truncated at the ceiling")
     else:
         errors = [ln for ln in run["stderr"].splitlines() if "[ERROR]" in ln]
@@ -3403,7 +3871,7 @@ def print_cli_tracks(ct: dict) -> None:
     print(f"[cli_tracks] (d) HAMMLET_DEBUG=1 at K={ct['d']['K']}: healthy F chunk error bits 0; NaN "
           f"emission mean raised FloatingPointError ({ct['d']['seconds']:.2f} s)", flush=True)
     for e in ct["e"]:
-        f = e["first_F"]
+        f = e["first"]
         print(f"[cli_tracks] (e) K={e['K']} '{e['scheme']}' HAMMLET_MAX_CAPACITY "
               f"{e['ceiling'] or 'unset'}: exit {e['rc']} in {e['seconds']:.2f} s; first F chunk "
               f"capacity {f['capacity']} (sweeps needed up to {f['max_nb']} blocks), "
@@ -4012,6 +4480,8 @@ def main() -> int:
         return chains_across_cards(*map(int, sys.argv[2:4]))
     if sys.argv[1:2] == [TURNS_FLAG]:
         return measure_turns(int(sys.argv[2]))
+    if sys.argv[1:2] == [STATES625_FLAG]:
+        return states625_child(sys.argv[2])
     if sys.argv[1:2] == [CARDS_FLAG]:
         try:
             return sharded_cards(*map(int, sys.argv[2:5]))
@@ -4040,6 +4510,11 @@ def main() -> int:
             print(f"[build] {tag} {built.path.name} in {built.seconds:.2f} s; "
                   + " | ".join(ptxas), flush=True)
         took("build")
+
+        # first, while no engine of this process holds the card
+        s625 = run_states625()
+        took("states625")
+        print_states625(s625)
 
         k = phase_kernel()
         took("kernel")
@@ -4095,7 +4570,8 @@ def main() -> int:
               f"{mdk['cases']} cases ((R, B) in {MODEL_ROWS} x K in {MODEL_KS} x dim in "
               f"{MODEL_DIMS}, at B=29696 also a masked tail and B+1 blocks; largest absolute "
               f"error {mdk['stats_err']}), each row of a 4-row call bitwise equal to its one-row "
-              f"call; above K = 64 at (R, B, K, dim, P) in {MODEL_LARGE_K}, and the sharded M "
+              f"call; above K = 64 at (R, B, K, dim, P) in {MODEL_LARGE_K + MODEL_HUGE_K}, and "
+              f"the sharded M "
               f"burn-in's rows at {MODEL_SHARDED_ROWS} (B > 262,144 against the plain version's "
               f"sums in chunks of 65,536 blocks); modelupdate_resample_kernel "
               f"bitwise equal to its plain version in {mdk['draws']} draws at K in "
@@ -4219,6 +4695,7 @@ def main() -> int:
             **{f"K={K} uniform": fb_inputs(m["capacity"], K, 1, SEED) for K in (33, 36, 48, 64)},
             "K=81 sweep data": s81["scans"].main_and_others()[0],
             **{f"K={K} uniform": fb_inputs(m["capacity"], K, 1, SEED) for K in (81, 128)},
+            **{f"K={K} uniform": fb_inputs(B, K, 1, SEED) for K, B in FB_HUGE_TIMED.items()},
             **{f"K={K} P={P_SHARDED} sweep data": st.pop("scans") for K, st in sht.items()},
         })
         print(f"[fbscan] the sweep's own cross-shard calls ({len(views_p4)} of the eager "
@@ -4251,7 +4728,7 @@ def main() -> int:
                       f"[fbscan] a K = {K} prefix call on the {tag} inputs ran {prefix}, not one "
                       "tiled kernel with j streamed")
                 suffix = [n for n, _ in row["suffix_kernels"]]
-                check(len(suffix) == 3 and all(k in n for k, n in zip(FB_SUFFIX_GROUPED, suffix)),
+                check(suffix_grouped(K, suffix),
                       f"[fbscan] a K = {K} suffix call on the {tag} inputs ran {suffix}, not the "
                       "grouped form")
             if 32 < K <= 64:
@@ -4315,6 +4792,15 @@ def main() -> int:
               f"the grouped suffix, three), ms with L2 flushed: {'; '.join(over)}; the K=81 "
               f"sweep's own at B={own['shape'][0]}: prefix {own['prefix']:.4f}, suffix "
               f"{own['suffix']:.4f}", flush=True)
+        huge = []
+        for K in FB_HUGE_TIMED:
+            row = fbt[f"K={K} uniform"]
+            huge.append(f"K={K} B={row['shape'][0]} prefix {row['prefix']:.4f} (bound "
+                        f"{row['prefix_bound']:.4g}, {row['prefix_bound'] / row['prefix']:.1%}; plain "
+                        f"{row['prefix_plain']:.4f}), suffix {row['suffix']:.4f} (bound "
+                        f"{row['suffix_bound']:.4g}; {[kernel_label(n) for n, _ in row['suffix_kernels']]})")
+        print(f"[fbscan] K>512 (the tiled kernel with j streamed, its transposes taking a row in "
+              f"pieces; one launch), ms with L2 flushed: {'; '.join(huge)}", flush=True)
         for P in (1, P_SHARDED):
             own, uni = fbt[f"P={P} sweep data"], fbt[f"P={P} uniform"]
             print(f"[fbscan] P={P}, ms with L2 flushed on the sweep's own inputs / on uniform "
@@ -4341,6 +4827,10 @@ def main() -> int:
             **{f"K={K} dim={st['dim']} P={P_SHARDED} sweep data": st.pop("models")
                for K, st in sht.items()},
         })
+        mdt.update(time_model({  # above K = 512: the plain statistics take K^2 B floats
+            f"K={K} dim={dim} uniform": (model_stats_inputs(R, B, K, dim, SEED, P=P),
+                                         model_resample_inputs(K, SEED))
+            for R, B, K, dim, P in (MODEL_HUGE_K[0], MODEL_HUGE_K[3])}, reps=3))
         for tag, row in mdt.items():
             R, B, K, dim = row["model_shape"]
             print(f"[model] {tag} R={R} B={B} K={K} dim={dim}: both kernels bitwise equal to their "
@@ -4536,7 +5026,27 @@ def main() -> int:
     } for kernel, source, replaces, key, count in KERNEL_ROWS
       for row in ([ct["maxlet"]] if key in ("chunk", "cross") else
                   list(ct["fbscan"].values()) if key in ("prefix", "suffix") else
-                  list(ct["model"].values()))]}),
+                  list(ct["model"].values()))] + [{
+        # [states625] (K = 625, in a process of its own): the maxlet kernels at dim 4 on its data,
+        # the sweep's kernels on its own inputs (the prefix, and its plain version, on their first
+        # STATES625_CHECK_B blocks); the launches are the graphed engine's path's
+        "name": (" + ".join(kernel_label(n) for n, _ in row[key + "_kernels"])
+                 if key in ("prefix", "suffix") else kernel),
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": s625["graph"]["launches"][count],
+        "device_launches_per_sweep": None,
+        "max_abs_err": (s625["maxlet"]["worst"][key] if key in ("chunk", "cross")
+                        else row.get(key + "_err", 0.0)),
+        "ms": row[key],
+        "plain_ms": row[key + "_plain"],
+        "bound_ms": row[key + "_bound"],
+        "bound_by": row[key + "_bound_by"],
+        "library_ms": None,
+    } for kernel, source, replaces, key, count in KERNEL_ROWS
+      for row in [{"chunk": s625["maxlet"], "cross": s625["maxlet"], "prefix": s625["sweep"]["part"],
+                   "suffix": s625["sweep"]["whole"]}.get(key, s625["sweep"]["model"])]]}),
           flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

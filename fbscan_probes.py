@@ -128,12 +128,24 @@ kernels (csrc/modelupdate.cu) beyond chip_smoke.py.
         "STAMPS <json>" per input and mode: microseconds after the first
         CTA's entry, [min, median, max] over the CTAs, per stamp.
 
-    python3 fbscan_probes.py prior_peak K
+    python3 fbscan_probes.py over512 OLD_FBSCAN_CU
+        The tiled kernel with j streamed of the current fbscan.cu against
+        the parent's (whose transposes took whole rows of matrices, and
+        which refused K > 512) in turns (old, current, current, old) at K =
+        81, 128 and 243, B = 29,696 (OVER512_TURNS): each library's prefix
+        bitwise equal to the parent's, and both timed with L2 flushed
+        (lines "OVER512_TURNS <json>"); then the current kernel alone at K =
+        513, 625, 729 and 1024 (OVER512_ALONE: B = 384 and 4,096), its CUDA
+        kernels per call and its time with L2 flushed beside the bound
+        (lines "OVER512_ALONE <json>"). First the ptxas lines of the tiled
+        kernels.
+
+    python3 fbscan_probes.py prior_peak K [T]
         One F phase of 16 sweeps right after a prior draw, the first op of
-        chip_smoke.py's [cli_tracks] (e), on [states9]-[states81]'s data at K
-        (9, 27, 64 or 81) and 400,000 positions per track, through
-        runner.make_engine in this process, at the prior threshold's
-        capacity. Prints one line "PRIOR_PEAK <json>": the capacity,
+        chip_smoke.py's [cli_tracks] (e), on [states9]-[states81]'s or
+        [states625]'s data at K (9, 27, 64, 81 or 625) and T positions per
+        track (400,000 by default), through runner.make_engine in this
+        process, at the prior threshold's capacity. Prints one line "PRIOR_PEAK <json>": the capacity,
         seconds, the seconds its captures took, the device memory the
         engine held before the phase, the peak allocated above it, the peak
         reserved by the process, and the full text of an error. Runs on an
@@ -795,20 +807,68 @@ def stamps() -> None:
         model_cuda._lib = current
 
 
-def prior_peak(K: int) -> None:
+#: `over512`: the tiled kernel against the parent's in turns, tag -> (B, K, R) and repetitions
+OVER512_TURNS = {"K=81": ((29_696, 81, 1), 20), "K=128": ((29_696, 128, 1), 10),
+                 "K=243": ((29_696, 243, 1), 5)}
+#: `over512`: the current kernel alone above K = 512, (B, K)
+OVER512_ALONE = [(B, K) for K in (513, 625, 729, 1024) for B in (384, 4096)]
+
+
+def over512(old: str) -> None:
+    """`over512` (see the module's docstring)."""
+    from hammlet_tpu_torch.samplers import fb_cuda
+
+    print_ptxas(fb_cuda.build().log, ("tiled",))
+    libs = libraries(fb_cuda, "fbscan", [old])
+    current = libs["current"]
+    order = ["old", "current", "current", "old"]
+    flush = torch.empty(cs.FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    print(cs.nvidia_smi_line(), flush=True)
+    try:
+        for tag, ((B, K, R), reps) in OVER512_TURNS.items():
+            M, _ = cs.fb_inputs(B, K, R, cs.SEED + K)
+            prefix = lambda: fb_cuda.prefix_matmul_scan_cuda(M)  # noqa: E731
+            row: dict = {"shape": (B, K, R), "order": order,
+                         "bound": cs.bound_ms(*cs.fb_work(B, K, R)["prefix"])}
+            fb_cuda._lib = libs["old"]
+            want = prefix()
+            for name in order:
+                fb_cuda._lib = libs[name]
+                if name not in row:
+                    row[name] = {"bitwise_to_old": cs.bits_equal(prefix(), want),
+                                 "kernels": cs.scan_kernels(prefix), "ms": []}
+                row[name]["ms"].append(cs.time_ms(prefix, cs.flushed(flush), reps))
+            print("OVER512_TURNS", tag, json.dumps(row), flush=True)
+            del M, want
+            torch.cuda.empty_cache()
+    finally:
+        fb_cuda._lib = current
+    for B, K in OVER512_ALONE:
+        M, _ = cs.fb_inputs(B, K, 1, cs.SEED + K)
+        prefix = lambda: fb_cuda.prefix_matmul_scan_cuda(M)  # noqa: E731
+        row = {"shape": (B, K, 1), "kernels": cs.scan_kernels(prefix),
+               "ms": cs.time_ms(prefix, cs.flushed(flush), 3),
+               "bound": cs.bound_ms(*cs.fb_work(B, K, 1)["prefix"])}
+        print("OVER512_ALONE", json.dumps(row), flush=True)
+        del M
+        torch.cuda.empty_cache()
+
+
+def prior_peak(K: int, T: int = 400_000) -> None:
     """The prior_peak probe (module docstring)."""
     from hammlet_tpu_torch import runner
 
     steps, n_params = {9: (cs.config4_steps, 3), 27: (cs.states27_steps, 3),
-                       64: (cs.states64_steps, 4), 81: (cs.states81_steps, 3)}[K]
-    data = steps(400_000)[0]
+                       64: (cs.states64_steps, 4), 81: (cs.states81_steps, 3),
+                       625: (cs.states625_steps, 5)}[K]
+    data = steps(T)[0]
     eng = runner.make_engine(data, nr_params=n_params, nr_data_dim=data.shape[1], seed=1)
     eng.sample_prior()
     eng._resize_capacity_for_phase()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    row = {"K": K, "capacity": eng.capacity, "base_mib": base / 2**20, "error": None}
+    row = {"K": K, "T": T, "capacity": eng.capacity, "base_mib": base / 2**20, "error": None}
     t0 = time.perf_counter()
     try:
         eng.run("F", 16, 0)
@@ -861,8 +921,11 @@ def main() -> int:
     if sys.argv[1:] == ["stamps"]:
         stamps()
         return 0
-    if sys.argv[1:2] == ["prior_peak"] and len(sys.argv) == 3:
-        prior_peak(int(sys.argv[2]))
+    if sys.argv[1:2] == ["prior_peak"] and len(sys.argv) in (3, 4):
+        prior_peak(*map(int, sys.argv[2:]))
+        return 0
+    if sys.argv[1:2] == ["over512"] and len(sys.argv) == 3:
+        over512(sys.argv[2])
         return 0
     if sys.argv[1:2] == ["turns"] and len(sys.argv) > 2:
         model = [src for src in sys.argv[2:] if "hammlet_sweep_stats" in Path(src).read_text()]

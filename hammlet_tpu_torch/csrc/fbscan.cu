@@ -100,10 +100,9 @@
 // composition is exact, so its association does not change the result.
 // The prefix at K = MAX_WIDE_K + 1 .. MAX_DEEP_K (-s C 6 2, -s C 4 3) is
 // one cooperative launch, grouped or flat (fbscan_prefix_deep_kernel; see
-// "prefix, K = 33..64"), and so is the prefix at K = MAX_DEEP_K + 1 ..
-// MAX_TILED_K (-s C 3 4, -s C 5 3, -s C 2 7, -s C 3 5;
-// fbscan_prefix_tiled_kernel, see "prefix, K > 64"); above MAX_TILED_K the
-// prefix returns cudaErrorInvalidValue.
+// "prefix, K = 33..64"), and so is the prefix at every K > MAX_DEEP_K (-s C
+// 3 4, -s C 5 3, -s C 2 7, -s C 3 5, -s C 5 4, -s C 2 10;
+// fbscan_prefix_tiled_kernel, see "prefix, K > 64").
 //
 // Exactness: a combine is z[i,k] = sum_j e[i,j] * x[j,k] summed over j in
 // order, with the _rn intrinsics (never contracted into an FMA), then
@@ -1141,7 +1140,6 @@ struct Deep {
   // T = 6, 168 above (the T^2 entries of z, 2T operands)
   static constexpr int MIN_BLOCKS = 65536 / (THREADS * (T <= 6 ? 128 : 168));
   static_assert(MAT_THREADS % WARP == 0 && S % 8 == 4, "whole warps per matrix, the stride");
-  static_assert((DEEP_TILE + 1) * KP <= OPERANDS, "a transpose row fits the operands");
 };
 
 // The workspace layout: K rows of K4 floats per matrix.
@@ -1331,79 +1329,89 @@ __device__ __forceinline__ void deep_pass(const float* xs, float* dst, float* to
 
 // Matrices [lo, hi) between the (K, K, R, n) layout (element e of matrix
 // g at e * plane + g) and the workspace's (IN: into it), DEEP_TILE
-// consecutive matrices and `rows` of their rows at a time through shared
-// memory (entry e = r K + c of the rows, matrix m at smem[e TS + m]): on
-// the (K, K, R, n) side a warp per entry and a lane per matrix, on the
-// workspace's a warp per row of a matrix and a lane per column (two
-// pieces of 32 columns at a time), so every warp's access is one run of
-// consecutive floats, and no index is divided per element. DEEP_BATCH
-// loads in flight per thread (a loop of load-then-store would wait out the
-// memory's latency once per element). D: the kernel's shape (THREADS, and
-// OPERANDS floats of shared memory, at least DEEP_TILE + 1 per entry of a
-// row).
+// consecutive matrices and a band of their entries at a time through
+// shared memory: `rows` whole rows where a row of DEEP_TILE matrices fits
+// (ROOM entries: OPERANDS / (DEEP_TILE + 1) floats), else pieces of one
+// row, `cols` columns wide (a multiple of 2 WARP; K > 535 at T = 8). A
+// band's entries are consecutive in the (K, K) order (entry b = r nc + c of
+// the band, nc its columns, matrix m at smem[b TS + m]): on the (K, K, R,
+// n) side a warp per entry and a lane per matrix, on the workspace's a
+// warp per row of a matrix and a lane per column (two pieces of 32 columns
+// at a time), so every warp's access is one run of consecutive floats, and
+// no index is divided per element. DEEP_BATCH loads in flight per thread
+// (a loop of load-then-store would wait out the memory's latency once per
+// element). D: the kernel's shape (THREADS, and OPERANDS floats of shared
+// memory, at least (DEEP_TILE + 1) 2 WARP).
 template <class D, bool IN>
 __device__ __forceinline__ void deep_transpose(const float* src, float* dst, long long plane,
                                                long long lo, long long hi, int K, int worker,
                                                int workers, float* smem) {
-  constexpr int WARPS_CTA = D::THREADS / WARP, TS = DEEP_TILE + 1;
-  const int K4 = deep_row(K), rows = D::OPERANDS / (K * TS), pieces = (K + 2 * WARP - 1) / (2 * WARP);
+  constexpr int WARPS_CTA = D::THREADS / WARP, TS = DEEP_TILE + 1, ROOM = D::OPERANDS / TS;
+  static_assert(ROOM >= 2 * WARP, "a band of 2 WARP columns fits the operands");
+  const int K4 = deep_row(K), rows = K <= ROOM ? ROOM / K : 1;
+  const int cols = K <= ROOM ? K : ROOM / (2 * WARP) * (2 * WARP);
   const int lane = threadIdx.x % WARP, warp = threadIdx.x / WARP;
   const long long ms = (long long)K * K4;
   for (long long g0 = lo + (long long)worker * DEEP_TILE; g0 < hi;
        g0 += (long long)workers * DEEP_TILE) {
     const int tile = hi - g0 < DEEP_TILE ? (int)(hi - g0) : DEEP_TILE;
     for (int i0 = 0; i0 < K; i0 += rows) {
-      const int nr = K - i0 < rows ? K - i0 : rows, width = nr * K;  // entries i0 * K ..
-      __syncthreads();  // the last step's reads of smem are done
-      if (IN) {  // a warp per entry e: in[(i0 K + e) plane + g0 + lane]
-        for (int e0 = warp; e0 < width; e0 += WARPS_CTA * DEEP_BATCH) {
-          float v[DEEP_BATCH];
+      const int nr = K - i0 < rows ? K - i0 : rows;
+      for (int c0 = 0; c0 < K; c0 += cols) {  // once, c0 = 0, where whole rows fit
+        const int nc = K - c0 < cols ? K - c0 : cols, width = nr * nc, first = i0 * K + c0;
+        const int pieces = (nc + 2 * WARP - 1) / (2 * WARP);
+        __syncthreads();  // the last step's reads of smem are done
+        if (IN) {  // a warp per entry b: in[(first + b) plane + g0 + lane]
+          for (int e0 = warp; e0 < width; e0 += WARPS_CTA * DEEP_BATCH) {
+            float v[DEEP_BATCH];
 #pragma unroll
-          for (int u = 0; u < DEEP_BATCH; ++u) {
-            const int e = e0 + u * WARPS_CTA;
-            if (e < width && lane < tile) v[u] = src[(i0 * K + e) * plane + g0 + lane];
-          }
-#pragma unroll
-          for (int u = 0; u < DEEP_BATCH; ++u) {
-            const int e = e0 + u * WARPS_CTA;
-            if (e < width && lane < tile) smem[e * TS + lane] = v[u];
-          }
-        }
-      } else {  // a warp per row r of matrix m: lanes over its columns
-        for (int p0 = warp; p0 < tile * nr; p0 += WARPS_CTA * (DEEP_BATCH / 2)) {
-          for (int c0 = 0; c0 < pieces * 2 * WARP; c0 += 2 * WARP) {
-            float v[DEEP_BATCH / 2][2];
-#pragma unroll
-            for (int u = 0; u < DEEP_BATCH / 2; ++u) {
-              const int p = p0 + u * WARPS_CTA, m = p / nr, r = p % nr;
-#pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                const int c = c0 + lane + h * WARP;
-                if (p < tile * nr && c < K) v[u][h] = __ldcg(src + (g0 + m) * ms + (i0 + r) * K4 + c);
-              }
+            for (int u = 0; u < DEEP_BATCH; ++u) {
+              const int e = e0 + u * WARPS_CTA;
+              if (e < width && lane < tile) v[u] = src[(first + e) * plane + g0 + lane];
             }
 #pragma unroll
-            for (int u = 0; u < DEEP_BATCH / 2; ++u) {
-              const int p = p0 + u * WARPS_CTA, m = p / nr, r = p % nr;
+            for (int u = 0; u < DEEP_BATCH; ++u) {
+              const int e = e0 + u * WARPS_CTA;
+              if (e < width && lane < tile) smem[e * TS + lane] = v[u];
+            }
+          }
+        } else {  // a warp per row r of matrix m: lanes over the band's columns
+          for (int p0 = warp; p0 < tile * nr; p0 += WARPS_CTA * (DEEP_BATCH / 2)) {
+            for (int q0 = 0; q0 < pieces * 2 * WARP; q0 += 2 * WARP) {
+              float v[DEEP_BATCH / 2][2];
 #pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                const int c = c0 + lane + h * WARP;
-                if (p < tile * nr && c < K) smem[(r * K + c) * TS + m] = v[u][h];
+              for (int u = 0; u < DEEP_BATCH / 2; ++u) {
+                const int p = p0 + u * WARPS_CTA, m = p / nr, r = p % nr;
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const int c = q0 + lane + h * WARP;
+                  if (p < tile * nr && c < nc)
+                    v[u][h] = __ldcg(src + (g0 + m) * ms + (i0 + r) * K4 + c0 + c);
+                }
+              }
+#pragma unroll
+              for (int u = 0; u < DEEP_BATCH / 2; ++u) {
+                const int p = p0 + u * WARPS_CTA, m = p / nr, r = p % nr;
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const int c = q0 + lane + h * WARP;
+                  if (p < tile * nr && c < nc) smem[(r * nc + c) * TS + m] = v[u][h];
+                }
               }
             }
           }
         }
-      }
-      __syncthreads();
-      if (IN) {  // a warp per row r of matrix m
-        for (int p = warp; p < tile * nr; p += WARPS_CTA) {
-          const int m = p / nr, r = p % nr;
-          for (int c = lane; c < K; c += WARP)
-            dst[(g0 + m) * ms + (i0 + r) * K4 + c] = smem[(r * K + c) * TS + m];
+        __syncthreads();
+        if (IN) {  // a warp per row r of matrix m
+          for (int p = warp; p < tile * nr; p += WARPS_CTA) {
+            const int m = p / nr, r = p % nr;
+            for (int c = lane; c < nc; c += WARP)
+              dst[(g0 + m) * ms + (i0 + r) * K4 + c0 + c] = smem[(r * nc + c) * TS + m];
+          }
+        } else {  // a warp per entry b
+          for (int e = warp; e < width; e += WARPS_CTA)
+            if (lane < tile) dst[(first + e) * plane + g0 + lane] = smem[e * TS + lane];
         }
-      } else {  // a warp per entry e
-        for (int e = warp; e < width; e += WARPS_CTA)
-          if (lane < tile) dst[(i0 * K + e) * plane + g0 + lane] = smem[e * TS + lane];
       }
     }
   }
@@ -1504,11 +1512,14 @@ fbscan_prefix_deep_kernel(DeepArgs a, int phases) {
 // max), and after a grid-wide barrier a pass divides each matrix by
 // clamp_scale of its tiles' max. The rest is the K = 33..64 scan's: one
 // cooperative launch over the card, every level a pass over the
-// matrix-major workspace, the transposes in and out.
+// matrix-major workspace, the transposes in and out (where a row of
+// DEEP_TILE matrices no longer fits the stages, K > 469 at T = 7 and K >
+// 535 at T = 8, in pieces of a row). No K is refused: T <= TILED_T_MAX at
+// every K, and every offset of a matrix or an entry plane in a call's
+// tensors is 64-bit (K^2 R n passes 2^31 from K = 625, B = 5,498).
 #define TILED_SIDE 16    // threads per side of a tile's thread grid
 #define TILED_MAX 128    // rows and columns of a tile at most
 #define TILED_SLAB 32    // values of j per slab
-#define MAX_TILED_K 512  // a transpose takes a row of DEEP_TILE matrices up to here
 #define TILED_T_MIN ((MAX_DEEP_K + TILED_SIDE) / TILED_SIDE)
 #define TILED_T_MAX (TILED_MAX / TILED_SIDE)
 
@@ -2400,16 +2411,14 @@ cudaError_t prefix_deep_at(int k, const float* in, float* out, float* work, int 
   }
 }
 
-// The prefix scan for K = MAX_DEEP_K + 1 .. MAX_TILED_K (tiled products, j
-// streamed, T = ceil(K / (nt TILED_SIDE)), nt = ceil(K / TILED_MAX)): one
+// The prefix scan for K > MAX_DEEP_K (tiled products, j streamed, T =
+// ceil(K / (nt TILED_SIDE)) <= TILED_T_MAX, nt = ceil(K / TILED_MAX)): one
 // cooperative launch of every phase, grouped or flat. Workspace: as
 // prefix_deep's, and with nt > 1 the tiles' maxima (nt^2 R n floats).
-// Above MAX_TILED_K, cudaErrorInvalidValue.
 template <int TT>
 cudaError_t prefix_tiled(const float* in, float* out, float* work, int K, int R, long long n,
                          cudaStream_t s) {
   using D = Tiled<TT>;
-  if (K > MAX_TILED_K || (long long)K * (DEEP_TILE + 1) > D::OPERANDS) return cudaErrorInvalidValue;
   const bool grp = grouped(n);
   const long long G = grp ? n / GROUP : 0, ms = (long long)K * deep_row(K), total = (long long)R * n;
   const int nt = (K + TILED_MAX - 1) / TILED_MAX;

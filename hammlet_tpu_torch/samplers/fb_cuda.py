@@ -14,12 +14,15 @@ returns what the plain versions in samplers/forward_backward.py
 return. The prefix has instances for K = 1-8 (a matrix per thread), 9-16
 (a team of threads per matrix), 17-32 (a thread block cluster per group of
 128 matrices, a thread per column), 33-64 (a thread block's tiled product
-per combine, every pass one cooperative launch over the card) and 65-512
-(the same with output tiles of up to 128 x 128 and j streamed through
-shared memory in slabs: one launch per call); no generic form is left,
-and K > 512 raises. The suffix has one instance per K up to 64 and above
-that the group kernel with the maps in shared memory (int32 to K = 227,
-int16 to 454), the totals' rows scan and the combine. The kernels are
+per combine, every pass one cooperative launch over the card) and every K
+above 64 (the same with output tiles of up to 128 x 128 and j streamed
+through shared memory in slabs: one launch per call; from K = 513 the
+transposes into and out of its workspace take a row of matrices in
+pieces); no generic form is left, and no K is refused. Its tensors grow as
+K^2 a block: at K = 625 an F sweep holds ~6.6 MiB a block, so the card's
+memory, not the kernel, limits a call. The suffix has one instance per K
+up to 64 and above that the group kernel with the maps in shared memory
+(int32 to K = 227, int16 to 454), the totals' rows scan and the combine. The kernels are
 chosen by K and shape alone: a refused launch raises. A
 non-contiguous input is made contiguous first (the sharded
 engine's cross-shard scans pass a permuted and a transposed view, which

@@ -1183,22 +1183,49 @@ def test_fbscan_tiled_instances_match_plain_on_card(cuda_device, R, K, B, case):
 
 
 @pytest.mark.cuda
-def test_fbscan_tiled_prefix_refused_above_its_limit_raises_on_card(cuda_device):
-    """Above MAX_TILED_K = 512 (a transpose's row of 32 matrices no longer
-    fits the kernel's shared memory) the prefix call raises with the CUDA
-    error and counts no launch; K = 512 itself runs, bit for bit as the
-    plain version. Nothing falls back to a plain version."""
+@pytest.mark.parametrize("K", [512, 513, 625, 729, 1024])
+def test_fbscan_tiled_prefix_above_512_on_card(cuda_device, K):
+    """Above K = 512 the tiled kernel's transposes take each row of 32
+    matrices in pieces (at K = 512 still whole rows): flat (B = 4, in one
+    and in four rows) and grouped (B = 384), the prefix call is one CUDA
+    kernel, counts one launch and equals its plain version bit for bit, and
+    the suffix equals its plain version. Nothing is refused and nothing
+    falls back to a plain version."""
+    from chip_smoke import FB_TILED, scan_kernels
     from hammlet_tpu_torch.samplers import fb_cuda
     from hammlet_tpu_torch.samplers import forward_backward as fb
 
-    M, _ = _fb_inputs(8, 512, 1, 512, cuda_device)
-    before = fb_cuda.prefix_matmul_scan_cuda.launches
-    assert_bitwise(fb_cuda.prefix_matmul_scan_cuda(M), fb.prefix_matmul_scan_reference(M))
-    M, _ = _fb_inputs(8, 513, 1, 513, cuda_device)
-    with pytest.raises(RuntimeError, match="invalid argument"):
-        fb_cuda.prefix_matmul_scan_cuda(M)
-    torch.cuda.synchronize()
-    assert fb_cuda.prefix_matmul_scan_cuda.launches == before + 1
+    for B, R in ((4, 1), (4, 4), (384, 1)):
+        M, maps = _fb_inputs(B, K, R, B + K + R, cuda_device)
+        before = fb_cuda.prefix_matmul_scan_cuda.launches
+        got = fb_cuda.prefix_matmul_scan_cuda(M)
+        assert fb_cuda.prefix_matmul_scan_cuda.launches == before + 1
+        assert_bitwise(got, fb.prefix_matmul_scan_reference(M))
+        assert torch.equal(fb_cuda.suffix_compose_scan_cuda(maps),
+                           fb.suffix_compose_scan_reference(maps))
+        prefix = [name for name, _ in scan_kernels(lambda: fb_cuda.prefix_matmul_scan_cuda(M))]
+        assert len(prefix) == 1 and FB_TILED[0] in prefix[0], prefix
+        del M, maps, got
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [6001, 6016])
+def test_fbscan_tiled_prefix_past_int32_entries_on_card(cuda_device, B):
+    """At K = 625 a call of 6,001 (flat) or 6,016 (grouped) matrices holds
+    K^2 B > 2^31 entries, so every offset into its tensors must be 64-bit:
+    on random permutation matrices, whose products are exact in any order,
+    the prefix call counts one launch and gives their composition bit for
+    bit (chip_smoke.prefix_permutations)."""
+    import gc
+
+    from chip_smoke import prefix_permutations
+
+    gc.collect()  # tensors of earlier tests, held in reference cycles
+    try:
+        assert prefix_permutations(625, B, B)["entries"] > 2**31
+    finally:
+        torch.cuda.empty_cache()
 
 
 @pytest.mark.cuda
@@ -1441,11 +1468,15 @@ def test_sweep_stats_kernel_at_k64_on_card(cuda_device, B):
 @pytest.mark.cuda
 @pytest.mark.parametrize("R, B, K, dim, P", [(1, 4_000_000, 81, 4, 3), (1, 262_144, 81, 4, 3),
                                              (1, 29_696, 128, 7, 2), (1, 29_696, 243, 5, 3),
-                                             (4, 1_048_576, 81, 4, 3), (4, 1_048_576, 64, 3, 4)])
+                                             (4, 1_048_576, 81, 4, 3), (4, 1_048_576, 64, 3, 4),
+                                             (1, 4096, 625, 4, 5), (1, 2048, 729, 6, 3),
+                                             (1, 4096, 512, 9, 2), (2, 512, 1024, 10, 2)])
 def test_sweep_stats_kernel_above_k64_on_card(cuda_device, R, B, K, dim, P):
     """Exact on the card above K = 64, where a CTA's shared memory cannot
     hold every term's run stack and the pair histogram (-s C 3 4 at the M
-    burn-in's B = 4M, -s C 2 7, -s C 3 5: the terms in slices), and at the
+    burn-in's B = 4M, -s C 2 7, -s C 3 5, -s C 5 4, -s C 3 6: the terms in
+    slices; -s C 2 9 and -s C 2 10, dim 9 and 10: the block statistics
+    read unstaged), and at the
     sharded M burn-in's four rows of 1,048,576 blocks (T = 4M over P = 4
     shards; -s C 3 4 and -s C 4 3): the statistics call is one CUDA kernel,
     counts one launch, and equals its plain version bit for bit (above B =
@@ -1549,12 +1580,13 @@ def test_resample_kernel_matches_plain_on_card(cuda_device, K, nan):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [128, 243])
+@pytest.mark.parametrize("K", [128, 243, 625, 1024])
 def test_resample_kernel_above_k64_on_card(cuda_device, K):
-    """Exact on the card at K = 128 and 243 (243 parameters: 59,535 Gamma shapes,
-    more than the card's shared memory holds, so the kernel draws them in
-    passes of whole rows): the resample kernel equals its plain version bit
-    for bit, counts one launch and is one CUDA kernel per call."""
+    """Exact on the card at K = 128, 243, 625 and 1024 (243 parameters:
+    59,535 Gamma shapes, more than the card's shared memory holds, so the
+    kernel draws them in passes of whole rows; 1024: 1,050,624 shapes): the
+    resample kernel equals its plain version bit for bit, counts one launch
+    and is one CUDA kernel per call."""
     from hammlet_tpu_torch.models import hmm, model_cuda
 
     for seed in range(3):

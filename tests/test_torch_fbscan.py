@@ -34,6 +34,10 @@ TEAM_KS = [9, 10, 16, 17, 21, 27, 32, 33, 36, 64]
 # CPU thread bound the shapes (K = 129 at 384: ~22 s)
 OVER64_SIZES = [130, 384]
 OVER64_KS = [81, 129]
+# K > 512 (-s C 5 4's 625; 513, the first K whose transposes take a row in pieces on a card) at
+# a few blocks: one combine of the plain versions takes ~0.5 s at K = 625 on one thread
+OVER512_SIZES = [2, 4]
+OVER512_KS = [513, 625]
 
 
 def _matrices(shape, seed):
@@ -123,6 +127,30 @@ def test_prefix_scan_matches_jax_above_k64(B, K):
 def test_suffix_scan_matches_jax_above_k64(B, K):
     """The K > 64 shapes (on a card the grouped form's group kernel keeps
     the maps in shared memory). Tolerance: exact."""
+    maps = _maps(K, (B,), B * 10 + K)
+    np.testing.assert_array_equal(
+        to_np(tfb.suffix_compose_scan_t(to_torch(maps, torch.int64))),
+        np.asarray(jfb.suffix_compose_scan_t(jnp.asarray(maps))),
+    )
+
+
+@pytest.mark.parametrize("B", OVER512_SIZES)
+@pytest.mark.parametrize("K", OVER512_KS)
+def test_prefix_scan_matches_jax_above_k512(B, K):
+    """The K > 512 shapes, flat (on a card the tiled kernel's transposes
+    take each row of 32 matrices in pieces there). Tolerance as
+    test_prefix_scan_matches_jax: rtol 1e-5, atol 1e-30."""
+    M = _matrices((K, K, B), B * 10 + K)
+    np.testing.assert_allclose(
+        to_np(tfb.prefix_matmul_scan_t(to_torch(M))),
+        np.asarray(jfb.prefix_matmul_scan_t(jnp.asarray(M))), rtol=1e-5, atol=1e-30,
+    )
+
+
+@pytest.mark.parametrize("B", OVER512_SIZES)
+@pytest.mark.parametrize("K", OVER512_KS)
+def test_suffix_scan_matches_jax_above_k512(B, K):
+    """The K > 512 shapes (on a card the rows scan). Tolerance: exact."""
     maps = _maps(K, (B,), B * 10 + K)
     np.testing.assert_array_equal(
         to_np(tfb.suffix_compose_scan_t(to_torch(maps, torch.int64))),

@@ -227,11 +227,12 @@ def test_resample_model_matches_jax_given_its_noise(K, seed):
         )
 
 
-@pytest.mark.parametrize("K,P", [(81, 3), (243, 3)])
+@pytest.mark.parametrize("K,P", [(81, 3), (243, 3), (625, 5), (1024, 2)])
 def test_resample_model_matches_jax_above_k64(K, P):
-    """-s C 3 4 (K = 81) and -s C 3 5 (K = 243, three parameters a track;
+    """-s C 3 4 (K = 81), -s C 3 5 (K = 243, three parameters a track;
     on a card the resample kernel draws K = 243's 59,295 shapes in passes
-    of whole rows, which the card's shared memory cannot hold at once).
+    of whole rows, which the card's shared memory cannot hold at once),
+    -s C 5 4 (K = 625: 391,255 shapes) and -s C 2 10 (K = 1024: 1,049,602).
     Tolerance as test_resample_model_matches_jax_given_its_noise: rtol
     1e-5, fed the JAX package's draws."""
     nig, stats = _resample_case(K, K, P)

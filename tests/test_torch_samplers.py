@@ -178,12 +178,18 @@ def test_accumulate_sweep_stats_matches_jax(integer_stats):
             np.testing.assert_allclose(to_np(getattr(got, f)), np.asarray(getattr(want, f)), rtol=1e-6)
 
 
-@pytest.mark.parametrize("K,dim,P,B,n_blocks", [(81, 4, 3, 300, 260), (243, 5, 3, 400, 400)])
+@pytest.mark.parametrize("K,dim,P,B,n_blocks", [
+    (81, 4, 3, 300, 260), (243, 5, 3, 400, 400), (625, 4, 5, 128, 100), (512, 9, 2, 128, 128),
+    (1024, 10, 2, 64, 50),
+])
 def test_accumulate_sweep_stats_matches_jax_above_k64(K, dim, P, B, n_blocks):
-    """-s C 3 4 (K = 81, dim 4, a masked tail) and -s C 3 5 (K = 243, dim
-    5) on a few hundred blocks, whose statistics a card sums with the pair
-    terms in slices. Tolerance: exact, the block statistics integer-valued
-    (any summation order is then exact)."""
+    """-s C 3 4 (K = 81, dim 4, a masked tail), -s C 3 5 (K = 243, dim 5),
+    -s C 5 4 (K = 625, dim 4), -s C 2 9 (K = 512, dim 9) and -s C 2 10 (K =
+    1024, dim 10) on up to a few hundred blocks (the plain version's leaves
+    take K^2 B floats), whose statistics a card sums with the pair terms in
+    slices, and above dim 8 with the block statistics read unstaged.
+    Tolerance: exact, the block statistics integer-valued (any summation
+    order is then exact)."""
     rng = np.random.default_rng(K + dim)
     mapping = np.array(np.unravel_index(np.arange(K), (P,) * dim)).T.astype(np.int32)
     states = rng.integers(0, K, size=B).astype(np.int32)
